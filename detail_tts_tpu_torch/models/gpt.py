@@ -1,0 +1,281 @@
+"""GPT acoustic decoder (``UnifiedVoice``, gpt/model.py:265-545), serving subset.
+
+Counterpart of ``detail_tts_tpu/models/gpt.py``: a GPT-2 trunk (pre-LN,
+gelu_new, learned per-modality positions, no global positions) over
+[cond(1), text(T_text + 2), mel] embeddings, with
+
+* ``decode_prefill``/``decode_step`` over a preallocated per-layer KV cache
+  that is written in place;
+* ``generate_speech_tokens``: a Python loop of cached steps that stops when
+  every row has emitted the stop token (or after ``max_generate_length``);
+* ``forward``: the ``return_latent=True`` pass (latents of the mel positions,
+  ``mel_latents[:, :-2]``).
+
+Parameter names are the reference's (``gpt.gpt.h.0.attn.c_attn.weight``...);
+HF GPT-2's ``Conv1D`` keeps its (in, out) weight layout.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from detail_tts_tpu_torch.config import GPTConfig
+from detail_tts_tpu_torch.nn.common import Dense, TorchLayerNorm, sequence_mask
+from detail_tts_tpu_torch.nn.style_encoder import MelStyleEncoder
+from detail_tts_tpu_torch.ops.sampling import sample_token
+
+
+def gelu_new(x: torch.Tensor) -> torch.Tensor:
+    """HF 'gelu_new' tanh approximation."""
+    return 0.5 * x * (1.0 + torch.tanh(
+        0.7978845608028654 * (x + 0.044715 * torch.pow(x, 3.0))))
+
+
+class Conv1D(nn.Module):
+    """HF GPT-2 ``Conv1D``: y = x @ weight + bias, weight (in, out)."""
+
+    def __init__(self, n_in: int, n_out: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n_in, n_out))
+        self.bias = nn.Parameter(torch.zeros(n_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype).t(), self.bias.to(x.dtype))
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Per-layer (B, max_len, H, ch) keys and values; ``length`` valid rows."""
+
+    k: List[torch.Tensor]
+    v: List[torch.Tensor]
+    length: int = 0
+
+
+class GPT2Attention(nn.Module):
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.dim, self.heads = dim, heads
+        self.c_attn = Conv1D(dim, 3 * dim)
+        self.c_proj = Conv1D(dim, dim)
+
+    def forward(self, x: torch.Tensor,
+                cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                start: int = 0) -> torch.Tensor:
+        """Causal self-attention; with a cache, x's keys land at
+        [start, start + T) and the queries attend over [0, start + T)."""
+        b, t, _ = x.shape
+        h, ch = self.heads, self.dim // self.heads
+        q, k, v = self.c_attn(x).reshape(b, t, 3, h, ch).unbind(2)
+        if cache_kv is not None:
+            k_cache, v_cache = cache_kv
+            k_cache[:, start:start + t] = k.to(k_cache.dtype)
+            v_cache[:, start:start + t] = v.to(v_cache.dtype)
+            k = k_cache[:, :start + t].to(x.dtype)
+            v = v_cache[:, :start + t].to(x.dtype)
+        logits = torch.einsum("bthd,bshd->bhts", q, k).float() / math.sqrt(ch)
+        q_pos = start + torch.arange(t, device=x.device)
+        k_pos = torch.arange(k.shape[1], device=x.device)
+        causal = k_pos[None, :] <= q_pos[:, None]
+        logits = logits.masked_fill(~causal, -1e9)
+        w = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bhts,bshd->bthd", w, v).reshape(b, t, self.dim)
+        return self.c_proj(out)
+
+
+class GPT2MLP(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.c_fc = Conv1D(dim, 4 * dim)
+        self.c_proj = Conv1D(4 * dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.c_proj(gelu_new(self.c_fc(x)))
+
+
+class GPT2Block(nn.Module):
+    def __init__(self, dim: int, heads: int, eps: float):
+        super().__init__()
+        self.ln_1 = TorchLayerNorm(dim, eps=eps)
+        self.attn = GPT2Attention(dim, heads)
+        self.ln_2 = TorchLayerNorm(dim, eps=eps)
+        self.mlp = GPT2MLP(dim)
+
+    def forward(self, x, cache_kv=None, start: int = 0):
+        x = x + self.attn(self.ln_1(x), cache_kv, start)
+        return x + self.mlp(self.ln_2(x))
+
+
+class GPT2Stack(nn.Module):
+    """GPT-2 trunk over input embeddings (no wte/wpe)."""
+
+    def __init__(self, layers: int, dim: int, heads: int, eps: float):
+        super().__init__()
+        self.h = nn.ModuleList([GPT2Block(dim, heads, eps) for _ in range(layers)])
+        self.ln_f = TorchLayerNorm(dim, eps=eps)
+
+    def forward(self, emb: torch.Tensor,
+                cache: Optional[KVCache] = None) -> torch.Tensor:
+        x = emb
+        for i, block in enumerate(self.h):
+            kv = None if cache is None else (cache.k[i], cache.v[i])
+            x = block(x, kv, 0 if cache is None else cache.length)
+        if cache is not None:
+            cache.length += emb.shape[1]
+        return self.ln_f(x)
+
+
+class LearnedPositionEmbeddings(nn.Module):
+    def __init__(self, seq_len: int, dim: int):
+        super().__init__()
+        self.emb = nn.Embedding(seq_len, dim)
+
+    def forward(self, positions: torch.Tensor) -> torch.Tensor:
+        return self.emb(positions)
+
+
+class UnifiedVoice(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        c = self.cfg = cfg
+        self.conditioning_encoder = MelStyleEncoder(
+            c.spec_channels, style_hidden=c.model_dim // 2,
+            style_vector_dim=c.model_dim)
+        self.text_embedding = nn.Embedding(c.number_text_tokens + 1, c.model_dim)
+        self.mel_embedding = nn.Embedding(c.number_mel_codes, c.model_dim)
+        self.mel_pos_embedding = LearnedPositionEmbeddings(
+            c.max_mel_tokens + 2 + c.max_conditioning_inputs, c.model_dim)
+        self.text_pos_embedding = LearnedPositionEmbeddings(
+            c.max_text_tokens + 2, c.model_dim)
+        self.gpt = GPT2Stack(c.layers, c.model_dim, c.heads, c.layer_norm_eps)
+        self.final_norm = TorchLayerNorm(c.model_dim, eps=c.layer_norm_eps)
+        self.mel_head = Dense(c.model_dim, c.number_mel_codes)
+
+    def _condition(self, cond_mel, cond_lengths) -> torch.Tensor:
+        mask = sequence_mask(cond_lengths, cond_mel.shape[1])
+        return self.conditioning_encoder(cond_mel, mask)[:, None, :]
+
+    def _text_embeddings(self, text: torch.Tensor) -> torch.Tensor:
+        """[start, text..., stop, stop] embeddings (stop-padded, aligned)."""
+        c = self.cfg
+        inp = F.pad(F.pad(text, (0, 1), value=c.stop_text_token), (1, 0),
+                    value=c.start_text_token)
+        pos = torch.arange(inp.shape[1], device=text.device)
+        return self.text_embedding(inp) + self.text_pos_embedding(pos)
+
+    def _mel_embeddings(self, codes: torch.Tensor, positions) -> torch.Tensor:
+        return self.mel_embedding(codes) + self.mel_pos_embedding(positions)
+
+    def forward(self, cond_mel, cond_lengths, text, mel_codes, wav_lengths):
+        """The ``return_latent=True`` forward (gpt/model.py:429-491).
+
+        Codes past ``wav_lengths // mel_length_compression + 1`` become stop
+        tokens; returns the mel-position latents without the last two,
+        (B, T_code, D).
+        """
+        c = self.cfg
+        mel_lengths = wav_lengths // c.mel_length_compression
+        pos = torch.arange(mel_codes.shape[1], device=mel_codes.device)
+        codes = torch.where(pos[None, :] < mel_lengths[:, None] + 1,
+                            mel_codes, c.stop_mel_token)
+        codes = F.pad(F.pad(codes, (0, 1), value=c.stop_mel_token), (1, 0),
+                      value=c.start_mel_token)
+        text_emb = self._text_embeddings(text)
+        mel_emb = self._mel_embeddings(
+            codes, torch.arange(codes.shape[1], device=codes.device))
+        cond = self._condition(cond_mel, cond_lengths).to(text_emb.dtype)
+        hidden = self.gpt(torch.cat([cond, text_emb, mel_emb], dim=1))
+        enc = self.final_norm(hidden[:, 1:])
+        return enc[:, -mel_emb.shape[1]:][:, :-2]
+
+    def prefill_embeddings(self, cond_mel, cond_lengths, text) -> torch.Tensor:
+        """[cond, text_emb, start_mel_emb] prefix (gpt/model.py:514-530)."""
+        text_emb = self._text_embeddings(text)
+        start = torch.full((text.shape[0], 1), self.cfg.start_mel_token,
+                           dtype=torch.long, device=text.device)
+        start_emb = self._mel_embeddings(start, torch.zeros(
+            1, dtype=torch.long, device=text.device))
+        cond = self._condition(cond_mel, cond_lengths).to(text_emb.dtype)
+        return torch.cat([cond, text_emb, start_emb], dim=1)
+
+    def init_cache(self, batch: int, max_len: int, dtype, device) -> KVCache:
+        c = self.cfg
+        shape = (batch, max_len, c.heads, c.model_dim // c.heads)
+        return KVCache([torch.zeros(shape, dtype=dtype, device=device)
+                        for _ in range(c.layers)],
+                       [torch.zeros(shape, dtype=dtype, device=device)
+                        for _ in range(c.layers)])
+
+    def decode_prefill(self, emb: torch.Tensor, cache: KVCache) -> torch.Tensor:
+        """Fill the cache with the prefix; mel logits at its last position."""
+        hidden = self.gpt(emb, cache)
+        return self.mel_head(self.final_norm(hidden[:, -1]))
+
+    def decode_step(self, token: torch.Tensor, position: torch.Tensor,
+                    cache: KVCache) -> torch.Tensor:
+        """One cached step: token (B,), mel position (B,) -> logits (B, V)."""
+        emb = self._mel_embeddings(token[:, None], position[:, None])
+        hidden = self.gpt(emb, cache)
+        return self.mel_head(self.final_norm(hidden[:, -1]))
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingConfig:
+    temperature: float = 0.8
+    top_p: float = 0.8
+    repetition_penalty: float = 2.0
+    max_generate_length: int = 600
+    typical_mass: float = 1.0
+    # ignore stop tokens and always decode max_generate_length steps
+    force_full_length: bool = False
+
+
+@torch.no_grad()
+def generate_speech_tokens(model: UnifiedVoice, cond_mel, cond_lengths, text,
+                           sampling: SamplingConfig = SamplingConfig(),
+                           generator: Optional[torch.Generator] = None,
+                           cache_dtype=torch.bfloat16):
+    """AR decode with a KV cache.
+
+    Returns (codes (B, max_len) padded with stop tokens, lengths (B,)), where
+    ``lengths`` counts generated tokens including the stop token.
+    """
+    c = model.cfg
+    b = text.shape[0]
+    n = sampling.max_generate_length
+    dev = text.device
+    prefill = model.prefill_embeddings(cond_mel, cond_lengths, text)
+    cache = model.init_cache(b, prefill.shape[1] + n, cache_dtype, dev)
+    logits = model.decode_prefill(prefill, cache)
+
+    # the repetition penalty covers the fake prefix: filler id 1 + start
+    seen = torch.zeros((b, c.number_mel_codes), dtype=torch.bool, device=dev)
+    seen[:, 1] = True
+    seen[:, c.start_mel_token] = True
+    codes = torch.full((b, n), c.stop_mel_token, dtype=torch.long, device=dev)
+    finished = torch.zeros(b, dtype=torch.bool, device=dev)
+    lengths = torch.zeros(b, dtype=torch.long, device=dev)
+    rows = torch.arange(b, device=dev)
+    for step in range(n):
+        if not sampling.force_full_length and step and bool(finished.all()):
+            break
+        tok = sample_token(logits, seen_mask=seen,
+                           temperature=sampling.temperature,
+                           top_p=sampling.top_p,
+                           repetition_penalty=sampling.repetition_penalty,
+                           typical_mass=sampling.typical_mass,
+                           generator=generator)
+        tok = torch.where(finished, c.stop_mel_token, tok)
+        codes[:, step] = tok
+        seen[rows, tok] = True
+        lengths = torch.where(finished, lengths, lengths + 1)
+        if not sampling.force_full_length:
+            finished = finished | (tok == c.stop_mel_token)
+        if step + 1 < n:
+            logits = model.decode_step(tok, torch.full_like(tok, step + 1), cache)
+    return codes, lengths
