@@ -6,7 +6,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 
 1. environment: the card's name and power limit, torch/CUDA versions, TF32
    settings; a CUDA device is required;
-2. build: compiles ``detail_tts_tpu_torch/csrc/bias_attention.cu`` with nvcc;
+2. build: compiles ``detail_tts_tpu_torch/csrc/bias_attention.cu`` and
+   ``bias_attention_bwd.cu`` with nvcc, one process each, at once;
 3. kernel: ``bias_attention`` against its plain PyTorch version at the
    serving shapes (bf16, plus fp32 and a fully masked row), with CUDA-event
    times of the kernel, the plain version and
@@ -14,7 +15,22 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    port) beside the card's bound;
 4. serving: ``random_engine(Config())`` at full width, bf16, answers three
    requests through ``synthesize_batch``; checks the audio and that every
-   ``AttentionBlock`` call of the path launched the kernel.
+   ``AttentionBlock`` call of the path launched the kernel;
+5. train kernels vs plain: the training forward (with its row statistic)
+   and the two backward kernels against their plain versions at the
+   training step's attention shapes (bf16 and fp32, ragged T, a fully
+   masked row), the backward twice for bit-identical dbias, and CUDA-event
+   times beside the bound, the plain versions and SDPA with a bias mask
+   that requires grad;
+6. training: ``Trainer`` over ``Config()`` at full width, target ``diff``,
+   micro-batch 8 x 496 frames x accum 16 of seeded synthetic batches: a
+   warm-up step and three timed steps, each checked for finite loss and grad
+   norm and for one launch of each training kernel per AttentionBlock call;
+   moved trainable and bit-identical frozen weights; a repeated step's
+   bit-identical loss and grad norm; on one micro-batch that keeps every
+   layer, a gradient for every trainable tensor and the kernel route
+   against the plain route (and against a route that loses dbias, which
+   the check must catch); the device idle share of one traced step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -111,11 +127,16 @@ def phase_environment():
 
 def phase_build():
     print("== build", flush=True)
-    path, seconds, log = attention.build()
-    print(f"built {path.name} in {seconds:.1f} s", flush=True)
-    for line in log.splitlines():  # ptxas -v: entry name, then its resources
-        if "entry function" in line or "registers" in line or "spill" in line:
-            print("  " + line.strip(), flush=True)
+    t0 = time.perf_counter()
+    for path, seconds, log in attention.build_all():
+        print(f"built {path.name} in {seconds:.1f} s", flush=True)
+        entry = None
+        for line in log.splitlines():  # ptxas -v: entry name, then its resources
+            if "entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
+                print(f"  {entry[:90]}: {line.split(':', 1)[-1].strip()}", flush=True)
+    print(f"build wall {time.perf_counter() - t0:.1f} s (parallel)", flush=True)
 
 
 def phase_kernel(sfu_per_s, extra_shapes=(), timed_shapes=()):
@@ -185,6 +206,211 @@ def time_kernel(b, t, h, d, sfu_per_s):
                 bound_by=bound_by, library_ms=library_ms, shape=[b, t, h, d])
 
 
+# ------------------------------------------------------- training kernels
+
+# Tolerances of the training kernels against their plain versions (the
+# readings they were set from are in PERF.md).  out and d(qkv): the serving
+# kernel's, d(qkv) relative to max(1, max |plain|) since it scales with the
+# cotangent (bf16: P and dX are rounded to bf16 before the products).  lse:
+# fp32 in both dtypes, from logits summed in another order.  dbias: relative
+# to max |plain|; it is summed in fp32 from fp32 P and dX in both dtypes, and
+# a dbias with one batch row's share lost must read above it.
+LSE_TOL = DBIAS_TOL = 1e-4
+TRAIN_KERNELS = ("bias_attention_train_fwd", "bias_attention_bwd_dq_dbias",
+                 "bias_attention_bwd_dkv")
+
+
+def scaled_err(x, ref, floor=1.0):
+    ref = ref.float()
+    return ((x.float() - ref).abs().max() / ref.abs().max().clamp_min(floor)).item()
+
+
+def train_inputs(b, t, h, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, t, 3 * h * d), generator=g, device="cuda").to(dtype)
+    bias = torch.randn((h, t, t), generator=g, device="cuda")
+    dout = torch.randn((b, t, h * d), generator=g, device="cuda").to(dtype)
+    return qkv, bias, dout
+
+
+def train_bound_ms(b, t, h, d, sfu_per_s):
+    """Least time of each training kernel in bf16: bytes moved (inputs read
+    once, outputs written once), tensor FLOP, exp2 count."""
+    c, bf, f4 = h * d, 2, 4
+    exps = float(b * h * t * t)
+    work = {  # kernel: (bytes, FLOP)
+        "bias_attention_train_fwd": (bf * b * t * 4 * c + f4 * (h * t * t + b * h * t),
+                                     4.0 * b * h * t * t * d),
+        "bias_attention_bwd_dq_dbias": (bf * b * t * 5 * c + f4 * (2 * h * t * t + 2 * b * h * t),
+                                        6.0 * b * h * t * t * d),
+        "bias_attention_bwd_dkv": (bf * b * t * 6 * c + f4 * (h * t * t + 2 * b * h * t),
+                                   8.0 * b * h * t * t * d),
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = max(flops / (PEAK_TFLOPS[torch.bfloat16] * 1e12), exps / sfu_per_s) * 1e3
+        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
+    """Each training kernel against its plain version at one shape, and the
+    dbias gate against a known-wrong dbias; returns {kernel: (max abs err,
+    scaled err)}."""
+    qkv, bias, dout = train_inputs(b, t, h, d, dtype, seed)
+    if mask_row:
+        bias[h - 1, t // 3, :] = -1e9
+    sm = 1.0 / math.sqrt(d)
+    out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
+    ref_out, ref_lse = attention.bias_attention_train_reference(qkv, bias, heads=h,
+                                                                sm_scale=sm)
+    dqkv, dbias = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h,
+                                               sm_scale=sm)
+    ref_dqkv, ref_dbias = attention.bias_attention_bwd_reference(
+        qkv, bias, out, lse, dout, heads=h, sm_scale=sm)
+    torch.cuda.synchronize()
+    g, rg = dqkv.view(b, t, h, 3, d), ref_dqkv.view(b, t, h, 3, d)
+    errs = {
+        "out": ((out.float() - ref_out.float()).abs().max().item(),) * 2,
+        "lse": ((lse - ref_lse).abs().max().item(),) * 2,
+        "dq": ((g[..., 0, :].float() - rg[..., 0, :].float()).abs().max().item(),
+               scaled_err(g[..., 0, :], rg[..., 0, :])),
+        "dbias": ((dbias - ref_dbias).abs().max().item(),
+                  scaled_err(dbias, ref_dbias, floor=1e-30)),
+        "dkv": ((g[..., 1:, :].float() - rg[..., 1:, :].float()).abs().max().item(),
+                scaled_err(g[..., 1:, :], rg[..., 1:, :])),
+    }
+    tol = {"out": TOL[dtype], "lse": LSE_TOL, "dq": TOL[dtype], "dbias": DBIAS_TOL,
+           "dkv": TOL[dtype]}
+    ok = all(math.isfinite(e[1]) and e[1] <= tol[k] for k, e in errs.items())
+    # what the dbias gate reads for a kernel that loses the last row's share
+    _, last = attention.bias_attention_bwd_reference(
+        qkv[-1:], bias, out[-1:], lse[-1:], dout[-1:], heads=h, sm_scale=sm)
+    wrong = (last.abs().max() / ref_dbias.abs().max()).item()
+    print(f"  B={b} T={t} H={h} d={d} {str(dtype)[6:]}{' masked row' if mask_row else ''}: "
+          + " ".join(f"{k} {e[0]:.2e}/{e[1]:.2e}" for k, e in errs.items())
+          + f" {'ok' if ok else 'MISMATCH'}; dbias with a row lost {wrong:.2e}", flush=True)
+    if not ok:
+        fail(f"training kernels disagree with the plain versions at {(b, t, h, d, dtype)}")
+    if not wrong > DBIAS_TOL:
+        fail(f"the dbias gate would pass a dbias with a batch row lost ({wrong:.2e})")
+    if mask_row:
+        r, hh = t // 3, h - 1
+        zero = (out[:, r, hh * d:(hh + 1) * d], g[:, r, hh, 0], dbias[hh, r])
+        if any(torch.count_nonzero(z).item() for z in zero) or not all(
+                torch.isfinite(x).all() for x in (out, lse, dqkv, dbias)):
+            fail("a fully masked row is not exactly 0 in out, dq and dbias")
+    return {"bias_attention_train_fwd": errs["out"],
+            "bias_attention_bwd_dq_dbias": max(errs["dq"], errs["dbias"]),
+            "bias_attention_bwd_dkv": errs["dkv"]}
+
+
+def sdpa_backend(fn) -> str:
+    """Which SDPA implementation ``fn`` ran, from its device kernels' names."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.key.lower() for e in prof.key_averages())
+    for key, label in (("cudnn", "cudnn"), ("flash", "flash"),
+                       ("fmha", "efficient"), ("efficient", "efficient")):
+        if key in names:
+            return label
+    return "math"
+
+
+def time_train_kernels(b, t, h, d, sfu_per_s):
+    """CUDA-event times of the training kernels, their plain versions and
+    SDPA (forward, and backward through torch.autograd.grad) at one shape."""
+    qkv, bias, dout = train_inputs(b, t, h, d, torch.bfloat16, seed=7)
+    sm = 1.0 / math.sqrt(d)
+    out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
+    delta = (dout.float() * out.float()).view(b, t, h, d).sum(-1).transpose(1, 2).contiguous()
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty((h, t, t), device="cuda")
+    ptrs = (qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dqkv.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (sm * attention.LOG2E, attention.LOG2E, sm, 0, stream)
+    ms = {
+        "bias_attention_train_fwd": cuda_ms(lambda: attention.bias_attention_train_fwd(
+            qkv, bias, heads=h, sm_scale=sm)),
+        "bias_attention_bwd_dq_dbias": cuda_ms(lambda: attention._launch(
+            attention.BWD_SOURCE, "bias_attention_bwd_dq", *ptrs, dbias.data_ptr(),
+            b, t, h, d, *args)),
+        "bias_attention_bwd_dkv": cuda_ms(lambda: attention._launch(
+            attention.BWD_SOURCE, "bias_attention_bwd_dkv", *ptrs, b, t, h, d, *args)),
+    }
+    bwd_ms = cuda_ms(lambda: attention.bias_attention_bwd(qkv, bias, out, lse, dout,
+                                                          heads=h, sm_scale=sm))
+    plain_fwd = cuda_ms(lambda: attention.bias_attention_train_reference(
+        qkv, bias, heads=h, sm_scale=sm), runs=5)
+    plain_bwd = cuda_ms(lambda: attention.bias_attention_bwd_reference(
+        qkv, bias, out, lse, dout, heads=h, sm_scale=sm), runs=5)
+
+    q, k, v = (x.detach().transpose(1, 2).requires_grad_(True)
+               for x in qkv.view(b, t, h, 3, d).unbind(3))
+    mask_leaf = bias.to(torch.bfloat16).requires_grad_(True)
+    mask = mask_leaf[None].expand(b, h, t, t)
+    do = dout.view(b, t, h, d).transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=sm)
+
+    lib_fwd = cuda_ms(lambda: sdpa())
+    o = sdpa()
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v, mask_leaf), do,
+                                                  retain_graph=True))
+    backend = sdpa_backend(lambda: torch.autograd.grad(sdpa(), (q, k, v, mask_leaf), do))
+    bounds = train_bound_ms(b, t, h, d, sfu_per_s)
+    rows = {}
+    for name in TRAIN_KERNELS:
+        fwd = name.endswith("fwd")
+        rows[name] = dict(ms=ms[name], plain_ms=plain_fwd if fwd else plain_bwd,
+                          library_ms=lib_fwd if fwd else lib_bwd,
+                          bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                          shape=[b, t, h, d])
+        print(f"  time B={b} T={t} H={h} d={d} bf16 {name}: ms {ms[name]} "
+              f"bound_ms {bounds[name][0]} ({bounds[name][1]}) -> "
+              f"{bounds[name][0] / ms[name]:.1%} of bound", flush=True)
+    print(f"  time kernels 5+6 (bias_attention_bwd, delta included) {bwd_ms} ms; "
+          f"kernel 4 + 5 + 6 {ms['bias_attention_train_fwd'] + bwd_ms} ms; "
+          f"plain forward {plain_fwd} ms + backward {plain_bwd} ms; "
+          f"SDPA ({backend}) forward {lib_fwd} ms + backward {lib_bwd} ms", flush=True)
+    return rows, backend
+
+
+def phase_train_kernels(sfu_per_s):
+    """Training kernels vs plain versions; returns (worst errors, time rows)."""
+    print("== train kernels vs plain", flush=True)
+    worst = {name: (0.0, 0.0) for name in TRAIN_KERNELS}
+    cases = [(8, 496, 16, 48, torch.bfloat16), (8, 124, 16, 48, torch.bfloat16),
+             (8, 124, 16, 96, torch.bfloat16), (8, 495, 16, 48, torch.bfloat16),
+             (4, 495, 16, 48, torch.float32), (8, 124, 16, 48, torch.float32),
+             (8, 124, 16, 96, torch.float32)]
+    for i, (b, t, h, d, dtype) in enumerate(cases):
+        errs = check_train_kernels(b, t, h, d, dtype, seed=100 + i)
+        if dtype == torch.bfloat16:
+            worst = {k: max(worst[k], errs[k]) for k in worst}
+    for dtype in (torch.bfloat16, torch.float32):
+        errs = check_train_kernels(3, 495, 16, 48, dtype, seed=99, mask_row=True)
+        if dtype == torch.bfloat16:
+            worst = {k: max(worst[k], errs[k]) for k in worst}
+
+    qkv, bias, dout = train_inputs(8, 496, 16, 48, torch.bfloat16, seed=5)
+    out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=16, sm_scale=0.1)
+    first = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=16, sm_scale=0.1)
+    second = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=16, sm_scale=0.1)
+    same = [torch.equal(x, y) for x, y in zip(first, second)]
+    print(f"  backward twice at B=8 T=496: dqkv bit-identical {same[0]}, "
+          f"dbias bit-identical {same[1]}", flush=True)
+    if not all(same):
+        fail("the backward is not bit-identical from run to run")
+    rows, backend = time_train_kernels(8, 496, 16, 48, sfu_per_s)
+    return worst, rows, backend
+
+
 def serving_attention_shapes(cfg, ecfg, batches, prompt_frames):
     """(rows, T, heads, head dim) of every AttentionBlock call the serving
     requests below make: integrator B+1 and trunk 2B rows at 4x the code
@@ -244,6 +470,214 @@ def phase_serving(engine, requests):
     return attention.LAUNCHES, counts
 
 
+# ----------------------------------------------------------------- training
+
+# The kernel route against the plain route on one micro-batch, both under
+# bf16 autocast: relative differences of the loss, of the trainable grad norm
+# and of the grad norm of the T5 bias tables, which only dbias reaches.  Set
+# from the readings in PERF.md; a route that loses dbias must read above.  The
+# T5 norm's is wider: the kernels take delta = rowsum(dO * O) from the bf16
+# out, autograd through the plain forward from its fp32 o, and dbias sums
+# P * (dP - delta) with cancellation.
+ROUTE_TOL = {"loss": 1e-3, "grad_norm": 1e-3, "t5_grad_norm": 1e-2}
+
+
+def expected_train_launches(cfg, layers_kept):
+    """Launches of each training kernel for one step: per micro-batch, the 5
+    contextual-embedder, 4 latent-conditioner and 3 integrator blocks plus
+    the trunk layers kept by layer drop (the 3 trailing ResBlocks have no
+    attention)."""
+    n = cfg.diffusion.num_layers
+    return sum(5 + 4 + 3 + sum(keep[:n]) for keep in layers_kept)
+
+
+def micro_metrics(state, cfg, mb, draws):
+    """Loss, trainable grad norm and T5-table grad norm of one micro-batch
+    under autocast, and the trainable parameters left with no gradient (None
+    or all zero)."""
+    from detail_tts_tpu_torch.models.synthesizer import make_train_schedule
+    model = state.model
+    model.zero_grad(set_to_none=True)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        latents = model.gpt_latents(mb)
+        loss = model.forward_diff(mb, make_train_schedule(cfg, device="cuda"), draws,
+                                  latents=latents)
+    loss.backward()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
+             for n, p in model.named_parameters() if p.requires_grad}
+
+    def norm(names):
+        return torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(grads[n]) for n in names])).item()
+
+    t5 = [n for n in grads if n.endswith("relative_attention_bias.weight")]
+    metrics = (loss.item(), norm(grads), norm(t5))
+    missing = sorted(n for n, g in grads.items() if not bool(g.any()))
+    model.zero_grad(set_to_none=True)
+    return metrics, missing
+
+
+def with_route(route, fn):
+    """``fn()`` with the AttentionBlocks' training attention set to ``route``."""
+    from detail_tts_tpu_torch.nn import diff_blocks
+    kept = diff_blocks.bias_attention_train
+    diff_blocks.bias_attention_train = route
+    try:
+        return fn()
+    finally:
+        diff_blocks.bias_attention_train = kept
+
+
+def phase_training(cfg_full):
+    """Target diff at full width through Trainer.train; returns launches."""
+    import dataclasses
+
+    from detail_tts_tpu_torch.models.synthesizer import draw_diff, make_train_schedule
+    from detail_tts_tpu_torch.train.step import synthetic_batches
+    from detail_tts_tpu_torch.train.trainer import Trainer
+    from profile_port import union_us
+
+    print("== training", flush=True)
+    cfg = dataclasses.replace(cfg_full, train=dataclasses.replace(cfg_full.train,
+                                                                  target="diff"))
+    accum, micro, frames, text_len = (cfg.train.gradient_accumulate_every,
+                                      cfg.train.batch_size, 496, 64)
+    data_gen = torch.Generator(device="cuda").manual_seed(1)
+    data = synthetic_batches(cfg, accum, micro, frames, text_len, generator=data_gen,
+                             device="cuda")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, data, device="cuda", seed=0)
+    state = trainer.state
+    n_train = sum(p.numel() for p in state.params)
+    n_all = sum(p.numel() for p in state.model.parameters())
+    print(f"  Config() target diff: {n_train / 1e6:.1f} M trainable of {n_all / 1e6:.1f} M "
+          f"parameters (fp32 master weights, AdamW fp32), micro-batch {micro} x {frames} "
+          f"frames x accum {accum}, text {text_len}; built in {time.perf_counter() - t0:.1f} s; "
+          f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32} autocast bf16 "
+          f"{cfg.train.use_bf16}", flush=True)
+
+    t0 = time.perf_counter()
+    trainer.train(max_steps=1, log_every=1)  # warm-up
+    torch.cuda.synchronize()
+    print(f"  warm-up step {time.perf_counter() - t0:.3f} s", flush=True)
+
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    attention.LAUNCHES = 0
+    for name in TRAIN_KERNELS:
+        attention.TRAIN_LAUNCHES[name] = 0
+    expected, walls = 0, []
+    for _ in range(3):
+        counts = dict(attention.TRAIN_LAUNCHES)
+        t0 = time.perf_counter()
+        logged = trainer.train(max_steps=state.step + 1, log_every=1)
+        walls.append(time.perf_counter() - t0)
+        m = trainer.last_metrics
+        want = expected_train_launches(cfg, m["layers_kept"])
+        got = {k: attention.TRAIN_LAUNCHES[k] - counts[k] for k in TRAIN_KERNELS}
+        expected += want
+        frames_s = accum * micro * frames / walls[-1]
+        print(f"  step {state.step}: loss {logged['loss']:.6f} grad_norm "
+              f"{logged['grad_norm']:.6f} wall {walls[-1]:.3f} s, {frames_s:.1f} mel "
+              f"frames/s; launches {got} (expected {want} each)", flush=True)
+        if not (math.isfinite(logged["loss"]) and math.isfinite(logged["grad_norm"])):
+            fail("the loss or grad norm is not finite")
+        if any(v != want for v in got.values()):
+            fail(f"training kernel launches {got}, expected {want} each")
+    launches = dict(attention.TRAIN_LAUNCHES)
+    if attention.LAUNCHES != 0:
+        fail(f"the training step launched the serving kernel {attention.LAUNCHES} times")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  median step {statistics.median(walls):.3f} s, "
+          f"{accum * micro * frames / statistics.median(walls):.1f} mel frames/s, "
+          f"peak device memory {peak:.2f} GiB", flush=True)
+
+    trainable = {n for n, p in state.model.named_parameters() if p.requires_grad}
+    after = state.model.state_dict()
+    still = sorted(n for n in trainable if torch.equal(after[n], before[n]))
+    changed = sorted(n for n in after if n not in trainable
+                     and not torch.equal(after[n], before[n]))
+    print(f"  {len(trainable) - len(still)} of {len(trainable)} trainable tensors moved; "
+          f"{len(after) - len(trainable) - len(changed)} of {len(after) - len(trainable)} "
+          "frozen tensors bit-identical", flush=True)
+    if still or changed:
+        fail(f"unmoved trainable {still[:3]} or changed frozen {changed[:3]}")
+    del before
+
+    # the same step from the same state and seed gives the same loss bits
+    snap = state.snapshot()
+    gen_state = trainer.generator.get_state()
+    batch = next(data)
+    first = trainer.step_fn(state, batch, trainer.generator)
+    state.restore(snap)
+    trainer.generator.set_state(gen_state)
+    second = trainer.step_fn(state, batch, trainer.generator)
+    same_loss = torch.equal(first["loss"], second["loss"])
+    same_norm = torch.equal(first["grad_norm"], second["grad_norm"])
+    print(f"  repeated step: loss {first['loss'].item():.9f} / {second['loss'].item():.9f} "
+          f"bit-identical {same_loss}; grad_norm bit-identical {same_norm}", flush=True)
+    if not (same_loss and same_norm):
+        fail("the repeated step gave another loss or grad norm")
+    del snap
+
+    # kernel route against the plain route on one micro-batch that keeps
+    # every layer and has an unconditioned row, so every trainable parameter
+    # must get a gradient
+    mb = {k: v[0] for k, v in batch.items()}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    draws = draw_diff(cfg, make_train_schedule(cfg, device="cuda"), mb["raw_mel"].shape,
+                      gen, torch.device("cuda"))
+    uncond = draws.uncond.clone()
+    uncond[0] = True
+    draws = draws._replace(uncond=uncond, keep=(True,) * len(draws.keep))
+    kernel, missing = micro_metrics(state, cfg, mb, draws)
+    print(f"  one micro-batch, every layer kept: {len(missing)} trainable tensors "
+          "without a gradient", flush=True)
+    if missing:
+        fail(f"trainable tensors got no gradient: {missing[:3]}")
+
+    def plain_route(qkv, bias, *, heads, sm_scale):
+        return attention.bias_attention_train_reference(qkv, bias, heads=heads,
+                                                        sm_scale=sm_scale)[0]
+
+    def lost_dbias_route(qkv, bias, *, heads, sm_scale):  # known wrong
+        return plain_route(qkv, bias.detach(), heads=heads, sm_scale=sm_scale)
+
+    plain = with_route(plain_route, lambda: micro_metrics(state, cfg, mb, draws)[0])
+    wrong = with_route(lost_dbias_route, lambda: micro_metrics(state, cfg, mb, draws)[0])
+    rel = {k: abs(a - b) / abs(b) for k, a, b in zip(ROUTE_TOL, kernel, plain)}
+    rel_wrong = {k: abs(a - b) / abs(b) for k, a, b in zip(ROUTE_TOL, wrong, plain)}
+    print(f"  kernel vs plain route: loss {kernel[0]:.6f} / {plain[0]:.6f}, grad norm "
+          f"{kernel[1]:.6f} / {plain[1]:.6f}, T5 grad norm {kernel[2]:.6f} / {plain[2]:.6f}; "
+          f"relative differences {json.dumps(rel)} (tolerances {json.dumps(ROUTE_TOL)}); "
+          f"a route that loses dbias reads {json.dumps(rel_wrong)}", flush=True)
+    if any(not rel[k] <= ROUTE_TOL[k] for k in ROUTE_TOL):
+        fail("the kernel route disagrees with the plain route")
+    if all(rel_wrong[k] <= ROUTE_TOL[k] for k in ROUTE_TOL):
+        fail("the route check would pass a route that loses dbias")
+
+    # device idle share of one traced step
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step_fn(state, next(data), trainer.generator)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_ms = union_us(spans) / 1e3
+    # the profiler slows the host, not the kernels: the idle share is taken
+    # against the untraced steps' median wall time
+    step_ms = statistics.median(walls) * 1e3
+    print(f"  traced step: wall {wall_ms:.1f} ms (traced), device busy {busy_ms:.1f} ms, "
+          f"{len(spans)} device launches; idle share against the untraced median step "
+          f"{step_ms:.1f} ms: {1 - busy_ms / step_ms:.3f}", flush=True)
+    return launches
+
+
 def main():
     from detail_tts_tpu_torch.config import Config
     from detail_tts_tpu_torch.serving.pipeline import EngineConfig, random_engine
@@ -263,6 +697,7 @@ def main():
     served = serving_attention_shapes(
         cfg, ecfg, batches=(2, 1), prompt_frames=3 * sr // cfg.data.hop_length)
     worst, times = phase_kernel(sfu_per_s, served, timed_shapes=served[1:2])
+    train_worst, train_times, backend = phase_train_kernels(sfu_per_s)
 
     t0 = time.perf_counter()
     engine = random_engine(cfg, seed=0, engine_cfg=ecfg, device="cuda")
@@ -271,6 +706,10 @@ def main():
     print(f"== engine: Config() at full width, {n_params / 1e6:.1f} M parameters "
           f"{engine.cdt}, built in {time.perf_counter() - t0:.1f} s", flush=True)
     launches, per_request = phase_serving(engine, requests)
+    del engine
+    torch.cuda.empty_cache()
+
+    train_launches = phase_training(cfg)
 
     kernels = [dict(
         name="bias_attention_fwd", route="cuda",
@@ -278,6 +717,18 @@ def main():
         replaces="detail_tts_tpu/ops/pallas/attention.py:404",
         launches=launches, launches_per_request=per_request,
         max_abs_err=worst, **times)]
+    sources = {"bias_attention_train_fwd": ("bias_attention.cu", 259),
+               "bias_attention_bwd_dq_dbias": ("bias_attention_bwd.cu", 286),
+               "bias_attention_bwd_dkv": ("bias_attention_bwd.cu", 308)}
+    for name in TRAIN_KERNELS:
+        src, line = sources[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"detail_tts_tpu_torch/csrc/{src}",
+            replaces=f"detail_tts_tpu/ops/pallas/attention.py:{line}",
+            launches=train_launches[name], launches_over="3 training steps",
+            max_abs_err=train_worst[name][0], max_scaled_err=train_worst[name][1],
+            library="scaled_dot_product_attention (" + backend + ")",
+            **train_times[name]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

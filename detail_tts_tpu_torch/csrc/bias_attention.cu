@@ -1,14 +1,19 @@
-// Bias-attention forward for Hopper (sm_90a), CUDA C++ with a plain C entry.
+// Bias-attention forward for Hopper (sm_90a), CUDA C++ with plain C entries.
 //
 // Computes, per batch row b and head h,
 //     out[b, :, h] = softmax2(q k^T * scale + bias[h]) v
 // where softmax2 is a base-2 softmax (exp2), ``scale`` already carries
 // log2(e) and ``bias`` is (H, T, T) in the log2 domain, shared over the batch.
 //
-// Replaces the three Pallas serving kernels of
-// detail_tts_tpu/ops/pallas/attention.py: ``attention_packed_pairs``
-// (_attn_paired_kernel), ``attention_packed`` (_attn_packed_kernel) and
-// ``row_block_attention`` (_attn_kernel).  Those are one function in three
+// ``bias_attention_fwd`` (serving, bf16 log2 bias) replaces the three Pallas
+// serving kernels of detail_tts_tpu/ops/pallas/attention.py:
+// ``attention_packed_pairs`` (_attn_paired_kernel), ``attention_packed``
+// (_attn_packed_kernel) and ``row_block_attention`` (_attn_kernel).
+// ``bias_attention_train_fwd`` is the same kernel with an fp32
+// natural-domain bias (scaled to log2 inside) that also writes the row
+// statistic lse = m + log2(l) (B, H, T); it replaces ``_attn_train_fwd``
+// (_attn_fwd_train_kernel), whose no-max softmax saved the row sum l.
+// The Pallas kernels are one function in three
 // lane layouts made for the TPU's 128-lane tiles; here q, k and v are read
 // straight from the (B, T, 3C) qkv projection, channel order
 // [head][q|k|v][ch], with no padding or transpose outside the kernel.
@@ -38,103 +43,34 @@
 // type before P.V, as the Pallas kernel does.  The running max is floored
 // at FLOOR (log2 domain), so a row whose every bias is <= -1e9 sums to 0 and
 // is written as 0, as the Pallas kernels' no-max softmax gives; ordinary
-// rows are unchanged.  Ragged T is masked in the kernel: keys past T get
+// rows are unchanged.  Such a row's lse is MASKED_LSE, so the backward's
+// exp2(z - lse) gives it exactly zero gradients.  Ragged T is masked in the kernel: keys past T get
 // -inf and zero K/V rows, query rows past T are computed on zeros and not
 // written.  No TMA or wgmma yet.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per CTA
-constexpr int BK = 64;         // keys per tile
-constexpr int NTHREADS = 128;  // 4 warps x 16 query rows
-constexpr int WROWS = 16;      // query rows per warp
-constexpr float FLOOR = -1.0e4f;
+using namespace attn;
 
-using bf16 = __nv_bfloat16;
+constexpr int BQ = TILE;  // query rows per CTA
+constexpr int BK = TILE;  // keys per tile
 
 // ------------------------------------------------------------ bf16: mma.sync
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; with ``valid`` false the destination is zero-filled.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a b for one m16n8k16 tile: bf16 operands, fp32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Bias at (row, col) and (row, col + 1); 0 past T (those keys are masked).
-__device__ __forceinline__ float2 bias_pair(const bf16* row, int col, int t_len,
-                                            bool even) {
-  if (even) {  // T even and col even: one aligned 4-byte load
-    if (col < t_len) return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + col));
-    return make_float2(0.f, 0.f);
-  }
-  return make_float2(col < t_len ? __bfloat162float(row[col]) : 0.f,
-                     col + 1 < t_len ? __bfloat162float(row[col + 1]) : 0.f);
-}
-
-// Async copy of rows [r0, r0 + 64) of one head's q, k or v (columns [0, D))
-// into a shared tile with row stride LDT; rows past T are zero-filled.
-template <int D>
-__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int r0,
-                                          int t_len, long row_stride) {
-  constexpr int LDT = D + 8;
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < BK * VPR; i += NTHREADS) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * 8;
-    const bool valid = r0 + r < t_len;
-    cp_async_16(dst + r * LDT + c, src + (long)(valid ? r0 + r : 0) * row_stride + c, valid);
-  }
-}
 
 template <int D>
 constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) * (BQ + 4 * BK) * (D + 8);  // Q + two K and two V tiles
 }
 
-template <int D>
+// BiasT: bf16 (serving, log2 domain, bias_scale 1) or float (training,
+// natural domain, bias_scale log2(e)).  kLse: also write the row statistic
+// lse = m + log2(l) (B, H, T) that the backward recomputes P from.
+template <int D, typename BiasT, bool kLse>
 __global__ void __launch_bounds__(NTHREADS)
-bias_attention_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
-                   bf16* __restrict__ out, int t_len, int heads, float scale) {
+bias_attention_mma(const bf16* __restrict__ qkv, const BiasT* __restrict__ bias,
+                   bf16* __restrict__ out, float* __restrict__ lse, int t_len,
+                   int heads, float scale, float bias_scale) {
   constexpr int LDT = D + 8;  // +16 bytes a row: ldmatrix rows hit distinct banks
   constexpr int KS = D / 16;  // k-steps of Q K^T
   constexpr int NO = D / 8;   // 8-wide column blocks of the output
@@ -164,9 +100,9 @@ bias_attention_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
 
   const int qr0 = q0 + warp * WROWS + g;
   const int qr1 = qr0 + 8;
-  const bf16* bias_h = bias + (long)h * t_len * t_len;
-  const bf16* brow0 = bias_h + (long)(qr0 < t_len ? qr0 : 0) * t_len;
-  const bf16* brow1 = bias_h + (long)(qr1 < t_len ? qr1 : 0) * t_len;
+  const BiasT* bias_h = bias + (long)h * t_len * t_len;
+  const BiasT* brow0 = bias_h + (long)(qr0 < t_len ? qr0 : 0) * t_len;
+  const BiasT* brow1 = bias_h + (long)(qr1 < t_len ? qr1 : 0) * t_len;
   const bool even = (t_len % 2) == 0;
 
   uint32_t qa[KS][4];
@@ -197,9 +133,7 @@ bias_attention_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
     __syncthreads();
     if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        ldmatrix_x4(qa[kk], Qs + (warp * WROWS + lane % 16) * LDT + kk * 16 + (lane / 16) * 8);
-      }
+      for (int kk = 0; kk < KS; ++kk) load_a<LDT>(qa[kk], Qs, warp * WROWS, kk, lane);
     }
     const bf16* Kt = Ks + (j & 1) * BK * LDT;
     const bf16* Vt = Vs + (j & 1) * BK * LDT;
@@ -213,8 +147,7 @@ bias_attention_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
 #pragma unroll
       for (int n2 = 0; n2 < NS / 2; ++n2) {
         uint32_t kb[4];
-        ldmatrix_x4(kb, Kt + (n2 * 16 + (lane / 16) * 8 + lane % 8) * LDT + kk * 16 +
-                            ((lane / 8) % 2) * 8);
+        load_b_nt<LDT>(kb, Kt, n2, kk, lane);
         mma_bf16(s[2 * n2], qa[kk], kb[0], kb[1]);
         mma_bf16(s[2 * n2 + 1], qa[kk], kb[2], kb[3]);
       }
@@ -226,10 +159,10 @@ bias_attention_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
     for (int n = 0; n < NS; ++n) {
       const int col = k0 + n * 8 + 2 * t4;
       const bool v0 = col < t_len, v1 = col + 1 < t_len;
-      s[n][0] = v0 ? fmaf(s[n][0], scale, b0[n].x) : -INFINITY;
-      s[n][1] = v1 ? fmaf(s[n][1], scale, b0[n].y) : -INFINITY;
-      s[n][2] = v0 ? fmaf(s[n][2], scale, b1[n].x) : -INFINITY;
-      s[n][3] = v1 ? fmaf(s[n][3], scale, b1[n].y) : -INFINITY;
+      s[n][0] = v0 ? fmaf(s[n][0], scale, b0[n].x * bias_scale) : -INFINITY;
+      s[n][1] = v1 ? fmaf(s[n][1], scale, b0[n].y * bias_scale) : -INFINITY;
+      s[n][2] = v0 ? fmaf(s[n][2], scale, b1[n].x * bias_scale) : -INFINITY;
+      s[n][3] = v1 ? fmaf(s[n][3], scale, b1[n].y * bias_scale) : -INFINITY;
       mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
       mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
     }
@@ -253,27 +186,27 @@ bias_attention_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
     }
     // P, rounded to bf16, lands in the A-operand layout of P V: key blocks
     // 2k and 2k + 1 of S are k-step k of the product.
-    uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
-      const float p0 = exp2f(s[n][0] - mn0), p1 = exp2f(s[n][1] - mn0);
-      const float p2 = exp2f(s[n][2] - mn1), p3 = exp2f(s[n][3] - mn1);
-      l0 += p0 + p1;
-      l1 += p2 + p3;
-      pa[n / 2][(n % 2) * 2] = pack_bf16(p0, p1);
-      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p2, p3);
+      s[n][0] = exp2f(s[n][0] - mn0);
+      s[n][1] = exp2f(s[n][1] - mn0);
+      s[n][2] = exp2f(s[n][2] - mn1);
+      s[n][3] = exp2f(s[n][3] - mn1);
+      l0 += s[n][0] + s[n][1];
+      l1 += s[n][2] + s[n][3];
     }
 
     // O += P V
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4];
+      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int n2 = 0; n2 < NO / 2; ++n2) {
         uint32_t vb[4];
-        ldmatrix_x4_trans(vb, Vt + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LDT +
-                                  n2 * 16 + (lane / 16) * 8);
-        mma_bf16(o[2 * n2], pa[kk], vb[0], vb[1]);
-        mma_bf16(o[2 * n2 + 1], pa[kk], vb[2], vb[3]);
+        load_b_nn<LDT>(vb, Vt, n2, kk, lane);
+        mma_bf16(o[2 * n2], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * n2 + 1], pa, vb[2], vb[3]);
       }
     }
     __syncthreads();  // this tile's buffers are refilled two tiles on
@@ -298,6 +231,11 @@ bias_attention_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
       *reinterpret_cast<uint32_t*>(out + ((long)b * t_len + qr1) * C + col) =
           pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
     }
+  }
+  if (kLse && t4 == 0) {
+    float* lrow = lse + ((long)b * heads + h) * t_len;
+    if (qr0 < t_len) lrow[qr0] = l0 > 0.f ? m0 + log2f(l0) : MASKED_LSE;
+    if (qr1 < t_len) lrow[qr1] = l1 > 0.f ? m1 + log2f(l1) : MASKED_LSE;
   }
 }
 
@@ -334,10 +272,11 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int 
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(NTHREADS)
 bias_attention_simt(const float* __restrict__ qkv, const float* __restrict__ bias,
-                    float* __restrict__ out, int t_len, int heads, float scale) {
+                    float* __restrict__ out, float* __restrict__ lse, int t_len,
+                    int heads, float scale, float bias_scale) {
   using L = SimtLayout<D>;
   const int b = blockIdx.x;
   const int q0 = blockIdx.y * BQ;
@@ -391,8 +330,7 @@ bias_attention_simt(const float* __restrict__ qkv, const float* __restrict__ bia
         if (col < t_len) {
           float acc = 0.f;
           for (int d = 0; d < D; ++d) acc = fmaf(Qw[r * L::LDT + d], Ks[c * L::LDT + d], acc);
-          v = acc * scale;
-          if (qrow < t_len) v += bias_h[(long)qrow * t_len + col];
+          v = fmaf(acc, scale, qrow < t_len ? bias_h[(long)qrow * t_len + col] * bias_scale : 0.f);
         }
         s[j] = v;
       }
@@ -429,6 +367,10 @@ bias_attention_simt(const float* __restrict__ qkv, const float* __restrict__ bia
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
     if (lane == 0) rowf[r0 + r] = l > 0.f ? 1.f / l : 0.f;
+    const int qrow = q0 + r0 + r;
+    if (kLse && lane == 0 && qrow < t_len) {
+      lse[((long)b * heads + h) * t_len + qrow] = l > 0.f ? m_run[r] + log2f(l) : MASKED_LSE;
+    }
   }
   __syncwarp();
   for (int i = lane; i < WROWS * D; i += 32) {
@@ -443,54 +385,81 @@ bias_attention_simt(const float* __restrict__ qkv, const float* __restrict__ bia
 
 // ------------------------------------------------------------------ launch
 
-template <int D>
-cudaError_t launch(int dtype, const void* qkv, const void* bias, void* out, int batch,
-                   int t_len, int heads, float scale, cudaStream_t stream) {
+// dtype 0: bf16 qkv/out on the tensor cores, bias BiasT; dtype 1: fp32
+// qkv/out/bias on the scalar kernel.
+template <int D, typename BiasT, bool kLse>
+cudaError_t launch(int dtype, const void* qkv, const void* bias, void* out, float* lse,
+                   int batch, int t_len, int heads, float scale, float bias_scale,
+                   cudaStream_t stream) {
   const dim3 grid(batch, (t_len + BQ - 1) / BQ, heads);
   if (dtype == 0) {
     const int smem = (int)mma_smem_bytes<D>();
+    auto kernel = bias_attention_mma<D, BiasT, kLse>;
     cudaError_t err = cudaFuncSetAttribute(
-        bias_attention_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    bias_attention_mma<D><<<grid, NTHREADS, smem, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
-        static_cast<bf16*>(out), t_len, heads, scale);
+    kernel<<<grid, NTHREADS, smem, stream>>>(
+        static_cast<const bf16*>(qkv), static_cast<const BiasT*>(bias),
+        static_cast<bf16*>(out), lse, t_len, heads, scale, bias_scale);
   } else {
     const int smem = (int)SimtLayout<D>::bytes;
+    auto kernel = bias_attention_simt<D, kLse>;
     cudaError_t err = cudaFuncSetAttribute(
-        bias_attention_simt<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    bias_attention_simt<D><<<grid, NTHREADS, smem, stream>>>(
+    kernel<<<grid, NTHREADS, smem, stream>>>(
         static_cast<const float*>(qkv), static_cast<const float*>(bias),
-        static_cast<float*>(out), t_len, heads, scale);
+        static_cast<float*>(out), lse, t_len, heads, scale, bias_scale);
   }
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// dtype: 0 = bfloat16, 1 = float32.  qkv (B, T, 3 * H * D), bias (H, T, T)
-// and out (B, T, H * D) are contiguous, 16-byte aligned and of that type;
-// scale = sm_scale * log2(e); bias is in the log2 domain.  Returns the CUDA
-// error code of the launch (0 on success).
-extern "C" int bias_attention_fwd(const void* qkv, const void* bias, void* out,
-                                  int batch, int t_len, int heads, int head_dim,
-                                  float scale, int dtype, void* stream) {
+template <typename BiasT, bool kLse>
+int dispatch(int head_dim, int dtype, const void* qkv, const void* bias, void* out,
+             float* lse, int batch, int t_len, int heads, float scale, float bias_scale,
+             void* stream) {
   if (batch <= 0 || t_len <= 0 || heads <= 0 || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DTTS_CASE(DIM)                                                          \
+  case DIM:                                                                     \
+    return (int)launch<DIM, BiasT, kLse>(dtype, qkv, bias, out, lse, batch,   \
+                                         t_len, heads, scale, bias_scale, s);
   switch (head_dim) {
-    case 16: return (int)launch<16>(dtype, qkv, bias, out, batch, t_len, heads, scale, s);
-    case 32: return (int)launch<32>(dtype, qkv, bias, out, batch, t_len, heads, scale, s);
-    case 48: return (int)launch<48>(dtype, qkv, bias, out, batch, t_len, heads, scale, s);
-    case 64: return (int)launch<64>(dtype, qkv, bias, out, batch, t_len, heads, scale, s);
-    case 80: return (int)launch<80>(dtype, qkv, bias, out, batch, t_len, heads, scale, s);
-    case 96: return (int)launch<96>(dtype, qkv, bias, out, batch, t_len, heads, scale, s);
-    case 112: return (int)launch<112>(dtype, qkv, bias, out, batch, t_len, heads, scale, s);
-    case 128: return (int)launch<128>(dtype, qkv, bias, out, batch, t_len, heads, scale, s);
+    DTTS_CASE(16) DTTS_CASE(32) DTTS_CASE(48) DTTS_CASE(64)
+    DTTS_CASE(80) DTTS_CASE(96) DTTS_CASE(112) DTTS_CASE(128)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef DTTS_CASE
+}
+
+}  // namespace
+
+// Serving forward.  dtype: 0 = bfloat16, 1 = float32.  qkv (B, T, 3 * H * D),
+// bias (H, T, T) and out (B, T, H * D) are contiguous, 16-byte aligned and of
+// that type; scale = sm_scale * log2(e); bias is in the log2 domain.
+// Returns the CUDA error code of the launch (0 on success).
+extern "C" int bias_attention_fwd(const void* qkv, const void* bias, void* out,
+                                  int batch, int t_len, int heads, int head_dim,
+                                  float scale, int dtype, void* stream) {
+  if (dtype == 0) {
+    return dispatch<bf16, false>(head_dim, dtype, qkv, bias, out, nullptr, batch,
+                                 t_len, heads, scale, 1.f, stream);
+  }
+  return dispatch<float, false>(head_dim, dtype, qkv, bias, out, nullptr, batch, t_len,
+                                heads, scale, 1.f, stream);
+}
+
+// Training forward: as above, but the bias is float32 in the natural domain
+// (scaled by bias_scale = log2(e) inside) and the row statistic
+// lse = m + log2(l), float32 (B, H, T), is written beside the output.
+extern "C" int bias_attention_train_fwd(const void* qkv, const void* bias, void* out,
+                                        void* lse, int batch, int t_len, int heads,
+                                        int head_dim, float scale, float bias_scale,
+                                        int dtype, void* stream) {
+  return dispatch<float, true>(head_dim, dtype, qkv, bias, out, static_cast<float*>(lse),
+                               batch, t_len, heads, scale, bias_scale, stream);
 }
 
 extern "C" const char* bias_attention_error_string(int code) {

@@ -8,7 +8,8 @@ no JAX leaf raises); JAX leaves of modules the port does not have yet are
 returned as a list.  A (g, v) weight-norm tree is folded first.
 
 ``random_weights_`` fills a module in place from a seeded generator: norm
-scales near 1, weights ~ N(0, 1/fan_in), small biases.
+scales near 1, weights ~ N(0, 1/fan_in), small biases, VQ codebooks
+(``embed`` buffers) ~ N(0, 1).
 """
 from __future__ import annotations
 
@@ -20,9 +21,9 @@ import torch.nn as nn
 
 from detail_tts_tpu_torch.io.torch_convert import translate
 
-# JAX leaves with no counterpart in the port yet (VQ, posterior encoder,
-# the GPT's training text head)
-UNPORTED = ("params/quantizer/", "vq_state/", "params/enc_q/", "params/vq_",
+# JAX leaves with no counterpart in the port yet (VQ decoder and reference
+# encoder, posterior encoder, the GPT's training text head)
+UNPORTED = ("params/vq_dec_", "params/vq_ref_enc/", "params/enc_q/",
             "params/gpt/text_head/")
 
 
@@ -85,7 +86,7 @@ def _fan_in(module: nn.Module, weight: torch.Tensor) -> int:
 
 @torch.no_grad()
 def random_weights_(model: nn.Module, seed: int) -> nn.Module:
-    """Fill every parameter of ``model`` in place from ``seed``."""
+    """Fill every parameter and VQ codebook of ``model`` in place from ``seed``."""
     gen = None
     for mod_name, module in model.named_modules():
         for name, p in module.named_parameters(recurse=False):
@@ -103,4 +104,7 @@ def random_weights_(model: nn.Module, seed: int) -> nn.Module:
                 p.copy_(noise / _fan_in(module, p) ** 0.5)
             else:  # free tables: unconditioned embedding, rel-pos key/value
                 p.copy_(noise / p.shape[-1] ** 0.5)
+        for name, buf in module.named_buffers(recurse=False):
+            if name == "embed":
+                buf.copy_(torch.randn(buf.shape, generator=gen, device=buf.device))
     return model

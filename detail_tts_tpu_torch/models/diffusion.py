@@ -1,11 +1,14 @@
-"""Gaussian diffusion schedule and the ancestral sampler (utils/diffusion.py).
+"""Gaussian diffusion schedule, training loss and the ancestral sampler
+(utils/diffusion.py).
 
-Counterpart of ``detail_tts_tpu/models/diffusion.py`` (schedule and
-``p_sample_loop``): linear betas over 4000 training steps, spaced to the
-inference count, epsilon prediction with a learned-range variance, ancestral
-sampling with a ramped classifier-free guidance weight ``k * (1 - i / n)``
-and the x0 clamp to [-1, 1].  The schedule is built in fp64 numpy and kept
-as fp32 tensors; all sampler math is fp32.
+Counterpart of ``detail_tts_tpu/models/diffusion.py`` (schedule,
+``q_sample``/``q_posterior``, ``training_losses`` and ``p_sample_loop``):
+linear betas over 4000 training steps, spaced to the training or inference
+count, epsilon prediction with a learned-range variance, the MSE + VB loss
+with the VB term's mean frozen, and ancestral sampling with a ramped
+classifier-free guidance weight ``k * (1 - i / n)`` and the x0 clamp to
+[-1, 1].  The schedule is built in fp64 numpy and kept as fp32 tensors; all
+loss and sampler math is fp32.
 """
 from __future__ import annotations
 
@@ -56,6 +59,9 @@ class DiffusionSchedule:
     """(Spaced) schedule constants as fp32 tensors on one device."""
 
     betas: torch.Tensor
+    alphas_cumprod_prev: torch.Tensor
+    sqrt_alphas_cumprod: torch.Tensor
+    sqrt_one_minus_alphas_cumprod: torch.Tensor
     sqrt_recip_alphas_cumprod: torch.Tensor
     sqrt_recipm1_alphas_cumprod: torch.Tensor
     posterior_log_variance_clipped: torch.Tensor
@@ -91,6 +97,9 @@ class DiffusionSchedule:
 
         return DiffusionSchedule(
             betas=f32(betas),
+            alphas_cumprod_prev=f32(acp_prev),
+            sqrt_alphas_cumprod=f32(np.sqrt(acp)),
+            sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1 - acp)),
             sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / acp)),
             sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / acp - 1)),
             posterior_log_variance_clipped=f32(np.log(np.append(post_var[1], post_var[1:]))),
@@ -100,17 +109,90 @@ class DiffusionSchedule:
             timestep_map=torch.as_tensor(timestep_map, device=device),
             num_timesteps=len(betas))
 
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """x_t at spaced steps t (B,) from x_start and standard-normal noise."""
+        nd = x_start.dim()
+        return (_extract(self.sqrt_alphas_cumprod, t, nd) * x_start
+                + _extract(self.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
+
+    def q_posterior(self, x_start: torch.Tensor, x_t: torch.Tensor, t):
+        """Mean and clipped log-variance of q(x_{t-1} | x_t, x_0)."""
+        nd = x_t.dim()
+        mean = (_extract(self.posterior_mean_coef1, t, nd) * x_start
+                + _extract(self.posterior_mean_coef2, t, nd) * x_t)
+        return mean, _extract(self.posterior_log_variance_clipped, t, nd)
+
     def p_mean_variance(self, eps: torch.Tensor, var_logits: torch.Tensor,
-                        x: torch.Tensor, i: int):
-        """Posterior mean and log-variance at spaced step ``i`` from the model's
-        epsilon and learned-range variance logits (fp32)."""
-        min_log = self.posterior_log_variance_clipped[i]
+                        x: torch.Tensor, i):
+        """Posterior mean and log-variance at spaced step ``i`` (an int, or
+        (B,) steps) from the model's epsilon and learned-range variance
+        logits (fp32)."""
+        nd = x.dim()
+        min_log = _extract(self.posterior_log_variance_clipped, i, nd)
         frac = (var_logits + 1) / 2
-        logvar = frac * self.log_betas[i] + (1 - frac) * min_log
-        pred_x0 = (self.sqrt_recip_alphas_cumprod[i] * x
-                   - self.sqrt_recipm1_alphas_cumprod[i] * eps).clamp(-1, 1)
-        mean = self.posterior_mean_coef1[i] * pred_x0 + self.posterior_mean_coef2[i] * x
+        logvar = frac * _extract(self.log_betas, i, nd) + (1 - frac) * min_log
+        pred_x0 = (_extract(self.sqrt_recip_alphas_cumprod, i, nd) * x
+                   - _extract(self.sqrt_recipm1_alphas_cumprod, i, nd) * eps).clamp(-1, 1)
+        mean, _ = self.q_posterior(pred_x0, x, i)
         return mean, logvar
+
+
+def _extract(arr: torch.Tensor, t, ndim: int) -> torch.Tensor:
+    """Per-step coefficients: a scalar for an int step, (B, 1, ...) for (B,)."""
+    out = arr[t]
+    return out.reshape(out.shape + (1,) * (ndim - 1)) if out.dim() else out
+
+
+# ---------------------------------------------------------------------------
+# Training loss (diffusion.py:930-1014)
+# ---------------------------------------------------------------------------
+
+
+def _normal_kl(mean1, logvar1, mean2, logvar2):
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + (mean1 - mean2) ** 2 * torch.exp(-logvar2))
+
+
+def _approx_std_normal_cdf(x):
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
+
+
+def _discretized_gaussian_ll(x, means, log_scales):
+    centered = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = _approx_std_normal_cdf(inv_stdv * (centered + 1.0 / 255.0))
+    cdf_min = _approx_std_normal_cdf(inv_stdv * (centered - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    cdf_delta = cdf_plus - cdf_min
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus,
+                                   torch.log(cdf_delta.clamp(min=1e-12))))
+
+
+def _mean_flat(x):
+    return x.mean(dim=tuple(range(1, x.dim())))
+
+
+def training_losses(schedule: DiffusionSchedule, eps_pred: torch.Tensor,
+                    var_logits: torch.Tensor, x_start: torch.Tensor,
+                    x_t: torch.Tensor, t: torch.Tensor,
+                    noise: torch.Tensor) -> torch.Tensor:
+    """MSE(eps) + VB (learned range, frozen mean), per batch row, fp32.
+
+    ``eps_pred``/``var_logits`` come from one model call on (x_t, t); the VB
+    term sees eps through ``detach`` (the reference's frozen mean)."""
+    x_start, x_t = x_start.float(), x_t.float()
+    eps_pred, var_logits = eps_pred.float(), var_logits.float()
+    mean, logvar = schedule.p_mean_variance(eps_pred.detach(), var_logits, x_t, t)
+    true_mean, true_logvar = schedule.q_posterior(x_start, x_t, t)
+    kl = _mean_flat(_normal_kl(true_mean, true_logvar, mean, logvar)) / math.log(2.0)
+    decoder_nll = -_mean_flat(
+        _discretized_gaussian_ll(x_start, mean, 0.5 * logvar)) / math.log(2.0)
+    vb = torch.where(t == 0, decoder_nll, kl)
+    mse = _mean_flat((noise - eps_pred) ** 2)
+    return mse + vb
 
 
 # model_fn(x (2B, ...), t_original (2B,)) -> (eps, var_logits), rows [cond | uncond]

@@ -1,15 +1,18 @@
-"""Diffusion refiner network (``DiffusionTts``, diff_model.py:133-322), serving subset.
+"""Diffusion refiner network (``DiffusionTts``, diff_model.py:133-322).
 
 Counterpart of ``detail_tts_tpu/models/diffusion_model.py``: GPT latents
 (B, T_code, in_latent) -> epsilon/variance over a 128-bin normalised mel at
-4x the code rate.  ``cfg_call`` runs classifier-free guidance as one call on
-2B rows [cond | uncond]: the unconditioned branch's code embedding is one
-learned vector, so its conditioning-integrator output is the same for every
-row and is computed once (B + 1 integrator rows instead of 2B).
+4x the code rate.  ``cfg_call`` (serving) runs classifier-free guidance as
+one call on 2B rows [cond | uncond]: the unconditioned branch's code
+embedding is one learned vector, so its conditioning-integrator output is
+the same for every row and is computed once (B + 1 integrator rows instead
+of 2B).  ``forward`` is the training call: whole batch rows may be switched
+to the unconditioned embedding (``timestep_independent``'s mask), and trunk
+layers other than the first and last are layer-dropped by ``keep`` flags.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -40,11 +43,11 @@ class DiffusionTts(nn.Module):
         # torch layout (1, mc, 1), as the reference stores it
         self.unconditioned_embedding = nn.Parameter(torch.randn(1, mc, 1))
         self.conditioning_timestep_integrator = nn.ModuleList(
-            [DiffusionLayer(mc, c.num_heads) for _ in range(3)])
+            [DiffusionLayer(mc, c.num_heads, c.dropout) for _ in range(3)])
         self.integrating_conv = Conv1d(2 * mc, mc, 1)
         self.layers = nn.ModuleList(
-            [DiffusionLayer(mc, c.num_heads) for _ in range(c.num_layers)]
-            + [DiffResBlock(mc, mc) for _ in range(3)])
+            [DiffusionLayer(mc, c.num_heads, c.dropout) for _ in range(c.num_layers)]
+            + [DiffResBlock(mc, mc, dropout=c.dropout) for _ in range(3)])
         self.out = nn.Sequential(GroupNorm32(mc), nn.SiLU(),
                                  Conv1d(mc, c.out_channels, 3, padding=1))
 
@@ -57,13 +60,21 @@ class DiffusionTts(nn.Module):
 
     def timestep_independent(self, aligned_latent: torch.Tensor,
                              conditioning_latent: torch.Tensor,
-                             expected_seq_len: int) -> torch.Tensor:
-        """(B, T_code, in_latent) -> code embedding (B, expected_seq_len, mc)."""
+                             expected_seq_len: int,
+                             unconditioned_mask: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+        """(B, T_code, in_latent) -> code embedding (B, expected_seq_len, mc).
+
+        ``unconditioned_mask``: optional (B,) bool; those rows take the
+        learned unconditioned embedding (classifier-free dropout)."""
         cond_scale, cond_shift = conditioning_latent.chunk(2, dim=-1)
         h = aligned_latent
         for blk in self.latent_conditioner:
             h = blk(h)
         h = self.code_norm(h) * (1 + cond_scale[:, None, :]) + cond_shift[:, None, :]
+        if unconditioned_mask is not None:
+            uncond = self.unconditioned_embedding.permute(0, 2, 1).to(h.dtype)
+            h = torch.where(unconditioned_mask[:, None, None], uncond, h)
         # nearest-neighbour upsample to the mel frame rate
         reps = expected_seq_len // h.shape[1] if h.shape[1] else 4
         return h.repeat_interleave(reps, dim=1)[:, :expected_seq_len]
@@ -71,6 +82,26 @@ class DiffusionTts(nn.Module):
     def _time_emb(self, timesteps: torch.Tensor, dtype) -> torch.Tensor:
         temb = timestep_embedding(timesteps, self.cfg.model_channels).to(dtype)
         return self.time_embed(temb)
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                code_emb: torch.Tensor,
+                keep: Optional[Sequence[bool]] = None) -> torch.Tensor:
+        """Training call (diff_model.py:262-322): noisy mel x (B, T,
+        in_channels), timesteps (B,), the timestep-independent ``code_emb``
+        (B, T, mc) -> (B, T, out_channels) = [epsilon | variance logits].
+
+        ``keep``: one flag per entry of ``layers``; a False layer is skipped
+        (layer drop), so its parameters get no gradient."""
+        temb = self._time_emb(timesteps, x.dtype)
+        code_emb = code_emb.to(x.dtype)
+        for blk in self.conditioning_timestep_integrator:
+            code_emb = blk(code_emb, temb)
+        h = self.integrating_conv(torch.cat([self.inp_block(x), code_emb], dim=-1))
+        for i, lyr in enumerate(self.layers):
+            if keep is None or keep[i]:
+                h = lyr(h, temb)
+        h = F.silu(self.out[0](h.float()))  # fp32 tail
+        return self.out[2](h)
 
     def cfg_call(self, x: torch.Tensor, timesteps: torch.Tensor,
                  code_emb_cond: torch.Tensor,

@@ -1,29 +1,75 @@
-"""``SynthesizerTrn`` serving subset (vqvae/model_24k.py:510-881), NTC.
+"""``SynthesizerTrn`` (vqvae/model_24k.py:510-881), NTC: serving and the
+diffusion training stage.
 
 Counterpart of ``detail_tts_tpu/models/synthesizer.py`` for zero-shot
-synthesis: the GPT, the diffusion refiner and the flow-VAE + HiFi-GAN
-decoder path.  Waveforms are (B, T, 1).  The quantizer, VQ encoder/decoder
-and posterior encoder (training and VQ paths) are not ported yet.
+synthesis (the GPT, the diffusion refiner and the flow-VAE + HiFi-GAN
+decoder path) and for target ``diff``'s loss, ``forward_diff``: frozen VQ
+codes (``vq_enc`` + the quantizer's encode) and GPT latents, then the
+diffusion MSE + VB loss at random timesteps.  Waveforms are (B, T, 1).  The
+VQ decoder and reference encoder, the posterior encoder and the GPT's text
+head (the other training targets) are not ported yet.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
-from detail_tts_tpu_torch.audio.mel import FRAMES_PER_CODE
+from detail_tts_tpu_torch.audio.mel import FRAMES_PER_CODE, normalize_mel
 from detail_tts_tpu_torch.config import Config
 from detail_tts_tpu_torch.models.diffusion import (DiffusionSchedule,
                                                    get_named_beta_schedule,
-                                                   space_timesteps)
+                                                   space_timesteps,
+                                                   training_losses)
 from detail_tts_tpu_torch.models.diffusion_model import DiffusionTts
 from detail_tts_tpu_torch.models.flowvae import SpecEncoder
 from detail_tts_tpu_torch.models.gpt import UnifiedVoice
+from detail_tts_tpu_torch.models.quantizer import ResidualVectorQuantizer
 from detail_tts_tpu_torch.models.vocoder import HiFiGANGenerator
-from detail_tts_tpu_torch.nn.common import Conv1d, sequence_mask
+from detail_tts_tpu_torch.nn.common import Conv1d, TorchLayerNorm, sequence_mask
 from detail_tts_tpu_torch.nn.coupling import ResidualCouplingBlock
 from detail_tts_tpu_torch.nn.style_encoder import MelStyleEncoder
+
+
+def make_train_schedule(cfg: Config, device="cpu") -> DiffusionSchedule:
+    """train_sample_steps-of-trained_steps spaced training diffuser
+    (model_24k.py:578-580)."""
+    d = cfg.diffusion
+    return DiffusionSchedule.create(
+        get_named_beta_schedule("linear", d.trained_steps),
+        space_timesteps(d.trained_steps, [d.train_sample_steps]), device=device)
+
+
+class DiffDraws(NamedTuple):
+    """The random draws of one ``forward_diff`` call."""
+
+    t: torch.Tensor        # (B,) spaced timesteps
+    noise: torch.Tensor    # x_start's shape, standard normal
+    uncond: torch.Tensor   # (B,) bool: rows switched to the unconditioned embedding
+    keep: Tuple[bool, ...]  # one flag per diffusion layer (layer drop)
+
+
+def draw_diff(cfg: Config, schedule: DiffusionSchedule, shape, generator,
+              device, train: bool = True) -> DiffDraws:
+    """Draw t, noise, the unconditioned mask and the layer-drop keep flags
+    from ``generator``, in that order.  Layers other than the first and last
+    are dropped with probability ``layer_drop`` when ``train``; the flags
+    come to the host (one synchronisation) because they choose the layers
+    that run."""
+    d = cfg.diffusion
+    b = shape[0]
+    t = torch.randint(0, schedule.num_timesteps, (b,), generator=generator,
+                      device=device)
+    noise = torch.randn(shape, generator=generator, device=device)
+    uncond = torch.rand(b, generator=generator, device=device) < d.unconditioned_percentage
+    n_layers = d.num_layers + 3
+    keep = [True] * n_layers
+    if train and d.layer_drop > 0:
+        draws = (torch.rand(n_layers, generator=generator, device=device)
+                 < 1.0 - d.layer_drop).tolist()
+        keep = [True] + draws[1:-1] + [True]
+    return DiffDraws(t, noise, uncond, tuple(keep))
 
 
 def make_infer_schedule(cfg: Config, device="cpu") -> DiffusionSchedule:
@@ -54,6 +100,59 @@ class SynthesizerTrn(nn.Module):
         self.ref_enc = MelStyleEncoder(d.n_mel_channels,
                                        style_vector_dim=v.gin_channels)
         self.gpt = UnifiedVoice(cfg.gpt)
+        self.quantizer = ResidualVectorQuantizer(
+            inter * 4, n_q=v.vq_n_q, bins=v.vq_bins, codebook_dim=v.vq_codebook_dim)
+        # vq_enc (model_24k.py:606-615): the reference's transposes at 0 and 2
+        # are identities on NTC tensors
+        mel_ch = d.n_mel_channels
+        self.vq_enc = nn.Sequential(
+            nn.Identity(), TorchLayerNorm(mel_ch), nn.Identity(),
+            Conv1d(mel_ch, inter * 2, 3, stride=2, padding=1), nn.SiLU(),
+            Conv1d(inter * 2, inter * 4, 3, stride=2, padding=1), nn.SiLU(),
+            Conv1d(inter * 4, inter * 4, 3, padding=1))
+
+    # ------------------------------------------------------------------- VQ
+
+    def vq_encode_features(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel (B, T, n_mels) -> (B, T // 4, 4 * inter_channels)."""
+        return self.vq_enc(mel)
+
+    @torch.no_grad()
+    def encode(self, mel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Frozen code extraction (model_24k.py:877-880): (codes (B, T // 4),
+        features)."""
+        x = self.vq_encode_features(mel)
+        return self.quantizer.encode(x)[0], x
+
+    @torch.no_grad()
+    def gpt_latents(self, data: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Frozen aligned GPT latents for diffusion training
+        (model_24k.py:674-679): (B, T_code, model_dim)."""
+        codes, _ = self.encode(data["raw_mel"])
+        return self.gpt(data["raw_mel"], data["raw_spec_length"], data["text"],
+                        codes, data["raw_wav_length"])
+
+    # ------------------------------------------------------------ diffusion
+
+    def forward_diff(self, data: Dict[str, torch.Tensor],
+                     schedule: DiffusionSchedule, draws: DiffDraws,
+                     latents: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Diffusion stage (model_24k.py:667-696): the scalar loss.
+
+        ``draws`` holds the call's random draws (:func:`draw_diff`);
+        ``latents`` the frozen GPT latents if already computed."""
+        x_start = normalize_mel(data["raw_mel"])
+        x_t = schedule.q_sample(x_start, draws.t, draws.noise)
+        if latents is None:
+            latents = self.gpt_latents(data)
+        cond_latent = self.diffusion.get_conditioning(data["mel"])
+        code_emb = self.diffusion.timestep_independent(
+            latents, cond_latent, x_start.shape[1], unconditioned_mask=draws.uncond)
+        out = self.diffusion(x_t, schedule.timestep_map[draws.t], code_emb,
+                             keep=draws.keep)
+        eps, var_logits = out.chunk(2, dim=-1)
+        return training_losses(schedule, eps, var_logits, x_start, x_t, draws.t,
+                               draws.noise).mean()
 
     def infer_flowvae(self, mel: torch.Tensor, lengths: torch.Tensor,
                       noise_scale: float = 0.667,

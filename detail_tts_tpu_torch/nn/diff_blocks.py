@@ -3,14 +3,19 @@
 Counterpart of ``detail_tts_tpu/nn/diff_blocks.py``:
 
 * :class:`T5RelativePositionBias` - bucketed relative attention bias;
-* :class:`AttentionBlock` - GroupNorm32 -> qkv 1x1 -> bias attention through
-  ``ops.attention.bias_attention`` (the CUDA kernel on the card) -> proj_out,
-  residual;
-* :class:`DiffResBlock` - scale-shift GroupNorm FiLM residual block;
+* :class:`AttentionBlock` - GroupNorm32 -> qkv 1x1 -> bias attention -> proj_out,
+  residual.  Two routes with the same math: serving (no gradient) through
+  ``ops.attention.bias_attention``, and training through
+  ``ops.attention.bias_attention_train`` (the trainable kernels on the card),
+  taken when grad mode is on, the block computes its own T5 bias and a
+  parameter requires grad;
+* :class:`DiffResBlock` - scale-shift GroupNorm FiLM residual block with
+  dropout (``DiffusionConfig.dropout``, active in ``train()`` mode only);
 * :class:`DiffusionLayer` - DiffResBlock + AttentionBlock.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -19,7 +24,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from detail_tts_tpu_torch.nn.common import Conv1d, Dense, GroupNorm32
-from detail_tts_tpu_torch.ops.attention import LOG2E, bias_attention
+from detail_tts_tpu_torch.ops.attention import (LOG2E, bias_attention,
+                                                bias_attention_train)
 
 
 def relative_position_bucket(relative_position: torch.Tensor,
@@ -39,6 +45,38 @@ def relative_position_bucket(relative_position: torch.Tensor,
     return ret + torch.where(is_small, n, val_if_large)
 
 
+@functools.lru_cache(maxsize=4)
+def _bucket_onehot(length: int, num_buckets: int, max_distance: int,
+                   device: torch.device) -> torch.Tensor:
+    """(L*L, NB) fp32 one-hot of the buckets at one length, built once."""
+    pos = torch.arange(length, device=device)
+    buckets = relative_position_bucket(pos[None, :] - pos[:, None],
+                                       num_buckets, max_distance)
+    return F.one_hot(buckets.reshape(-1), num_buckets).float()
+
+
+class _BucketGather(torch.autograd.Function):
+    """table (NB, H) gathered at buckets (L, L) -> (H, L, L).
+
+    The backward sums the (H, L, L) gradient into the NB buckets with one
+    product by the buckets' one-hot matrix, built once per length:
+    deterministic, and on the card faster than the gather's own backward
+    (an index_put that at L = 496 repeats each of 32 indices ~7,700 times
+    and serialises on them) and than ``nn.Embedding``'s sort-based one."""
+
+    @staticmethod
+    def forward(ctx, table, buckets, max_distance):
+        ctx.key = (buckets.shape[0], table.shape[0], max_distance, buckets.device)
+        return table.t()[:, buckets]
+
+    @staticmethod
+    def backward(ctx, grad):
+        onehot = _bucket_onehot(*ctx.key)
+        with torch.autocast(grad.device.type, enabled=False):
+            dtable = grad.float().reshape(grad.shape[0], -1) @ onehot
+        return dtable.t().contiguous(), None, None
+
+
 class T5RelativePositionBias(nn.Module):
     def __init__(self, scale: float, heads: int, num_buckets: int = 32,
                  max_distance: int = 64):
@@ -53,7 +91,7 @@ class T5RelativePositionBias(nn.Module):
         buckets = relative_position_bucket(pos[None, :] - pos[:, None],
                                            self.num_buckets, self.max_distance)
         table = self.relative_attention_bias.weight.float()
-        return table.t()[:, buckets] * self.scale
+        return _BucketGather.apply(table, buckets, self.max_distance) * self.scale
 
 
 class AttentionBlock(nn.Module):
@@ -80,15 +118,25 @@ class AttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (B, T, C); ``bias``: a precomputed LOG2-domain (H, T, T) bias,
-        else it is computed here from the T5 table."""
+        """x (B, T, C); ``bias``: a precomputed LOG2-domain (H, T, T) bias
+        (serving), else it is computed here from the T5 table.
+
+        Under autograd the natural-domain fp32 bias goes into the trainable
+        function, so its gradient reaches ``relative_attention_bias``
+        through the gather's backward."""
         t = x.shape[1]
-        if bias is None:
-            bias = self.bias_log2(t)
         qkv = self.qkv(self.norm(x))
-        a = bias_attention(qkv, bias.to(qkv.dtype), heads=self.num_heads,
-                           sm_scale=1.0 / math.sqrt(self.channels // self.num_heads),
-                           bias_log2=True)
+        sm_scale = 1.0 / math.sqrt(self.channels // self.num_heads)
+        if bias is None and torch.is_grad_enabled() and (
+                qkv.requires_grad
+                or self.relative_pos_embeddings.relative_attention_bias.weight.requires_grad):
+            a = bias_attention_train(qkv, self.relative_pos_embeddings(t),
+                                     heads=self.num_heads, sm_scale=sm_scale)
+        else:
+            if bias is None:
+                bias = self.bias_log2(t)
+            a = bias_attention(qkv, bias.to(qkv.dtype), heads=self.num_heads,
+                               sm_scale=sm_scale, bias_log2=True)
         return x + self.proj_out(a)
 
 
@@ -99,30 +147,31 @@ class DiffResBlock(nn.Module):
     [SiLU, Linear], out_layers = [norm, SiLU, dropout, k-conv].
     """
 
-    def __init__(self, channels: int, emb_channels: int, kernel_size: int = 3):
+    def __init__(self, channels: int, emb_channels: int, kernel_size: int = 3,
+                 dropout: float = 0.0):
         super().__init__()
         pad = {1: 0, 3: 1, 5: 2}[kernel_size]
         self.in_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(),
                                        Conv1d(channels, channels, 1))
         self.emb_layers = nn.Sequential(nn.SiLU(), Dense(emb_channels, 2 * channels))
         self.out_layers = nn.Sequential(
-            GroupNorm32(channels), nn.SiLU(), nn.Identity(),
+            GroupNorm32(channels), nn.SiLU(), nn.Dropout(dropout),
             Conv1d(channels, channels, kernel_size, padding=pad))
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         h = self.in_layers(x)
         scale, shift = self.emb_layers(emb)[:, None, :].chunk(2, dim=-1)
         h = self.out_layers[0](h) * (1 + scale) + shift
-        h = self.out_layers[3](F.silu(h))
+        h = self.out_layers[3](self.out_layers[2](F.silu(h)))
         return x + h
 
 
 class DiffusionLayer(nn.Module):
     """ResBlock + rel-pos AttentionBlock (diff_model.py:122-130)."""
 
-    def __init__(self, model_channels: int, num_heads: int):
+    def __init__(self, model_channels: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
-        self.resblk = DiffResBlock(model_channels, model_channels)
+        self.resblk = DiffResBlock(model_channels, model_channels, dropout=dropout)
         self.attn = AttentionBlock(model_channels, num_heads)
 
     def forward(self, x, time_emb, attn_bias=None):

@@ -1,15 +1,26 @@
-"""Where the time of one zero-shot request goes in the PyTorch port, on one GPU.
+"""Where the time of one zero-shot request, or one training step, goes in the
+PyTorch port, on one GPU.
 
     python3 profile_port.py [--batch 2] [--codes 200]
+    python3 profile_port.py --train
 
-Builds the full-width engine with seeded random weights, as chip_smoke.py
-does, and answers one warm-up request.  Then it answers the same request
-twice: once untraced, for each stage's wall time (``timings``), and once
-under ``torch.profiler``, for the device time inside each stage (the union
-of the device's kernel and copy intervals; the profiler slows the host, not
-the kernels).  It prints each stage's wall time, device busy time and idle
-share (1 - busy / wall), then the kernels with the most device time.  The
-last line is one JSON object with the same numbers.  Needs a CUDA device.
+Serving: builds the full-width engine with seeded random weights, as
+chip_smoke.py does, and answers one warm-up request.  Then it answers the
+same request twice: once untraced, for each stage's wall time
+(``timings``), and once under ``torch.profiler``, for the device time inside
+each stage (the union of the device's kernel and copy intervals; the
+profiler slows the host, not the kernels).
+
+``--train``: the same for one step of target ``diff`` at full width
+(``Config()`` as shipped: micro-batch 8 x 496 frames x accum 16, seeded
+synthetic batches) after a warm-up step, split into the step's ranges
+``latents`` (VQ codes and GPT latents), ``forward``, ``backward`` and
+``optimizer``, each summed over the micro-batches.
+
+Each prints each stage's wall time, device busy time and idle share
+(1 - busy / wall), the device launches, then the kernels with the most
+device time.  The last line is one JSON object with the same numbers.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 STAGES = ("prepare", "generate", "diff_cond", "latents", "diffuse", "vocode", "host")
+TRAIN_STAGES = ("latents", "forward", "backward", "optimizer")
 
 
 def union_us(spans):
@@ -42,16 +54,101 @@ def union_us(spans):
     return total + (cur[1] - cur[0] if cur else 0.0)
 
 
+def split_by_stage(prof, stages, wall):
+    """Device busy time inside each stage's host ranges (a stage may recur:
+    its ranges are summed), beside the stage's wall time from ``wall``
+    (seconds).  Returns (rows, device events)."""
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation and e.name not in stages]
+    spans = [(e.time_range.start, e.time_range.end) for e in device]
+    windows = {}
+    for e in events:
+        if e.name in stages and e.device_type == DeviceType.CPU:
+            windows.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+    rows = {}
+    for name in stages:
+        busy_us = 0.0
+        for ws, we in windows[name]:
+            busy_us += union_us([(max(s, ws), min(e, we)) for s, e in spans
+                                 if e > ws and s < we])
+        wall_ms = wall[name] * 1e3
+        rows[name] = dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3,
+                          idle_share=1.0 - busy_us / 1e3 / wall_ms)
+    return rows, device
+
+
+def report(rows, device, **extra):
+    """Print the stage table and the kernels with the most device time; the
+    last line is one JSON object."""
+    wall_all = sum(r["wall_ms"] for r in rows.values())
+    busy_all = sum(r["busy_ms"] for r in rows.values())
+    print(f"wall {wall_all:.1f} ms, device busy {busy_all:.1f} ms "
+          f"(idle share {1 - busy_all / wall_all:.3f})")
+    for name, r in rows.items():
+        print(f"  {name:9s} wall {r['wall_ms']:9.2f} ms  busy {r['busy_ms']:9.2f} ms"
+              f"  idle {r['idle_share']:.3f}")
+    per_kernel = {}
+    for e in device:
+        n, ms = per_kernel.get(e.name, (0, 0.0))
+        per_kernel[e.name] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:12]
+    print(f"device launches {sum(n for n, _ in per_kernel.values())}; "
+          "top device time (ms, launches, name):")
+    for name, (n, ms) in top:
+        print(f"  {ms:9.2f} {n:7d}  {name[:100]}")
+    print(json.dumps(dict(
+        device=torch.cuda.get_device_name(0), **extra, wall_ms=wall_all,
+        busy_ms=busy_all, stages=rows, launches=sum(n for n, _ in per_kernel.values()),
+        top_kernels=[dict(name=k[:100], launches=n, ms=ms) for k, (n, ms) in top])))
+
+
+def profile_train():
+    """One traced diff training step at full width, split by stage."""
+    import dataclasses
+
+    from detail_tts_tpu_torch.config import Config
+    from detail_tts_tpu_torch.ops import attention
+    from detail_tts_tpu_torch.train.step import synthetic_batches
+    from detail_tts_tpu_torch.train.trainer import Trainer
+
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, target="diff"))
+    accum, micro, frames = cfg.train.gradient_accumulate_every, cfg.train.batch_size, 496
+    data = synthetic_batches(cfg, accum, micro, frames, 64, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(1))
+    trainer = Trainer(cfg, data, device="cuda", seed=0)
+    trainer.train(max_steps=1)  # warm-up: builds the kernels
+    wall = {}
+    trainer.step_fn(trainer.state, next(data), trainer.generator, timings=wall)
+    before = dict(attention.TRAIN_LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        metrics = trainer.step_fn(trainer.state, next(data), trainer.generator,
+                                  timings={})
+    kernels = {k: v - before[k] for k, v in attention.TRAIN_LAUNCHES.items()}
+    rows, device = split_by_stage(prof, TRAIN_STAGES, wall)
+    print(f"diff training step: micro-batch {micro} x {frames} frames x accum {accum}, "
+          f"loss {float(metrics['loss']):.6f}; training-kernel launches {kernels}")
+    report(rows, device, target="diff", micro_batch=micro, frames=frames, accum=accum,
+           mel_frames_per_s=accum * micro * frames / sum(wall.values()),
+           kernel_launches=kernels)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--codes", type=int, default=200)
+    ap.add_argument("--train", action="store_true",
+                    help="profile one diff training step instead of a request")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_port.py needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0], flush=True)
+    if args.train:
+        profile_train()
+        return
 
     from detail_tts_tpu_torch.config import Config
     from detail_tts_tpu_torch.serving.pipeline import EngineConfig, random_engine
@@ -74,45 +171,10 @@ def main():
     outs = request(wall)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         request({})  # with timings, so each stage ends in a synchronisation
-    events = prof.events()
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and not e.is_user_annotation and e.name not in STAGES]
-    spans = [(e.time_range.start, e.time_range.end) for e in device]
-    windows = {e.name: (e.time_range.start, e.time_range.end) for e in events
-               if e.name in STAGES and e.device_type == DeviceType.CPU}
-
-    rows = {}
-    for name in STAGES:
-        ws, we = windows[name]
-        busy_ms = union_us([(max(s, ws), min(e, we)) for s, e in spans
-                            if e > ws and s < we]) / 1e3
-        wall_ms = wall[name] * 1e3
-        rows[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                          idle_share=1.0 - busy_ms / wall_ms)
-    wall_all = sum(r["wall_ms"] for r in rows.values())
-    busy_all = sum(r["busy_ms"] for r in rows.values())
+    rows, device = split_by_stage(prof, STAGES, wall)
     audio_s = sum(len(o) for o in outs) / sr
-    print(f"request batch={args.batch} codes={args.codes}: {audio_s:.2f} s of audio, "
-          f"wall {wall_all:.1f} ms, device busy {busy_all:.1f} ms "
-          f"(idle share {1 - busy_all / wall_all:.3f})")
-    for name, r in rows.items():
-        print(f"  {name:9s} wall {r['wall_ms']:9.2f} ms  busy {r['busy_ms']:9.2f} ms"
-              f"  idle {r['idle_share']:.3f}")
-
-    per_kernel = {}
-    for e in device:
-        n, ms = per_kernel.get(e.name, (0, 0.0))
-        per_kernel[e.name] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:12]
-    print(f"device launches {sum(n for n, _ in per_kernel.values())}; "
-          "top device time (ms, launches, name):")
-    for name, (n, ms) in top:
-        print(f"  {ms:9.2f} {n:7d}  {name[:100]}")
-    print(json.dumps(dict(
-        device=torch.cuda.get_device_name(0), batch=args.batch, codes=args.codes,
-        audio_s=audio_s, wall_ms=wall_all, busy_ms=busy_all, stages=rows,
-        launches=sum(n for n, _ in per_kernel.values()),
-        top_kernels=[dict(name=k[:100], launches=n, ms=ms) for k, (n, ms) in top])))
+    print(f"request batch={args.batch} codes={args.codes}: {audio_s:.2f} s of audio")
+    report(rows, device, batch=args.batch, codes=args.codes, audio_s=audio_s)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,6 @@
-"""The bias-attention CUDA kernel against its plain version, on the card.
+"""The bias-attention CUDA kernels against their plain versions, on the card:
+the serving forward, and the training forward (with its row statistic) and
+the two backward kernels behind ``BiasAttentionFunction``.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip elsewhere.
 They import nothing of JAX, so on a machine without it run them with the
@@ -16,6 +18,8 @@ from detail_tts_tpu_torch.ops import attention
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # bf16: P is rounded to bf16
+# the row statistic: fp32 in both dtypes, from logits summed in another order
+LSE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
 
 
 @pytest.fixture
@@ -79,3 +83,92 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         attention.bias_attention(qkv, bias.float(), heads=4, sm_scale=1.0)
     with pytest.raises(ValueError):  # bias on another device
         attention.bias_attention(qkv, bias.cpu(), heads=4, sm_scale=1.0)
+
+
+def _train_inputs(b, t, h, d, dtype, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((b, t, 3 * h * d), generator=g, device=device).to(dtype)
+    bias = torch.randn((h, t, t), generator=g, device=device)
+    dout = torch.randn((b, t, h * d), generator=g, device=device).to(dtype)
+    return qkv, bias, dout
+
+
+def scaled_err(x, ref):
+    """max |x - ref| over max(1, max |ref|): gradients are compared relative
+    to their own size, so one tolerance holds for every shape."""
+    ref = ref.float()
+    return ((x.float() - ref).abs().max() / ref.abs().max().clamp_min(1.0)).item()
+
+
+def _check_train(qkv, bias, dout, h, d, dtype):
+    sm = 1 / math.sqrt(d)
+    before = dict(attention.TRAIN_LAUNCHES)
+    out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
+    ref_out, ref_lse = attention.bias_attention_train_reference(qkv, bias, heads=h,
+                                                                sm_scale=sm)
+    dqkv, dbias = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h,
+                                               sm_scale=sm)
+    ref_dqkv, ref_dbias = attention.bias_attention_bwd_reference(
+        qkv, bias, out, lse, dout, heads=h, sm_scale=sm)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in attention.TRAIN_LAUNCHES.items()} == {
+        "bias_attention_train_fwd": 1, "bias_attention_bwd_dq_dbias": 1,
+        "bias_attention_bwd_dkv": 1}
+    assert out.dtype == dqkv.dtype == dtype and dbias.dtype == torch.float32
+    assert (out.float() - ref_out.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL[dtype]
+    assert scaled_err(dqkv, ref_dqkv) <= TOL[dtype]
+    assert scaled_err(dbias, ref_dbias) <= TOL[dtype]
+    return out, lse, dqkv, dbias
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("b,t", [(1, 1), (3, 63), (2, 130), (2, 257)])
+def test_train_kernels_match_plain_versions(cuda, dtype, d, b, t):
+    h = 4
+    qkv, bias, dout = _train_inputs(b, t, h, d, dtype, seed=d * t + b, device=cuda)
+    _check_train(qkv, bias, dout, h, d, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [96, 97])
+def test_train_kernels_masked_rows_and_keys(cuda, dtype, t):
+    b, h, d = 2, 4, 48
+    qkv, bias, dout = _train_inputs(b, t, h, d, dtype, seed=t, device=cuda)
+    bias[1, 5, :] = -1e9       # a fully masked query row
+    bias[2, :, t - 9:] = -1e9  # masked keys in every row of head 2
+    out, lse, dqkv, dbias = _check_train(qkv, bias, dout, h, d, dtype)
+    for x in (out, lse, dqkv, dbias):
+        assert torch.isfinite(x).all()
+    assert torch.count_nonzero(out[:, 5, d:2 * d]).item() == 0
+    assert torch.count_nonzero(dqkv[:, 5, 3 * d:4 * d]).item() == 0  # dq, head 1
+    assert torch.count_nonzero(dbias[1, 5]).item() == 0
+    dk_dv = dqkv.view(b, t, h, 3, d)[:, t - 9:, 2, 1:]
+    assert torch.count_nonzero(dk_dv).item() == 0
+
+
+def test_train_backward_is_deterministic(cuda):
+    b, t, h, d = 4, 130, 4, 48
+    qkv, bias, dout = _train_inputs(b, t, h, d, torch.bfloat16, seed=11, device=cuda)
+    out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=0.2)
+    first = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h, sm_scale=0.2)
+    second = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h, sm_scale=0.2)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_autograd_function_runs_the_kernels(cuda):
+    b, t, h, d = 2, 70, 4, 32
+    qkv, bias, dout = _train_inputs(b, t, h, d, torch.float32, seed=5, device=cuda)
+    qkv.requires_grad_(True)
+    bias.requires_grad_(True)
+    out = attention.bias_attention_train(qkv, bias, heads=h, sm_scale=0.3)
+    out.backward(dout)
+    q2, b2 = qkv.detach().clone().requires_grad_(True), bias.detach().clone().requires_grad_(True)
+    ref = attention.bias_attention_train_reference(q2, b2, heads=h, sm_scale=0.3)[0]
+    ref.backward(dout)
+    assert (out - ref).abs().max().item() <= TOL[torch.float32]
+    assert scaled_err(qkv.grad, q2.grad) <= TOL[torch.float32]
+    assert scaled_err(bias.grad, b2.grad) <= TOL[torch.float32]
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.bias_attention(qkv, bias, heads=h, sm_scale=0.3)

@@ -36,15 +36,19 @@ def _leaf_name(path) -> str:
 
 def seeded_variables(template, seed: int = 0):
     """Numpy leaves for a JAX variables template: norm scales near 1, small
-    biases, kernels ~ N(0, 1/fan_in), T5 tables ~ N(0, 1)."""
+    biases, kernels ~ N(0, 1/fan_in), T5 tables and VQ codebooks ~ N(0, 1);
+    the rest of ``vq_state`` (EMA statistics, ``inited``) is 0."""
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
         name = _leaf_name(path)
         shape, dtype = leaf.shape, np.dtype(leaf.dtype)
-        if not np.issubdtype(dtype, np.floating) or name.startswith("vq_state"):
+        if not np.issubdtype(dtype, np.floating) or (
+                name.startswith("vq_state") and not name.endswith("/embed")):
             return np.zeros(shape, dtype)
         z = rng.standard_normal(shape).astype(np.float32)
+        if name.startswith("vq_state"):  # the codebook: distinct rows
+            return z
         if name.endswith("scale"):
             return 1.0 + 0.1 * z
         if name.endswith("bias"):
