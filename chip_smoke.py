@@ -17,11 +17,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    requests through ``synthesize_batch``; checks the audio and that every
    ``AttentionBlock`` call of the path launched the kernel;
 5. train kernels vs plain: the training forward (with its row statistic)
-   and the two backward kernels against their plain versions at the
+   and the backward (delta, dq and the dbias partials; dk and dv; the
+   partials' sum in batch order) against their plain versions at the
    training step's attention shapes (bf16 and fp32, ragged T, a fully
-   masked row), the backward twice for bit-identical dbias, and CUDA-event
-   times beside the bound, the plain versions and SDPA with a bias mask
-   that requires grad;
+   masked row), the sum pass alone against its plain version, the backward
+   twice for bit-identical dbias, and CUDA-event times beside the bound, the
+   plain versions and SDPA with a bias mask that requires grad;
 6. training: ``Trainer`` over ``Config()`` at full width, target ``diff``,
    micro-batch 8 x 496 frames x accum 16 of seeded synthetic batches: a
    warm-up step and three timed steps, each checked for finite loss and grad
@@ -137,6 +138,12 @@ def phase_build():
             elif "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
                 print(f"  {entry[:90]}: {line.split(':', 1)[-1].strip()}", flush=True)
     print(f"build wall {time.perf_counter() - t0:.1f} s (parallel)", flush=True)
+    lib = attention._library(attention.BWD_SOURCE)
+    for d in (48, 96):
+        occ = [lib.bias_attention_bwd_blocks_per_sm(k, d) for k in (0, 1)]
+        if min(occ) <= 0:
+            fail(f"backward kernels at d={d} fit no CTA on an SM ({occ})")
+        print(f"  backward CTAs per SM at d={d}: dq {occ[0]}, dk/dv {occ[1]}", flush=True)
 
 
 def phase_kernel(sfu_per_s, extra_shapes=(), timed_shapes=()):
@@ -217,7 +224,7 @@ def time_kernel(b, t, h, d, sfu_per_s):
 # a dbias with one batch row's share lost must read above it.
 LSE_TOL = DBIAS_TOL = 1e-4
 TRAIN_KERNELS = ("bias_attention_train_fwd", "bias_attention_bwd_dq_dbias",
-                 "bias_attention_bwd_dkv")
+                 "bias_attention_bwd_dkv", "bias_attention_bwd_dbias_sum")
 
 
 def scaled_err(x, ref, floor=1.0):
@@ -234,22 +241,33 @@ def train_inputs(b, t, h, d, dtype, seed):
 
 
 def train_bound_ms(b, t, h, d, sfu_per_s):
-    """Least time of each training kernel in bf16: bytes moved (inputs read
-    once, outputs written once), tensor FLOP, exp2 count."""
+    """Least time of each training kernel in bf16, and of the whole backward:
+    bytes moved (inputs read once, outputs written once), tensor FLOP (fp32
+    adds for the sum pass), exp2 count."""
     c, bf, f4 = h * d, 2, 4
-    exps = float(b * h * t * t)
-    work = {  # kernel: (bytes, FLOP)
-        "bias_attention_train_fwd": (bf * b * t * 4 * c + f4 * (h * t * t + b * h * t),
-                                     4.0 * b * h * t * t * d),
-        "bias_attention_bwd_dq_dbias": (bf * b * t * 5 * c + f4 * (2 * h * t * t + 2 * b * h * t),
-                                        6.0 * b * h * t * t * d),
-        "bias_attention_bwd_dkv": (bf * b * t * 6 * c + f4 * (h * t * t + 2 * b * h * t),
-                                   8.0 * b * h * t * t * d),
+    exps, tt = float(b * h * t * t), h * t * t
+    work = {  # kernel: (bytes, bf16 tensor FLOP, fp32 FLOP, exp2)
+        # q, k, v, out -> out, lse
+        "bias_attention_train_fwd": (bf * b * t * 4 * c + f4 * (tt + b * h * t),
+                                     4.0 * b * h * t * t * d, 0.0, exps),
+        # q, k, v, dout, out, bias, lse -> dq, delta, dbias (its function; the
+        # partials it writes in place of dbias are the design's cost)
+        "bias_attention_bwd_dq_dbias": (bf * b * t * 6 * c + f4 * (2 * tt + 2 * b * h * t),
+                                        6.0 * b * h * t * t * d, 0.0, exps),
+        # q, k, v, dout, bias, lse, delta -> dk, dv
+        "bias_attention_bwd_dkv": (bf * b * t * 6 * c + f4 * (tt + 2 * b * h * t),
+                                   8.0 * b * h * t * t * d, 0.0, exps),
+        # B partials -> dbias
+        "bias_attention_bwd_dbias_sum": (f4 * (b + 1) * tt, 0.0, float((b - 1) * tt), 0.0),
+        # the whole backward: q, k, v, dout, out, bias, lse -> dqkv, dbias
+        "backward": (bf * b * t * 8 * c + f4 * (2 * tt + b * h * t),
+                     10.0 * b * h * t * t * d, 0.0, exps),
     }
     out = {}
-    for name, (nbytes, flops) in work.items():
+    for name, (nbytes, flops, f32_flops, n_exp) in work.items():
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = max(flops / (PEAK_TFLOPS[torch.bfloat16] * 1e12), exps / sfu_per_s) * 1e3
+        t_ops = max(flops / (PEAK_TFLOPS[torch.bfloat16] * 1e12),
+                    f32_flops / (PEAK_TFLOPS[torch.float32] * 1e12), n_exp / sfu_per_s) * 1e3
         out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
     return out
 
@@ -303,7 +321,24 @@ def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
             fail("a fully masked row is not exactly 0 in out, dq and dbias")
     return {"bias_attention_train_fwd": errs["out"],
             "bias_attention_bwd_dq_dbias": max(errs["dq"], errs["dbias"]),
-            "bias_attention_bwd_dkv": errs["dkv"]}
+            "bias_attention_bwd_dkv": errs["dkv"],
+            "bias_attention_bwd_dbias_sum": check_dbias_sum(b, t, h, seed)}
+
+
+def check_dbias_sum(b, t, h, seed):
+    """The sum pass against its plain version on seeded partials: the same
+    fp32 adds in the same batch order, so the gate is bit-identity."""
+    tp = attention.padded_len(t)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    part = torch.randn((b, h, tp, tp), generator=g, device="cuda")
+    got = attention.bias_attention_dbias_sum(part, t)
+    want = attention.bias_attention_dbias_sum_reference(part[:, :, :t, :t])
+    err = (got - want).abs().max().item()
+    print(f"  B={b} T={t} H={h}: dbias sum of seeded partials bit-identical to the plain "
+          f"sum {torch.equal(got, want)}", flush=True)
+    if not torch.equal(got, want):
+        fail(f"the dbias sum differs from its plain version at {(b, t, h)}: {err:.3e}")
+    return err, err / want.abs().max().item()
 
 
 def sdpa_backend(fn) -> str:
@@ -326,21 +361,26 @@ def time_train_kernels(b, t, h, d, sfu_per_s):
     qkv, bias, dout = train_inputs(b, t, h, d, torch.bfloat16, seed=7)
     sm = 1.0 / math.sqrt(d)
     out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
-    delta = (dout.float() * out.float()).view(b, t, h, d).sum(-1).transpose(1, 2).contiguous()
+    tp = attention.padded_len(t)
+    delta = torch.empty((b, h, t), device="cuda")
+    part = torch.empty((b, h, tp, tp), device="cuda")
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((h, t, t), device="cuda")
-    ptrs = (qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dqkv.data_ptr())
     stream = torch.cuda.current_stream().cuda_stream
-    args = (sm * attention.LOG2E, attention.LOG2E, sm, 0, stream)
+    args = (b, t, h, d, sm * attention.LOG2E, attention.LOG2E, sm, 0, stream)
     ms = {
         "bias_attention_train_fwd": cuda_ms(lambda: attention.bias_attention_train_fwd(
             qkv, bias, heads=h, sm_scale=sm)),
         "bias_attention_bwd_dq_dbias": cuda_ms(lambda: attention._launch(
-            attention.BWD_SOURCE, "bias_attention_bwd_dq", *ptrs, dbias.data_ptr(),
-            b, t, h, d, *args)),
+            attention.BWD_SOURCE, "bias_attention_bwd_dq", qkv.data_ptr(), bias.data_ptr(),
+            dout.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dqkv.data_ptr(), part.data_ptr(), *args)),
         "bias_attention_bwd_dkv": cuda_ms(lambda: attention._launch(
-            attention.BWD_SOURCE, "bias_attention_bwd_dkv", *ptrs, b, t, h, d, *args)),
+            attention.BWD_SOURCE, "bias_attention_bwd_dkv", qkv.data_ptr(), bias.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), *args)),
+        "bias_attention_bwd_dbias_sum": cuda_ms(lambda: attention._launch(
+            attention.BWD_SOURCE, "bias_attention_bwd_dbias_sum", part.data_ptr(),
+            dbias.data_ptr(), b, t, h, stream)),
     }
     bwd_ms = cuda_ms(lambda: attention.bias_attention_bwd(qkv, bias, out, lse, dout,
                                                           heads=h, sm_scale=sm))
@@ -348,6 +388,9 @@ def time_train_kernels(b, t, h, d, sfu_per_s):
         qkv, bias, heads=h, sm_scale=sm), runs=5)
     plain_bwd = cuda_ms(lambda: attention.bias_attention_bwd_reference(
         qkv, bias, out, lse, dout, heads=h, sm_scale=sm), runs=5)
+    part_t = part[:, :, :t, :t]
+    plain_sum = cuda_ms(lambda: attention.bias_attention_dbias_sum_reference(part_t))
+    lib_sum = cuda_ms(lambda: part_t.sum(0))
 
     q, k, v = (x.detach().transpose(1, 2).requires_grad_(True)
                for x in qkv.view(b, t, h, 3, d).unbind(3))
@@ -364,20 +407,26 @@ def time_train_kernels(b, t, h, d, sfu_per_s):
                                                   retain_graph=True))
     backend = sdpa_backend(lambda: torch.autograd.grad(sdpa(), (q, k, v, mask_leaf), do))
     bounds = train_bound_ms(b, t, h, d, sfu_per_s)
+    plain = {"bias_attention_train_fwd": plain_fwd, "bias_attention_bwd_dbias_sum": plain_sum}
+    library = {"bias_attention_train_fwd": lib_fwd, "bias_attention_bwd_dbias_sum": lib_sum}
     rows = {}
     for name in TRAIN_KERNELS:
-        fwd = name.endswith("fwd")
-        rows[name] = dict(ms=ms[name], plain_ms=plain_fwd if fwd else plain_bwd,
-                          library_ms=lib_fwd if fwd else lib_bwd,
+        rows[name] = dict(ms=ms[name], plain_ms=plain.get(name, plain_bwd),
+                          library_ms=library.get(name, lib_bwd),
                           bound_ms=bounds[name][0], bound_by=bounds[name][1],
                           shape=[b, t, h, d])
         print(f"  time B={b} T={t} H={h} d={d} bf16 {name}: ms {ms[name]} "
               f"bound_ms {bounds[name][0]} ({bounds[name][1]}) -> "
               f"{bounds[name][0] / ms[name]:.1%} of bound", flush=True)
-    print(f"  time kernels 5+6 (bias_attention_bwd, delta included) {bwd_ms} ms; "
-          f"kernel 4 + 5 + 6 {ms['bias_attention_train_fwd'] + bwd_ms} ms; "
-          f"plain forward {plain_fwd} ms + backward {plain_bwd} ms; "
-          f"SDPA ({backend}) forward {lib_fwd} ms + backward {lib_bwd} ms", flush=True)
+    print(f"  time sum pass: plain (batch-order adds) {plain_sum} ms, "
+          f"torch.sum over the batch {lib_sum} ms", flush=True)
+    bound_bwd = bounds["backward"]
+    print(f"  time whole backward (bias_attention_bwd: delta, dq/partials, dk/dv, sum) "
+          f"{bwd_ms} ms, bound_ms {bound_bwd[0]} ({bound_bwd[1]}) -> "
+          f"{bound_bwd[0] / bwd_ms:.1%} of bound; SDPA ({backend}) backward {lib_bwd} ms "
+          f"({lib_bwd / bwd_ms:.2f}x ours); kernel 4 + backward "
+          f"{ms['bias_attention_train_fwd'] + bwd_ms} ms; plain forward {plain_fwd} ms + "
+          f"backward {plain_bwd} ms; SDPA forward {lib_fwd} ms", flush=True)
     return rows, backend
 
 
@@ -719,7 +768,8 @@ def main():
         max_abs_err=worst, **times)]
     sources = {"bias_attention_train_fwd": ("bias_attention.cu", 259),
                "bias_attention_bwd_dq_dbias": ("bias_attention_bwd.cu", 286),
-               "bias_attention_bwd_dkv": ("bias_attention_bwd.cu", 308)}
+               "bias_attention_bwd_dkv": ("bias_attention_bwd.cu", 308),
+               "bias_attention_bwd_dbias_sum": ("bias_attention_bwd.cu", 286)}
     for name in TRAIN_KERNELS:
         src, line = sources[name]
         kernels.append(dict(
@@ -727,7 +777,8 @@ def main():
             replaces=f"detail_tts_tpu/ops/pallas/attention.py:{line}",
             launches=train_launches[name], launches_over="3 training steps",
             max_abs_err=train_worst[name][0], max_scaled_err=train_worst[name][1],
-            library="scaled_dot_product_attention (" + backend + ")",
+            library=("torch.sum over the batch" if name.endswith("sum") else
+                     "scaled_dot_product_attention (" + backend + ")"),
             **train_times[name]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

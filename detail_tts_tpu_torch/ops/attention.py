@@ -17,7 +17,9 @@ bias is <= -1e9 gives 0, and zero gradients.
   :class:`BiasAttentionFunction` over an fp32 natural-domain bias.  Its
   forward is kernel ``bias_attention_train_fwd`` (the same source, also
   writing the row statistic lse = m + log2(l)); its backward the kernels
-  ``bias_attention_bwd_dq_dbias`` and ``bias_attention_bwd_dkv``
+  ``bias_attention_bwd_dq_dbias`` (delta, dq and one dbias partial per
+  batch row), ``bias_attention_bwd_dkv`` and
+  ``bias_attention_bwd_dbias_sum`` (the partials added in batch order)
   (``csrc/bias_attention_bwd.cu``), which write one d(qkv) tensor and a
   dbias summed over the batch.  They replace the Pallas ``attention_train``
   custom VJP (``_attn_train_fwd`` and the two kernels of ``_attn_train_bwd``).
@@ -49,6 +51,7 @@ LOG2E = 1.4426950408889634
 FLOOR = -1.0e4
 # Row statistic of a row whose softmax sum is 0: exp2(z - lse) is exactly 0.
 MASKED_LSE = 1.0e30
+TILE = 64  # rows of the kernels' tiles
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCE = CSRC / "bias_attention.cu"
@@ -62,7 +65,8 @@ LAUNCHES = 0  # kernel launches through bias_attention (never the plain path)
 # kernel launches of the trainable function, by kernel (never the plain path)
 TRAIN_LAUNCHES: Dict[str, int] = {"bias_attention_train_fwd": 0,
                                   "bias_attention_bwd_dq_dbias": 0,
-                                  "bias_attention_bwd_dkv": 0}
+                                  "bias_attention_bwd_dkv": 0,
+                                  "bias_attention_bwd_dbias_sum": 0}
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _libs: Dict[Path, ctypes.CDLL] = {}
@@ -157,14 +161,19 @@ def bias_attention_bwd_reference(qkv: torch.Tensor, bias: torch.Tensor,
         return _bias_attention_bwd_reference(qkv, bias, out, lse, dout, heads, sm_scale)
 
 
-def _bias_attention_bwd_reference(qkv, bias, out, lse, dout, heads, sm_scale):
-    b, t, c3 = qkv.shape
+def _probs_and_dx(qkv, bias, out, lse, dout, heads, sm_scale):
+    """(q, k, dO, P, dX) of the backward, fp32 (B, H, T, *)."""
     q, k, v = _split_heads(qkv, heads, 3)
     (do,) = _split_heads(dout, heads, 1)
     (o,) = _split_heads(out, heads, 1)
     p = torch.exp2(_logits_log2(q, k, bias, sm_scale) - lse[..., None])
     delta = (do * o).sum(-1, keepdim=True)
-    dx = p * (torch.einsum("bhtd,bhsd->bhts", do, v) - delta)
+    return q, k, do, p, p * (torch.einsum("bhtd,bhsd->bhts", do, v) - delta)
+
+
+def _bias_attention_bwd_reference(qkv, bias, out, lse, dout, heads, sm_scale):
+    b, t, c3 = qkv.shape
+    q, k, do, p, dx = _probs_and_dx(qkv, bias, out, lse, dout, heads, sm_scale)
     rnd = lambda x: x.to(qkv.dtype).float()  # noqa: E731
     dq = torch.einsum("bhts,bhsd->bhtd", rnd(dx), k) * sm_scale
     dk = torch.einsum("bhts,bhtd->bhsd", rnd(dx), q) * sm_scale
@@ -172,6 +181,30 @@ def _bias_attention_bwd_reference(qkv, bias, out, lse, dout, heads, sm_scale):
     dqkv = torch.stack([dq, dk, dv], dim=3)  # (B, H, T, 3, D)
     dqkv = dqkv.permute(0, 2, 1, 3, 4).reshape(b, t, c3).to(qkv.dtype)
     return dqkv, dx.sum(0)
+
+
+def bias_attention_dbias_partials_reference(qkv: torch.Tensor, bias: torch.Tensor,
+                                            out: torch.Tensor, lse: torch.Tensor,
+                                            dout: torch.Tensor, *, heads: int,
+                                            sm_scale: float) -> torch.Tensor:
+    """Plain version of the dbias partials that ``bias_attention_bwd_dq``
+    writes: each batch row's dX, (B, H, T, T) fp32, autocast off."""
+    with torch.autocast(qkv.device.type, enabled=False):
+        return _probs_and_dx(qkv, bias, out, lse, dout, heads, sm_scale)[-1]
+
+
+def bias_attention_dbias_sum_reference(part: torch.Tensor) -> torch.Tensor:
+    """Plain version of the sum pass: (B, H, T, T) fp32 partials -> (H, T, T),
+    added in batch order, part[0] + part[1] + ..., as the kernel adds them."""
+    acc = part[0].clone()
+    for x in part[1:]:
+        acc += x
+    return acc
+
+
+def padded_len(t: int) -> int:
+    """Row stride of the kernels' dbias partials: T rounded up to 64."""
+    return -(-t // TILE) * TILE
 
 
 def _nvcc() -> str:
@@ -223,10 +256,12 @@ _SIGNATURES = {
              "bias_attention_train_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F,
                                           _F, _I, _P],
              "bias_attention_error_string": [_I]},
-    BWD_SOURCE: {"bias_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                           _I, _I, _F, _F, _F, _I, _P],
+    BWD_SOURCE: {"bias_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                           _I, _I, _I, _F, _F, _F, _I, _P],
                  "bias_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                             _I, _F, _F, _F, _I, _P],
+                 "bias_attention_bwd_dbias_sum": [_P, _P, _I, _I, _I, _P],
+                 "bias_attention_bwd_blocks_per_sm": [_I, _I],
                  "bias_attention_bwd_error_string": [_I]},
 }
 
@@ -339,7 +374,8 @@ def bias_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, out: torch.Tensor,
                        lse: torch.Tensor, dout: torch.Tensor, *, heads: int,
                        sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training backward: -> (dqkv (B, T, 3C), dbias (H, T, T) fp32 summed
-    over the batch).  Two kernels on CUDA, plain on the CPU."""
+    over the batch).  Three kernels on CUDA (delta, dq and the dbias
+    partials; dk and dv; the partials' sum), plain on the CPU."""
     _device_ok(qkv, "bias_attention_bwd")
     d = _check(qkv, bias, heads, bias_dtype=torch.float32)
     b, t, c3 = qkv.shape
@@ -353,21 +389,43 @@ def bias_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, out: torch.Tensor,
     if qkv.device.type == "cpu":
         return bias_attention_bwd_reference(qkv, bias, out, lse, dout,
                                             heads=heads, sm_scale=sm_scale)
-    lse = lse.contiguous()
-    delta = (dout.float() * out.float()).view(b, t, heads, d).sum(-1) \
-        .transpose(1, 2).contiguous()  # (B, H, T)
+    out, lse = out.contiguous(), lse.contiguous()
+    t_pad = padded_len(t)
     dqkv = torch.empty_like(qkv)
-    dbias = torch.empty((heads, t, t), dtype=torch.float32, device=qkv.device)
+    delta = torch.empty((b, heads, t), dtype=torch.float32, device=qkv.device)
+    # one dX per batch row, written once; 0.125 GiB at B=8, T=496, H=16
+    part = torch.empty((b, heads, t_pad, t_pad), dtype=torch.float32, device=qkv.device)
     code, stream = _DTYPE_CODE[qkv.dtype], _stream(qkv)
-    ptrs = (qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dqkv.data_ptr())
-    _launch(BWD_SOURCE, "bias_attention_bwd_dq", *ptrs, dbias.data_ptr(), b, t,
-            heads, d, sm_scale * LOG2E, LOG2E, sm_scale, code, stream)
+    scales = (sm_scale * LOG2E, LOG2E, sm_scale, code, stream)
+    _launch(BWD_SOURCE, "bias_attention_bwd_dq", qkv.data_ptr(), bias.data_ptr(),
+            dout.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dqkv.data_ptr(), part.data_ptr(), b, t, heads, d, *scales)
     TRAIN_LAUNCHES["bias_attention_bwd_dq_dbias"] += 1
-    _launch(BWD_SOURCE, "bias_attention_bwd_dkv", *ptrs, b, t, heads, d,
-            sm_scale * LOG2E, LOG2E, sm_scale, code, stream)
+    _launch(BWD_SOURCE, "bias_attention_bwd_dkv", qkv.data_ptr(), bias.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, t,
+            heads, d, *scales)
     TRAIN_LAUNCHES["bias_attention_bwd_dkv"] += 1
-    return dqkv, dbias
+    return dqkv, bias_attention_dbias_sum(part, t)
+
+
+def bias_attention_dbias_sum(part: torch.Tensor, t: int) -> torch.Tensor:
+    """dbias (H, t, t) fp32 from the partials (B, H, Tp, Tp) fp32 with
+    Tp = ``padded_len(t)``, added in batch order: kernel
+    ``bias_attention_bwd_dbias_sum`` on CUDA, plain on the CPU."""
+    _device_ok(part, "bias_attention_dbias_sum")
+    t_pad = padded_len(t)
+    if (part.dim() != 4 or tuple(part.shape[2:]) != (t_pad, t_pad)
+            or part.dtype != torch.float32 or not part.is_contiguous()):
+        raise ValueError(f"partials must be contiguous fp32 (B, H, {t_pad}, {t_pad}), "
+                         f"got {tuple(part.shape)} {part.dtype}")
+    b, h = part.shape[:2]
+    if part.device.type == "cpu":
+        return bias_attention_dbias_sum_reference(part[:, :, :t, :t])
+    dbias = torch.empty((h, t, t), dtype=torch.float32, device=part.device)
+    _launch(BWD_SOURCE, "bias_attention_bwd_dbias_sum", part.data_ptr(), dbias.data_ptr(),
+            b, t, h, _stream(part))
+    TRAIN_LAUNCHES["bias_attention_bwd_dbias_sum"] += 1
+    return dbias
 
 
 class BiasAttentionFunction(torch.autograd.Function):

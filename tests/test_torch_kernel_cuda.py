@@ -1,6 +1,7 @@
 """The bias-attention CUDA kernels against their plain versions, on the card:
 the serving forward, and the training forward (with its row statistic) and
-the two backward kernels behind ``BiasAttentionFunction``.
+the three backward kernels (delta, dq and the dbias partials; dk and dv; the
+partials' sum) behind ``BiasAttentionFunction``.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip elsewhere.
 They import nothing of JAX, so on a machine without it run them with the
@@ -20,6 +21,9 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # bf16: P is rounded to bf16
 # the row statistic: fp32 in both dtypes, from logits summed in another order
 LSE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
+# dbias relative to max |plain|: summed in fp32 from fp32 P and dX in both
+# dtypes (chip_smoke.py's gate; a dbias with one batch row lost reads above)
+DBIAS_TOL = 1e-4
 
 
 @pytest.fixture
@@ -100,6 +104,11 @@ def scaled_err(x, ref):
     return ((x.float() - ref).abs().max() / ref.abs().max().clamp_min(1.0)).item()
 
 
+def dbias_err(x, ref):
+    """max |x - ref| over max |ref|."""
+    return ((x - ref).abs().max() / ref.abs().max()).item()
+
+
 def _check_train(qkv, bias, dout, h, d, dtype):
     sm = 1 / math.sqrt(d)
     before = dict(attention.TRAIN_LAUNCHES)
@@ -113,7 +122,7 @@ def _check_train(qkv, bias, dout, h, d, dtype):
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in attention.TRAIN_LAUNCHES.items()} == {
         "bias_attention_train_fwd": 1, "bias_attention_bwd_dq_dbias": 1,
-        "bias_attention_bwd_dkv": 1}
+        "bias_attention_bwd_dkv": 1, "bias_attention_bwd_dbias_sum": 1}
     assert out.dtype == dqkv.dtype == dtype and dbias.dtype == torch.float32
     assert (out.float() - ref_out.float()).abs().max().item() <= TOL[dtype]
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL[dtype]
@@ -148,8 +157,43 @@ def test_train_kernels_masked_rows_and_keys(cuda, dtype, t):
     assert torch.count_nonzero(dk_dv).item() == 0
 
 
-def test_train_backward_is_deterministic(cuda):
-    b, t, h, d = 4, 130, 4, 48
+@pytest.mark.parametrize("d", [48, 96])
+@pytest.mark.parametrize("t", [496, 495])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_train_kernels_at_the_step_shapes(cuda, b, t, d):
+    """The batch split over CTAs and the sum of the partials at the training
+    step's lengths and head widths, 16 heads, bf16."""
+    h = 16
+    qkv, bias, dout = _train_inputs(b, t, h, d, torch.bfloat16, seed=b * t + d, device=cuda)
+    out, lse, dqkv, dbias = _check_train(qkv, bias, dout, h, d, torch.bfloat16)
+    _, ref_dbias = attention.bias_attention_bwd_reference(
+        qkv, bias, out, lse, dout, heads=h, sm_scale=1 / math.sqrt(d))
+    assert dbias_err(dbias, ref_dbias) <= DBIAS_TOL
+
+
+def test_dbias_gate_catches_a_lost_batch_row(cuda):
+    b, t, h, d = 8, 496, 16, 48
+    qkv, bias, dout = _train_inputs(b, t, h, d, torch.bfloat16, seed=3, device=cuda)
+    out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=0.2)
+    _, dbias = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h, sm_scale=0.2)
+    _, ref = attention.bias_attention_bwd_reference(qkv, bias, out, lse, dout, heads=h,
+                                                    sm_scale=0.2)
+    _, lost = attention.bias_attention_bwd(qkv[:-1], bias, out[:-1], lse[:-1], dout[:-1],
+                                           heads=h, sm_scale=0.2)
+    assert dbias_err(dbias, ref) <= DBIAS_TOL < dbias_err(lost, ref)
+
+
+def test_dbias_sum_kernel_matches_plain_sum(cuda):
+    b, t, h = 8, 495, 16
+    part = torch.randn((b, h, attention.padded_len(t), attention.padded_len(t)),
+                       device=cuda)
+    got = attention.bias_attention_dbias_sum(part, t)
+    want = attention.bias_attention_dbias_sum_reference(part[:, :, :t, :t])
+    assert torch.equal(got, want)  # the same fp32 adds in the same order
+
+
+@pytest.mark.parametrize("b,t,h,d", [(4, 130, 4, 48), (8, 496, 16, 48)])
+def test_train_backward_is_deterministic(cuda, b, t, h, d):
     qkv, bias, dout = _train_inputs(b, t, h, d, torch.bfloat16, seed=11, device=cuda)
     out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=0.2)
     first = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h, sm_scale=0.2)
