@@ -7,9 +7,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 1. environment: the card's name and power limit, torch/CUDA versions, TF32
    settings; a CUDA device is required;
 2. build: compiles ``detail_tts_tpu_torch/csrc/bias_attention.cu`` and
-   ``bias_attention_bwd.cu`` with nvcc, one process each, at once;
+   ``bias_attention_bwd.cu`` with nvcc, one process each, at once; prints
+   each kernel's ``ptxas -v`` registers and spills, and the CTAs per SM of
+   the serving forward and the backward kernels at d=48 and d=96;
 3. kernel: ``bias_attention`` against its plain PyTorch version at the
-   serving shapes (bf16, plus fp32 and a fully masked row), with CUDA-event
+   serving shapes and at T on the serving kernel's tile and bias-copy edges
+   (bf16, plus fp32 and a fully masked row), with CUDA-event
    times of the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (the yardstick, never used by the
    port) beside the card's bound;
@@ -138,12 +141,15 @@ def phase_build():
             elif "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
                 print(f"  {entry[:90]}: {line.split(':', 1)[-1].strip()}", flush=True)
     print(f"build wall {time.perf_counter() - t0:.1f} s (parallel)", flush=True)
+    fwd = attention._library(attention.SOURCE)
     lib = attention._library(attention.BWD_SOURCE)
     for d in (48, 96):
+        serve = fwd.bias_attention_fwd_blocks_per_sm(d)
         occ = [lib.bias_attention_bwd_blocks_per_sm(k, d) for k in (0, 1)]
-        if min(occ) <= 0:
-            fail(f"backward kernels at d={d} fit no CTA on an SM ({occ})")
-        print(f"  backward CTAs per SM at d={d}: dq {occ[0]}, dk/dv {occ[1]}", flush=True)
+        if min(occ + [serve]) <= 0:
+            fail(f"kernels at d={d} fit no CTA on an SM (serving {serve}, backward {occ})")
+        print(f"  CTAs per SM at d={d}: serving forward {serve}, backward dq {occ[0]}, "
+              f"dk/dv {occ[1]}", flush=True)
 
 
 def phase_kernel(sfu_per_s, extra_shapes=(), timed_shapes=()):
@@ -151,7 +157,8 @@ def phase_kernel(sfu_per_s, extra_shapes=(), timed_shapes=()):
     print("== kernel vs plain", flush=True)
     shapes = [(3, 1600, 16, 48), (4, 1600, 16, 48), (9, 1600, 16, 48),
               (16, 1600, 16, 48), (3, 1597, 16, 48), (4, 1597, 16, 48),
-              (9, 1597, 16, 48), (16, 1597, 16, 48), (2, 400, 16, 96)]
+              (9, 1597, 16, 48), (16, 1597, 16, 48), (2, 400, 16, 96),
+              (3, 127, 16, 48), (3, 129, 16, 48), (3, 300, 16, 48)]
     shapes += [s for s in extra_shapes if s not in shapes]
     worst = 0.0
     for i, (b, t, h, d) in enumerate(shapes):

@@ -9,8 +9,8 @@
 // serving kernels of detail_tts_tpu/ops/pallas/attention.py:
 // ``attention_packed_pairs`` (_attn_paired_kernel), ``attention_packed``
 // (_attn_packed_kernel) and ``row_block_attention`` (_attn_kernel).
-// ``bias_attention_train_fwd`` is the same kernel with an fp32
-// natural-domain bias (scaled to log2 inside) that also writes the row
+// ``bias_attention_train_fwd`` computes the same with an fp32
+// natural-domain bias (scaled to log2 inside) and also writes the row
 // statistic lse = m + log2(l) (B, H, T); it replaces ``_attn_train_fwd``
 // (_attn_fwd_train_kernel), whose no-max softmax saved the row sum l.
 // The Pallas kernels are one function in three
@@ -18,35 +18,62 @@
 // straight from the (B, T, 3C) qkv projection, channel order
 // [head][q|k|v][ch], with no padding or transpose outside the kernel.
 //
-// What bounds it on the H100: at the diffusion trunk's shape (2B = 16,
-// T = 1600, H = 16, d = 48) the work is ~1.26e11 tensor-core FLOP,
-// ~6.6e8 exp2 on the special-function units and ~0.24 GB of compulsory
-// traffic (qkv + bias + out); the exp2 count over the SFU rate is the
-// largest of the three.  So the design keeps every logit on chip and
-// exponentiates it once: the (B, H, T, T) logits never reach memory.
+// What bounds the serving kernel on the H100, at the diffusion trunk's
+// shape (2B = 16, T = 1600, H = 16, d = 48): ~1.26e11 tensor-core FLOP
+// (0.13 ms at 989 TFLOP/s), ~6.6e8 exp2 (0.157 ms at 16 a clock on each of
+// 132 SMs at 1.98 GHz: the largest) and ~0.24 GB of compulsory traffic
+// (qkv + bias + out, 0.07 ms at 3.35 TB/s).  So every logit stays on chip
+// and is exponentiated once: the (B, H, T, T) logits never reach memory.
+// In practice the bytes the SMs pull from L2 bound it, since each CTA reads
+// its (b, h)'s whole K and V and its query rows of the bias for every key:
+// * 64 query rows a CTA in 16-row warps (the design this replaced,
+//   ``bias_attention_mma`` with a bf16 bias): 6400 CTAs pulled 1.97 GB of
+//   K/V and 1.31 GB of bias (B times the 82 MB tensor) from L2; each warp
+//   read the whole K/V tile from shared memory for 16 rows (48 KB of
+//   ldmatrix a 64-key tile for 64 rows); the bias came from global memory
+//   in synchronous 4-byte loads in the accumulator layout, outside the
+//   cp.async ring.  0.96-1.02 ms, and
+//   0.75-0.76 ms with those bias loads dropped (PERF.md, H100 80GB HBM3 at
+//   700 W), against SDPA's 0.89-0.94 ms.
+// * ``serve_fwd_mma`` below: 128 query rows a CTA in 32-row warps (d <= 64),
+//   3200 CTAs.  K/V from L2 halves to 0.98 GB; the bias stays 1.31 GB.  Each
+//   K or V fragment that ldmatrix loads feeds the warp's two m16 row tiles,
+//   so a 64-key tile costs the same 48 KB of ldmatrix reads for 128 rows.
+//   The bias tile [128 queries x 64 keys] rides in the same cp.async commit
+//   group as its K and V tiles, in 16-byte copies (8-byte when T % 4 == 0,
+//   single values for other T), with keys past T set to -inf so the softmax
+//   needs no mask; an x4 ldmatrix hands each thread its accumulator-layout
+//   pairs of two 8-key blocks (the row stride of 72 bf16, 144 B, keeps the
+//   8 rows of each 8 x 8 block on distinct banks).  Three key tiles are in
+//   flight (two above d = 64), behind one barrier a tile.  With its copies
+//   alone the kernel takes ~0.52 ms (~4.6 TB/s from L2), with its arithmetic
+//   alone ~0.50 ms; together ~0.7 ms, 255 registers a thread and no spills,
+//   two CTAs (8 warps) an SM.  Fewer bytes from L2 (one bias tile for two
+//   batch rows, or a cluster multicast of it) is what would move it next.
+//   Q stays in its own shared tile after the ring and its fragments are read
+//   for each key tile.  Above d = 64 the registers of a 32-row warp do not
+//   fit (at d = 128 the output accumulator alone takes 128), so a warp takes
+//   16 rows and a CTA 64; only the contextual embedder (d = 96) runs there.
 //
-// bf16 (the serving path), FlashAttention-2 style on mma.sync:
-// * one CTA of 4 warps owns 64 query rows of one (batch, head); each warp
-//   owns 16 rows and keeps S, P and the output accumulator in registers
-//   (m16n8k16 bf16 products, fp32 accumulate; P goes from the S
-//   accumulator straight into the A operand of P.V);
-// * K and V walk through shared memory in 64-key tiles, double-buffered
-//   with cp.async so the next tile loads while this one is computed;
-// * the bias is read from device memory straight into the accumulator's
-//   register layout, issued before the wait on the K/V copies;
-// * the grid puts the batch index fastest, so the CTAs that read one head's
-//   bias tile run together and share it through L2 (the bias is the largest
-//   input and is the same for every batch row).
-// float32 (a test route) takes a plain scalar kernel through shared memory.
+// Both bf16 kernels follow FlashAttention-2 on mma.sync (m16n8k16, fp32
+// accumulate): S, P and the output accumulator stay in registers, P goes
+// from the S accumulator straight into the A operand of P.V, and the grid
+// puts the batch index fastest, so the CTAs that read one head's bias tile
+// run together and share it through L2 (the bias is the largest input and
+// is the same for every batch row).  ``bias_attention_mma`` is the training
+// forward (fp32 bias read from global memory in pairs, and lse).  float32 (a
+// test route) takes a plain scalar kernel through shared memory.
 //
-// Both: online-max softmax in fp32 with exp2f; P is rounded to the input
-// type before P.V, as the Pallas kernel does.  The running max is floored
-// at FLOOR (log2 domain), so a row whose every bias is <= -1e9 sums to 0 and
-// is written as 0, as the Pallas kernels' no-max softmax gives; ordinary
-// rows are unchanged.  Such a row's lse is MASKED_LSE, so the backward's
-// exp2(z - lse) gives it exactly zero gradients.  Ragged T is masked in the kernel: keys past T get
-// -inf and zero K/V rows, query rows past T are computed on zeros and not
-// written.  No TMA or wgmma yet.
+// All: online-max softmax in fp32 with exp2 (ex2.approx, the instruction
+// exp2f compiles to; the serving kernel flushes results below 2^-126 to 0);
+// P is rounded to the input type before P.V, as the Pallas kernel does.  The
+// running max is floored at FLOOR (log2 domain), so a row whose every bias
+// is <= -1e9 sums to 0 and is written as 0, as the Pallas kernels' no-max
+// softmax gives; ordinary rows are unchanged.  Such a row's lse is
+// MASKED_LSE, so the backward's exp2(z - lse) gives it exactly zero
+// gradients.  Ragged T is masked in the kernel: keys past T get -inf and
+// zero K/V rows, query rows past T are computed on zeros and not written.
+// No TMA or wgmma yet.
 #include "mma.cuh"
 
 namespace {
@@ -56,16 +83,17 @@ using namespace attn;
 constexpr int BQ = TILE;  // query rows per CTA
 constexpr int BK = TILE;  // keys per tile
 
-// ------------------------------------------------------------ bf16: mma.sync
+// ---------------------------------------------------- bf16 training: mma.sync
 
 template <int D>
 constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) * (BQ + 4 * BK) * (D + 8);  // Q + two K and two V tiles
 }
 
-// BiasT: bf16 (serving, log2 domain, bias_scale 1) or float (training,
-// natural domain, bias_scale log2(e)).  kLse: also write the row statistic
-// lse = m + log2(l) (B, H, T) that the backward recomputes P from.
+// The training forward (kernel 4), launched as <D, float, true>: BiasT float
+// is a natural-domain bias scaled by bias_scale = log2(e); kLse: also write
+// the row statistic lse = m + log2(l) (B, H, T) that the backward
+// recomputes P from.
 template <int D, typename BiasT, bool kLse>
 __global__ void __launch_bounds__(NTHREADS)
 bias_attention_mma(const bf16* __restrict__ qkv, const BiasT* __restrict__ bias,
@@ -239,6 +267,306 @@ bias_attention_mma(const bf16* __restrict__ qkv, const BiasT* __restrict__ bias,
   }
 }
 
+// ------------------------------------------------- bf16 serving: mma.sync
+
+// Tiling of the serving kernel, a compile-time function of D.  Up to d = 64
+// a warp owns two m16 row tiles (32 rows), so every K and V fragment feeds
+// two products; above, two tiles' registers do not fit and it owns one.
+template <int D>
+struct Serve {
+  static constexpr int MT = D <= 64 ? 2 : 1;  // m16 row tiles a warp
+  static constexpr int RW = 16 * MT;          // query rows a warp
+  static constexpr int BQ = 4 * RW;           // query rows a CTA
+  static constexpr int LDT = D + 8;           // Q, K, V row: ldmatrix rows hit distinct banks
+  static constexpr int LDB = BK + 8;          // bias row (144 B): ldmatrix rows hit distinct banks
+  static constexpr int KV = BK * LDT;         // one K or V tile
+  static constexpr int STAGE = 2 * KV + BQ * LDB;  // K, V and bias of one key tile
+  static constexpr int STAGES = D <= 64 ? 3 : 2;  // key tiles in flight, as two CTAs an SM allow
+  static constexpr size_t bytes = sizeof(bf16) * (STAGES * STAGE + BQ * LDT);  // ring, Q
+  static constexpr int kMinBlocks = 2;        // CTAs an SM the registers must allow
+};
+
+constexpr uint32_t NEG_INF_BF16X2 = 0xff80ff80u;  // two bf16 -inf
+
+// The bias block [r0, r0 + ROWS) x [c0, c0 + 64) of a bf16 (T, T) matrix
+// into a shared tile of row stride LDB, W values a cp.async (8 when
+// T % 8 == 0, 4 when T % 4 == 0).  Keys past T read -inf, so the softmax
+// needs no mask of its own (their K and V rows are 0); rows past T read 0.
+template <int ROWS, int LDB, int W>
+__device__ __forceinline__ void copy_bias_vec(bf16* dst, const bf16* src, int r0, int c0,
+                                              int t_len) {
+  constexpr int CPR = BK / W;            // copies a row
+  constexpr int STEP = NTHREADS / CPR;   // rows between one thread's copies
+  static_assert(ROWS % STEP == 0, "every thread makes the same number of copies");
+  const int c = (threadIdx.x % CPR) * W;  // the same columns in every row
+  const int rt = threadIdx.x / CPR;
+  const bool key_ok = c0 + c < t_len;
+#pragma unroll
+  for (int k = 0; k < ROWS / STEP; ++k) {
+    const int r = rt + k * STEP;
+    bf16* d = dst + r * LDB + c;
+    if (!key_ok) {
+      if (W == 8) {
+        *reinterpret_cast<uint4*>(d) =
+            make_uint4(NEG_INF_BF16X2, NEG_INF_BF16X2, NEG_INF_BF16X2, NEG_INF_BF16X2);
+      } else {
+        *reinterpret_cast<uint2*>(d) = make_uint2(NEG_INF_BF16X2, NEG_INF_BF16X2);
+      }
+      continue;
+    }
+    const bool valid = r0 + r < t_len;
+    const bf16* s = src + (valid ? (long)(r0 + r) * t_len + c0 + c : 0);
+    if (W == 8) {
+      cp_async_16(d, s, valid);
+    } else {
+      cp_async_8(d, s, valid);
+    }
+  }
+}
+
+// As copy_bias_vec for any T, with plain loads and stores of single values
+// (only test lengths, T % 4 != 0, take it).
+template <int ROWS, int LDB>
+__device__ __forceinline__ void copy_bias_plain(bf16* dst, const bf16* src, int r0, int c0,
+                                                int t_len) {
+  for (int i = threadIdx.x; i < ROWS * BK; i += NTHREADS) {
+    const int r = i / BK, c = i % BK;
+    bf16 v = __float2bfloat16(-INFINITY);
+    if (c0 + c < t_len) {
+      v = r0 + r < t_len ? src[(long)(r0 + r) * t_len + c0 + c] : __float2bfloat16(0.f);
+    }
+    dst[r * LDB + c] = v;
+  }
+}
+
+// ``width``: bf16 values a bias copy moves, 8, 4 or 1, fixed for a launch
+// by T's alignment.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, Serve<D>::kMinBlocks)
+serve_fwd_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
+              bf16* __restrict__ out, int t_len, int heads, float scale, int width) {
+  using L = Serve<D>;
+  constexpr int MT = L::MT, LDT = L::LDT, LDB = L::LDB;
+  constexpr int KS = D / 16;  // k-steps of Q K^T
+  constexpr int NO = D / 8;   // 8-wide column blocks of the output
+  constexpr int NS = BK / 8;  // 8-wide key blocks of a tile
+  const int b = blockIdx.x;   // batch fastest: the CTAs sharing a bias tile run together
+  const int q0 = blockIdx.y * L::BQ;
+  const int h = blockIdx.z;
+  const int C = heads * D;
+  const long row_stride = 3L * C;
+  const bf16* base = qkv + (long)b * t_len * row_stride + (long)h * 3 * D;
+  const bf16* bias_h = bias + (long)h * t_len * t_len;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // STAGES stages of [K | V | bias], then Q
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;   // this thread's rows: g and g + 8 of each m16 tile
+  const int t4 = lane % 4;  // and columns 2 * t4, 2 * t4 + 1 of each 8-block
+  const int row0 = warp * L::RW;  // the warp's first row in the CTA's block
+  const int n_tiles = (t_len + BK - 1) / BK;
+
+  // Each thread copies the same KVN 16-byte chunks of every K and V tile:
+  // their rows and offsets in the global and the shared tile are worked out
+  // once (worked out anew for each tile, they made the kernel spill).
+  constexpr int VPR = D / 8;                   // 16-byte chunks of a K or V row
+  constexpr int KVN = BK * VPR / NTHREADS;
+  int kv_row[KVN], kv_src[KVN], kv_dst[KVN];
+#pragma unroll
+  for (int k = 0; k < KVN; ++k) {
+    const int i = threadIdx.x + k * NTHREADS;
+    kv_row[k] = i / VPR;
+    kv_src[k] = kv_row[k] * 3 * C + (i % VPR) * 8;
+    kv_dst[k] = kv_row[k] * LDT + (i % VPR) * 8;
+  }
+
+  // K, V and the bias block of key tile j into stage s; K and V rows past T
+  // are 0
+  auto fetch = [&](int j, int s) {
+    bf16* st = ring + s * L::STAGE;
+    const bf16* kt = base + D + (long)j * BK * row_stride;
+#pragma unroll
+    for (int k = 0; k < KVN; ++k) {
+      const bool valid = j * BK + kv_row[k] < t_len;
+      cp_async_16(st + kv_dst[k], valid ? kt + kv_src[k] : base, valid);
+      cp_async_16(st + L::KV + kv_dst[k], valid ? kt + D + kv_src[k] : base, valid);
+    }
+    bf16* bt = st + 2 * L::KV;
+    if (width == 8) {
+      copy_bias_vec<L::BQ, LDB, 8>(bt, bias_h, q0, j * BK, t_len);
+    } else if (width == 4) {
+      copy_bias_vec<L::BQ, LDB, 4>(bt, bias_h, q0, j * BK, t_len);
+    } else {
+      copy_bias_plain<L::BQ, LDB>(bt, bias_h, q0, j * BK, t_len);
+    }
+  };
+
+  // Q stays in shared memory after the ring and joins tile 0's commit
+  // group; its fragments are read anew for every key tile, since holding
+  // them (24 registers a thread at d = 48) made the kernel spill
+  bf16* q_tile = ring + L::STAGES * L::STAGE;
+  copy_tile<D, L::BQ>(q_tile, base, q0, t_len, row_stride);
+#pragma unroll
+  for (int j = 0; j < L::STAGES - 1; ++j) {
+    if (j < n_tiles) fetch(j, j);
+    cp_async_commit();
+  }
+  cp_async_wait<L::STAGES - 2>();
+  __syncthreads();
+
+  float o[MT][NO][4];
+  float m[MT][2], l[MT][2];  // running max and this thread's share of the sum, rows g, g + 8
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
+    m[mt][0] = m[mt][1] = FLOOR;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+  // this lane's row of an x4 ldmatrix of the bias: its four 8 x 8 blocks are
+  // rows 0-7 and 8-15 of an m16 tile at keys 0-7, then at keys 8-15, so a
+  // thread receives its accumulator-layout pairs of two 8-key blocks
+  const int bias_lane = 2 * L::KV + (row0 + (lane / 8) % 2 * 8 + lane % 8) * LDB + lane / 16 * 8;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j > 0) cp_async_wait<L::STAGES - 2>();  // this thread's copies of tile j
+    // every thread's copies of tile j are visible, and every warp is done
+    // with tile j - 1, whose stage takes tile j + STAGES - 1
+    __syncthreads();
+    if (j + L::STAGES - 1 < n_tiles) fetch(j + L::STAGES - 1, (j + L::STAGES - 1) % L::STAGES);
+    cp_async_commit();  // one group an iteration, empty or not, keeps the wait's count
+    const bf16* Kt = ring + (j % L::STAGES) * L::STAGE;
+    const bf16* Vt = Kt + L::KV;
+    const bf16* Bl = Kt + bias_lane;
+
+    uint32_t qa[MT][KS][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        load_a<LDT>(qa[mt][kk], q_tile, row0 + mt * 16, kk, lane);
+      }
+    }
+    // S = Q K^T for the warp's rows and the tile's 64 keys
+    float s[MT][NS][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        uint32_t kb[4];
+        load_b_nt<LDT>(kb, Kt, n2, kk, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][2 * n2], qa[mt][kk], kb[0], kb[1]);
+          mma_bf16(s[mt][2 * n2 + 1], qa[mt][kk], kb[2], kb[3]);
+        }
+      }
+    }
+
+    // log2-domain logits (keys past T have a -inf bias); online softmax in fp32
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        uint32_t bb[4];  // rows g, g + 8 of key block 2 n2, then of block 2 n2 + 1
+        ldmatrix_x4(bb, Bl + mt * 16 * LDB + n2 * 16);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float* x = s[mt][2 * n2 + e];
+          const float2 b0 = bf16x2_to_float2(bb[2 * e]);
+          const float2 b1 = bf16x2_to_float2(bb[2 * e + 1]);
+          x[0] = fmaf(x[0], scale, b0.x);
+          x[1] = fmaf(x[1], scale, b0.y);
+          x[2] = fmaf(x[2], scale, b1.x);
+          x[3] = fmaf(x[3], scale, b1.y);
+          mx0 = fmaxf(mx0, fmaxf(x[0], x[1]));
+          mx1 = fmaxf(mx1, fmaxf(x[2], x[3]));
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the 4 threads of a row
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m[mt][0], mx0), mn1 = fmaxf(m[mt][1], mx1);
+      const float a0 = exp2_ftz(m[mt][0] - mn0), a1 = exp2_ftz(m[mt][1] - mn1);
+      m[mt][0] = mn0;
+      m[mt][1] = mn1;
+      l[mt][0] *= a0;
+      l[mt][1] *= a1;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[mt][n][0] *= a0;
+        o[mt][n][1] *= a0;
+        o[mt][n][2] *= a1;
+        o[mt][n][3] *= a1;
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        s[mt][n][0] = exp2_ftz(s[mt][n][0] - mn0);
+        s[mt][n][1] = exp2_ftz(s[mt][n][1] - mn0);
+        s[mt][n][2] = exp2_ftz(s[mt][n][2] - mn1);
+        s[mt][n][3] = exp2_ftz(s[mt][n][3] - mn1);
+        l[mt][0] += s[mt][n][0] + s[mt][n][1];
+        l[mt][1] += s[mt][n][2] + s[mt][n][3];
+      }
+    }
+
+    // O += P V, P rounded to bf16 (key blocks 2k and 2k + 1 of S are k-step
+    // k of the product); each V fragment feeds the warp's row tiles
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) pack_a(pa[mt], s[mt][2 * kk], s[mt][2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < NO / 2; ++n2) {
+        uint32_t vb[4];
+        load_b_nn<LDT>(vb, Vt, n2, kk, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(o[mt][2 * n2], pa[mt], vb[0], vb[1]);
+          mma_bf16(o[mt][2 * n2 + 1], pa[mt], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+
+  // out = O / l, or 0 where the row sum is 0 (a fully masked row)
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float l0 = l[mt][0], l1 = l[mt][1];
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+    const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    const int qr0 = q0 + row0 + mt * 16 + g, qr1 = qr0 + 8;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int col = h * D + n * 8 + 2 * t4;
+      if (qr0 < t_len) {
+        *reinterpret_cast<uint32_t*>(out + ((long)b * t_len + qr0) * C + col) =
+            pack_bf16(o[mt][n][0] * inv0, o[mt][n][1] * inv0);
+      }
+      if (qr1 < t_len) {
+        *reinterpret_cast<uint32_t*>(out + ((long)b * t_len + qr1) * C + col) =
+            pack_bf16(o[mt][n][2] * inv1, o[mt][n][3] * inv1);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------ float32: plain FMA
 
 // Shared-memory layout (row strides padded against bank conflicts).
@@ -385,47 +713,96 @@ bias_attention_simt(const float* __restrict__ qkv, const float* __restrict__ bia
 
 // ------------------------------------------------------------------ launch
 
-// dtype 0: bf16 qkv/out on the tensor cores, bias BiasT; dtype 1: fp32
-// qkv/out/bias on the scalar kernel.
-template <int D, typename BiasT, bool kLse>
-cudaError_t launch(int dtype, const void* qkv, const void* bias, void* out, float* lse,
-                   int batch, int t_len, int heads, float scale, float bias_scale,
-                   cudaStream_t stream) {
-  const dim3 grid(batch, (t_len + BQ - 1) / BQ, heads);
-  if (dtype == 0) {
-    const int smem = (int)mma_smem_bytes<D>();
-    auto kernel = bias_attention_mma<D, BiasT, kLse>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, NTHREADS, smem, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<const BiasT*>(bias),
-        static_cast<bf16*>(out), lse, t_len, heads, scale, bias_scale);
-  } else {
-    const int smem = (int)SimtLayout<D>::bytes;
-    auto kernel = bias_attention_simt<D, kLse>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, NTHREADS, smem, stream>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(bias),
-        static_cast<float*>(out), lse, t_len, heads, scale, bias_scale);
-  }
+struct Args {
+  const void* qkv;
+  const void* bias;
+  void* out;
+  float* lse;
+  int batch, t_len, heads;
+  float scale, bias_scale;
+  cudaStream_t stream;
+};
+
+// fp32 qkv/out/bias on the scalar kernel (the test route of both entries).
+template <int D, bool kLse>
+cudaError_t launch_simt(const Args& a) {
+  const dim3 grid(a.batch, (a.t_len + BQ - 1) / BQ, a.heads);
+  const int smem = (int)SimtLayout<D>::bytes;
+  auto kernel = bias_attention_simt<D, kLse>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NTHREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.qkv), static_cast<const float*>(a.bias),
+      static_cast<float*>(a.out), a.lse, a.t_len, a.heads, a.scale, a.bias_scale);
   return cudaGetLastError();
 }
 
-template <typename BiasT, bool kLse>
-int dispatch(int head_dim, int dtype, const void* qkv, const void* bias, void* out,
-             float* lse, int batch, int t_len, int heads, float scale, float bias_scale,
-             void* stream) {
-  if (batch <= 0 || t_len <= 0 || heads <= 0 || (dtype != 0 && dtype != 1)) {
+template <int D>
+cudaError_t prepare_serve() {
+  auto kernel = serve_fwd_mma<D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Serve<D>::bytes);
+  if (err != cudaSuccess) return err;
+  // prefer shared memory over L1, so that two or three CTAs fit on an SM
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// Serving: dtype 0 bf16 on serve_fwd_mma, dtype 1 fp32 on the scalar kernel.
+template <int D>
+cudaError_t launch_serve(int dtype, const Args& a) {
+  if (dtype != 0) return launch_simt<D, false>(a);
+  using L = Serve<D>;
+  const int width = a.t_len % 8 == 0 ? 8 : a.t_len % 4 == 0 ? 4 : 1;
+  cudaError_t err = prepare_serve<D>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.batch, (a.t_len + L::BQ - 1) / L::BQ, a.heads);
+  serve_fwd_mma<D><<<grid, NTHREADS, L::bytes, a.stream>>>(
+      static_cast<const bf16*>(a.qkv), static_cast<const bf16*>(a.bias),
+      static_cast<bf16*>(a.out), a.t_len, a.heads, a.scale, width);
+  return cudaGetLastError();
+}
+
+// Training: dtype 0 bf16 qkv/out with an fp32 bias on bias_attention_mma,
+// dtype 1 fp32 on the scalar kernel; both write lse.
+template <int D>
+cudaError_t launch_train(int dtype, const Args& a) {
+  if (dtype != 0) return launch_simt<D, true>(a);
+  const dim3 grid(a.batch, (a.t_len + BQ - 1) / BQ, a.heads);
+  const int smem = (int)mma_smem_bytes<D>();
+  auto kernel = bias_attention_mma<D, float, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NTHREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.qkv), static_cast<const float*>(a.bias),
+      static_cast<bf16*>(a.out), a.lse, a.t_len, a.heads, a.scale, a.bias_scale);
+  return cudaGetLastError();
+}
+
+// CTAs of the bf16 serving kernel that fit on one SM.
+template <int D>
+cudaError_t serve_blocks_per_sm(int* blocks) {
+  cudaError_t err = prepare_serve<D>();
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, serve_fwd_mma<D>, NTHREADS,
+                                                       Serve<D>::bytes);
+}
+
+enum class Op { kServe, kTrain, kOccupancy };
+
+template <Op kOp>
+int dispatch(int head_dim, int dtype, const Args& a, int* blocks = nullptr) {
+  if (kOp != Op::kOccupancy &&
+      (a.batch <= 0 || a.t_len <= 0 || a.heads <= 0 || (dtype != 0 && dtype != 1))) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DTTS_CASE(DIM)                                                          \
   case DIM:                                                                     \
-    return (int)launch<DIM, BiasT, kLse>(dtype, qkv, bias, out, lse, batch,   \
-                                         t_len, heads, scale, bias_scale, s);
+    return (int)(kOp == Op::kServe   ? launch_serve<DIM>(dtype, a)              \
+                 : kOp == Op::kTrain ? launch_train<DIM>(dtype, a)              \
+                                     : serve_blocks_per_sm<DIM>(blocks));
   switch (head_dim) {
     DTTS_CASE(16) DTTS_CASE(32) DTTS_CASE(48) DTTS_CASE(64)
     DTTS_CASE(80) DTTS_CASE(96) DTTS_CASE(112) DTTS_CASE(128)
@@ -443,12 +820,9 @@ int dispatch(int head_dim, int dtype, const void* qkv, const void* bias, void* o
 extern "C" int bias_attention_fwd(const void* qkv, const void* bias, void* out,
                                   int batch, int t_len, int heads, int head_dim,
                                   float scale, int dtype, void* stream) {
-  if (dtype == 0) {
-    return dispatch<bf16, false>(head_dim, dtype, qkv, bias, out, nullptr, batch,
-                                 t_len, heads, scale, 1.f, stream);
-  }
-  return dispatch<float, false>(head_dim, dtype, qkv, bias, out, nullptr, batch, t_len,
-                                heads, scale, 1.f, stream);
+  const Args a{qkv, bias, out, nullptr, batch, t_len, heads, scale, 1.f,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<Op::kServe>(head_dim, dtype, a);
 }
 
 // Training forward: as above, but the bias is float32 in the natural domain
@@ -458,8 +832,18 @@ extern "C" int bias_attention_train_fwd(const void* qkv, const void* bias, void*
                                         void* lse, int batch, int t_len, int heads,
                                         int head_dim, float scale, float bias_scale,
                                         int dtype, void* stream) {
-  return dispatch<float, true>(head_dim, dtype, qkv, bias, out, static_cast<float*>(lse),
-                               batch, t_len, heads, scale, bias_scale, stream);
+  const Args a{qkv, bias, out, static_cast<float*>(lse), batch, t_len, heads, scale,
+               bias_scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<Op::kTrain>(head_dim, dtype, a);
+}
+
+// CTAs of the bf16 serving kernel at ``head_dim`` that fit on one SM of the
+// current device, or minus the CUDA error code.
+extern "C" int bias_attention_fwd_blocks_per_sm(int head_dim) {
+  int blocks = 0;
+  const Args a{};
+  const int err = dispatch<Op::kOccupancy>(head_dim, 0, a, &blocks);
+  return err != 0 ? -err : blocks;
 }
 
 extern "C" const char* bias_attention_error_string(int code) {

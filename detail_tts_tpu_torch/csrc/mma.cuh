@@ -36,6 +36,11 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool val
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0));
 }
+// 8-byte async copy (any 8-byte aligned address); zero-filled unless ``valid``.
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
+}
 // 4-byte async copy (any 4-byte aligned address); zero-filled unless ``valid``.
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
@@ -70,6 +75,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The two bf16 of a 32-bit word (low half first) as floats.
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+}
+
+// 2^x on the special-function unit (ex2.approx, as exp2f), results below
+// 2^-126 flushed to 0, without exp2f's fix-up of such results.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -86,15 +104,6 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4],
 
 // Bias at (row, col) and (row, col + 1); 0 past T (those keys are masked).
 // ``even``: T even, so a pair at an even column is one aligned load.
-__device__ __forceinline__ float2 bias_pair(const bf16* row, int col, int t_len,
-                                            bool even) {
-  if (even) {
-    if (col < t_len) return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + col));
-    return make_float2(0.f, 0.f);
-  }
-  return make_float2(col < t_len ? __bfloat162float(row[col]) : 0.f,
-                     col + 1 < t_len ? __bfloat162float(row[col + 1]) : 0.f);
-}
 __device__ __forceinline__ float2 bias_pair(const float* row, int col, int t_len,
                                             bool even) {
   if (even) {
@@ -104,14 +113,14 @@ __device__ __forceinline__ float2 bias_pair(const float* row, int col, int t_len
   return make_float2(col < t_len ? row[col] : 0.f, col + 1 < t_len ? row[col + 1] : 0.f);
 }
 
-// Async copy of rows [r0, r0 + 64) (columns [0, D)) of a row-major bf16
+// Async copy of rows [r0, r0 + ROWS) (columns [0, D)) of a row-major bf16
 // matrix into a shared tile with row stride D + 8; rows past T are zero.
-template <int D>
+template <int D, int ROWS = TILE>
 __device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int r0,
                                           int t_len, long row_stride) {
   constexpr int LDT = D + 8;  // +16 bytes a row: ldmatrix rows hit distinct banks
   constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < TILE * VPR; i += NTHREADS) {
+  for (int i = threadIdx.x; i < ROWS * VPR; i += NTHREADS) {
     const int r = i / VPR;
     const int c = (i % VPR) * 8;
     const bool valid = r0 + r < t_len;

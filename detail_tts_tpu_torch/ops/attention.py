@@ -9,10 +9,12 @@ scale and a log2-domain bias go straight into ``exp2``.  A row whose every
 bias is <= -1e9 gives 0, and zero gradients.
 
 * :func:`bias_attention` - serving forward (no gradient): kernel
-  ``bias_attention_fwd`` (``csrc/bias_attention.cu``), replacing the Pallas
+  ``bias_attention_fwd`` (``csrc/bias_attention.cu``; in bf16 128 query rows
+  a CTA with the bias tile in the ``cp.async`` ring), replacing the Pallas
   serving kernels ``attention_packed_pairs``, ``attention_packed`` and
   ``row_block_attention`` of the JAX package.  It raises when grad mode is
-  on and an input requires grad.
+  on and an input requires grad.  The C entry
+  ``bias_attention_fwd_blocks_per_sm`` reports its CTAs per SM.
 * :func:`bias_attention_train` - the trainable version, a
   :class:`BiasAttentionFunction` over an fp32 natural-domain bias.  Its
   forward is kernel ``bias_attention_train_fwd`` (the same source, also
@@ -255,6 +257,7 @@ _SIGNATURES = {
     SOURCE: {"bias_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
              "bias_attention_train_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F,
                                           _F, _I, _P],
+             "bias_attention_fwd_blocks_per_sm": [_I],
              "bias_attention_error_string": [_I]},
     BWD_SOURCE: {"bias_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                            _I, _I, _I, _F, _F, _F, _I, _P],

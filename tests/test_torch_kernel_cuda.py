@@ -42,7 +42,11 @@ def _inputs(b, t, h, d, dtype, seed, device):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
-@pytest.mark.parametrize("b,t", [(1, 1), (3, 63), (2, 130), (5, 257)])
+# T at the bf16 kernel's tile edges (127-129: one 128-row CTA or two), at its
+# bias-copy widths (8-byte copies at 100 and 300, 16-byte at 128 and 1600,
+# single values at odd T and at 130) and at the trunk's length
+@pytest.mark.parametrize("b,t", [(1, 1), (3, 63), (2, 130), (5, 257), (2, 127), (2, 128),
+                                 (2, 129), (2, 100), (2, 300), (2, 1600), (2, 1597)])
 def test_kernel_matches_plain_version(cuda, dtype, d, b, t):
     h = 4
     qkv, bias = _inputs(b, t, h, d, dtype, seed=d * t + b, device=cuda)
@@ -67,6 +71,12 @@ def test_fully_masked_rows_are_zero(cuda, dtype, t):
     assert torch.count_nonzero(out[:, 5, d:2 * d]).item() == 0
     assert torch.count_nonzero(out[:, t - 1, 3 * d:4 * d]).item() == 0
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_serving_kernel_fits_on_an_sm(cuda):
+    lib = attention._library(attention.SOURCE)
+    assert lib.bias_attention_fwd_blocks_per_sm(48) >= 2
+    assert lib.bias_attention_fwd_blocks_per_sm(128) >= 1
 
 
 def test_natural_domain_bias_is_scaled_to_log2(cuda):
