@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 2. build: compiles ``detail_tts_tpu_torch/csrc/bias_attention.cu`` and
    ``bias_attention_bwd.cu`` with nvcc, one process each, at once; prints
    each kernel's ``ptxas -v`` registers and spills, and the CTAs per SM of
-   the serving forward and the backward kernels at d=48 and d=96;
+   the serving forward, the training forward and the backward kernels at
+   d=48 and d=96;
 3. kernel: ``bias_attention`` against its plain PyTorch version at the
    serving shapes and at T on the serving kernel's tile and bias-copy edges
    (bf16, plus fp32 and a fully masked row), with CUDA-event
@@ -24,8 +25,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    partials' sum in batch order) against their plain versions at the
    training step's attention shapes (bf16 and fp32, ragged T, a fully
    masked row), the sum pass alone against its plain version, the backward
-   twice for bit-identical dbias, and CUDA-event times beside the bound, the
-   plain versions and SDPA with a bias mask that requires grad;
+   twice for bit-identical dbias, and CUDA-event times of bare launches on
+   buffers allocated beforehand (the training forward also through its
+   wrapper) beside the bound, the plain versions and SDPA with a bias mask
+   that requires grad;
 6. training: ``Trainer`` over ``Config()`` at full width, target ``diff``,
    micro-batch 8 x 496 frames x accum 16 of seeded synthetic batches: a
    warm-up step and three timed steps, each checked for finite loss and grad
@@ -93,6 +96,31 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, runs: int = 20, warmup: int = 3, only: str = ""):
+    """Device time of one ``fn()``: the summed durations of the kernels that
+    ``runs`` calls launch (those whose name holds ``only``), from the
+    profiler's CUDA trace, over ``runs``.  Unlike a CUDA-event pair around
+    one call, it holds none of the host time that a launch of a few
+    microseconds can wait for.  None if the trace held no such kernel in
+    three tries (the profiler's CUDA trace has come back empty)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                 and only in e.name]
+        if spans:
+            return sum(spans) / runs / 1e3
+    return None
+
+
 def attention_inputs(b, t, h, d, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn((b, t, 3 * h * d), generator=g, device="cuda").to(dtype)
@@ -145,11 +173,13 @@ def phase_build():
     lib = attention._library(attention.BWD_SOURCE)
     for d in (48, 96):
         serve = fwd.bias_attention_fwd_blocks_per_sm(d)
+        train = fwd.bias_attention_train_fwd_blocks_per_sm(d)
         occ = [lib.bias_attention_bwd_blocks_per_sm(k, d) for k in (0, 1)]
-        if min(occ + [serve]) <= 0:
-            fail(f"kernels at d={d} fit no CTA on an SM (serving {serve}, backward {occ})")
-        print(f"  CTAs per SM at d={d}: serving forward {serve}, backward dq {occ[0]}, "
-              f"dk/dv {occ[1]}", flush=True)
+        if min(occ + [serve, train]) <= 0:
+            fail(f"kernels at d={d} fit no CTA on an SM (serving {serve}, training "
+                 f"forward {train}, backward {occ})")
+        print(f"  CTAs per SM at d={d}: serving forward {serve}, training forward {train}, "
+              f"backward dq {occ[0]}, dk/dv {occ[1]}", flush=True)
 
 
 def phase_kernel(sfu_per_s, extra_shapes=(), timed_shapes=()):
@@ -363,11 +393,14 @@ def sdpa_backend(fn) -> str:
 
 
 def time_train_kernels(b, t, h, d, sfu_per_s):
-    """CUDA-event times of the training kernels, their plain versions and
-    SDPA (forward, and backward through torch.autograd.grad) at one shape."""
+    """CUDA-event times of the training kernels (bare launches on buffers
+    allocated beforehand; also their device time from the profiler), the
+    training forward's wrapper, the plain versions and SDPA (forward, and
+    backward through torch.autograd.grad) at one shape."""
     qkv, bias, dout = train_inputs(b, t, h, d, torch.bfloat16, seed=7)
     sm = 1.0 / math.sqrt(d)
     out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
+    out_t, lse_t = torch.empty_like(out), torch.empty_like(lse)
     tp = attention.padded_len(t)
     delta = torch.empty((b, h, t), device="cuda")
     part = torch.empty((b, h, tp, tp), device="cuda")
@@ -375,20 +408,26 @@ def time_train_kernels(b, t, h, d, sfu_per_s):
     dbias = torch.empty((h, t, t), device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     args = (b, t, h, d, sm * attention.LOG2E, attention.LOG2E, sm, 0, stream)
-    ms = {
-        "bias_attention_train_fwd": cuda_ms(lambda: attention.bias_attention_train_fwd(
-            qkv, bias, heads=h, sm_scale=sm)),
-        "bias_attention_bwd_dq_dbias": cuda_ms(lambda: attention._launch(
+    launch = {
+        "bias_attention_train_fwd": lambda: attention._launch(
+            attention.SOURCE, "bias_attention_train_fwd", qkv.data_ptr(), bias.data_ptr(),
+            out_t.data_ptr(), lse_t.data_ptr(), b, t, h, d, sm * attention.LOG2E,
+            attention.LOG2E, 0, stream),
+        "bias_attention_bwd_dq_dbias": lambda: attention._launch(
             attention.BWD_SOURCE, "bias_attention_bwd_dq", qkv.data_ptr(), bias.data_ptr(),
             dout.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dqkv.data_ptr(), part.data_ptr(), *args)),
-        "bias_attention_bwd_dkv": cuda_ms(lambda: attention._launch(
+            dqkv.data_ptr(), part.data_ptr(), *args),
+        "bias_attention_bwd_dkv": lambda: attention._launch(
             attention.BWD_SOURCE, "bias_attention_bwd_dkv", qkv.data_ptr(), bias.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), *args)),
-        "bias_attention_bwd_dbias_sum": cuda_ms(lambda: attention._launch(
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), *args),
+        "bias_attention_bwd_dbias_sum": lambda: attention._launch(
             attention.BWD_SOURCE, "bias_attention_bwd_dbias_sum", part.data_ptr(),
-            dbias.data_ptr(), b, t, h, stream)),
+            dbias.data_ptr(), b, t, h, stream),
     }
+    ms = {name: cuda_ms(fn) for name, fn in launch.items()}
+    dev = {name: device_ms(fn) for name, fn in launch.items()}
+    wrapper_ms = cuda_ms(lambda: attention.bias_attention_train_fwd(
+        qkv, bias, heads=h, sm_scale=sm))
     bwd_ms = cuda_ms(lambda: attention.bias_attention_bwd(qkv, bias, out, lse, dout,
                                                           heads=h, sm_scale=sm))
     plain_fwd = cuda_ms(lambda: attention.bias_attention_train_reference(
@@ -418,13 +457,20 @@ def time_train_kernels(b, t, h, d, sfu_per_s):
     library = {"bias_attention_train_fwd": lib_fwd, "bias_attention_bwd_dbias_sum": lib_sum}
     rows = {}
     for name in TRAIN_KERNELS:
-        rows[name] = dict(ms=ms[name], plain_ms=plain.get(name, plain_bwd),
+        rows[name] = dict(ms=ms[name], device_ms=dev[name],
+                          plain_ms=plain.get(name, plain_bwd),
                           library_ms=library.get(name, lib_bwd),
                           bound_ms=bounds[name][0], bound_by=bounds[name][1],
                           shape=[b, t, h, d])
+        share = ("" if dev[name] is None
+                 else f" ({bounds[name][0] / dev[name]:.1%} of its device time)")
         print(f"  time B={b} T={t} H={h} d={d} bf16 {name}: ms {ms[name]} "
-              f"bound_ms {bounds[name][0]} ({bounds[name][1]}) -> "
-              f"{bounds[name][0] / ms[name]:.1%} of bound", flush=True)
+              f"(device time {dev[name]}) bound_ms {bounds[name][0]} ({bounds[name][1]}) "
+              f"-> {bounds[name][0] / ms[name]:.1%} of bound{share}", flush=True)
+    rows["bias_attention_train_fwd"]["wrapper_ms"] = wrapper_ms
+    print(f"  time bias_attention_train_fwd through its wrapper (checks, two "
+          f"torch.empty, the ctypes call) {wrapper_ms} ms beside the bare launch "
+          f"{ms['bias_attention_train_fwd']} ms", flush=True)
     print(f"  time sum pass: plain (batch-order adds) {plain_sum} ms, "
           f"torch.sum over the batch {lib_sum} ms", flush=True)
     bound_bwd = bounds["backward"]

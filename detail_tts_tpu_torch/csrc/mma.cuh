@@ -102,17 +102,6 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4],
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-// Bias at (row, col) and (row, col + 1); 0 past T (those keys are masked).
-// ``even``: T even, so a pair at an even column is one aligned load.
-__device__ __forceinline__ float2 bias_pair(const float* row, int col, int t_len,
-                                            bool even) {
-  if (even) {
-    if (col < t_len) return *reinterpret_cast<const float2*>(row + col);
-    return make_float2(0.f, 0.f);
-  }
-  return make_float2(col < t_len ? row[col] : 0.f, col + 1 < t_len ? row[col + 1] : 0.f);
-}
-
 // Async copy of rows [r0, r0 + ROWS) (columns [0, D)) of a row-major bf16
 // matrix into a shared tile with row stride D + 8; rows past T are zero.
 template <int D, int ROWS = TILE>

@@ -85,21 +85,24 @@ class DiffusionTts(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 code_emb: torch.Tensor,
-                keep: Optional[Sequence[bool]] = None) -> torch.Tensor:
+                keep: Optional[Sequence[bool]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Training call (diff_model.py:262-322): noisy mel x (B, T,
         in_channels), timesteps (B,), the timestep-independent ``code_emb``
         (B, T, mc) -> (B, T, out_channels) = [epsilon | variance logits].
 
         ``keep``: one flag per entry of ``layers``; a False layer is skipped
-        (layer drop), so its parameters get no gradient."""
+        (layer drop), so its parameters get no gradient.  ``generator``: the
+        source of every ``DiffResBlock``'s dropout mask, drawn in layer order
+        (required in ``train()`` mode when dropout > 0)."""
         temb = self._time_emb(timesteps, x.dtype)
         code_emb = code_emb.to(x.dtype)
         for blk in self.conditioning_timestep_integrator:
-            code_emb = blk(code_emb, temb)
+            code_emb = blk(code_emb, temb, generator=generator)
         h = self.integrating_conv(torch.cat([self.inp_block(x), code_emb], dim=-1))
         for i, lyr in enumerate(self.layers):
             if keep is None or keep[i]:
-                h = lyr(h, temb)
+                h = lyr(h, temb, generator=generator)
         h = F.silu(self.out[0](h.float()))  # fp32 tail
         return self.out[2](h)
 

@@ -136,11 +136,14 @@ class SynthesizerTrn(nn.Module):
 
     def forward_diff(self, data: Dict[str, torch.Tensor],
                      schedule: DiffusionSchedule, draws: DiffDraws,
-                     latents: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     latents: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Diffusion stage (model_24k.py:667-696): the scalar loss.
 
         ``draws`` holds the call's random draws (:func:`draw_diff`);
-        ``latents`` the frozen GPT latents if already computed."""
+        ``latents`` the frozen GPT latents if already computed; ``generator``
+        the source of the diffusion net's dropout masks (required in
+        ``train()`` mode when ``DiffusionConfig.dropout`` > 0)."""
         x_start = normalize_mel(data["raw_mel"])
         x_t = schedule.q_sample(x_start, draws.t, draws.noise)
         if latents is None:
@@ -149,7 +152,7 @@ class SynthesizerTrn(nn.Module):
         code_emb = self.diffusion.timestep_independent(
             latents, cond_latent, x_start.shape[1], unconditioned_mask=draws.uncond)
         out = self.diffusion(x_t, schedule.timestep_map[draws.t], code_emb,
-                             keep=draws.keep)
+                             keep=draws.keep, generator=generator)
         eps, var_logits = out.chunk(2, dim=-1)
         return training_losses(schedule, eps, var_logits, x_start, x_t, draws.t,
                                draws.noise).mean()

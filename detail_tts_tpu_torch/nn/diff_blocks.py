@@ -10,7 +10,8 @@ Counterpart of ``detail_tts_tpu/nn/diff_blocks.py``:
   taken when grad mode is on, the block computes its own T5 bias and a
   parameter requires grad;
 * :class:`DiffResBlock` - scale-shift GroupNorm FiLM residual block with
-  dropout (``DiffusionConfig.dropout``, active in ``train()`` mode only);
+  dropout (``DiffusionConfig.dropout``, active in ``train()`` mode only, its
+  mask drawn from the step's explicit ``torch.Generator``);
 * :class:`DiffusionLayer` - DiffResBlock + AttentionBlock.
 """
 from __future__ import annotations
@@ -140,6 +141,29 @@ class AttentionBlock(nn.Module):
         return x + self.proj_out(a)
 
 
+class SeededDropout(nn.Dropout):
+    """``nn.Dropout`` whose mask is drawn from an explicit generator.
+
+    In ``train()`` mode with p > 0 the keep mask comes from ``generator``
+    (on the activation's device) and the kept values are scaled by
+    1 / (1 - p), as ``nn.Dropout`` scales them.  A missing generator raises
+    instead of falling back to torch's global one, so a training step stays
+    a function of its seed.  In ``eval()`` mode or at p = 0 nothing is drawn.
+    The JAX block's threefry mask cannot be matched bit for bit: the port is
+    held to determinism from its seed."""
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError(f"dropout {self.p} in train() mode needs the step's "
+                             "torch.Generator; none was given")
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.p
+        scale = 1.0 / (1.0 - self.p) if self.p < 1.0 else 0.0
+        return x * keep.to(x.dtype) * scale
+
+
 class DiffResBlock(nn.Module):
     """diff_model.ResBlock with use_scale_shift_norm (diff_model.py:59-119).
 
@@ -155,14 +179,17 @@ class DiffResBlock(nn.Module):
                                        Conv1d(channels, channels, 1))
         self.emb_layers = nn.Sequential(nn.SiLU(), Dense(emb_channels, 2 * channels))
         self.out_layers = nn.Sequential(
-            GroupNorm32(channels), nn.SiLU(), nn.Dropout(dropout),
+            GroupNorm32(channels), nn.SiLU(), SeededDropout(dropout),
             Conv1d(channels, channels, kernel_size, padding=pad))
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator``: the dropout mask's source, required in ``train()``
+        mode when dropout > 0 (see :class:`SeededDropout`)."""
         h = self.in_layers(x)
         scale, shift = self.emb_layers(emb)[:, None, :].chunk(2, dim=-1)
         h = self.out_layers[0](h) * (1 + scale) + shift
-        h = self.out_layers[3](self.out_layers[2](F.silu(h)))
+        h = self.out_layers[3](self.out_layers[2](F.silu(h), generator))
         return x + h
 
 
@@ -174,8 +201,8 @@ class DiffusionLayer(nn.Module):
         self.resblk = DiffResBlock(model_channels, model_channels, dropout=dropout)
         self.attn = AttentionBlock(model_channels, num_heads)
 
-    def forward(self, x, time_emb, attn_bias=None):
-        return self.attn(self.resblk(x, time_emb), attn_bias)
+    def forward(self, x, time_emb, attn_bias=None, generator=None):
+        return self.attn(self.resblk(x, time_emb, generator), attn_bias)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,

@@ -17,10 +17,13 @@ bias is <= -1e9 gives 0, and zero gradients.
   ``bias_attention_fwd_blocks_per_sm`` reports its CTAs per SM.
 * :func:`bias_attention_train` - the trainable version, a
   :class:`BiasAttentionFunction` over an fp32 natural-domain bias.  Its
-  forward is kernel ``bias_attention_train_fwd`` (the same source, also
-  writing the row statistic lse = m + log2(l)); its backward the kernels
-  ``bias_attention_bwd_dq_dbias`` (delta, dq and one dbias partial per
-  batch row), ``bias_attention_bwd_dkv`` and
+  forward is kernel ``bias_attention_train_fwd`` (the same source, on the
+  serving kernel's skeleton with the fp32 bias tile in the ``cp.async``
+  ring, 128 query rows a CTA where that grid fills the card, also writing
+  the row statistic lse = m + log2(l); the C entry
+  ``bias_attention_train_fwd_blocks_per_sm`` reports its CTAs per SM); its
+  backward the kernels ``bias_attention_bwd_dq_dbias`` (delta, dq
+  and one dbias partial per batch row), ``bias_attention_bwd_dkv`` and
   ``bias_attention_bwd_dbias_sum`` (the partials added in batch order)
   (``csrc/bias_attention_bwd.cu``), which write one d(qkv) tensor and a
   dbias summed over the batch.  They replace the Pallas ``attention_train``
@@ -258,6 +261,7 @@ _SIGNATURES = {
              "bias_attention_train_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F,
                                           _F, _I, _P],
              "bias_attention_fwd_blocks_per_sm": [_I],
+             "bias_attention_train_fwd_blocks_per_sm": [_I],
              "bias_attention_error_string": [_I]},
     BWD_SOURCE: {"bias_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                            _I, _I, _I, _F, _F, _F, _I, _P],

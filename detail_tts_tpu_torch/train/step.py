@@ -138,7 +138,8 @@ def make_single_loss_step(cfg: Config, device="cuda") -> Callable:
 
     ``batch`` leaves have shape (accum, micro_batch, ...).  ``draws``:
     optional per-microbatch :class:`DiffDraws` (the tests hand in JAX's);
-    else each microbatch draws from ``generator``.  ``timings``: optional
+    else each microbatch draws from ``generator``, which also gives the
+    diffusion net's dropout masks, after the draws.  ``timings``: optional
     dict; each stage then ends in a device synchronisation and its wall time
     is added under its name.  Metrics: ``loss`` (mean over microbatches, a
     0-d tensor), ``grad_norm`` (before clipping, a 0-d tensor) and
@@ -177,7 +178,8 @@ def make_single_loss_step(cfg: Config, device="cuda") -> Callable:
                     d = draws[i] if draws is not None else draw_diff(
                         cfg, schedule, mb["raw_mel"].shape, generator, dev,
                         train=model.training)
-                    loss = model.forward_diff(mb, schedule, d, latents=latents)
+                    loss = model.forward_diff(mb, schedule, d, latents=latents,
+                                              generator=generator)
             with stage("backward"):
                 loss.backward()
             losses.append(loss.detach())

@@ -18,8 +18,9 @@ synthetic batches) after a warm-up step, split into the step's ranges
 ``optimizer``, each summed over the micro-batches.
 
 Each prints each stage's wall time, device busy time and idle share
-(1 - busy / wall), the device launches, then the kernels with the most
-device time.  The last line is one JSON object with the same numbers.
+(1 - busy / wall), the device launches, the kernels with the most device
+time, and the device time of each of the port's own bias-attention kernels.
+The last line is one JSON object with the same numbers.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -37,6 +38,8 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+# name fragments of the port's hand-written kernels (csrc/)
+OWN_KERNELS = ("_mma<", "dbias_sum", "bias_attention_simt")
 STAGES = ("prepare", "generate", "diff_cond", "latents", "diffuse", "vocode", "host")
 TRAIN_STAGES = ("latents", "forward", "backward", "optimizer")
 
@@ -97,10 +100,15 @@ def report(rows, device, **extra):
           "top device time (ms, launches, name):")
     for name, (n, ms) in top:
         print(f"  {ms:9.2f} {n:7d}  {name[:100]}")
+    own = {k: v for k, v in per_kernel.items() if any(f in k for f in OWN_KERNELS)}
+    print("the port's bias-attention kernels (ms, launches, name):")
+    for name, (n, ms) in sorted(own.items(), key=lambda kv: -kv[1][1]):
+        print(f"  {ms:9.2f} {n:7d}  {name[:100]}")
     print(json.dumps(dict(
         device=torch.cuda.get_device_name(0), **extra, wall_ms=wall_all,
         busy_ms=busy_all, stages=rows, launches=sum(n for n, _ in per_kernel.values()),
-        top_kernels=[dict(name=k[:100], launches=n, ms=ms) for k, (n, ms) in top])))
+        top_kernels=[dict(name=k[:100], launches=n, ms=ms) for k, (n, ms) in top],
+        own_kernels=[dict(name=k[:100], launches=n, ms=ms) for k, (n, ms) in own.items()])))
 
 
 def profile_train():

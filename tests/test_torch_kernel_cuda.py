@@ -79,6 +79,12 @@ def test_serving_kernel_fits_on_an_sm(cuda):
     assert lib.bias_attention_fwd_blocks_per_sm(128) >= 1
 
 
+def test_train_forward_fits_on_an_sm(cuda):
+    lib = attention._library(attention.SOURCE)
+    assert lib.bias_attention_train_fwd_blocks_per_sm(48) >= 2
+    assert lib.bias_attention_train_fwd_blocks_per_sm(128) >= 1
+
+
 def test_natural_domain_bias_is_scaled_to_log2(cuda):
     b, t, h, d = 2, 80, 4, 32
     qkv, bias = _inputs(b, t, h, d, torch.float32, seed=1, device=cuda)
@@ -141,11 +147,24 @@ def _check_train(qkv, bias, dout, h, d, dtype):
     return out, lse, dqkv, dbias
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def _heads_to_fill(b, t):
+    """Heads enough for the bf16 training forward's 128-row CTAs (d <= 64)
+    to fill every SM, so that they are the ones launched (a grid of fewer
+    takes 64-row CTAs)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return -(-sms // (b * -(-t // 128)))
+
+
+@pytest.mark.parametrize("dtype,rows", [(torch.bfloat16, 64), (torch.float32, 64),
+                                        (torch.bfloat16, 128)])
 @pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
-@pytest.mark.parametrize("b,t", [(1, 1), (3, 63), (2, 130), (2, 257)])
-def test_train_kernels_match_plain_versions(cuda, dtype, d, b, t):
-    h = 4
+# T at the training forward's tile edges (63-65 and 127-129: one CTA's
+# rows or two), at its bias-copy widths (16-byte at 100, 124 and 128,
+# 8-byte at 130, 4-byte at odd T) and at the step's conditioner length 124
+@pytest.mark.parametrize("b,t", [(1, 1), (3, 63), (2, 130), (2, 257), (2, 127), (2, 128),
+                                 (2, 129), (2, 100), (2, 124), (3, 65)])
+def test_train_kernels_match_plain_versions(cuda, dtype, rows, d, b, t):
+    h = 4 if rows == 64 else _heads_to_fill(b, t)
     qkv, bias, dout = _train_inputs(b, t, h, d, dtype, seed=d * t + b, device=cuda)
     _check_train(qkv, bias, dout, h, d, dtype)
 

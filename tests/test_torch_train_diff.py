@@ -8,7 +8,8 @@
     gradient trees, one of them clipped, across an LR staircase boundary;
 (c) one whole ``train_step`` with two microbatches, and ``Trainer.train``
     with its metrics log;
-and the dropout repair in ``DiffResBlock``.
+and ``DiffResBlock``'s dropout, drawn from the step's explicit generator: a
+step with dropout is a function of its seed.
 """
 import copy
 import dataclasses
@@ -24,8 +25,10 @@ import torch
 from detail_tts_tpu.models.synthesizer import SynthesizerTrn as JaxSynth
 from detail_tts_tpu.models.synthesizer import make_train_schedule as jax_train_schedule
 from detail_tts_tpu.train.optim import make_optimizer as jax_make_optimizer
+from detail_tts_tpu_torch.config import small_test_config
 from detail_tts_tpu_torch.io.weights import from_jax_variables
-from detail_tts_tpu_torch.models.synthesizer import DiffDraws, make_train_schedule
+from detail_tts_tpu_torch.models.synthesizer import (DiffDraws, draw_diff,
+                                                     make_train_schedule)
 from detail_tts_tpu_torch.nn.diff_blocks import DiffResBlock
 from detail_tts_tpu_torch.ops import attention as port_attn
 from detail_tts_tpu_torch.train.optim import (make_optimizer, optimizer_step,
@@ -218,10 +221,68 @@ def test_diff_resblock_dropout_only_in_train_mode():
         blk.eval()
         a, b = blk(x, emb), blk(x, emb)
         blk.train()
-        c = blk(x, emb)
+        c = blk(x, emb, torch.Generator().manual_seed(0))
     assert isinstance(blk.out_layers[2], torch.nn.Dropout)
     assert torch.equal(a, b) and not torch.allclose(a, c)
     plain = DiffResBlock(64, 64)
     plain.load_state_dict(blk.state_dict())
     with torch.no_grad():
         torch.testing.assert_close(plain.eval()(x, emb), a)
+
+
+def _dropout_state(p):
+    """A seeded train state of ``small_test_config()`` with diffusion dropout
+    ``p``, a one-microbatch batch and the step function, on the CPU."""
+    cfg = small_test_config()
+    cfg = _with_target(dataclasses.replace(
+        cfg, diffusion=dataclasses.replace(cfg.diffusion, dropout=p)))
+    state = make_train_state(cfg, device="cpu", seed=0)
+    batch = next(synthetic_batches(cfg, accum=1, micro_batch=B, mel_frames=FRAMES,
+                                   text_len=TEXT, generator=torch.Generator().manual_seed(1)))
+    return cfg, state, batch, make_single_loss_step(cfg, device="cpu")
+
+
+def test_dropout_step_is_a_function_of_its_seed():
+    cfg, state, batch, step = _dropout_state(0.1)
+    snap = state.snapshot()
+    runs = []
+    for seed in (5, 5):
+        state.restore(snap)
+        runs.append(step(state, batch, torch.Generator().manual_seed(seed)))
+    assert torch.equal(runs[0]["loss"], runs[1]["loss"])
+    assert torch.equal(runs[0]["grad_norm"], runs[1]["grad_norm"])
+    # the same draws (timesteps, noise, rows, layers) with another generator:
+    # only the dropout masks differ, and the loss with them
+    draws = [draw_diff(cfg, make_train_schedule(cfg), batch["raw_mel"][0].shape,
+                       torch.Generator().manual_seed(9), torch.device("cpu"))]
+    losses = []
+    for seed in (5, 6):
+        state.restore(snap)
+        losses.append(float(step(state, batch, torch.Generator().manual_seed(seed),
+                                 draws=draws)["loss"]))
+    assert np.isfinite(losses).all() and losses[0] != losses[1]
+
+
+@pytest.mark.parametrize("p,mode", [(0.1, "eval"), (0.0, "train")])
+def test_dropout_draws_nothing_in_eval_mode_or_at_zero(p, mode):
+    cfg, state, batch, _ = _dropout_state(p)
+    model = getattr(state.model, mode)()
+    mb = {k: v[0] for k, v in batch.items()}
+    schedule = make_train_schedule(cfg)
+    draws = draw_diff(cfg, schedule, mb["raw_mel"].shape, torch.Generator().manual_seed(2),
+                      torch.device("cpu"), train=False)
+    gen = torch.Generator().manual_seed(3)
+    before = gen.get_state()
+    with torch.no_grad():
+        loss = model.forward_diff(mb, schedule, draws, generator=gen)
+    assert np.isfinite(float(loss)) and torch.equal(gen.get_state(), before)
+
+
+def test_dropout_in_train_mode_without_a_generator_raises():
+    cfg, state, batch, _ = _dropout_state(0.1)
+    mb = {k: v[0] for k, v in batch.items()}
+    schedule = make_train_schedule(cfg)
+    draws = draw_diff(cfg, schedule, mb["raw_mel"].shape, torch.Generator().manual_seed(2),
+                      torch.device("cpu"))
+    with pytest.raises(ValueError, match="Generator"):
+        state.model.train().forward_diff(mb, schedule, draws)
