@@ -20,6 +20,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 4. serving: ``random_engine(Config())`` at full width, bf16, answers three
    requests through ``synthesize_batch``; checks the audio and that every
    ``AttentionBlock`` call of the path launched the kernel;
+4b. serving paths, on the same weights: each other sampler (``ddim``,
+   ``dpmpp_2m_karras`` and ``dpmpp_2m`` at 50 steps, ``dpmpp_2m`` at 25)
+   twice at batch 2, with its kernel launches (steps x 13 + 9 a request) and
+   bit-identical repeats; ``pcm16_output`` against the float output's
+   conversion; the diffusion-free VQ path (no launch) and ``vq_roundtrip``;
+   a ``TTSServer`` answering 4 concurrent requests and refusing a sub-hop
+   prompt, ``dispatch_batch`` + ``finalize_batch`` against
+   ``synthesize_batch``; long-form streaming against ``synthesize_long``;
+   the HTTP endpoint on 127.0.0.1;
 5. train kernels vs plain: the training forward (with its row statistic)
    and the backward (delta, dq and the dbias partials; dk and dv; the
    partials' sum in batch order) against their plain versions at the
@@ -44,6 +53,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 """
 from __future__ import annotations
 
+import base64
 import json
 import math
 import os
@@ -532,18 +542,24 @@ def serving_attention_shapes(cfg, ecfg, batches, prompt_frames):
     return shapes
 
 
+def b1_per_request(engine) -> int:
+    """B1 launches of one diffusion request: the integrator blocks and trunk
+    layers each model evaluation (one a step), plus the contextual embedder
+    and the latent conditioner once."""
+    diff = engine.model.diffusion
+    blocks_per_step = len(diff.conditioning_timestep_integrator) + engine.cfg.diffusion.num_layers
+    return (engine.schedule.num_timesteps * blocks_per_step
+            + len(diff.contextual_embedder) - 2 + len(diff.latent_conditioner) - 1)
+
+
 def phase_serving(engine, requests):
-    """Answer ``requests`` through synthesize_batch; check audio and launches."""
+    """Answer ``requests`` through synthesize_batch; check audio and launches.
+    Returns (launches, launches per request, (wall, timings) per request)."""
     print("== serving", flush=True)
-    d = engine.cfg.diffusion
-    blocks_per_step = len(engine.model.diffusion.conditioning_timestep_integrator) \
-        + d.num_layers
-    per_request = (engine.schedule.num_timesteps * blocks_per_step
-                   + len(engine.model.diffusion.contextual_embedder) - 2
-                   + len(engine.model.diffusion.latent_conditioner) - 1)
+    per_request = b1_per_request(engine)
     sr = engine.cfg.data.sampling_rate
     hop_per_code = engine.cfg.gpt.mel_length_compression
-    outputs, counts = [], []
+    outputs, counts, records = [], [], []
     attention.LAUNCHES = 0
     for texts, wavs, seed in requests:
         before = attention.LAUNCHES
@@ -552,6 +568,7 @@ def phase_serving(engine, requests):
         outs = engine.synthesize_batch(texts, wavs, seed=seed, force_full=True,
                                        timings=timings)
         wall = time.perf_counter() - t0
+        records.append((wall, timings))
         counts.append(attention.LAUNCHES - before)
         audio_s = sum(len(o) for o in outs) / sr
         print(f"  request batch={len(texts)} seed={seed}: {audio_s:.2f} s of audio "
@@ -569,7 +586,217 @@ def phase_serving(engine, requests):
         fail("the repeated request with the same seed gave different audio")
     print(f"  repeated request reproduced its audio; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return attention.LAUNCHES, counts
+    return attention.LAUNCHES, counts, records
+
+
+# ------------------------------------------------------------ serving paths
+
+FAST_MODE = ("dpmpp_2m", 25)  # the JAX engine's fast mode
+SAMPLER_RUNS = (("ddim", 50), ("dpmpp_2m_karras", 50), ("dpmpp_2m", 50), FAST_MODE)
+
+
+def check_audio(engine, outs, what, dtype=np.float32):
+    """Finite audio of exactly eff x 1024 samples (force_full) per item."""
+    n = (engine.ecfg.max_generate_length - 1) * engine.cfg.gpt.mel_length_compression
+    for o in outs:
+        if o.shape != (n,) or o.dtype != dtype or not np.all(np.isfinite(o)):
+            fail(f"{what}: bad audio: shape {o.shape} (want {(n,)}), dtype {o.dtype}, "
+                 f"finite {np.all(np.isfinite(o))}")
+
+
+def serve_request(engine, label, texts, wavs, seed, vq=False):
+    """One force_full request, its B1 launches counted from 0; prints the
+    wall time, audio seconds per wall second and the stage timings."""
+    attention.LAUNCHES = 0
+    timings = {}
+    t0 = time.perf_counter()
+    if vq:
+        outs = engine.synthesize_vq_batch(texts, wavs, seed=seed, force_full=True)
+    else:
+        outs = engine.synthesize_batch(texts, wavs, seed=seed, force_full=True,
+                                       timings=timings)
+    wall = time.perf_counter() - t0
+    audio_s = sum(len(o) for o in outs) / engine.cfg.data.sampling_rate
+    print(f"  {label} batch={len(texts)} seed={seed}: {audio_s:.2f} s of audio in "
+          f"{wall:.3f} s wall ({audio_s / wall:.2f}x real time); kernel launches "
+          f"{attention.LAUNCHES}; timings "
+          + json.dumps({k: round(v, 4) for k, v in timings.items()}), flush=True)
+    return outs, attention.LAUNCHES, wall, timings
+
+
+def phase_serving_paths(engine, texts, prompts, ancestral_records):
+    """Phase 4b on ``engine``'s weights; returns the B1 launches of its paths."""
+    import dataclasses
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from detail_tts_tpu_torch.serving.http_api import _decode_wav_bytes, _encode_wav_bytes, serve
+    from detail_tts_tpu_torch.serving.longform import synthesize_long, synthesize_long_stream
+    from detail_tts_tpu_torch.serving.pipeline import TTSEngine, to_pcm16
+    from detail_tts_tpu_torch.serving.server import TTSServer
+
+    print("== serving paths", flush=True)
+
+    def variant(**kw):
+        return TTSEngine(engine.model, dataclasses.replace(engine.ecfg, **kw), device="cuda",
+                         tokenizer=engine.tokenizer)
+
+    pair, prompts2 = texts[:2], prompts[:2]
+    total, diffuse_ms, walls, fast = 0, {}, {}, None
+    # (a) each sampler twice at batch 2
+    for sampler, steps in SAMPLER_RUNS:
+        eng = variant(diffusion_sampler=sampler, diffusion_steps=steps)
+        want = b1_per_request(eng)
+        runs = []
+        for _ in range(2):
+            outs, launches, wall, timings = serve_request(eng, f"{sampler} {steps} steps",
+                                                          pair, prompts2, seed=0)
+            total += launches
+            check_audio(eng, outs, f"{sampler} at {steps} steps")
+            if launches != want or want != steps * 13 + 9:
+                fail(f"{sampler} at {steps} steps: {launches} kernel launches, expected "
+                     f"{want} (steps x 13 + 9 = {steps * 13 + 9})")
+            runs.append(outs)
+        if not all(np.array_equal(a, b) for a, b in zip(*runs)):
+            fail(f"{sampler} at {steps} steps: the repeated request gave different audio")
+        diffuse_ms[(sampler, steps)] = timings["diffuse"] * 1e3
+        walls[(sampler, steps)] = wall
+        if (sampler, steps) == FAST_MODE:
+            fast, fast_outs = eng, runs[0]
+    anc_wall, anc_timings = ancestral_records[-1]  # phase 4's third request
+    print("  diffuse of the warm b2 request (ms): "
+          + ", ".join(f"{s} {n}: {ms:.1f}" for (s, n), ms in diffuse_ms.items())
+          + f"; ancestral 50 (phase 4): {anc_timings['diffuse'] * 1e3:.1f}; request wall "
+          f"{FAST_MODE[0]} {FAST_MODE[1]} against ancestral 50: {walls[FAST_MODE]:.3f} / "
+          f"{anc_wall:.3f} s", flush=True)
+
+    # (b) int16 output equals the float output's conversion, bit for bit
+    outs, launches, _, _ = serve_request(
+        variant(diffusion_sampler=FAST_MODE[0], diffusion_steps=FAST_MODE[1], pcm16_output=True),
+        "pcm16 %s %d steps" % FAST_MODE, pair, prompts2, seed=0)
+    total += launches
+    check_audio(fast, outs, "pcm16", dtype=np.int16)
+    if not all(np.array_equal(o, to_pcm16(torch.from_numpy(f)).numpy())
+               for o, f in zip(outs, fast_outs)):
+        fail("pcm16_output differs from the float output's clip, scale and round")
+    print("  pcm16 output bit-identical to the float output's conversion", flush=True)
+
+    # (c) the diffusion-free VQ path and the VQ round trip
+    outs, launches, _, _ = serve_request(engine, "vq", pair, prompts2, seed=0, vq=True)
+    total += launches
+    check_audio(engine, outs, "the VQ path")
+    if launches != 0:
+        fail(f"the VQ path launched the diffusion kernel {launches} times")
+    mel, mel_len = engine.prepare_prompt(prompts[:1])
+    n = int(mel_len[0]) // 4 * 4
+    attention.LAUNCHES = 0
+    recon, wav = engine.vq_roundtrip(mel[:, :n])
+    total += attention.LAUNCHES
+    if (recon.shape != (1, n, mel.shape[2]) or wav.shape != (1, n * engine.cfg.data.hop_length, 1)
+            or not (torch.isfinite(recon).all() and torch.isfinite(wav).all())):
+        fail(f"vq_roundtrip: mel {tuple(recon.shape)}, wav {tuple(wav.shape)}, or not finite")
+    print(f"  vq_roundtrip of a {n}-frame prompt mel: mel {tuple(recon.shape)}, wav "
+          f"{tuple(wav.shape)}, finite", flush=True)
+
+    # (d) the server: 4 concurrent requests, a refused sub-hop prompt; the
+    # split dispatch against synthesize_batch
+    attention.LAUNCHES = 0
+    with TTSServer(engine, max_batch=4, max_wait_ms=200.0) as server:
+        try:
+            server.submit("短", np.zeros(100, np.float32))
+            fail("the server took a prompt shorter than one hop")
+        except ValueError as e:
+            print(f"  server refused a sub-hop prompt: {e}", flush=True)
+        t0 = time.perf_counter()
+        futs = [server.submit(texts[i % len(texts)], prompts[i % len(prompts)], seed=i)
+                for i in range(4)]
+        outs = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+    total += attention.LAUNCHES
+    for o in outs:
+        if o.ndim != 1 or not len(o) or not np.all(np.isfinite(o)):
+            fail(f"a server request gave bad audio: shape {o.shape}")
+    audio_s = sum(len(o) for o in outs) / engine.cfg.data.sampling_rate
+    print(f"  server, 4 concurrent requests: {audio_s:.2f} s of audio in {wall:.3f} s wall "
+          f"({audio_s / wall:.2f}x real time), {server.batches_dispatched} batch(es), "
+          f"kernel launches {attention.LAUNCHES}", flush=True)
+    if server.requests_served != 4:
+        fail(f"the server served {server.requests_served} requests, not 4")
+    attention.LAUNCHES = 0
+    split = fast.finalize_batch(fast.dispatch_batch(pair, prompts2, seed=0, force_full=True))
+    total += attention.LAUNCHES
+    if not all(np.array_equal(a, b) for a, b in zip(split, fast_outs)):
+        fail("dispatch_batch + finalize_batch differs from synthesize_batch")
+    print("  dispatch_batch + finalize_batch bit-identical to synthesize_batch", flush=True)
+
+    # (e) long form: the joined stream equals the one-shot result
+    text = "今天天气很好。我们一起去公园散步吧！你好，欢迎使用语音合成。"
+    attention.LAUNCHES = 0
+    t0 = time.perf_counter()
+    whole = synthesize_long(fast, text, prompts[0], seed=3, batch_size=2)
+    wall = time.perf_counter() - t0
+    parts = list(synthesize_long_stream(fast, text, prompts[0], seed=3, batch_size=2))
+    total += attention.LAUNCHES
+    joined = np.concatenate(parts)
+    print(f"  long form, 3 sentences in batches of 2 ({FAST_MODE[0]} {FAST_MODE[1]} steps): "
+          f"{len(whole) / engine.cfg.data.sampling_rate:.2f} s of audio in {wall:.3f} s "
+          f"wall; stream of {len(parts)} parts equal {np.array_equal(joined, whole)}",
+          flush=True)
+    if len(parts) < 2 or not np.array_equal(joined, whole) or not np.all(np.isfinite(whole)):
+        fail("the joined long-form stream differs from synthesize_long")
+
+    # (f) the HTTP endpoint
+    box = {}
+    attention.LAUNCHES = 0
+    thread = threading.Thread(target=serve, kwargs=dict(
+        engine=fast, host="127.0.0.1", port=0, max_batch=2, max_wait_ms=5.0,
+        httpd_box=box), daemon=True)
+    thread.start()
+    deadline = time.monotonic() + 60
+    while "httpd" not in box and time.monotonic() < deadline:
+        time.sleep(0.01)
+    if "httpd" not in box:
+        fail("the HTTP server did not start")
+    url = "http://127.0.0.1:%d" % box["httpd"].server_address[1]
+    local = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # no proxy
+
+    def post(prompt):
+        body = json.dumps({"text": texts[1], "seed": 1, "prompt_wav_b64": base64.b64encode(
+            _encode_wav_bytes(prompt, engine.cfg.data.sampling_rate)).decode()}).encode()
+        return local.open(urllib.request.Request(
+            url + "/synthesize", data=body, headers={"Content-Type": "application/json"}),
+            timeout=300)
+
+    try:
+        with local.open(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        answers = []  # the first request on the server's thread, then a warm one
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with post(prompts[1]) as r:
+                answers.append((r.status, r.headers["Content-Type"], r.read(),
+                                time.perf_counter() - t0))
+        audio = [_decode_wav_bytes(a[2], engine.cfg.data.sampling_rate) for a in answers]
+        try:
+            post(np.zeros(100, np.float32))
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = e.code
+    finally:
+        box["httpd"].shutdown()
+        thread.join(timeout=60)
+    total += attention.LAUNCHES
+    print(f"  HTTP: /healthz {health}; /synthesize twice: "
+          + "; ".join(f"{st} {ct}, {len(a) / engine.cfg.data.sampling_rate:.2f} s of audio "
+                      f"in {w:.3f} s" for (st, ct, _, w), a in zip(answers, audio))
+          + f"; sub-hop prompt {refused}; server thread stopped {not thread.is_alive()}",
+          flush=True)
+    if not (health.get("ok") and refused == 400 and not thread.is_alive() and all(
+            st == 200 and ct == "audio/wav" and len(a) and np.all(np.isfinite(a))
+            for (st, ct, _, _), a in zip(answers, audio))):
+        fail("the HTTP endpoint did not answer as it should")
+    return total
 
 
 # ----------------------------------------------------------------- training
@@ -807,7 +1034,8 @@ def main():
     n_params = sum(p.numel() for p in engine.model.parameters())
     print(f"== engine: Config() at full width, {n_params / 1e6:.1f} M parameters "
           f"{engine.cdt}, built in {time.perf_counter() - t0:.1f} s", flush=True)
-    launches, per_request = phase_serving(engine, requests)
+    launches, per_request, records = phase_serving(engine, requests)
+    launches += phase_serving_paths(engine, texts, prompts, records)
     del engine
     torch.cuda.empty_cache()
 

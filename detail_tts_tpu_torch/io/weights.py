@@ -1,4 +1,10 @@
-"""Weights for the port: carried over from JAX variables, or seeded random.
+"""Weights for the port: from a reference checkpoint, carried over from JAX
+variables, or seeded random.
+
+``load_reference_checkpoint`` loads a reference torch ``SynthesizerTrn``
+checkpoint (``model-*.pt``) into a port model: the port keeps the
+reference's state-dict names, so after the weight-norm fold the keys match
+one to one.
 
 ``from_jax_variables`` fills every key of a port module's ``state_dict()``
 from the JAX package's variables tree (nested dicts of numpy arrays, e.g.
@@ -13,18 +19,17 @@ scales near 1, weights ~ N(0, 1/fan_in), small biases, VQ codebooks
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from detail_tts_tpu_torch.io.torch_convert import translate
+from detail_tts_tpu_torch.io.torch_convert import IGNORED, translate
 
-# JAX leaves with no counterpart in the port yet (VQ decoder and reference
-# encoder, posterior encoder, the GPT's training text head)
-UNPORTED = ("params/vq_dec_", "params/vq_ref_enc/", "params/enc_q/",
-            "params/gpt/text_head/")
+# JAX leaves with no counterpart in the port yet (posterior encoder, the
+# GPT's training text head)
+UNPORTED = ("params/enc_q/", "params/gpt/text_head/")
 
 
 def fold_weight_norm_tree(tree):
@@ -40,6 +45,63 @@ def fold_weight_norm_tree(tree):
                 if k not in ("v", "g")}
         return {"kernel": kernel, **rest}
     return {k: fold_weight_norm_tree(x) for k, x in tree.items()}
+
+
+def fold_weight_norm(sd: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Merge reference (weight_g, weight_v) pairs into plain weights:
+    weight = g * v / ||v||, the norm over every axis but the first."""
+    out: Dict[str, np.ndarray] = {}
+    for name, value in sd.items():
+        if name.endswith(".weight_g"):
+            continue
+        if name.endswith(".weight_v"):
+            base = name[: -len(".weight_v")]
+            g = np.asarray(sd[base + ".weight_g"], np.float32)
+            v = np.asarray(value, np.float32)
+            norm = np.sqrt(np.sum(v ** 2, axis=tuple(range(1, v.ndim)),
+                                  keepdims=True))
+            out[base + ".weight"] = g * v / np.maximum(norm, 1e-12)
+        else:
+            out[name] = np.asarray(value)
+    return out
+
+
+def load_reference_checkpoint(path: str, model: nn.Module
+                              ) -> Dict[str, List[str]]:
+    """Load a reference torch checkpoint into ``model`` in place.
+
+    The file is read with ``torch.load`` onto the CPU; a ``"G"`` or
+    ``"model"`` entry is unwrapped, weight-norm pairs are folded.  Strict on
+    the port's side: every key of ``model.state_dict()`` must be there with
+    its shape.  Returns ``{"unused": [...]}``, the checkpoint keys of modules
+    the port does not have (``enc_q``, ``gpt.text_head``, ...), apart from
+    the reference's derived copies that are never loaded (``IGNORED``).
+    """
+    data = torch.load(path, map_location="cpu", weights_only=False)
+    for key in ("G", "model"):
+        if isinstance(data, dict) and key in data:
+            data = data[key]
+            break
+    sd = fold_weight_norm({k: _numpy(v) for k, v in data.items()})
+    state: Dict[str, torch.Tensor] = {}
+    for key, ref in model.state_dict().items():
+        if key not in sd:
+            raise KeyError(f"port key {key} is not in the checkpoint")
+        value = np.asarray(sd.pop(key))
+        # a one-element buffer (the codebook's ``inited``) may be 0-d or (1,)
+        if value.shape != tuple(ref.shape) and not value.size == 1 == ref.numel():
+            raise ValueError(f"{key}: checkpoint shape {value.shape}, port "
+                             f"expects {tuple(ref.shape)}")
+        state[key] = torch.from_numpy(value.reshape(tuple(ref.shape))).to(ref.dtype)
+    model.load_state_dict(state)
+    return {"unused": sorted(k for k in sd if not k.startswith(IGNORED))}
+
+
+def _numpy(v) -> np.ndarray:
+    if torch.is_tensor(v):
+        v = v.detach().cpu()
+        return (v.float() if v.is_floating_point() else v).numpy()
+    return np.asarray(v)
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, Any]:

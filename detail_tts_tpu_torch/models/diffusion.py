@@ -1,14 +1,18 @@
-"""Gaussian diffusion schedule, training loss and the ancestral sampler
-(utils/diffusion.py).
+"""Gaussian diffusion schedule, training loss and the samplers
+(utils/diffusion.py, utils/dpm_solver.py).
 
 Counterpart of ``detail_tts_tpu/models/diffusion.py`` (schedule,
-``q_sample``/``q_posterior``, ``training_losses`` and ``p_sample_loop``):
+``q_sample``/``q_posterior``, ``training_losses`` and the four samplers):
 linear betas over 4000 training steps, spaced to the training or inference
 count, epsilon prediction with a learned-range variance, the MSE + VB loss
-with the VB term's mean frozen, and ancestral sampling with a ramped
+with the VB term's mean frozen.  Samplers: ancestral and DDIM with a ramped
 classifier-free guidance weight ``k * (1 - i / n)`` and the x0 clamp to
-[-1, 1].  The schedule is built in fp64 numpy and kept as fp32 tensors; all
-loss and sampler math is fp32.
+[-1, 1]; the reference's DPM-Solver++(2M) on its continuous VP schedule with
+constant guidance; and a DPM-Solver++(2M) variant on karras-style sigmas of
+the spaced schedule.  Every model evaluation is one call on 2B rows [cond |
+uncond].  The schedule is built in fp64 numpy and kept as fp32 tensors; all
+loss and sampler math is fp32, and per-step scalars that need no tensor are
+worked out on the host, so a sampler never waits on the device.
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ class DiffusionSchedule:
     """(Spaced) schedule constants as fp32 tensors on one device."""
 
     betas: torch.Tensor
+    alphas_cumprod: torch.Tensor
     alphas_cumprod_prev: torch.Tensor
     sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
@@ -97,6 +102,7 @@ class DiffusionSchedule:
 
         return DiffusionSchedule(
             betas=f32(betas),
+            alphas_cumprod=f32(acp),
             alphas_cumprod_prev=f32(acp_prev),
             sqrt_alphas_cumprod=f32(np.sqrt(acp)),
             sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1 - acp)),
@@ -123,17 +129,25 @@ class DiffusionSchedule:
                 + _extract(self.posterior_mean_coef2, t, nd) * x_t)
         return mean, _extract(self.posterior_log_variance_clipped, t, nd)
 
+    def predict_xstart_from_eps(self, x_t: torch.Tensor, t,
+                                eps: torch.Tensor) -> torch.Tensor:
+        nd = x_t.dim()
+        return (_extract(self.sqrt_recip_alphas_cumprod, t, nd) * x_t
+                - _extract(self.sqrt_recipm1_alphas_cumprod, t, nd) * eps)
+
+    def learned_range_logvar(self, var_logits: torch.Tensor, t) -> torch.Tensor:
+        nd = var_logits.dim()
+        min_log = _extract(self.posterior_log_variance_clipped, t, nd)
+        frac = (var_logits + 1) / 2
+        return frac * _extract(self.log_betas, t, nd) + (1 - frac) * min_log
+
     def p_mean_variance(self, eps: torch.Tensor, var_logits: torch.Tensor,
                         x: torch.Tensor, i):
         """Posterior mean and log-variance at spaced step ``i`` (an int, or
         (B,) steps) from the model's epsilon and learned-range variance
         logits (fp32)."""
-        nd = x.dim()
-        min_log = _extract(self.posterior_log_variance_clipped, i, nd)
-        frac = (var_logits + 1) / 2
-        logvar = frac * _extract(self.log_betas, i, nd) + (1 - frac) * min_log
-        pred_x0 = (_extract(self.sqrt_recip_alphas_cumprod, i, nd) * x
-                   - _extract(self.sqrt_recipm1_alphas_cumprod, i, nd) * eps).clamp(-1, 1)
+        logvar = self.learned_range_logvar(var_logits, i)
+        pred_x0 = self.predict_xstart_from_eps(x, i, eps).clamp(-1, 1)
         mean, _ = self.q_posterior(pred_x0, x, i)
         return mean, logvar
 
@@ -226,4 +240,148 @@ def p_sample_loop(schedule: DiffusionSchedule, model_fn: ModelFn,
         z = (noise_seq[step].to(x) if noise_seq is not None else
              torch.randn(x.shape, generator=generator, device=x.device))
         x = mean + torch.exp(0.5 * logvar) * z
+    return x
+
+
+def _cfg_eps(model_fn: ModelFn, x: torch.Tensor, t: torch.Tensor):
+    """One model call on [x | x] at times ``t`` (2B,): fp32 (eps_c, eps_u)."""
+    eps2, _ = model_fn(torch.cat([x, x], dim=0), t)
+    return eps2.float().chunk(2, dim=0)
+
+
+def _ramped_k(cond_free_k: float, i: int, n: int) -> float:
+    """Guidance weight ``k * (1 - i / n)`` over the spaced index, in fp32."""
+    f = np.float32
+    return float(f(cond_free_k) * (f(1.0) - f(i) / f(n)))
+
+
+@torch.no_grad()
+def ddim_sample_loop(schedule: DiffusionSchedule, model_fn: ModelFn,
+                     noise: torch.Tensor, *, eta: float = 0.0,
+                     cond_free_k: float = 2.0) -> torch.Tensor:
+    """DDIM with ramped CFG (diffusion.py:819-917); deterministic.  ``eta``
+    is taken and unused (the update is the eta = 0 one), as in the JAX
+    package."""
+    del eta
+    n = schedule.num_timesteps
+    x = noise.float()
+    for i in range(n - 1, -1, -1):
+        eps_c, eps_u = _cfg_eps(model_fn, x, schedule.timestep_map[i].expand(2 * x.shape[0]))
+        cfk = _ramped_k(cond_free_k, i, n)
+        eps = (1 + cfk) * eps_c - cfk * eps_u
+        pred_x0 = schedule.predict_xstart_from_eps(x, i, eps).clamp(-1, 1)
+        # eps again from the clipped x0, as the reference does
+        eps = ((schedule.sqrt_recip_alphas_cumprod[i] * x - pred_x0)
+               / schedule.sqrt_recipm1_alphas_cumprod[i])
+        acp_prev = schedule.alphas_cumprod_prev[i]
+        x = pred_x0 * torch.sqrt(acp_prev) + torch.sqrt(1 - acp_prev) * eps
+    return x
+
+
+@torch.no_grad()
+def dpmpp_2m_reference_sample_loop(model_fn: ModelFn, noise: torch.Tensor, *,
+                                   steps: int, guidance_scale: float = 2.0,
+                                   beta_0: float = 0.1 / 4,
+                                   beta_1: float = 20.0 / 4) -> torch.Tensor:
+    """The reference's configured DPM-Solver++(2M) (diffusion.py:487-581,
+    dpm_solver.py): the continuous linear VP schedule (log alpha(t) =
+    -t^2 (b1 - b0) / 4 - t b0 / 2) at ``time_uniform`` steps linspace(1,
+    1e-3, steps + 1); the model at the float time t * 1000; constant
+    guidance eps_u + k (eps_c - eps_u); unclipped x0 = (x - sigma eps) /
+    alpha; multistep order 2 after a first-order first update, and no model
+    call after the last update, which is first order below 10 steps
+    (``lower_order_final``).  Per-step scalars are worked out in fp64 on the
+    host and used as fp32."""
+    if steps < 2:
+        raise ValueError("dpm++2m multistep needs steps >= 2")
+    ts = np.linspace(1.0, 1.0 / 1000.0, steps + 1)
+    log_alpha = -0.25 * ts ** 2 * (beta_1 - beta_0) - 0.5 * ts * beta_0
+    alpha = np.exp(log_alpha)
+    sigma = np.sqrt(1.0 - np.exp(2.0 * log_alpha))
+    lam = log_alpha - np.log(sigma)
+    x = noise.float()
+    dev = x.device
+
+    def f32(a) -> torch.Tensor:
+        return torch.tensor(np.float32(a), device=dev)
+
+    def eval_x0(x, i):
+        """Data prediction at ts[i] (one CFG model call)."""
+        t_model = torch.full((2 * x.shape[0],), float(np.float32(ts[i] * 1000.0)),
+                             device=dev)
+        eps_c, eps_u = _cfg_eps(model_fn, x, t_model)
+        eps = eps_u + guidance_scale * (eps_c - eps_u)
+        return (x - f32(sigma[i]) * eps) / f32(alpha[i])
+
+    # the first update: DPM-Solver-1 from ts[0] to ts[1]
+    m_prev1 = eval_x0(x, 0)
+    h1 = lam[1] - lam[0]
+    x = f32(sigma[1] / sigma[0]) * x - f32(alpha[1] * np.expm1(-h1)) * m_prev1
+    m_prev0 = eval_x0(x, 1)
+
+    # multistep-2 updates to ts[2..steps]: h = lam[i] - lam[i-1],
+    # r0 = (lam[i-1] - lam[i-2]) / h, D1 = (m0 - m1) / r0,
+    # x <- (sigma[i] / sigma[i-1]) x - alpha[i] expm1(-h) (m0 + D1 / 2)
+    idx = np.arange(2, steps + 1)
+    h = lam[idx] - lam[idx - 1]
+    ratio = sigma[idx] / sigma[idx - 1]
+    aphi = alpha[idx] * np.expm1(-h)
+    r0 = (lam[idx - 1] - lam[idx - 2]) / h
+
+    def update(x, m0, m1, j):
+        d1 = (m0 - m1) / f32(r0[j])
+        return f32(ratio[j]) * x - f32(aphi[j]) * (m0 + 0.5 * d1)
+
+    for j, i in enumerate(idx[:-1]):
+        x = update(x, m_prev0, m_prev1, j)
+        m_prev0, m_prev1 = eval_x0(x, i), m_prev0
+    if steps < 10:  # lower_order_final: the last update is first order
+        return f32(ratio[-1]) * x - f32(aphi[-1]) * m_prev0
+    return update(x, m_prev0, m_prev1, len(idx) - 1)
+
+
+@torch.no_grad()
+def dpmpp_2m_sample_loop(schedule: DiffusionSchedule, model_fn: ModelFn,
+                         noise: torch.Tensor, *,
+                         cond_free_k: float = 2.0) -> torch.Tensor:
+    """DPM-Solver++(2M) on karras-style sigmas sqrt((1 - acp) / acp) of the
+    spaced schedule, high to low with a trailing 0, with the ramped guidance
+    and the x0 clamp (``diffusion_sampler='dpmpp_2m_karras'``).  The input
+    noise is scaled by the first sigma; the model sees the DDPM x_t = x /
+    sqrt(1 + sigma^2).  The sigmas and the step scalars are fp32 on the
+    host, with the JAX package's guards (the first step's r, h == 0, the
+    1e-10 floor in t(sigma), the last step's x = x0)."""
+    f = np.float32
+    n = schedule.num_timesteps
+    acp = schedule.alphas_cumprod.cpu().numpy()
+    sigmas = np.append(np.sqrt((f(1) - acp) / acp)[::-1], f(0)).astype(f)
+
+    def t_of(s):
+        return -np.log(s)
+
+    x = noise.float() * float(sigmas[0])
+    old_denoised = torch.zeros_like(x)
+    for idx in range(n):
+        i = n - 1 - idx  # spaced index
+        sigma, sigma_next = sigmas[idx], sigmas[idx + 1]
+        x_ddpm = x / float(np.sqrt(f(1) + sigma * sigma))
+        eps_c, eps_u = _cfg_eps(model_fn, x_ddpm,
+                                schedule.timestep_map[i].expand(2 * x.shape[0]))
+        cfk = _ramped_k(cond_free_k, i, n)
+        eps = (1 + cfk) * eps_c - cfk * eps_u
+        denoised = schedule.predict_xstart_from_eps(x_ddpm, i, eps).clamp(-1, 1)
+        t_cur, t_next = t_of(sigma), t_of(np.maximum(sigma_next, f(1e-10)))
+        h = t_next - t_cur
+        if idx > 0:
+            r = ((t_cur - t_of(np.maximum(sigmas[idx - 1], f(1e-10))))
+                 / (f(1) if h == 0 else h))
+            c = f(1) / (f(2) * r)
+            denoised_d = float(f(1) + c) * denoised - float(c) * old_denoised
+        else:
+            denoised_d = denoised
+        if sigma_next == 0:
+            x = denoised
+        else:
+            x = float(sigma_next / sigma) * x - float(np.expm1(-h)) * denoised_d
+        old_denoised = denoised
     return x

@@ -3,11 +3,13 @@ diffusion training stage.
 
 Counterpart of ``detail_tts_tpu/models/synthesizer.py`` for zero-shot
 synthesis (the GPT, the diffusion refiner and the flow-VAE + HiFi-GAN
-decoder path) and for target ``diff``'s loss, ``forward_diff``: frozen VQ
-codes (``vq_enc`` + the quantizer's encode) and GPT latents, then the
-diffusion MSE + VB loss at random timesteps.  Waveforms are (B, T, 1).  The
-VQ decoder and reference encoder, the posterior encoder and the GPT's text
-head (the other training targets) are not ported yet.
+decoder path), for the diffusion-free VQ paths (``decode_codes_to_mel``,
+``infer_vqvae``: the VQ decoder with the VQ reference encoder's style) and
+for target ``diff``'s loss, ``forward_diff``: frozen VQ codes (``vq_enc`` +
+the quantizer's encode) and GPT latents, then the diffusion MSE + VB loss at
+random timesteps.  Waveforms are (B, T, 1).  The training quantizer, the
+posterior encoder and the GPT's text head (the other training targets) are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from detail_tts_tpu_torch.models.flowvae import SpecEncoder
 from detail_tts_tpu_torch.models.gpt import UnifiedVoice
 from detail_tts_tpu_torch.models.quantizer import ResidualVectorQuantizer
 from detail_tts_tpu_torch.models.vocoder import HiFiGANGenerator
-from detail_tts_tpu_torch.nn.common import Conv1d, TorchLayerNorm, sequence_mask
+from detail_tts_tpu_torch.nn.common import (Conv1d, ConvTranspose1d,
+                                            TorchLayerNorm, sequence_mask)
 from detail_tts_tpu_torch.nn.coupling import ResidualCouplingBlock
 from detail_tts_tpu_torch.nn.style_encoder import MelStyleEncoder
 
@@ -110,12 +113,54 @@ class SynthesizerTrn(nn.Module):
             Conv1d(mel_ch, inter * 2, 3, stride=2, padding=1), nn.SiLU(),
             Conv1d(inter * 2, inter * 4, 3, stride=2, padding=1), nn.SiLU(),
             Conv1d(inter * 4, inter * 4, 3, padding=1))
+        # vq_dec and vq_ref_enc (model_24k.py:616-627), registered after every
+        # other submodule so that seeded random weights of the rest stay as
+        # they were
+        self.vq_dec = nn.Sequential(
+            nn.Identity(), TorchLayerNorm(inter * 4), nn.Identity(),
+            ConvTranspose1d(inter * 4, inter * 2, 3, stride=2, padding=1,
+                            output_padding=1), nn.SiLU(),
+            ConvTranspose1d(inter * 2, inter, 3, stride=2, padding=1,
+                            output_padding=1), nn.SiLU(),
+            Conv1d(inter, mel_ch, 3, padding=1))
+        self.vq_ref_enc = MelStyleEncoder(mel_ch, style_vector_dim=inter * 4)
 
     # ------------------------------------------------------------------- VQ
 
     def vq_encode_features(self, mel: torch.Tensor) -> torch.Tensor:
         """mel (B, T, n_mels) -> (B, T // 4, 4 * inter_channels)."""
         return self.vq_enc(mel)
+
+    def vq_decode_features(self, q: torch.Tensor) -> torch.Tensor:
+        """(B, T // 4, 4 * inter_channels) -> mel (B, T, n_mels)."""
+        return self.vq_dec(q)
+
+    def vq_style(self, mel: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """The VQ reference encoder's style vector of a masked mel, (B, 1, D)."""
+        mask = sequence_mask(lengths, mel.shape[1])
+        return self.vq_ref_enc(mel * mask[..., None].to(mel.dtype), mask)[:, None, :]
+
+    @torch.no_grad()
+    def decode_codes_to_mel(self, codes: torch.Tensor, refer_mel: torch.Tensor,
+                            refer_lengths: torch.Tensor) -> torch.Tensor:
+        """VQ codes (B, Tc) -> mel (B, 4 Tc, n_mels) through ``vq_dec``,
+        diffusion-free (model_24k.py:811-846)."""
+        latent = self.quantizer.decode(codes[None])
+        return self.vq_decode_features(latent + self.vq_style(refer_mel, refer_lengths))
+
+    @torch.no_grad()
+    def infer_vqvae(self, mel: torch.Tensor, generator: Optional[torch.Generator] = None,
+                    noise: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """VQ round trip and vocoder (model_24k.py:864-876): mel -> (the
+        reconstructed mel, wav).  The eval quantizer call is encode then
+        decode; ``generator``/``noise`` feed the vocoder's prior sample."""
+        lengths = torch.full((mel.shape[0],), mel.shape[1], dtype=torch.long,
+                             device=mel.device)
+        x = self.vq_encode_features(mel)
+        q = self.quantizer.decode(self.quantizer.encode(x))
+        recon = self.vq_decode_features(q + self.vq_style(mel, lengths))
+        return recon, self.infer_flowvae(recon, lengths, generator=generator, noise=noise)
 
     @torch.no_grad()
     def encode(self, mel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -5,9 +5,18 @@ Counterpart of ``detail_tts_tpu/serving/pipeline.py`` (``TTSEngine``,
 
 1. ``generate`` - AR mel-code decode with a KV cache;
 2. ``latents``  - one GPT pass over the stop-filled, bucketed codes;
-3. ``diffuse``  - 50-step CFG ancestral sampling, cond + uncond in one call
-   per step, with the 13 T5 biases hoisted (LRU-cached per length);
-4. ``vocode``   - flow-VAE prior sample -> reverse flow -> HiFi-GAN.
+3. ``diffuse``  - CFG sampling (50-step ancestral by default; DDIM and the
+   two DPM-Solver++(2M) samplers on request), cond + uncond in one call
+   per model evaluation, with the 13 T5 biases hoisted (LRU-cached per
+   length);
+4. ``vocode``   - flow-VAE prior sample -> reverse flow -> HiFi-GAN, with
+   an optional int16 conversion on the device.
+
+The diffusion-free path ``synthesize_vq_batch`` mirrors ``infer_gpt``
+(model_24k.py:811-846) and ``vq_roundtrip`` ``infer_vqvae`` (:864).  A
+request can be split in two dispatches around another batch's finalize
+(``dispatch_decode`` / ``dispatch_tail`` / ``finalize_batch``), which the
+microbatching server uses.
 
 Prompt mels are padded up to a bucket with true per-item lengths (the masked
 style encoders ignore the padding; the unmasked diffusion conditioning runs
@@ -16,7 +25,9 @@ stop tokens.  On the card weights and activations are bf16 with fp32
 islands (norm statistics, softmax, sampler and schedule math, STFT/mel, the
 diffusion trunk's tail); the KV cache and the T5 biases are bf16.  TF32 is
 off for both matmuls and convolutions.  All randomness of a request comes
-from one ``torch.Generator`` seeded by the request's ``seed``.
+from one ``torch.Generator`` seeded by the request's ``seed``, drawn in
+stage order: the decode, then the diffusion noise, then the vocoder's prior
+sample.
 """
 from __future__ import annotations
 
@@ -24,7 +35,7 @@ import contextlib
 import dataclasses
 import time
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,11 +44,19 @@ from detail_tts_tpu_torch.audio.mel import (FRAMES_PER_CODE, MelFrontend,
                                             denormalize_mel)
 from detail_tts_tpu_torch.config import Config
 from detail_tts_tpu_torch.io.weights import random_weights_
-from detail_tts_tpu_torch.models.diffusion import p_sample_loop
+from detail_tts_tpu_torch.models.diffusion import (ddim_sample_loop,
+                                                   dpmpp_2m_reference_sample_loop,
+                                                   dpmpp_2m_sample_loop,
+                                                   p_sample_loop)
 from detail_tts_tpu_torch.models.gpt import SamplingConfig, generate_speech_tokens
 from detail_tts_tpu_torch.models.synthesizer import SynthesizerTrn, make_infer_schedule
 from detail_tts_tpu_torch.text.pinyin import to_pinyin
 from detail_tts_tpu_torch.text.tokenizer import make_tokenizer
+
+# 'ancestral' is the reference's live path (p_sample_loop, model_24k.py:489);
+# 'dpmpp_2m' its configured sampler (model_24k.py:583 -> DPM_Solver);
+# 'ddim' and 'dpmpp_2m_karras' (ramped-k discrete-karras variant) extra.
+SAMPLERS = ("ancestral", "ddim", "dpmpp_2m", "dpmpp_2m_karras")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,13 +70,65 @@ class EngineConfig:
     typical_mass: float = 1.0         # < 1.0 enables entropy-typical sampling
     noise_scale: float = 0.667
     diffusion_temperature: float = 1.0
-    diffusion_steps: Optional[int] = None  # None: cfg.diffusion.infer_steps
+    diffusion_sampler: str = "ancestral"   # one of SAMPLERS
+    # None: cfg.diffusion.infer_steps; fewer steps trade refinement for
+    # latency about linearly (25 + dpmpp_2m is the fast mode)
+    diffusion_steps: Optional[int] = None
+    # int16 PCM made on the device before the host copy (half the bytes)
+    pcm16_output: bool = False
     text_buckets: Sequence[int] = (32, 64, 128, 256, 512, 800)
     prompt_buckets: Sequence[int] = (64, 128, 256, 512, 1024, 1600)
     code_buckets: Sequence[int] = (100, 200, 300, 400, 500, 600)
     bias_cache_buckets: int = 2       # code lengths whose 13 biases are kept
     cache_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if self.diffusion_sampler not in SAMPLERS:
+            raise ValueError(f"diffusion_sampler {self.diffusion_sampler!r} "
+                             f"is not one of {SAMPLERS}")
+
+
+def to_pcm16(wav: torch.Tensor) -> torch.Tensor:
+    """Clip to [-1, 1], scale by 32767, round half to even, int16."""
+    return torch.round(wav.float().clamp(-1, 1) * 32767.0).to(torch.int16)
+
+
+@dataclasses.dataclass
+class InflightBatch:
+    """Handle of a dispatched batch whose audio is not fetched yet (see
+    :meth:`TTSEngine.dispatch_batch`): ``wav`` is the device output, ``eff``
+    the per-item code lengths on the host.  It holds device memory until
+    finalized."""
+
+    wav: torch.Tensor
+    eff: np.ndarray
+    n: int
+    timings: Optional[Dict[str, float]] = None
+    _t0: float = 0.0
+
+
+@dataclasses.dataclass
+class PendingDecode:
+    """Handle from :meth:`TTSEngine.dispatch_decode`: the AR decode and the
+    diffusion conditioning are enqueued on the device, and the decode-length
+    (``eff``) synchronisation that :meth:`TTSEngine.dispatch_tail` makes has
+    not happened yet, so a server can finalize the previous batch between
+    the two.  ``generator`` is the request's, for the later stages."""
+
+    codes: torch.Tensor
+    lengths: Optional[torch.Tensor]  # device tensor; None under force_full
+    codes_done: Optional[torch.cuda.Event]
+    diff_cond: torch.Tensor
+    refer_mel: torch.Tensor
+    refer_len: torch.Tensor
+    text: torch.Tensor
+    generator: torch.Generator
+    n: int
+    max_len: int
+    force_full: bool
+    timings: Optional[Dict[str, float]] = None
+    _t0: float = 0.0
 
 
 def _bucket_up(n: int, buckets: Sequence[int]) -> int:
@@ -164,13 +235,15 @@ class TTSEngine:
     # ---------------------------------------------------------------- stages
 
     def diffusion_cond(self, refer_mel: torch.Tensor,
-                       refer_len: torch.Tensor) -> torch.Tensor:
+                       refer_len: Union[torch.Tensor, Sequence[int]]) -> torch.Tensor:
         """(B, 2 * mc) conditioning, each item at its own prompt bucket (the
         contextual embedder is unmasked, so the amount of trailing zero
-        padding must not depend on the batch)."""
+        padding must not depend on the batch).  ``refer_len`` may be given
+        on the host, which spares a synchronisation."""
         t_max = refer_mel.shape[1]
+        lens = refer_len.tolist() if torch.is_tensor(refer_len) else list(refer_len)
         buckets = [min(_bucket_up(int(n), self.ecfg.prompt_buckets), t_max)
-                   for n in refer_len.tolist()]
+                   for n in lens]
         out: List[Optional[torch.Tensor]] = [None] * len(buckets)
         for lb in sorted(set(buckets)):
             idx = [i for i, b in enumerate(buckets) if b == lb]
@@ -194,44 +267,56 @@ class TTSEngine:
         return biases
 
     @staticmethod
-    def _effective_lengths(n: int, lengths: torch.Tensor, max_len: int,
+    def _effective_lengths(n: int, lengths: Optional[torch.Tensor], max_len: int,
                            force_full: bool) -> np.ndarray:
         """Decoded lengths with the final token dropped (the reference's
-        ``codes[:, :-1]``); under ``force_full`` every row is ``max_len - 1``."""
+        ``codes[:, :-1]``); under ``force_full`` every row is ``max_len - 1``
+        and nothing waits for the device."""
         if force_full:
             return np.full((n,), max(max_len - 1, 1), np.int64)
         return np.maximum(lengths.cpu().numpy() - 1, 1).astype(np.int64)
 
-    def generate_codes(self, refer_mel, refer_len, text, generator,
-                       force_full: bool = False,
-                       max_len: Optional[int] = None):
-        """AR decode -> (codes (B, max_len), effective lengths (B,))."""
+    def _decode(self, refer_mel, refer_len, text, generator, max_len: int,
+                force_full: bool):
+        """AR decode -> (codes (B, max_len), lengths (B,)) on the device."""
         e = self.ecfg
-        max_len = max_len or e.max_generate_length
         sampling = SamplingConfig(
             temperature=e.temperature, top_p=e.top_p,
             repetition_penalty=e.repetition_penalty,
             typical_mass=e.typical_mass, max_generate_length=max_len,
             force_full_length=force_full)
-        codes, lengths = generate_speech_tokens(
+        return generate_speech_tokens(
             self.model.gpt, refer_mel.to(self.cdt), refer_len, text, sampling,
             generator=generator, cache_dtype=e.cache_dtype)
+
+    def generate_codes(self, refer_mel, refer_len, text, generator,
+                       force_full: bool = False,
+                       max_len: Optional[int] = None):
+        """AR decode -> (codes (B, max_len), effective lengths (B,))."""
+        max_len = max_len or self.ecfg.max_generate_length
+        codes, lengths = self._decode(refer_mel, refer_len, text, generator,
+                                      max_len, force_full)
         return codes, self._effective_lengths(codes.shape[0], lengths,
                                               max_len, force_full)
 
-    def _pad_codes(self, codes: torch.Tensor, eff: np.ndarray):
-        """Crop codes to a bucket and stop-fill past each effective length."""
+    def _pad_codes(self, codes: torch.Tensor, eff: np.ndarray, vq_safe: bool = False):
+        """Crop codes to a bucket and stop-fill past each effective length;
+        ``vq_safe`` maps ids at or above the VQ codebook size (the GPT's
+        start and stop ids, and the fill) to 0."""
         bucket = min(_bucket_up(int(eff.max()), self.ecfg.code_buckets),
                      codes.shape[1])
         eff_t = torch.as_tensor(eff, device=codes.device)
         pos = torch.arange(bucket, device=codes.device)[None, :]
         codes_b = torch.where(pos < eff_t[:, None], codes[:, :bucket],
                               self.cfg.gpt.stop_mel_token)
+        if vq_safe:
+            codes_b = torch.where(codes_b < self.cfg.vaegan.vq_bins, codes_b, 0)
         return codes_b, eff_t * self.cfg.gpt.mel_length_compression, bucket
 
     def diffuse(self, latents: torch.Tensor, cond_latent: torch.Tensor,
                 biases: List[torch.Tensor], generator) -> torch.Tensor:
-        """latents (B, Tc, D) -> denormalised mel (B, 4 Tc, n_mels), fp32."""
+        """latents (B, Tc, D) -> denormalised mel (B, 4 Tc, n_mels), fp32,
+        by the configured sampler; each model evaluation is one CFG call."""
         code_emb = self.model.diffusion_code_embedding(
             latents.to(self.cdt), cond_latent.to(self.cdt))
 
@@ -243,14 +328,135 @@ class TTSEngine:
                  self.cfg.diffusion.in_channels)
         noise = torch.randn(shape, generator=generator, device=self.device) \
             * self.ecfg.diffusion_temperature
-        mel = p_sample_loop(self.schedule, model_fn, noise,
-                            cond_free_k=self.cfg.diffusion.cond_free_k,
-                            generator=generator)
+        k = self.cfg.diffusion.cond_free_k
+        sampler = self.ecfg.diffusion_sampler
+        if sampler == "ancestral":
+            mel = p_sample_loop(self.schedule, model_fn, noise, cond_free_k=k,
+                                generator=generator)
+        elif sampler == "ddim":
+            mel = ddim_sample_loop(self.schedule, model_fn, noise, cond_free_k=k)
+        elif sampler == "dpmpp_2m":
+            mel = dpmpp_2m_reference_sample_loop(
+                model_fn, noise, steps=self.schedule.num_timesteps, guidance_scale=k)
+        else:  # dpmpp_2m_karras (EngineConfig admits SAMPLERS only)
+            mel = dpmpp_2m_sample_loop(self.schedule, model_fn, noise, cond_free_k=k)
         return denormalize_mel(mel)
+
+    def _vocode(self, mel: torch.Tensor, eff: np.ndarray, generator) -> torch.Tensor:
+        """mel -> wav (B, T, 1), fp32 or (with ``pcm16_output``) int16."""
+        mel_len = torch.as_tensor(eff * FRAMES_PER_CODE, device=self.device)
+        wav = self.model.infer_flowvae(mel.to(self.cdt), mel_len,
+                                       self.ecfg.noise_scale, generator=generator)
+        return to_pcm16(wav) if self.ecfg.pcm16_output else wav.float()
+
+    def _codes_to_mel(self, codes: torch.Tensor, refer_mel: torch.Tensor,
+                      refer_len: torch.Tensor) -> torch.Tensor:
+        return self.model.decode_codes_to_mel(codes, refer_mel.to(self.cdt),
+                                              refer_len).float()
+
+    def _trim(self, wav: torch.Tensor, eff: np.ndarray) -> List[np.ndarray]:
+        """Device wav (B, T, 1) -> one host array per item, ``eff`` codes long."""
+        wav = wav[..., 0].cpu().numpy()
+        hop_per_code = self.cfg.gpt.mel_length_compression
+        return [wav[i, :int(eff[i]) * hop_per_code] for i in range(len(eff))]
 
     # --------------------------------------------------------------- requests
 
+    @contextlib.contextmanager
+    def _stage(self, name: str, timings: Optional[Dict[str, float]], wait=True):
+        """A ``torch.profiler`` range named ``name``.  With ``timings``, its
+        wall time is added under ``name``, after waiting for the device:
+        for all its work (``wait=True``), for the work before an event, or
+        not at all (``wait=False``)."""
+        with torch.profiler.record_function(name):
+            t0 = time.perf_counter()
+            yield
+            if timings is not None:
+                if self.device.type == "cuda" and wait is not False:
+                    if wait is True:
+                        torch.cuda.synchronize(self.device)
+                    else:
+                        wait.synchronize()
+                timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+
     @torch.inference_mode()
+    def dispatch_decode(self, texts: Sequence[str],
+                        prompt_wavs: Sequence[np.ndarray], seed: int = 0,
+                        force_full: bool = False,
+                        timings: Optional[Dict[str, float]] = None) -> PendingDecode:
+        """Phase 1: host prep, then the AR decode and the diffusion
+        conditioning.  Nothing waits for the decode's lengths here (the
+        decode loop itself synchronises on early stop unless ``force_full``);
+        see :class:`PendingDecode`."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        with self._stage("prepare", timings):
+            text, _ = self.prepare_text(texts)
+            refer_mel, refer_len = self.prepare_prompt(prompt_wavs)
+            prompt_lengths = refer_len.tolist()
+        max_len = self.ecfg.max_generate_length
+        # the decode is enqueued first; the conditioning's host work follows
+        with self._stage("generate", timings, wait=False):
+            codes, lengths = self._decode(refer_mel, refer_len, text, gen,
+                                          max_len, force_full)
+            done = torch.cuda.Event() if self.device.type == "cuda" else None
+            if done is not None:
+                done.record()
+        with self._stage("diff_cond", timings, wait=False):
+            diff_cond = self.diffusion_cond(refer_mel, prompt_lengths)
+        return PendingDecode(codes=codes, lengths=None if force_full else lengths,
+                             codes_done=done, diff_cond=diff_cond,
+                             refer_mel=refer_mel, refer_len=refer_len, text=text,
+                             generator=gen, n=len(texts), max_len=max_len,
+                             force_full=force_full, timings=timings,
+                             _t0=time.perf_counter())
+
+    @torch.inference_mode()
+    def dispatch_tail(self, pending: PendingDecode) -> InflightBatch:
+        """Phase 2: the decode-length synchronisation (none under
+        ``force_full``), bucket and stop-fill, then latents, diffusion and
+        the vocoder, enqueued.  With timings, host time a caller spent
+        between the two phases goes under ``gap``."""
+        timings = pending.timings
+        if timings is not None:
+            timings["gap"] = timings.get("gap", 0.0) + time.perf_counter() - pending._t0
+        gen = pending.generator
+        with self._stage("generate", timings, wait=pending.codes_done or True):
+            eff = self._effective_lengths(pending.codes.shape[0], pending.lengths,
+                                          pending.max_len, pending.force_full)
+        with self._stage("diff_cond", timings):
+            pass  # waits for the conditioning, enqueued after the decode
+        with self._stage("latents", timings):
+            codes_b, wav_len, bucket = self._pad_codes(pending.codes, eff)
+            latents = self.model.gpt(pending.refer_mel.to(self.cdt), pending.refer_len,
+                                     pending.text, codes_b, wav_len)
+        with self._stage("diffuse", timings):
+            mel = self.diffuse(latents, pending.diff_cond,
+                               self.attention_biases(bucket * FRAMES_PER_CODE), gen)
+        with self._stage("vocode", timings):
+            wav = self._vocode(mel, eff, gen)
+        return InflightBatch(wav=wav, eff=eff, n=pending.n, timings=timings,
+                             _t0=time.perf_counter())
+
+    def dispatch_batch(self, texts: Sequence[str],
+                       prompt_wavs: Sequence[np.ndarray], seed: int = 0,
+                       force_full: bool = False,
+                       timings: Optional[Dict[str, float]] = None) -> InflightBatch:
+        """Enqueue all device work of one batch; no output fetch.  Pass the
+        handle to :meth:`finalize_batch`.  The only host wait is the
+        decode-length one (none under ``force_full``)."""
+        return self.dispatch_tail(self.dispatch_decode(
+            texts, prompt_wavs, seed=seed, force_full=force_full, timings=timings))
+
+    @torch.inference_mode()
+    def finalize_batch(self, inflight: InflightBatch) -> List[np.ndarray]:
+        """Fetch and trim a dispatched batch (waits for the device)."""
+        with torch.profiler.record_function("host"):
+            outs = self._trim(inflight.wav, inflight.eff)
+        if inflight.timings is not None:
+            inflight.timings["host"] = (inflight.timings.get("host", 0.0)
+                                        + time.perf_counter() - inflight._t0)
+        return outs
+
     def synthesize_batch(self, texts: Sequence[str],
                          prompt_wavs: Sequence[np.ndarray], seed: int = 0,
                          force_full: bool = False,
@@ -262,47 +468,82 @@ class TTSEngine:
         synchronisation and its wall time is added under its name.  Each
         stage is also a ``torch.profiler`` range of that name.
         """
-
-        @contextlib.contextmanager
-        def stage(name):
-            with torch.profiler.record_function(name):
-                t0 = time.perf_counter()
-                yield
-                if timings is not None:
-                    if self.device.type == "cuda":
-                        torch.cuda.synchronize(self.device)
-                    timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
-
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        with stage("prepare"):
-            text, _ = self.prepare_text(texts)
-            refer_mel, refer_len = self.prepare_prompt(prompt_wavs)
-        with stage("generate"):
-            codes, eff = self.generate_codes(refer_mel, refer_len, text, gen,
-                                             force_full=force_full)
-        with stage("diff_cond"):
-            diff_cond = self.diffusion_cond(refer_mel, refer_len)
-        with stage("latents"):
-            codes_b, wav_len, bucket = self._pad_codes(codes, eff)
-            latents = self.model.gpt(refer_mel.to(self.cdt), refer_len, text,
-                                     codes_b, wav_len)
-        with stage("diffuse"):
-            mel = self.diffuse(latents, diff_cond,
-                               self.attention_biases(bucket * FRAMES_PER_CODE), gen)
-        with stage("vocode"):
-            mel_len = torch.as_tensor(eff * FRAMES_PER_CODE, device=self.device)
-            wav = self.model.infer_flowvae(mel.to(self.cdt), mel_len,
-                                           self.ecfg.noise_scale, generator=gen)
-        with stage("host"):
-            wav = wav[..., 0].float().cpu().numpy()
-            hop_per_code = self.cfg.gpt.mel_length_compression
-            outs = [wav[i, :int(eff[i]) * hop_per_code] for i in range(len(texts))]
-        return outs
+        return self.finalize_batch(self.dispatch_batch(
+            texts, prompt_wavs, seed=seed, force_full=force_full, timings=timings))
 
     def synthesize(self, text: str, prompt_wav: np.ndarray,
                    seed: int = 0) -> np.ndarray:
         """Single-utterance convenience (the api.py surface)."""
         return self.synthesize_batch([text], [prompt_wav], seed)[0]
+
+    @torch.inference_mode()
+    def synthesize_from_ids(self, text_ids: torch.Tensor, refer_mel: torch.Tensor,
+                            refer_len: torch.Tensor, seed: int = 0,
+                            vq_only: bool = False) -> List[np.ndarray]:
+        """Low-level entry on token ids and a prompt mel (the reference's
+        eval-time ``infer_gpt`` / ``infer`` calls, train.py:234-236)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        codes, eff = self.generate_codes(refer_mel, refer_len, text_ids, gen)
+        codes_b, wav_len, bucket = self._pad_codes(codes, eff, vq_safe=vq_only)
+        if vq_only:
+            mel = self._codes_to_mel(codes_b, refer_mel, refer_len)
+        else:
+            latents = self.model.gpt(refer_mel.to(self.cdt), refer_len, text_ids,
+                                     codes_b, wav_len)
+            mel = self.diffuse(latents, self.diffusion_cond(refer_mel, refer_len),
+                               self.attention_biases(bucket * FRAMES_PER_CODE), gen)
+        return self._trim(self._vocode(mel, eff, gen), eff)
+
+    @torch.inference_mode()
+    def synthesize_vq_batch(self, texts: Sequence[str],
+                            prompt_wavs: Sequence[np.ndarray], seed: int = 0,
+                            force_full: bool = False) -> List[np.ndarray]:
+        """Diffusion-free path (reference ``infer_gpt``, model_24k.py:811-846):
+        codes -> ``vq_dec`` mel -> vocoder."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        text, _ = self.prepare_text(texts)
+        refer_mel, refer_len = self.prepare_prompt(prompt_wavs)
+        codes, eff = self.generate_codes(refer_mel, refer_len, text, gen,
+                                         force_full=force_full)
+        # vq_safe: the GPT's start/stop ids lie past the VQ codebook and never
+        # index it in the reference's exact-length batch-1 path
+        codes_b, _, _ = self._pad_codes(codes, eff, vq_safe=True)
+        mel = self._codes_to_mel(codes_b, refer_mel, refer_len)
+        return self._trim(self._vocode(mel, eff, gen), eff)
+
+    @torch.inference_mode()
+    def vq_roundtrip(self, mel, seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """mel (B, T, n_mels) -> codes -> mel -> wav (reference
+        ``infer_vqvae``): (reconstructed mel fp32, wav (B, T * hop, 1) fp32)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        mel = torch.as_tensor(mel, device=self.device).to(self.cdt)
+        recon, wav = self.model.infer_vqvae(mel, generator=gen)
+        return recon.float(), wav.float()
+
+    @torch.inference_mode()
+    def warmup(self, batch_size: int = 1, text_bucket: Optional[int] = None,
+               prompt_bucket: Optional[int] = None,
+               code_bucket: Optional[int] = None,
+               force_full: bool = False) -> None:
+        """Run one request at the given buckets (default: the smallest), so
+        that the first served request does not pay for the kernel library's
+        build, the T5 biases or the allocator's first growth."""
+        tb = text_bucket or self.ecfg.text_buckets[0]
+        pb = prompt_bucket or self.ecfg.prompt_buckets[0]
+        cb = code_bucket or self.ecfg.code_buckets[0]
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        text = torch.zeros((batch_size, tb), dtype=torch.long, device=self.device)
+        refer = torch.full((batch_size, pb, self.cfg.data.n_mel_channels), -6.0,
+                           device=self.device)
+        refer_len = torch.full((batch_size,), pb, dtype=torch.long, device=self.device)
+        codes, _ = self._decode(refer, refer_len, text, gen,
+                                self.ecfg.max_generate_length, force_full)
+        eff = np.full((batch_size,), min(cb, int(codes.shape[1])), np.int64)
+        codes_b, wav_len, _ = self._pad_codes(codes, eff)
+        latents = self.model.gpt(refer.to(self.cdt), refer_len, text, codes_b, wav_len)
+        mel = self.diffuse(latents, self.diffusion_cond(refer, [pb] * batch_size),
+                           self.attention_biases(codes_b.shape[1] * FRAMES_PER_CODE), gen)
+        self._trim(self._vocode(mel, eff, gen), eff)
 
 
 def random_engine(cfg: Optional[Config] = None, seed: int = 0,

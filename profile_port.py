@@ -1,7 +1,7 @@
 """Where the time of one zero-shot request, or one training step, goes in the
 PyTorch port, on one GPU.
 
-    python3 profile_port.py [--batch 2] [--codes 200]
+    python3 profile_port.py [--batch 2] [--codes 200] [--sampler ancestral] [--steps 50]
     python3 profile_port.py --train
 
 Serving: builds the full-width engine with seeded random weights, as
@@ -146,6 +146,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--codes", type=int, default=200)
+    ap.add_argument("--sampler", default="ancestral",
+                    help="EngineConfig.diffusion_sampler of the request")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="EngineConfig.diffusion_steps (default: the config's 50)")
     ap.add_argument("--train", action="store_true",
                     help="profile one diff training step instead of a request")
     args = ap.parse_args()
@@ -162,8 +166,9 @@ def main():
     from detail_tts_tpu_torch.serving.pipeline import EngineConfig, random_engine
 
     cfg = Config()
-    engine = random_engine(cfg, seed=0, device="cuda",
-                           engine_cfg=EngineConfig(max_generate_length=args.codes + 1))
+    engine = random_engine(cfg, seed=0, device="cuda", engine_cfg=EngineConfig(
+        max_generate_length=args.codes + 1, diffusion_sampler=args.sampler,
+        diffusion_steps=args.steps))
     sr = cfg.data.sampling_rate
     rng = np.random.default_rng(0)
     prompts = [rng.uniform(-0.3, 0.3, 3 * sr).astype(np.float32)
@@ -181,8 +186,11 @@ def main():
         request({})  # with timings, so each stage ends in a synchronisation
     rows, device = split_by_stage(prof, STAGES, wall)
     audio_s = sum(len(o) for o in outs) / sr
-    print(f"request batch={args.batch} codes={args.codes}: {audio_s:.2f} s of audio")
-    report(rows, device, batch=args.batch, codes=args.codes, audio_s=audio_s)
+    steps = engine.schedule.num_timesteps
+    print(f"request batch={args.batch} codes={args.codes} sampler={args.sampler} "
+          f"steps={steps}: {audio_s:.2f} s of audio")
+    report(rows, device, batch=args.batch, codes=args.codes, sampler=args.sampler,
+           steps=steps, audio_s=audio_s)
 
 
 if __name__ == "__main__":

@@ -245,3 +245,36 @@ def test_autograd_function_runs_the_kernels(cuda):
     assert scaled_err(bias.grad, b2.grad) <= TOL[torch.float32]
     with pytest.raises(RuntimeError, match="no backward"):
         attention.bias_attention(qkv, bias, heads=h, sm_scale=0.3)
+
+
+@pytest.mark.parametrize("sampler", ["ancestral", "ddim", "dpmpp_2m", "dpmpp_2m_karras"])
+def test_each_sampler_runs_the_kernel_on_a_small_engine(cuda, sampler):
+    """Every sampler's request launches B1 in each attention block of each
+    model evaluation (steps x blocks, plus the conditioning's blocks once),
+    repeats its audio bit for bit, and the VQ path launches it never."""
+    import numpy as np
+
+    from detail_tts_tpu_torch.config import small_test_config
+    from detail_tts_tpu_torch.serving.pipeline import EngineConfig, random_engine
+
+    eng = random_engine(small_test_config(), device=cuda, engine_cfg=EngineConfig(
+        diffusion_sampler=sampler, max_generate_length=12, text_buckets=(16, 32),
+        prompt_buckets=(32, 64), code_buckets=(8, 12)))
+    diff = eng.model.diffusion
+    want = (eng.schedule.num_timesteps
+            * (len(diff.conditioning_timestep_integrator) + eng.cfg.diffusion.num_layers)
+            + len(diff.contextual_embedder) - 2 + len(diff.latent_conditioner) - 1)
+    rng = np.random.default_rng(0)
+    wavs = [rng.uniform(-0.3, 0.3, n).astype(np.float32) for n in (24000, 12077)]
+    texts = ["你好，世界。", "ni3 hao3"]
+    outs = []
+    for _ in range(2):
+        before = attention.LAUNCHES
+        outs.append(eng.synthesize_batch(texts, wavs, seed=3, force_full=True))
+        assert attention.LAUNCHES - before == want
+    assert all(o.shape == (11 * 1024,) and np.isfinite(o).all() for o in outs[0])
+    assert all(np.array_equal(a, b) for a, b in zip(*outs))
+    before = attention.LAUNCHES
+    vq = eng.synthesize_vq_batch(texts, wavs, seed=3, force_full=True)
+    assert attention.LAUNCHES == before
+    assert all(o.shape == (11 * 1024,) and np.isfinite(o).all() for o in vq)
