@@ -46,7 +46,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    bit-identical loss and grad norm; on one micro-batch that keeps every
    layer, a gradient for every trainable tensor and the kernel route
    against the plain route (and against a route that loses dbias, which
-   the check must catch); the device idle share of one traced step.
+   the check must catch); the device idle share of one traced step;
+6b. the other training targets through ``Trainer.train`` at the full width
+   of ``Config()``: ``gpt`` and ``vqvae`` (micro-batch 8 x 496 frames x
+   accum 16, 64 text tokens), ``flowvae`` and ``all`` (the two-phase GAN
+   step with the discriminator, batch 8 x 496 frames, 10240-sample
+   segments, weight norm on), each a warm-up step and two timed steps with
+   their wall, mel frames per second and peak device memory: every loss and
+   grad norm finite; every trainable tensor moved (the discriminator's too)
+   and every frozen one bit-identical; the codebook moved under ``vqvae``
+   and ``all`` only; under ``all`` each training kernel launched
+   ``expected_train_launches`` times a step (0 times elsewhere), the
+   serving kernel never; a repeated step bit-identical in every metric;
+   for ``all`` the device idle share of one traced step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -864,7 +876,6 @@ def phase_training(cfg_full):
     from detail_tts_tpu_torch.models.synthesizer import draw_diff, make_train_schedule
     from detail_tts_tpu_torch.train.step import synthetic_batches
     from detail_tts_tpu_torch.train.trainer import Trainer
-    from profile_port import union_us
 
     print("== training", flush=True)
     cfg = dataclasses.replace(cfg_full, train=dataclasses.replace(cfg_full.train,
@@ -987,24 +998,168 @@ def phase_training(cfg_full):
         fail("the route check would pass a route that loses dbias")
 
     # device idle share of one traced step
+    step_ms = statistics.median(walls) * 1e3
+    wall_ms, busy_ms, n, idle = idle_share(
+        lambda: trainer.step_fn(state, next(data), trainer.generator), step_ms)
+    print(f"  traced step: wall {wall_ms:.1f} ms (traced), device busy {busy_ms:.1f} ms, "
+          f"{n} device launches; idle share against the untraced median step "
+          f"{step_ms:.1f} ms: {idle:.3f}", flush=True)
+    del trainer, state, data
+    torch.cuda.empty_cache()
+    return launches
+
+
+def idle_share(fn, step_ms):
+    """(traced wall ms, device busy ms, device launches, idle share against
+    ``step_ms``) of one traced ``fn()``: the profiler slows the host, not
+    the kernels, so the idle share is taken against an untraced wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from profile_port import union_us
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.step_fn(state, next(data), trainer.generator)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy_ms = union_us(spans) / 1e3
-    # the profiler slows the host, not the kernels: the idle share is taken
-    # against the untraced steps' median wall time
-    step_ms = statistics.median(walls) * 1e3
-    print(f"  traced step: wall {wall_ms:.1f} ms (traced), device busy {busy_ms:.1f} ms, "
-          f"{len(spans)} device launches; idle share against the untraced median step "
-          f"{step_ms:.1f} ms: {1 - busy_ms / step_ms:.3f}", flush=True)
+    return wall_ms, busy_ms, len(spans), 1 - busy_ms / step_ms
+
+
+TRAIN_TARGETS = ("gpt", "vqvae", "flowvae", "all")
+
+
+def train_target(cfg_full, target):
+    """Phase 6b for one target; returns the training kernels' launches."""
+    import dataclasses
+
+    from detail_tts_tpu_torch.train.step import GAN_TARGETS, synthetic_batches
+    from detail_tts_tpu_torch.train.trainer import Trainer
+
+    gan = target in GAN_TARGETS
+    cfg = dataclasses.replace(cfg_full, train=dataclasses.replace(cfg_full.train,
+                                                                  target=target))
+    accum = 1 if gan else cfg.train.gradient_accumulate_every
+    micro, frames, text_len = cfg.train.batch_size, 496, 64
+    data = synthetic_batches(cfg, accum, micro, frames, text_len, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(1))
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, data, device="cuda", seed=0)
+    state = trainer.state
+    n_train = sum(p.numel() for p in state.params)
+    n_all = sum(p.numel() for p in state.model.parameters())
+    n_disc = sum(p.numel() for p in state.d_params) if gan else 0
+    print(f"  {target}: {n_train / 1e6:.1f} M trainable of {n_all / 1e6:.1f} M parameters"
+          + (f", discriminator {n_disc / 1e6:.1f} M" if gan else "")
+          + f", batch {micro} x {frames} frames x accum {accum}"
+          + (f", segment {cfg.train.segment_size} samples, weight norm "
+             f"{cfg.train.weight_norm}" if gan else f", text {text_len}")
+          + f"; built in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    trainer.train(max_steps=1, log_every=1)  # warm-up
+    torch.cuda.synchronize()
+    print(f"  {target}: warm-up step {time.perf_counter() - t0:.3f} s", flush=True)
+
+    def tensors():
+        out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+        if gan:
+            out.update({f"disc.{k}": v for k, v in state.disc.state_dict().items()})
+        return out
+
+    before = {k: v.cpu() for k, v in tensors().items()}  # off the card: peak is the step's
+    torch.cuda.reset_peak_memory_stats()
+    attention.LAUNCHES = 0
+    for name in TRAIN_KERNELS:
+        attention.TRAIN_LAUNCHES[name] = 0
+    walls = []
+    for _ in range(2):
+        counts = dict(attention.TRAIN_LAUNCHES)
+        t0 = time.perf_counter()
+        logged = trainer.train(max_steps=state.step + 1, log_every=1)
+        walls.append(time.perf_counter() - t0)
+        m = trainer.last_metrics
+        want = expected_train_launches(cfg, m["layers_kept"]) if target == "all" else 0
+        got = {k: attention.TRAIN_LAUNCHES[k] - counts[k] for k in TRAIN_KERNELS}
+        scalars = {k: v for k, v in logged.items() if k != "steps_per_sec"}
+        print(f"  {target} step {state.step}: wall {walls[-1]:.3f} s, "
+              f"{accum * micro * frames / walls[-1]:.1f} mel frames/s; "
+              + ", ".join(f"{k} {v:.6g}" for k, v in scalars.items())
+              + f"; training-kernel launches {got} (expected {want} each)", flush=True)
+        if not all(math.isfinite(v) for v in scalars.values()):
+            fail(f"{target}: a loss or grad norm is not finite: {scalars}")
+        if any(v != want for v in got.values()):
+            fail(f"{target}: training kernel launches {got}, expected {want} each")
+    if attention.LAUNCHES != 0:
+        fail(f"{target}: the step launched the serving kernel {attention.LAUNCHES} times")
+    launches = dict(attention.TRAIN_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = statistics.median(walls)
+    print(f"  {target}: median step {step_s:.3f} s, {accum * micro * frames / step_s:.1f} "
+          f"mel frames/s, peak device memory {peak:.2f} GiB", flush=True)
+
+    trainable = {f"model.{n}" for n, p in state.model.named_parameters() if p.requires_grad}
+    if gan:
+        trainable |= {f"disc.{n}" for n, _ in state.disc.named_parameters()}
+    codebook = {k for k in before if "._codebook." in k}
+    after = {k: v.cpu() for k, v in tensors().items()}
+    still = sorted(k for k in trainable if torch.equal(after[k], before[k]))
+    changed = sorted(k for k in after if k not in trainable | codebook
+                     and not torch.equal(after[k], before[k]))
+    cb_moved = sorted(k for k in codebook if not torch.equal(after[k], before[k]))
+    want_cb = target in ("vqvae", "all")
+    print(f"  {target}: {len(trainable) - len(still)} of {len(trainable)} trainable tensors "
+          f"moved{' (discriminator included)' if gan else ''}; "
+          f"{len(after) - len(trainable) - len(codebook) - len(changed)} of "
+          f"{len(after) - len(trainable) - len(codebook)} frozen tensors bit-identical; "
+          f"codebook buffers moved {cb_moved} (expected {'some' if want_cb else 'none'})",
+          flush=True)
+    if still or changed:
+        fail(f"{target}: unmoved trainable {still[:3]} or changed frozen {changed[:3]}")
+    if bool(cb_moved) != want_cb:
+        fail(f"{target}: codebook buffers moved {cb_moved}, expected "
+             f"{'some' if want_cb else 'none'}")
+    del before, after
+
+    # the same step from the same state and generator state: the same bits
+    snap = state.snapshot()
+    gen_state = trainer.generator.get_state()
+    batch = trainer.next_batch()
+    runs = []
+    for _ in range(2):
+        state.restore(snap)
+        trainer.generator.set_state(gen_state)
+        runs.append(trainer.step_fn(state, batch, trainer.generator))
+    same = {k: torch.equal(runs[0][k], runs[1][k]) for k in runs[0] if torch.is_tensor(runs[0][k])}
+    print(f"  {target}: repeated step bit-identical {same}", flush=True)
+    if not all(same.values()):
+        fail(f"{target}: the repeated step gave other metrics: {same}")
+    del snap
+    if target == "all":
+        wall_ms, busy_ms, n, idle = idle_share(
+            lambda: trainer.step_fn(state, trainer.next_batch(), trainer.generator),
+            step_s * 1e3)
+        print(f"  all: traced step wall {wall_ms:.1f} ms (traced), device busy "
+              f"{busy_ms:.1f} ms, {n} device launches; idle share against the "
+              f"untraced median step {step_s * 1e3:.1f} ms: {idle:.3f}", flush=True)
+    del trainer, state, data
+    torch.cuda.empty_cache()
     return launches
+
+
+def phase_train_targets(cfg_full):
+    """Phase 6b: every other training target; returns the training kernels'
+    launches (all of them under ``all``)."""
+    print("== training targets", flush=True)
+    print(f"  cudnn.benchmark {torch.backends.cudnn.benchmark}; each step runs with "
+          "cudnn.deterministic on", flush=True)
+    total = {name: 0 for name in TRAIN_KERNELS}
+    for target in TRAIN_TARGETS:
+        for name, n in train_target(cfg_full, target).items():
+            total[name] += n
+    return total
 
 
 def main():
@@ -1040,6 +1195,7 @@ def main():
     torch.cuda.empty_cache()
 
     train_launches = phase_training(cfg)
+    target_launches = phase_train_targets(cfg)
 
     kernels = [dict(
         name="bias_attention_fwd", route="cuda",
@@ -1056,7 +1212,8 @@ def main():
         kernels.append(dict(
             name=name, route="cuda", source=f"detail_tts_tpu_torch/csrc/{src}",
             replaces=f"detail_tts_tpu/ops/pallas/attention.py:{line}",
-            launches=train_launches[name], launches_over="3 training steps",
+            launches=train_launches[name] + target_launches[name],
+            launches_over="3 diff steps (phase 6) and 2 all steps (phase 6b)",
             max_abs_err=train_worst[name][0], max_scaled_err=train_worst[name][1],
             library=("torch.sum over the batch" if name.endswith("sum") else
                      "scaled_dot_product_attention (" + backend + ")"),

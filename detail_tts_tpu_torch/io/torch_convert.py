@@ -1,15 +1,19 @@
 """Reference state-dict name -> JAX variable path map (the port's own copy).
 
-``translate`` is copied from ``detail_tts_tpu/io/torch_convert.py``: it maps
-a reference ``SynthesizerTrn`` state-dict name onto the JAX package's
-``params/...`` (or ``vq_state/...``) path and the layout transform between
-the two.  Every transform is a transpose that is its own inverse, so the
+``translate`` and ``translate_discriminator`` are copied from
+``detail_tts_tpu/io/torch_convert.py``: they map a reference
+``SynthesizerTrn`` (or ``MultiPeriodDiscriminator``) state-dict name onto
+the JAX package's ``params/...`` (or ``vq_state/...``) path and the layout
+transform between the two.  Every transform of ``translate`` is a transpose that is its own inverse, so the
 same map carries JAX variables into the port (``io/weights.py``).
 
 Layouts: torch Conv1d (out, in/g, k) and ConvTranspose1d (in, out, k) <->
 flax (k, in/g, out) / (k, out, in), both axes (2, 1, 0); torch Linear
 (out, in) <-> Dense (in, out); HF GPT-2 Conv1D (in, out) as it is; norm
-weight/gamma <-> scale, bias/beta <-> bias.
+weight/gamma <-> scale, bias/beta <-> bias.  The one transform that is not
+its own inverse, ``translate_discriminator``'s for Conv2d, is written in
+the direction the port uses, flax (kh, kw, in/g, out) -> torch (out, in/g,
+kh, kw).
 """
 from __future__ import annotations
 
@@ -333,3 +337,31 @@ def translate(name: str, diffusion_layers: int = 10
             rest, f"params/diffusion/layer_res_{idx - diffusion_layers}")
 
     return None
+
+
+def t_conv2d(w):  # flax (kh, kw, in/g, out) -> torch Conv2d (out, in/g, kh, kw)
+    return np.transpose(w, (3, 2, 0, 1))
+
+
+_DISC_PERIODS = (2, 3, 5, 7, 11)
+
+
+def translate_discriminator(name: str) -> Optional[Tuple[str, Callable]]:
+    """Reference ``MultiPeriodDiscriminator`` state-dict name ->
+    ('params/...' path, transform) or None.
+
+    ``discriminators.0`` is DiscriminatorS (1-D convs), ``discriminators.1..5``
+    the DiscriminatorP of periods (2, 3, 5, 7, 11) (2-D convs)
+    (vqvae/model_24k.py:407-431)."""
+    m = re.fullmatch(r"discriminators\.(\d)\.(convs\.(\d)|conv_post)"
+                     r"\.(weight|bias)", name)
+    if not m:
+        return None
+    idx = int(m.group(1))
+    sub = "conv_post" if m.group(2) == "conv_post" else f"conv_{m.group(3)}"
+    leaf = "kernel" if m.group(4) == "weight" else "bias"
+    if idx == 0:  # DiscriminatorS: the Conv1d wrapper nests its conv as 'conv'
+        return (f"params/disc_s/{sub}/conv/{leaf}",
+                t_conv if leaf == "kernel" else t_id)
+    return (f"params/disc_p{_DISC_PERIODS[idx - 1]}/{sub}/{leaf}",
+            t_conv2d if leaf == "kernel" else t_id)

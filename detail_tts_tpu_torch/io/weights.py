@@ -8,10 +8,14 @@ one to one.
 
 ``from_jax_variables`` fills every key of a port module's ``state_dict()``
 from the JAX package's variables tree (nested dicts of numpy arrays, e.g.
-``{"params": ..., "vq_state": ...}``) through ``translate``: key -> (JAX
-path, self-inverse transpose).  It is strict on the port's side (a key with
-no JAX leaf raises); JAX leaves of modules the port does not have yet are
-returned as a list.  A (g, v) weight-norm tree is folded first.
+``{"params": ..., "vq_state": ...}``) through ``translate`` (or
+``translate_discriminator``): key -> (JAX path, transpose to the port's
+layout).  It
+is strict on both sides: a port key with no JAX leaf raises, and so does a
+JAX leaf that no port key reads.  Weight norm is carried either way: a
+folded port ``weight`` from a JAX (g, v) pair (folded), a port
+``weight_g``/``weight_v`` pair from JAX's (g, v) or from a folded kernel
+(g = ||kernel||, v = kernel).
 
 ``random_weights_`` fills a module in place from a seeded generator: norm
 scales near 1, weights ~ N(0, 1/fan_in), small biases, VQ codebooks
@@ -19,7 +23,7 @@ scales near 1, weights ~ N(0, 1/fan_in), small biases, VQ codebooks
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,24 +31,21 @@ import torch.nn as nn
 
 from detail_tts_tpu_torch.io.torch_convert import IGNORED, translate
 
-# JAX leaves with no counterpart in the port yet (posterior encoder, the
-# GPT's training text head)
-UNPORTED = ("params/enc_q/", "params/gpt/text_head/")
+# JAX leaves with no counterpart in the port: none, every module is ported
+UNPORTED: Tuple[str, ...] = ()
+
+# Modules drawn after all others by ``random_weights_``: added to an earlier
+# module after seeded serving weights were fixed, so drawing them last keeps
+# every other weight of a seed as it was
+DRAWN_LAST = ("gpt.text_head",)
 
 
-def fold_weight_norm_tree(tree):
-    """Replace every {v, g} conv entry with the folded ``kernel``:
-    kernel = v * g / ||v||, the norm over all axes but the last."""
-    if not isinstance(tree, dict):
-        return tree
-    if "v" in tree and "g" in tree and "kernel" not in tree:
-        v = np.asarray(tree["v"], np.float32)
-        norm = np.sqrt(np.sum(v ** 2, axis=tuple(range(v.ndim - 1))))
-        kernel = v * (np.asarray(tree["g"], np.float32) / np.maximum(norm, 1e-12))
-        rest = {k: fold_weight_norm_tree(x) for k, x in tree.items()
-                if k not in ("v", "g")}
-        return {"kernel": kernel, **rest}
-    return {k: fold_weight_norm_tree(x) for k, x in tree.items()}
+def _fold_jax(v: np.ndarray, g: np.ndarray) -> np.ndarray:
+    """JAX (v, g) -> kernel = v * g / max(||v||, 1e-12), the norm over all
+    axes but the last (the weight-norm channel in every JAX layout)."""
+    v = np.asarray(v, np.float32)
+    norm = np.sqrt(np.sum(v ** 2, axis=tuple(range(v.ndim - 1))))
+    return v * (np.asarray(g, np.float32) / np.maximum(norm, 1e-12))
 
 
 def fold_weight_norm(sd: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -73,9 +74,10 @@ def load_reference_checkpoint(path: str, model: nn.Module
     The file is read with ``torch.load`` onto the CPU; a ``"G"`` or
     ``"model"`` entry is unwrapped, weight-norm pairs are folded.  Strict on
     the port's side: every key of ``model.state_dict()`` must be there with
-    its shape.  Returns ``{"unused": [...]}``, the checkpoint keys of modules
-    the port does not have (``enc_q``, ``gpt.text_head``, ...), apart from
-    the reference's derived copies that are never loaded (``IGNORED``).
+    its shape.  Returns ``{"unused": [...]}``, the checkpoint keys that no
+    port key reads, apart from the reference's derived copies that are
+    never loaded (``IGNORED``).  The model gets folded weights: to train in
+    the (g, v) parametrization, ``weight_norm_`` it afterwards.
     """
     data = torch.load(path, map_location="cpu", weights_only=False)
     for key in ("G", "model"):
@@ -115,23 +117,57 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def from_jax_variables(model: nn.Module, variables, diffusion_layers: int
+def _jax_leaf(flat: Dict[str, Any], used: set, key: str,
+              tr: Callable[[str], Optional[Tuple[str, Callable]]]) -> np.ndarray:
+    """The port layout of port key ``key`` from the flat JAX leaves."""
+    wn_part = key.rsplit(".", 1)[-1] if key.endswith((".weight_g", ".weight_v")) else None
+    t = tr(key[: -len(wn_part)] + "weight" if wn_part else key)
+    if t is None:
+        raise KeyError(f"port key {key} has no JAX leaf (no translation)")
+    path, fn = t
+    stem = path[: -len("kernel")] if path.endswith("kernel") else None
+    pair = stem is not None and stem + "v" in flat and stem + "g" in flat
+
+    def take(p):
+        used.add(p)
+        return np.asarray(flat[p], np.float32)
+
+    if wn_part is None and path in flat:
+        return np.array(fn(take(path)))
+    if wn_part is None and pair:  # fold JAX's (g, v)
+        return np.array(fn(_fold_jax(take(stem + "v"), take(stem + "g"))))
+    if wn_part == "weight_v":
+        return np.array(fn(take(stem + "v") if pair else take(path)))
+    if wn_part == "weight_g":
+        if pair:
+            return take(stem + "g")  # reshaped to the port's (C, 1, ...) below
+        w = np.array(fn(take(path)))  # unfold: g = ||kernel||
+        return np.sqrt(np.sum(w ** 2, axis=tuple(range(1, w.ndim)), keepdims=True))
+    raise KeyError(f"port key {key} has no JAX leaf ({path})")
+
+
+def from_jax_variables(model: nn.Module, variables, diffusion_layers: int = 10,
+                       translate_fn: Optional[Callable] = None
                        ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """JAX variables -> (state_dict for ``model``, JAX paths left unused)."""
-    flat = _flatten(fold_weight_norm_tree(variables))
+    """JAX variables -> (state_dict for ``model``, JAX paths left unused,
+    which is empty: a JAX leaf that no port key reads raises).
+
+    ``translate_fn``: name -> (JAX path, transform); the synthesizer's
+    ``translate`` at ``diffusion_layers`` unless given (pass
+    ``translate_discriminator`` for a ``MultiPeriodDiscriminator``)."""
+    flat = _flatten(variables)
+    tr = translate_fn or (lambda name: translate(name, diffusion_layers=diffusion_layers))
+    used: set = set()
     state: Dict[str, torch.Tensor] = {}
     for key, ref in model.state_dict().items():
-        tr = translate(key, diffusion_layers=diffusion_layers)
-        if tr is None or tr[0] not in flat:
-            raise KeyError(f"port key {key} has no JAX leaf "
-                           f"({tr[0] if tr else 'no translation'})")
-        path, fn = tr
-        value = np.array(fn(np.asarray(flat.pop(path), np.float32)))
+        value = _jax_leaf(flat, used, key, tr)
+        if key.endswith(".weight_g") and value.size == ref.numel():
+            value = value.reshape(tuple(ref.shape))
         if value.shape != tuple(ref.shape):
-            raise ValueError(f"{key}: JAX {path} has shape {value.shape}, "
+            raise ValueError(f"{key}: JAX leaf has shape {value.shape}, "
                              f"port expects {tuple(ref.shape)}")
-        state[key] = torch.from_numpy(value)
-    unused = sorted(flat)
+        state[key] = torch.from_numpy(np.ascontiguousarray(value))
+    unused = sorted(set(flat) - used)
     stray = [p for p in unused if not p.startswith(UNPORTED)]
     if stray:
         raise KeyError(f"JAX leaves with no port key: {stray[:5]}")
@@ -141,16 +177,27 @@ def from_jax_variables(model: nn.Module, variables, diffusion_layers: int
 def _fan_in(module: nn.Module, weight: torch.Tensor) -> int:
     if isinstance(module, nn.ConvTranspose1d):  # (in, out, k) over stride
         return max(weight.shape[0] * weight.shape[2] // module.stride[0], 1)
-    if isinstance(module, (nn.Conv1d, nn.Linear)):
+    if isinstance(module, (nn.Conv1d, nn.Conv2d, nn.Linear)):
         return weight[0].numel()
     return weight.shape[0]  # HF Conv1D (in, out)
 
 
+def _draw_order(model: nn.Module):
+    """``model.named_modules()`` with the ``DRAWN_LAST`` subtrees moved to
+    the end."""
+    last = lambda name: any(name == p or name.startswith(p + ".")  # noqa: E731
+                            for p in DRAWN_LAST)
+    mods = list(model.named_modules())
+    return [m for m in mods if not last(m[0])] + [m for m in mods if last(m[0])]
+
+
 @torch.no_grad()
 def random_weights_(model: nn.Module, seed: int) -> nn.Module:
-    """Fill every parameter and VQ codebook of ``model`` in place from ``seed``."""
+    """Fill every parameter and VQ codebook of ``model`` in place from
+    ``seed``, module by module in registration order (``DRAWN_LAST``
+    after the rest)."""
     gen = None
-    for mod_name, module in model.named_modules():
+    for mod_name, module in _draw_order(model):
         for name, p in module.named_parameters(recurse=False):
             if gen is None:
                 gen = torch.Generator(device=p.device).manual_seed(seed)

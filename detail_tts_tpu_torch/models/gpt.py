@@ -1,4 +1,4 @@
-"""GPT acoustic decoder (``UnifiedVoice``, gpt/model.py:265-545), serving subset.
+"""GPT acoustic decoder (``UnifiedVoice``, gpt/model.py:265-545).
 
 Counterpart of ``detail_tts_tpu/models/gpt.py``: a GPT-2 trunk (pre-LN,
 gelu_new, learned per-modality positions, no global positions) over
@@ -9,7 +9,15 @@ gelu_new, learned per-modality positions, no global positions) over
 * ``generate_speech_tokens``: a Python loop of cached steps that stops when
   every row has emitted the stop token (or after ``max_generate_length``);
 * ``forward``: the ``return_latent=True`` pass (latents of the mel positions,
-  ``mel_latents[:, :-2]``).
+  ``mel_latents[:, :-2]``) and the training pass, the text and mel heads'
+  unmasked mean cross-entropies in fp32.
+
+Dropout (``GPTConfig.dropout`` in the trunk, 0.1 in the conditioning
+encoder) draws its masks from ``generator`` in ``train()`` mode: on the
+embeddings, then in each block on the attention weights, the attention
+output and the MLP output, as HF GPT-2 and the JAX module place it.
+``TrainConfig.remat_gpt`` has no counterpart: the port keeps every
+activation (``PERF.md`` gives the step's peak memory).
 
 Parameter names are the reference's (``gpt.gpt.h.0.attn.c_attn.weight``...);
 HF GPT-2's ``Conv1D`` keeps its (in, out) weight layout.
@@ -25,7 +33,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from detail_tts_tpu_torch.config import GPTConfig
-from detail_tts_tpu_torch.nn.common import Dense, TorchLayerNorm, sequence_mask
+from detail_tts_tpu_torch.nn.common import (Dense, SeededDropout, TorchLayerNorm,
+                                            sequence_mask)
 from detail_tts_tpu_torch.nn.style_encoder import MelStyleEncoder
 from detail_tts_tpu_torch.ops.sampling import sample_token
 
@@ -58,15 +67,18 @@ class KVCache:
 
 
 class GPT2Attention(nn.Module):
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.dim, self.heads = dim, heads
         self.c_attn = Conv1D(dim, 3 * dim)
         self.c_proj = Conv1D(dim, dim)
+        self.attn_dropout = SeededDropout(dropout)
+        self.resid_dropout = SeededDropout(dropout)
 
     def forward(self, x: torch.Tensor,
                 cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                start: int = 0) -> torch.Tensor:
+                start: int = 0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Causal self-attention; with a cache, x's keys land at
         [start, start + T) and the queries attend over [0, start + T)."""
         b, t, _ = x.shape
@@ -83,48 +95,53 @@ class GPT2Attention(nn.Module):
         k_pos = torch.arange(k.shape[1], device=x.device)
         causal = k_pos[None, :] <= q_pos[:, None]
         logits = logits.masked_fill(~causal, -1e9)
-        w = torch.softmax(logits, dim=-1).to(x.dtype)
+        w = self.attn_dropout(torch.softmax(logits, dim=-1).to(x.dtype), generator)
         out = torch.einsum("bhts,bshd->bthd", w, v).reshape(b, t, self.dim)
-        return self.c_proj(out)
+        return self.resid_dropout(self.c_proj(out), generator)
 
 
 class GPT2MLP(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dropout: float = 0.0):
         super().__init__()
         self.c_fc = Conv1D(dim, 4 * dim)
         self.c_proj = Conv1D(4 * dim, dim)
+        self.dropout = SeededDropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(gelu_new(self.c_fc(x)))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.dropout(self.c_proj(gelu_new(self.c_fc(x))), generator)
 
 
 class GPT2Block(nn.Module):
-    def __init__(self, dim: int, heads: int, eps: float):
+    def __init__(self, dim: int, heads: int, eps: float, dropout: float = 0.0):
         super().__init__()
         self.ln_1 = TorchLayerNorm(dim, eps=eps)
-        self.attn = GPT2Attention(dim, heads)
+        self.attn = GPT2Attention(dim, heads, dropout)
         self.ln_2 = TorchLayerNorm(dim, eps=eps)
-        self.mlp = GPT2MLP(dim)
+        self.mlp = GPT2MLP(dim, dropout)
 
-    def forward(self, x, cache_kv=None, start: int = 0):
-        x = x + self.attn(self.ln_1(x), cache_kv, start)
-        return x + self.mlp(self.ln_2(x))
+    def forward(self, x, cache_kv=None, start: int = 0, generator=None):
+        x = x + self.attn(self.ln_1(x), cache_kv, start, generator)
+        return x + self.mlp(self.ln_2(x), generator)
 
 
 class GPT2Stack(nn.Module):
     """GPT-2 trunk over input embeddings (no wte/wpe)."""
 
-    def __init__(self, layers: int, dim: int, heads: int, eps: float):
+    def __init__(self, layers: int, dim: int, heads: int, eps: float,
+                 dropout: float = 0.0):
         super().__init__()
-        self.h = nn.ModuleList([GPT2Block(dim, heads, eps) for _ in range(layers)])
+        self.drop = SeededDropout(dropout)
+        self.h = nn.ModuleList([GPT2Block(dim, heads, eps, dropout)
+                                for _ in range(layers)])
         self.ln_f = TorchLayerNorm(dim, eps=eps)
 
-    def forward(self, emb: torch.Tensor,
-                cache: Optional[KVCache] = None) -> torch.Tensor:
-        x = emb
+    def forward(self, emb: torch.Tensor, cache: Optional[KVCache] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.drop(emb, generator)
         for i, block in enumerate(self.h):
             kv = None if cache is None else (cache.k[i], cache.v[i])
-            x = block(x, kv, 0 if cache is None else cache.length)
+            x = block(x, kv, 0 if cache is None else cache.length, generator)
         if cache is not None:
             cache.length += emb.shape[1]
         return self.ln_f(x)
@@ -152,13 +169,15 @@ class UnifiedVoice(nn.Module):
             c.max_mel_tokens + 2 + c.max_conditioning_inputs, c.model_dim)
         self.text_pos_embedding = LearnedPositionEmbeddings(
             c.max_text_tokens + 2, c.model_dim)
-        self.gpt = GPT2Stack(c.layers, c.model_dim, c.heads, c.layer_norm_eps)
+        self.gpt = GPT2Stack(c.layers, c.model_dim, c.heads, c.layer_norm_eps,
+                             c.dropout)
         self.final_norm = TorchLayerNorm(c.model_dim, eps=c.layer_norm_eps)
         self.mel_head = Dense(c.model_dim, c.number_mel_codes)
+        self.text_head = Dense(c.model_dim, c.number_text_tokens + 1)
 
-    def _condition(self, cond_mel, cond_lengths) -> torch.Tensor:
+    def _condition(self, cond_mel, cond_lengths, generator=None) -> torch.Tensor:
         mask = sequence_mask(cond_lengths, cond_mel.shape[1])
-        return self.conditioning_encoder(cond_mel, mask)[:, None, :]
+        return self.conditioning_encoder(cond_mel, mask, generator)[:, None, :]
 
     def _text_embeddings(self, text: torch.Tensor) -> torch.Tensor:
         """[start, text..., stop, stop] embeddings (stop-padded, aligned)."""
@@ -171,27 +190,38 @@ class UnifiedVoice(nn.Module):
     def _mel_embeddings(self, codes: torch.Tensor, positions) -> torch.Tensor:
         return self.mel_embedding(codes) + self.mel_pos_embedding(positions)
 
-    def forward(self, cond_mel, cond_lengths, text, mel_codes, wav_lengths):
-        """The ``return_latent=True`` forward (gpt/model.py:429-491).
+    def forward(self, cond_mel, cond_lengths, text, mel_codes, wav_lengths,
+                return_latent: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """The training forward (gpt/model.py:429-491), text first.
 
         Codes past ``wav_lengths // mel_length_compression + 1`` become stop
-        tokens; returns the mel-position latents without the last two,
-        (B, T_code, D).
+        tokens.  ``return_latent``: the mel-position latents without the last
+        two, (B, T_code, D); else ``(loss_text, loss_mel)``, each head's mean
+        cross-entropy against its inputs shifted by one (stop-padded).
         """
         c = self.cfg
         mel_lengths = wav_lengths // c.mel_length_compression
         pos = torch.arange(mel_codes.shape[1], device=mel_codes.device)
         codes = torch.where(pos[None, :] < mel_lengths[:, None] + 1,
                             mel_codes, c.stop_mel_token)
-        codes = F.pad(F.pad(codes, (0, 1), value=c.stop_mel_token), (1, 0),
-                      value=c.start_mel_token)
+        codes = F.pad(codes, (0, 1), value=c.stop_mel_token)
+        mel_inp = F.pad(codes, (1, 0), value=c.start_mel_token)
         text_emb = self._text_embeddings(text)
         mel_emb = self._mel_embeddings(
-            codes, torch.arange(codes.shape[1], device=codes.device))
-        cond = self._condition(cond_mel, cond_lengths).to(text_emb.dtype)
-        hidden = self.gpt(torch.cat([cond, text_emb, mel_emb], dim=1))
+            mel_inp, torch.arange(mel_inp.shape[1], device=codes.device))
+        cond = self._condition(cond_mel, cond_lengths, generator).to(text_emb.dtype)
+        hidden = self.gpt(torch.cat([cond, text_emb, mel_emb], dim=1),
+                          generator=generator)
         enc = self.final_norm(hidden[:, 1:])
-        return enc[:, -mel_emb.shape[1]:][:, :-2]
+        mel_latents = enc[:, -mel_emb.shape[1]:]
+        if return_latent:
+            return mel_latents[:, :-2]
+        text_tar = F.pad(F.pad(text, (0, 1), value=c.stop_text_token), (0, 1),
+                         value=c.stop_text_token)
+        mel_tar = F.pad(codes, (0, 1), value=c.stop_mel_token)
+        return (_mean_ce(self.text_head(enc[:, :text_emb.shape[1]]), text_tar),
+                _mean_ce(self.mel_head(mel_latents), mel_tar))
 
     def prefill_embeddings(self, cond_mel, cond_lengths, text) -> torch.Tensor:
         """[cond, text_emb, start_mel_emb] prefix (gpt/model.py:514-530)."""
@@ -222,6 +252,12 @@ class UnifiedVoice(nn.Module):
         emb = self._mel_embeddings(token[:, None], position[:, None])
         hidden = self.gpt(emb, cache)
         return self.mel_head(self.final_norm(hidden[:, -1]))
+
+
+def _mean_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Unmasked mean cross-entropy in fp32 (the reference's plain
+    ``F.cross_entropy``: padding is stop-token supervised by construction)."""
+    return F.cross_entropy(logits.float().flatten(0, -2), targets.flatten())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,7 +3,8 @@
 Counterpart of ``detail_tts_tpu/models/vocoder.py``: conv_pre, a 1x1 global
 speaker conditioning, transposed-conv upsampling 8*4*2*2*2 (padding
 (k - u) // 2), averaged ResBlock branches per stage, then leaky ReLU with
-torch's default slope 0.01 (not 0.1), conv_post and tanh.
+torch's default slope 0.01 (not 0.1), conv_post and tanh.  The upsampling
+convs and the resblocks' convs are weight-normed in training (``wn=True``).
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ class HiFiGANGenerator(nn.Module):
         ch = upsample_initial_channel
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
             out_ch = upsample_initial_channel // (2 ** (i + 1))
-            self.ups.append(ConvTranspose1d(ch, out_ch, k, u, padding=(k - u) // 2))
+            self.ups.append(ConvTranspose1d(ch, out_ch, k, u, padding=(k - u) // 2,
+                                            wn=True))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
                 self.resblocks.append(res_cls(out_ch, rk, tuple(rd)))
             ch = out_ch

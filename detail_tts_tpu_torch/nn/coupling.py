@@ -1,7 +1,7 @@
 """Normalizing flow: mean-only affine coupling + flip (modules.py:393-475), NTC.
 
-Counterpart of ``detail_tts_tpu/nn/coupling.py``; serving needs the reverse
-pass only.  The reference's ``flows`` list alternates couplings (even
+Counterpart of ``detail_tts_tpu/nn/coupling.py``: the forward pass (the
+GAN step's z -> z_p) and the reverse pass (serving).  The reference's ``flows`` list alternates couplings (even
 indices, with parameters) and ``Flip`` (odd indices, none).
 """
 from __future__ import annotations
@@ -27,12 +27,18 @@ class ResidualCouplingLayer(nn.Module):
                       gin_channels=gin_channels)
         self.post = Conv1d(hidden_channels, self.half, 1)
 
+    def _mean(self, x0, x_mask, g):
+        return self.post(self.enc(self.pre(x0) * x_mask, x_mask, g=g)) * x_mask
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x0, x1 = x[..., :self.half], x[..., self.half:]
+        return torch.cat([x0, (self._mean(x0, x_mask, g) + x1) * x_mask], dim=-1)
+
     def reverse(self, x: torch.Tensor, x_mask: torch.Tensor,
                 g: Optional[torch.Tensor] = None) -> torch.Tensor:
         x0, x1 = x[..., :self.half], x[..., self.half:]
-        h = self.enc(self.pre(x0) * x_mask, x_mask, g=g)
-        m = self.post(h) * x_mask
-        return torch.cat([x0, (x1 - m) * x_mask], dim=-1)
+        return torch.cat([x0, (x1 - self._mean(x0, x_mask, g)) * x_mask], dim=-1)
 
 
 class Flip(nn.Module):
@@ -52,6 +58,13 @@ class ResidualCouplingBlock(nn.Module):
                 channels, hidden_channels, kernel_size, dilation_rate,
                 n_layers, gin_channels=gin_channels))
             self.flows.append(Flip())
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for flow in self.flows:
+            x = torch.flip(x, dims=[-1]) if isinstance(flow, Flip) \
+                else flow(x, x_mask, g=g)
+        return x
 
     def reverse(self, x: torch.Tensor, x_mask: torch.Tensor,
                 g: Optional[torch.Tensor] = None) -> torch.Tensor:

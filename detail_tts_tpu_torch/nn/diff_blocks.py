@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from detail_tts_tpu_torch.nn.common import Conv1d, Dense, GroupNorm32
+from detail_tts_tpu_torch.nn.common import Conv1d, Dense, GroupNorm32, SeededDropout
 from detail_tts_tpu_torch.ops.attention import (LOG2E, bias_attention,
                                                 bias_attention_train)
 
@@ -139,29 +139,6 @@ class AttentionBlock(nn.Module):
             a = bias_attention(qkv, bias.to(qkv.dtype), heads=self.num_heads,
                                sm_scale=sm_scale, bias_log2=True)
         return x + self.proj_out(a)
-
-
-class SeededDropout(nn.Dropout):
-    """``nn.Dropout`` whose mask is drawn from an explicit generator.
-
-    In ``train()`` mode with p > 0 the keep mask comes from ``generator``
-    (on the activation's device) and the kept values are scaled by
-    1 / (1 - p), as ``nn.Dropout`` scales them.  A missing generator raises
-    instead of falling back to torch's global one, so a training step stays
-    a function of its seed.  In ``eval()`` mode or at p = 0 nothing is drawn.
-    The JAX block's threefry mask cannot be matched bit for bit: the port is
-    held to determinism from its seed."""
-
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if not self.training or self.p == 0.0:
-            return x
-        if generator is None:
-            raise ValueError(f"dropout {self.p} in train() mode needs the step's "
-                             "torch.Generator; none was given")
-        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.p
-        scale = 1.0 / (1.0 - self.p) if self.p < 1.0 else 0.0
-        return x * keep.to(x.dtype) * scale
 
 
 class DiffResBlock(nn.Module):

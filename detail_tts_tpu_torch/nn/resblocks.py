@@ -1,6 +1,8 @@
-"""HiFi-GAN residual blocks (modules.py:240-379), NTC, weight norm folded.
+"""HiFi-GAN residual blocks (modules.py:240-379), NTC.
 
-Counterpart of ``detail_tts_tpu/nn/resblocks.py``.
+Counterpart of ``detail_tts_tpu/nn/resblocks.py``.  Every conv is one the
+reference wraps in ``weight_norm`` (``wn=True``): folded for serving, (g, v)
+in training.
 """
 from __future__ import annotations
 
@@ -18,10 +20,10 @@ class ResBlock1(nn.Module):
         super().__init__()
         self.convs1 = nn.ModuleList([
             Conv1d(channels, channels, kernel_size, dilation=d,
-                   padding=get_padding(kernel_size, d)) for d in dilation])
+                   padding=get_padding(kernel_size, d), wn=True) for d in dilation])
         self.convs2 = nn.ModuleList([
             Conv1d(channels, channels, kernel_size,
-                   padding=get_padding(kernel_size, 1)) for _ in dilation])
+                   padding=get_padding(kernel_size, 1), wn=True) for _ in dilation])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for c1, c2 in zip(self.convs1, self.convs2):
@@ -35,7 +37,7 @@ class ResBlock2(nn.Module):
         super().__init__()
         self.convs = nn.ModuleList([
             Conv1d(channels, channels, kernel_size, dilation=d,
-                   padding=get_padding(kernel_size, d)) for d in dilation])
+                   padding=get_padding(kernel_size, d), wn=True) for d in dilation])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for c in self.convs:

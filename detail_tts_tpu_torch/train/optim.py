@@ -6,6 +6,9 @@ betas and eps and weight decay 0.01 over the target's trainable subtree only
 lr_decay_every)`` (train.py:455-457) and, on the single-loss targets, a clip
 by global norm 1.0 over the same subtree (train.py:223).  Parameters outside
 the subtree have ``requires_grad`` False and are never in the optimizer.
+The GAN targets' generator and the discriminator (``make_d_optimizer``,
+train.py:124) take the same AdamW without clipping; their gradients' global
+norms are reported, not applied.
 
 Against optax's ``adamw``: torch multiplies a parameter by ``1 - lr * wd``
 before the Adam step, optax adds ``wd * p`` to the Adam direction; both give
@@ -17,7 +20,7 @@ layer, an unused unconditioned embedding).
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -71,31 +74,46 @@ def make_optimizer(params: Sequence[nn.Parameter], cfg: Config
                              weight_decay=WEIGHT_DECAY)
 
 
+def make_d_optimizer(params: Sequence[nn.Parameter], cfg: Config
+                     ) -> torch.optim.AdamW:
+    """The discriminator's AdamW: the generator's hyperparameters."""
+    return make_optimizer(params, cfg)
+
+
+@torch.no_grad()
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """fp32 L2 norm over every tensor (optax.global_norm), from sums of
+    squares: ``torch.linalg.vector_norm`` of a 5M-element fp32 tensor on
+    the CPU is 5e-4 off in torch 2.13, ``sum`` is not."""
+    return torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+
+
 @torch.no_grad()
 def clip_by_global_norm_(grads: Sequence[torch.Tensor],
                          max_norm: float) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / norm`` when their global norm
     reaches ``max_norm`` (optax.clip_by_global_norm); returns the norm
     before clipping.  No host synchronisation."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    norm = global_norm(grads)
     coef = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(list(grads), coef)
     return norm
 
 
 def optimizer_step(optimizer: torch.optim.Optimizer,
-                   params: Sequence[nn.Parameter], cfg: Config, step: int
-                   ) -> torch.Tensor:
+                   params: Sequence[nn.Parameter], cfg: Config, step: int,
+                   clip_norm: Optional[float] = CLIP_NORM) -> torch.Tensor:
     """One AdamW update at the LR of ``step`` (0-based, as optax counts),
-    after clipping by global norm ``CLIP_NORM``.
+    after clipping by global norm ``clip_norm`` (None: no clipping, the GAN
+    path).
 
     Missing gradients become zeros; the global norm of the gradients (before
     clipping) is returned."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    norm = clip_by_global_norm_([p.grad for p in params], CLIP_NORM)
+    grads = [p.grad for p in params]
+    norm = global_norm(grads) if clip_norm is None else clip_by_global_norm_(grads, clip_norm)
     for group in optimizer.param_groups:
         group["lr"] = lr_at(cfg, step)
     optimizer.step()

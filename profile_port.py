@@ -2,7 +2,7 @@
 PyTorch port, on one GPU.
 
     python3 profile_port.py [--batch 2] [--codes 200] [--sampler ancestral] [--steps 50]
-    python3 profile_port.py --train
+    python3 profile_port.py --train [--target diff]
 
 Serving: builds the full-width engine with seeded random weights, as
 chip_smoke.py does, and answers one warm-up request.  Then it answers the
@@ -11,11 +11,14 @@ same request twice: once untraced, for each stage's wall time
 each stage (the union of the device's kernel and copy intervals; the
 profiler slows the host, not the kernels).
 
-``--train``: the same for one step of target ``diff`` at full width
-(``Config()`` as shipped: micro-batch 8 x 496 frames x accum 16, seeded
-synthetic batches) after a warm-up step, split into the step's ranges
-``latents`` (VQ codes and GPT latents), ``forward``, ``backward`` and
-``optimizer``, each summed over the micro-batches.
+``--train``: the same for one step of training target ``--target`` (``diff``,
+``gpt``, ``vqvae``, ``flowvae`` or ``all``) at full width (``Config()`` as
+shipped: micro-batch 8 x 496 frames x accum 16, 64 text tokens; the GAN
+targets batch 8 x 496 frames x accum 1; seeded synthetic batches) after a
+warm-up step, split into the step's ranges ``latents`` (VQ codes and GPT
+latents), ``forward``, ``backward`` and ``optimizer`` (each summed over the
+micro-batches), and for the GAN targets ``discriminator`` and
+``gen_loss``.
 
 Each prints each stage's wall time, device busy time and idle share
 (1 - busy / wall), the device launches, the kernels with the most device
@@ -41,7 +44,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 # name fragments of the port's hand-written kernels (csrc/)
 OWN_KERNELS = ("_mma<", "dbias_sum", "bias_attention_simt")
 STAGES = ("prepare", "generate", "diff_cond", "latents", "diffuse", "vocode", "host")
-TRAIN_STAGES = ("latents", "forward", "backward", "optimizer")
+TRAIN_STAGES = ("latents", "forward", "discriminator", "gen_loss", "backward",
+                "optimizer")
 
 
 def union_us(spans):
@@ -111,33 +115,37 @@ def report(rows, device, **extra):
         own_kernels=[dict(name=k[:100], launches=n, ms=ms) for k, (n, ms) in own.items()])))
 
 
-def profile_train():
-    """One traced diff training step at full width, split by stage."""
+def profile_train(target: str):
+    """One traced training step of ``target`` at full width, split by stage."""
     import dataclasses
 
     from detail_tts_tpu_torch.config import Config
     from detail_tts_tpu_torch.ops import attention
-    from detail_tts_tpu_torch.train.step import synthetic_batches
+    from detail_tts_tpu_torch.train.step import GAN_TARGETS, synthetic_batches
     from detail_tts_tpu_torch.train.trainer import Trainer
 
     cfg = Config()
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, target="diff"))
-    accum, micro, frames = cfg.train.gradient_accumulate_every, cfg.train.batch_size, 496
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, target=target))
+    accum = 1 if target in GAN_TARGETS else cfg.train.gradient_accumulate_every
+    micro, frames = cfg.train.batch_size, 496
     data = synthetic_batches(cfg, accum, micro, frames, 64, device="cuda",
                              generator=torch.Generator(device="cuda").manual_seed(1))
     trainer = Trainer(cfg, data, device="cuda", seed=0)
     trainer.train(max_steps=1)  # warm-up: builds the kernels
     wall = {}
-    trainer.step_fn(trainer.state, next(data), trainer.generator, timings=wall)
+    trainer.step_fn(trainer.state, trainer.next_batch(), trainer.generator, timings=wall)
     before = dict(attention.TRAIN_LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        metrics = trainer.step_fn(trainer.state, next(data), trainer.generator,
+        metrics = trainer.step_fn(trainer.state, trainer.next_batch(), trainer.generator,
                                   timings={})
     kernels = {k: v - before[k] for k, v in attention.TRAIN_LAUNCHES.items()}
-    rows, device = split_by_stage(prof, TRAIN_STAGES, wall)
-    print(f"diff training step: micro-batch {micro} x {frames} frames x accum {accum}, "
-          f"loss {float(metrics['loss']):.6f}; training-kernel launches {kernels}")
-    report(rows, device, target="diff", micro_batch=micro, frames=frames, accum=accum,
+    stages = tuple(s for s in TRAIN_STAGES if s in wall)
+    rows, device = split_by_stage(prof, stages, wall)
+    loss = float(metrics["loss" if "loss" in metrics else "loss_gen_all"])
+    print(f"{target} training step: micro-batch {micro} x {frames} frames x accum {accum}, "
+          f"loss {loss:.6f}; training-kernel launches {kernels}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    report(rows, device, target=target, micro_batch=micro, frames=frames, accum=accum,
            mel_frames_per_s=accum * micro * frames / sum(wall.values()),
            kernel_launches=kernels)
 
@@ -151,7 +159,9 @@ def main():
     ap.add_argument("--steps", type=int, default=None,
                     help="EngineConfig.diffusion_steps (default: the config's 50)")
     ap.add_argument("--train", action="store_true",
-                    help="profile one diff training step instead of a request")
+                    help="profile one training step instead of a request")
+    ap.add_argument("--target", default="diff",
+                    help="the training target of --train (diff, gpt, vqvae, flowvae, all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_port.py needs a CUDA device")
@@ -159,7 +169,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0], flush=True)
     if args.train:
-        profile_train()
+        profile_train(args.target)
         return
 
     from detail_tts_tpu_torch.config import Config

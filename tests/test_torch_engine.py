@@ -12,7 +12,7 @@ import torch
 from detail_tts_tpu.io.torch_convert import convert_state_dict
 from detail_tts_tpu.serving.pipeline import variables_template
 from detail_tts_tpu_torch.config import small_test_config
-from detail_tts_tpu_torch.io.weights import UNPORTED, from_jax_variables
+from detail_tts_tpu_torch.io.weights import from_jax_variables
 from detail_tts_tpu_torch.models.synthesizer import SynthesizerTrn
 from detail_tts_tpu_torch.serving.pipeline import (EngineConfig, TTSEngine,
                                                    random_engine)
@@ -63,7 +63,7 @@ def test_weights_round_trip_through_the_jax_converter():
     port = SynthesizerTrn(cfg)
     state, unused = from_jax_variables(port, np_vars, cfg.diffusion.num_layers)
     assert set(state) == set(port.state_dict())
-    assert unused and all(p.startswith(UNPORTED) for p in unused)
+    assert unused == []  # every JAX leaf has a port key
     port.load_state_dict(state)
 
     back, report = convert_state_dict(port.state_dict(), template,

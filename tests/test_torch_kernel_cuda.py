@@ -278,3 +278,37 @@ def test_each_sampler_runs_the_kernel_on_a_small_engine(cuda, sampler):
     vq = eng.synthesize_vq_batch(texts, wavs, seed=3, force_full=True)
     assert attention.LAUNCHES == before
     assert all(o.shape == (11 * 1024,) and np.isfinite(o).all() for o in vq)
+
+
+def test_all_step_launches_each_training_kernel_and_repeats(cuda):
+    """One small ``all`` GAN step launches each training kernel once for each
+    AttentionBlock call (5 contextual-embedder, 4 latent-conditioner and 3
+    integrator blocks, and the trunk layers kept), the serving kernel never,
+    and repeats bit for bit from the same state and generator state."""
+    import dataclasses
+
+    from detail_tts_tpu_torch.config import small_test_config
+    from detail_tts_tpu_torch.train.step import (make_gan_step, make_train_state,
+                                                 synthetic_batches)
+
+    cfg = small_test_config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, target="all"))
+    state = make_train_state(cfg, device=cuda, seed=0)
+    step = make_gan_step(cfg, device=cuda)
+    batch = next(synthetic_batches(cfg, 1, 2, 48, 8, device=cuda,
+                                   generator=torch.Generator(device=cuda).manual_seed(1)))
+    step(state, batch, torch.Generator(device=cuda).manual_seed(4))  # warm-up
+    snap = state.snapshot()
+    runs = []
+    for _ in range(2):
+        state.restore(snap)
+        counts, serving = dict(attention.TRAIN_LAUNCHES), attention.LAUNCHES
+        m = step(state, batch, torch.Generator(device=cuda).manual_seed(5))
+        want = 5 + 4 + 3 + sum(m["layers_kept"][0][:cfg.diffusion.num_layers])
+        got = {k: attention.TRAIN_LAUNCHES[k] - counts[k] for k in counts}
+        assert len(got) == 4 and all(v == want for v in got.values()), (got, want)
+        assert attention.LAUNCHES == serving
+        runs.append(m)
+    for k, v in runs[0].items():
+        if torch.is_tensor(v):
+            assert torch.isfinite(v) and torch.equal(v, runs[1][k]), k

@@ -21,7 +21,6 @@ from detail_tts_tpu.serving.pipeline import EngineConfig as JaxEngineConfig
 from detail_tts_tpu.serving.pipeline import TTSEngine as JaxEngine
 from detail_tts_tpu.serving.pipeline import variables_template
 from detail_tts_tpu_torch.config import small_test_config
-from detail_tts_tpu_torch.io.torch_convert import translate
 from detail_tts_tpu_torch.io.weights import (from_jax_variables,
                                              load_reference_checkpoint,
                                              random_weights_)
@@ -266,24 +265,16 @@ def test_reference_checkpoint_loads_as_the_jax_converter_reads_it(tmp_path):
     rng = np.random.default_rng(8)
     sd = {k: v.clone() for k, v in random_weights_(SynthesizerTrn(cfg), 4).state_dict().items()}
     wn = [k for k in sd if k.endswith(".weight") and sd[k].dim() == 3
-          and k.startswith(("dec.ups.", "dec.resblocks.", "flow.flows."))]
+          and k.startswith(("dec.ups.", "dec.resblocks.", "flow.flows.", "enc_q.enc."))]
     assert len(wn) > 10
     _split_weight_norm(sd, wn, rng)
-    # keys of a module the port does not have (the posterior encoder)
     template = variables_template(synth_pair()[0].cfg)
-    flat = {"/".join(str(getattr(k, "key", k)) for k in path): leaf
-            for path, leaf in jax.tree_util.tree_flatten_with_path(template)[0]}
-    stray = ["enc_q.pre.weight", "enc_q.pre.bias", "enc_q.enc.in_layers.0.weight"]
-    for name in stray:
-        path, fn = translate(name)
-        sd[name] = torch.from_numpy(fn(rng.normal(size=flat[path].shape)).astype(np.float32))
-    _split_weight_norm(sd, stray[2:], rng)
     path = tmp_path / "model-7.pt"
     torch.save({"G": sd, "iteration": 7}, path)
 
     port = SynthesizerTrn(cfg)
     report = load_reference_checkpoint(str(path), port)
-    assert report == {"unused": sorted(stray)}
+    assert report == {"unused": []}  # every module of the checkpoint is ported
 
     variables, jreport = convert_state_dict(torch.load(path)["G"], template,
                                             diffusion_layers=cfg.diffusion.num_layers)

@@ -34,7 +34,8 @@ from detail_tts_tpu_torch.ops import attention as port_attn
 from detail_tts_tpu_torch.train.optim import (make_optimizer, optimizer_step,
                                               trainable_parameters)
 from detail_tts_tpu_torch.train.step import (dummy_batch, make_single_loss_step,
-                                             make_train_state, synthetic_batches)
+                                             make_train_state, make_train_step,
+                                             synthetic_batches)
 from detail_tts_tpu_torch.train.trainer import Trainer
 from tests.torch_parity import synth_pair, t
 
@@ -205,11 +206,19 @@ def test_trainer_logs_each_step(tmp_path):
 
 
 def test_untrained_targets_raise():
+    """Every target of the JAX package trains (GAN targets with a
+    discriminator); an unknown one raises ``ValueError``."""
     cfg = synth_pair()[2].cfg
-    for target in ("gpt", "vqvae", "flowvae", "all"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make_train_state(dataclasses.replace(
-                cfg, train=dataclasses.replace(cfg.train, target=target)), device="cpu")
+    for target in ("vqvae", "gpt", "diff", "flowvae", "all"):
+        state = make_train_state(dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, target=target)), device="cpu")
+        assert (state.disc is not None) == (target in ("flowvae", "all"))
+    bad = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, target="vocoder"))
+    for make in (make_train_state, make_single_loss_step, make_train_step):
+        with pytest.raises(ValueError, match="unknown training target"):
+            make(bad, device="cpu")
+    with pytest.raises(ValueError, match="unknown training target"):
+        Trainer(bad, iter(()), device="cpu")
 
 
 def test_diff_resblock_dropout_only_in_train_mode():

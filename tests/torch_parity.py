@@ -9,10 +9,13 @@ which would make every ``AttentionBlock`` an identity.
 from __future__ import annotations
 
 import functools
+import re
 
+import flax.linen as flax_nn
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from detail_tts_tpu.config import small_test_config
@@ -21,6 +24,7 @@ from detail_tts_tpu.serving.pipeline import variables_template
 from detail_tts_tpu_torch.config import small_test_config as port_small_config
 from detail_tts_tpu_torch.io.weights import from_jax_variables
 from detail_tts_tpu_torch.models.synthesizer import SynthesizerTrn
+from detail_tts_tpu_torch.nn.common import SeededDropout
 
 LOG2E = 1.4426950408889634
 
@@ -92,3 +96,35 @@ def close(port_out, jax_out, atol=1e-4, rtol=1e-4):
     np.testing.assert_allclose(np.asarray(port_out, np.float32),
                                np.asarray(jax_out, np.float32),
                                atol=atol, rtol=rtol)
+
+
+def no_dropout(model):
+    """Every ``SeededDropout`` of ``model`` at p = 0 (nothing is drawn)."""
+    for m in model.modules():
+        if isinstance(m, SeededDropout):
+            m.p = 0.0
+    return model
+
+
+@pytest.fixture
+def jax_dropout_off(monkeypatch):
+    """flax's ``Dropout`` as the identity: JAX's style encoders keep a fixed
+    dropout of 0.1 that no config reaches."""
+    monkeypatch.setattr(flax_nn.Dropout, "__call__",
+                        lambda self, inputs, deterministic=None, rng=None: inputs)
+
+
+def key_bias_mask(name, shape, cfg) -> np.ndarray:
+    """The elements of a key projection's bias in port parameter ``name``:
+    a softmax is invariant to them, so their gradient is 0 in exact
+    arithmetic and fp32 noise in either framework, which Adam turns into an
+    update of up to ~lr."""
+    mask = np.zeros(shape, bool)
+    if name.endswith("slf_attn.w_ks.bias") or re.search(r"attn_layers\.\d+\.conv_k\.bias$",
+                                                         name):
+        mask[:] = True
+    elif name.endswith("attn.c_attn.bias"):  # GPT-2: [q | k | v]
+        mask[cfg.gpt.model_dim:2 * cfg.gpt.model_dim] = True
+    elif name.startswith("diffusion.") and name.endswith("qkv.bias"):  # [q, k, v] a head
+        mask.reshape(cfg.diffusion.num_heads, 3, -1)[:, 1] = True
+    return mask
