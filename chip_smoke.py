@@ -37,7 +37,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    twice for bit-identical dbias, and CUDA-event times of bare launches on
    buffers allocated beforehand (the training forward also through its
    wrapper) beside the bound, the plain versions and SDPA with a bias mask
-   that requires grad;
+   that requires grad; then the four training kernels at the data loader's
+   raw buckets T = 512, 1024 and 2824 (batch 8, bf16), timed again at 1024;
 6. training: ``Trainer`` over ``Config()`` at full width, target ``diff``,
    micro-batch 8 x 496 frames x accum 16 of seeded synthetic batches: a
    warm-up step and three timed steps, each checked for finite loss and grad
@@ -58,7 +59,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    and ``all`` only; under ``all`` each training kernel launched
    ``expected_train_launches`` times a step (0 times elsewhere), the
    serving kernel never; a repeated step bit-identical in every metric;
-   for ``all`` the device idle share of one traced step.
+   for ``all`` the device idle share of one traced step;
+7. from a corpus on disk, in a temporary directory removed at the end: 160
+   seeded speech-like clips of 1-10 s at 24, 44.1 and 16 kHz, two outside
+   the duration filter and two long recordings cut by ``prepare_cli vad``,
+   their transcripts through ``prepare_cli transcripts``; the native
+   decoder against scipy; ``python -m detail_tts_tpu_torch.train`` (target
+   ``diff``, ``Config()``, 2 steps, 8 decode threads) in a subprocess, which
+   must write finite metrics, ``ckpt/2`` and the eval dumps; in this
+   process trainer A on the corpus (one decode thread) takes 2 steps, and
+   its step 3 on the next batch must be bit-identical (loss, grad norm,
+   trainable tensors, AdamW state) to trainer R's restored from A's
+   checkpoint with A's generator state, each training kernel launched
+   ``expected_train_launches`` times, with the raw bucket, the batch waits,
+   the step wall, mel frames/s, peak memory and the idle share printed;
+   ``prepare_cli extract-vq`` in a subprocess, its codes against an
+   exact-length ``encode_masked`` run on four files (a differing code must
+   be a tie within 1e-5 relative); ``build_engine`` over the CLI's
+   checkpoint answers one request with a prepared clip as the prompt (B1
+   launched steps x 13 + 9 times).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -69,9 +88,11 @@ import base64
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -282,6 +303,7 @@ def time_kernel(b, t, h, d, sfu_per_s):
 # to max |plain|; it is summed in fp32 from fp32 P and dX in both dtypes, and
 # a dbias with one batch row's share lost must read above it.
 LSE_TOL = DBIAS_TOL = 1e-4
+RAW_BUCKETS_CHECKED = (512, 1024, 2824)
 TRAIN_KERNELS = ("bias_attention_train_fwd", "bias_attention_bwd_dq_dbias",
                  "bias_attention_bwd_dkv", "bias_attention_bwd_dbias_sum")
 
@@ -521,6 +543,12 @@ def phase_train_kernels(sfu_per_s):
         errs = check_train_kernels(3, 495, 16, 48, dtype, seed=99, mask_row=True)
         if dtype == torch.bfloat16:
             worst = {k: max(worst[k], errs[k]) for k in worst}
+    # the data loader's raw buckets, where the diffusion trunk runs on a
+    # corpus: the smallest, phase 7's and the largest (not a multiple of 64)
+    for i, t in enumerate(RAW_BUCKETS_CHECKED):
+        errs = check_train_kernels(8, t, 16, 48, torch.bfloat16, seed=200 + i)
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+        torch.cuda.empty_cache()
 
     qkv, bias, dout = train_inputs(8, 496, 16, 48, torch.bfloat16, seed=5)
     out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=16, sm_scale=0.1)
@@ -532,6 +560,10 @@ def phase_train_kernels(sfu_per_s):
     if not all(same):
         fail("the backward is not bit-identical from run to run")
     rows, backend = time_train_kernels(8, 496, 16, 48, sfu_per_s)
+    rows_1024, _ = time_train_kernels(8, 1024, 16, 48, sfu_per_s)
+    for name in TRAIN_KERNELS:
+        rows[name]["at_raw_bucket_1024"] = rows_1024[name]
+    torch.cuda.empty_cache()
     return worst, rows, backend
 
 
@@ -869,8 +901,9 @@ def with_route(route, fn):
         diff_blocks.bias_attention_train = kept
 
 
-def phase_training(cfg_full):
-    """Target diff at full width through Trainer.train; returns launches."""
+def phase_training(cfg_full, logs):
+    """Target diff at full width through Trainer.train (metrics into
+    ``logs``); returns launches."""
     import dataclasses
 
     from detail_tts_tpu_torch.models.synthesizer import draw_diff, make_train_schedule
@@ -886,7 +919,7 @@ def phase_training(cfg_full):
     data = synthetic_batches(cfg, accum, micro, frames, text_len, generator=data_gen,
                              device="cuda")
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, data, device="cuda", seed=0)
+    trainer = Trainer(cfg, data, device="cuda", seed=0, logs_folder=logs)
     state = trainer.state
     n_train = sum(p.numel() for p in state.params)
     n_all = sum(p.numel() for p in state.model.parameters())
@@ -1032,8 +1065,9 @@ def idle_share(fn, step_ms):
 TRAIN_TARGETS = ("gpt", "vqvae", "flowvae", "all")
 
 
-def train_target(cfg_full, target):
-    """Phase 6b for one target; returns the training kernels' launches."""
+def train_target(cfg_full, target, logs):
+    """Phase 6b for one target (metrics into ``logs``); returns the training
+    kernels' launches."""
     import dataclasses
 
     from detail_tts_tpu_torch.train.step import GAN_TARGETS, synthetic_batches
@@ -1047,7 +1081,7 @@ def train_target(cfg_full, target):
     data = synthetic_batches(cfg, accum, micro, frames, text_len, device="cuda",
                              generator=torch.Generator(device="cuda").manual_seed(1))
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, data, device="cuda", seed=0)
+    trainer = Trainer(cfg, data, device="cuda", seed=0, logs_folder=os.path.join(logs, target))
     state = trainer.state
     n_train = sum(p.numel() for p in state.params)
     n_all = sum(p.numel() for p in state.model.parameters())
@@ -1149,7 +1183,7 @@ def train_target(cfg_full, target):
     return launches
 
 
-def phase_train_targets(cfg_full):
+def phase_train_targets(cfg_full, logs):
     """Phase 6b: every other training target; returns the training kernels'
     launches (all of them under ``all``)."""
     print("== training targets", flush=True)
@@ -1157,9 +1191,415 @@ def phase_train_targets(cfg_full):
           "cudnn.deterministic on", flush=True)
     total = {name: 0 for name in TRAIN_KERNELS}
     for target in TRAIN_TARGETS:
-        for name, n in train_target(cfg_full, target).items():
+        for name, n in train_target(cfg_full, target, logs).items():
             total[name] += n
     return total
+
+
+# ------------------------------------------------- from a corpus on disk
+
+SENTENCES = ("今天天气很好，我们一起去公园散步吧。", "你好，欢迎使用语音合成。", "这是第二个请求。",
+             "春天来了，花都开了。", "请把窗户打开，屋里太热了。", "他每天早上六点起床跑步。",
+             "这本书我已经看了三遍。", "明天下午三点在会议室开会。", "我们需要更多的时间来完成这个项目。",
+             "小猫在沙发上睡着了。", "火车马上就要开了，快一点！", "谢谢你的帮助，我非常感激。")
+CORPUS_RATES = (24000, 44100, 16000)
+TIE_REL = 1e-5  # two codebook distances this close: a tie the card's arithmetic decided
+
+
+def speech_like(rng, sr, secs):
+    """Bursts of amplitude-modulated noise and harmonics of a drifting pitch,
+    separated by short silences (under the VAD's 0.5 s)."""
+    n = int(secs * sr)
+    out = np.zeros(n, np.float32)
+    pos = 0
+    while pos < n:
+        burst = int(rng.uniform(0.4, 1.6) * sr)
+        t = np.arange(min(burst, n - pos)) / sr
+        f0 = rng.uniform(90, 260) * (1 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.5, 2) * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        voice = sum(np.sin(k * phase) / k for k in range(1, 6))
+        env = np.sin(np.pi * t / max(t[-1], 1e-3)) * (0.6 + 0.4 * np.sin(2 * np.pi * 4 * t))
+        out[pos:pos + len(t)] = 0.25 * env * (voice + 0.1 * rng.standard_normal(len(t)))
+        pos += burst + int(rng.uniform(0.05, 0.3) * sr)
+    return out
+
+
+def make_corpus(root, rng):
+    """160 clips of 1-10 s at 24, 44.1 and 16 kHz, two outside the duration
+    filter, and two long recordings cut by ``prepare_cli vad``; a transcript
+    table of them all through ``prepare_cli transcripts``.  Returns the jsonl
+    path and the clips' count and seconds."""
+    from detail_tts_tpu_torch.data import prepare_cli
+    from detail_tts_tpu_torch.data.dataset import save_wav
+    clips, raw = root / "clips", root / "raw"
+    clips.mkdir()
+    raw.mkdir()
+    names, secs = [], 0.0
+    for i in range(160):
+        sr = CORPUS_RATES[i % 3]
+        d = float(rng.uniform(1.0, 10.0))
+        save_wav(str(clips / f"c{i:03d}.wav"), speech_like(rng, sr, d), sr)
+        names.append(f"c{i:03d}.wav")
+        secs += d
+    for name, d in (("short.wav", 0.5), ("long.wav", 31.0)):  # outside 0.69-30.1 s
+        save_wav(str(clips / name), speech_like(rng, 24000, d), 24000)
+        names.append(name)
+    for k in range(2):  # bursts of 2-6 s between 0.8-1.2 s of silence
+        parts = []
+        for _ in range(4):
+            parts += [np.zeros(int(rng.uniform(0.8, 1.2) * 24000), np.float32),
+                      speech_like(rng, 24000, rng.uniform(2.0, 6.0))]
+        save_wav(str(raw / f"rec{k}.wav"), np.concatenate(parts), 24000)
+    prepare_cli.main(["vad", "--in-dir", str(raw), "--out-dir", str(clips), "--workers", "1"])
+    vad = sorted(n for n in os.listdir(clips) if n.startswith("rec"))
+    if len(vad) < 6:
+        fail(f"prepare_cli vad cut the two recordings into {len(vad)} clips, expected 8")
+    table = root / "meta.tsv"
+    table.write_text("".join(f"{n}\t{SENTENCES[i % len(SENTENCES)]}\n"
+                             for i, n in enumerate(names + vad)))
+    jsonl = root / "data.jsonl"
+    prepare_cli.main(["transcripts", "--table", str(table), "--jsonl", str(jsonl),
+                      "--clips-dir", str(clips)])
+    rows = [json.loads(x) for x in jsonl.read_text().splitlines()]
+    if len(rows) != len(names) + len(vad):
+        fail(f"data.jsonl has {len(rows)} rows, expected {len(names) + len(vad)}")
+    print(f"  corpus: {len(names)} clips ({secs:.1f} s in the 160 of 1-10 s at "
+          f"{'/'.join(map(str, CORPUS_RATES))} Hz, two outside the filter) and {len(vad)} "
+          f"clips cut by prepare_cli vad from 2 recordings; {len(rows)} jsonl rows", flush=True)
+    return jsonl, clips
+
+
+def check_native_decode(clips):
+    import scipy.signal as sps
+    from scipy.io import wavfile
+
+    from detail_tts_tpu_torch.native import library_path, load_library, load_wav_native
+    if load_library() is None:
+        fail("the native WAV decoder did not build or load")
+    path = clips / "c001.wav"  # 44.1 kHz
+    sr, pcm = wavfile.read(str(path))
+    got = load_wav_native(str(path), 24000)
+    ref = sps.resample_poly(pcm.astype(np.float64) / 32768.0, 80, 147)
+    err = float(np.abs(got[100:-100] - ref[100:-100]).max())
+    print(f"  native decoder {library_path().name} loaded; {sr} Hz clip -> 24 kHz: "
+          f"{len(got)} samples (scipy {len(ref)}), interior max_abs_err {err:.2e} (tol 5e-4)",
+          flush=True)
+    if sr != 44100 or len(got) != len(ref) or not err <= 5e-4:
+        fail("the native resampler disagrees with scipy.signal.resample_poly")
+
+
+def run_cli(args, timeout):
+    """``python -m <args>`` from the repository's root; fails on a non-zero
+    exit, printing the end of its output."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=os.path.dirname(
+        os.path.abspath(__file__)), capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    tail = "\n".join((proc.stdout + proc.stderr).strip().splitlines()[-12:])
+    print(f"  python -m {' '.join(args[:1])} exited {proc.returncode} in {wall:.1f} s; its "
+          f"output ends:\n    " + tail.replace("\n", "\n    "), flush=True)
+    if proc.returncode != 0:
+        fail(f"python -m {args[0]} exited {proc.returncode}")
+    return wall
+
+
+def check_wav(path):
+    from scipy.io import wavfile
+    if not path.is_file():
+        fail(f"{path.name} was not written")
+    sr, wav = wavfile.read(str(path))
+    if not (len(wav) and np.all(np.isfinite(wav.astype(np.float32)))):
+        fail(f"{path.name}: {len(wav)} samples, or not finite")
+    return len(wav) / sr
+
+
+class TimedIterator:
+    """An iterator whose ``__next__`` waits are recorded in ``waits``."""
+
+    def __init__(self, it):
+        self.it, self.waits = it, []
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        batch = next(self.it)
+        self.waits.append(time.perf_counter() - t0)
+        return batch
+
+
+def step_breakdown(trainer, step_ms):
+    """Two more steps of ``trainer``: one with the stage walls (each stage
+    ends in a synchronisation), one traced; prints each stage's wall, busy
+    and idle, the busy time, launches and idle share of the step against
+    the untraced ``step_ms``, and the kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_port import OWN_KERNELS, TRAIN_STAGES, split_by_stage, union_us
+    batches = [trainer.next_batch() for _ in range(2)]
+    wall = {}
+    trainer.step_fn(trainer.state, batches[0], trainer.generator, timings=wall)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.step_fn(trainer.state, batches[1], trainer.generator, timings={})
+        torch.cuda.synchronize()
+    rows, device = split_by_stage(prof, tuple(k for k in TRAIN_STAGES if k in wall), wall)
+    busy_ms = union_us([(e.time_range.start, e.time_range.end) for e in device]) / 1e3
+    print(f"  stages of one step (wall from a step with synchronised stages, busy from a "
+          f"traced one): " + "; ".join(
+              f"{k} {r['wall_ms']:.1f} / {r['busy_ms']:.1f} ms, idle {r['idle_share']:.3f}"
+              for k, r in rows.items())
+          + f"; device busy {busy_ms:.1f} ms, {len(device)} device launches, idle share "
+          f"against the untraced step {step_ms:.1f} ms: {1 - busy_ms / step_ms:.3f}", flush=True)
+    per_kernel = {}
+    for e in device:
+        n, ms = per_kernel.get(e.name, (0, 0.0))
+        per_kernel[e.name] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
+    own = [kv for kv in top if any(f in kv[0] for f in OWN_KERNELS)]
+    print("  top device time (ms, launches): " + "; ".join(
+        f"{name[:60]} {ms:.1f}, {n}" for name, (n, ms) in top[:8]), flush=True)
+    print("  the port's kernels in the step (ms, launches): " + "; ".join(
+        f"{name[:60]} {ms:.2f}, {n}" for name, (n, ms) in own), flush=True)
+
+
+def moments_equal(a, b):
+    """Every AdamW moment of two trainers' states, by parameter name:
+    (number compared, names that differ)."""
+    na = {id(p): n for n, p in a.model.named_parameters()}
+    nb = {n: p for n, p in b.model.named_parameters()}
+    count, differ = 0, []
+    for p, st in a.optimizer.state.items():
+        other = b.optimizer.state[nb[na[id(p)]]]
+        for k, v in st.items():
+            count += 1
+            if not torch.equal(v, other[k]):
+                differ.append(f"{na[id(p)]}.{k}")
+    return count, differ
+
+
+def diff_step_launched(cfg, metrics, counts, what):
+    want = expected_train_launches(cfg, metrics["layers_kept"])
+    got = {k: attention.TRAIN_LAUNCHES[k] - counts[k] for k in TRAIN_KERNELS}
+    if any(v != want for v in got.values()):
+        fail(f"{what}: training kernel launches {got}, expected {want} each")
+    return want
+
+
+def resume_in_process(cfg, cfg_path, jsonl, root):
+    """Trainer A on the corpus (one decode thread) takes 2 steps and saves;
+    its step 3 on batch X against Trainer R restored from A's checkpoint,
+    from the same generator state."""
+    from detail_tts_tpu_torch.train.trainer import Trainer
+    a = Trainer(str(cfg_path), device="cuda", seed=0, logs_folder=str(root / "a"))
+    a.default_data(str(jsonl), num_threads=1)
+    loader = a.data_iter
+    a.data_iter = TimedIterator(loader)
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logged = a.train(max_steps=a.state.step + 1, log_every=1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        print(f"  A step {a.state.step}: loss {logged['loss']:.6f} grad_norm "
+              f"{logged['grad_norm']:.6f}; wall {walls[-1]:.3f} s, of which "
+              f"{a.data_iter.waits[-1]:.3f} s waiting for the batch", flush=True)
+    if not (root / "a" / "ckpt" / "2").is_dir():
+        fail("trainer A saved no checkpoint at step 2")
+    x = a.next_batch()
+    t_raw = x["raw_mel"].shape[2]
+    true_frames = int(x["raw_spec_length"].sum())
+    padded = x["raw_mel"].shape[0] * x["raw_mel"].shape[1] * t_raw
+    gen_state = a.generator.get_state()
+    torch.cuda.reset_peak_memory_stats()
+    counts = dict(attention.TRAIN_LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = a.step_fn(a.state, x, a.generator)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = diff_step_launched(cfg, want, counts, "A step 3")
+    print(f"  batch X: raw bucket T = {t_raw} (crop T = {x['mel'].shape[2]}), "
+          f"{x['raw_mel'].shape[0]} x {x['raw_mel'].shape[1]} clips, {true_frames} true of "
+          f"{padded} padded frames; A step 3: wall {wall:.3f} s, {padded / wall:.1f} padded / "
+          f"{true_frames / wall:.1f} true mel frames/s, peak device memory {peak:.2f} GiB, "
+          f"{per_step} launches of each training kernel", flush=True)
+    if t_raw != 1024:
+        fail(f"the corpus's raw bucket is {t_raw}, expected 1024")
+
+    r = Trainer(str(cfg_path), device="cuda", seed=1, logs_folder=str(root / "r"))
+    t0 = time.perf_counter()
+    r.load(str(root / "a" / "ckpt"))
+    load_s = time.perf_counter() - t0
+    if r.state.step != 2:
+        fail(f"trainer R restored step {r.state.step}, expected 2")
+    r.generator.set_state(gen_state)
+    counts = dict(attention.TRAIN_LAUNCHES)
+    got = r.step_fn(r.state, x, r.generator)
+    diff_step_launched(cfg, got, counts, "R step 3")
+    same = {k: torch.equal(got[k], want[k]) for k in ("loss", "grad_norm")}
+    pa = dict(a.state.model.named_parameters())
+    differ = [n for n, p in r.state.model.named_parameters()
+              if p.requires_grad and not torch.equal(p, pa[n])]
+    n_trainable = sum(p.requires_grad for p in pa.values())
+    n_moments, moments_differ = moments_equal(a.state, r.state)
+    print(f"  R restored ckpt/2 and took step 3 on X: loss {got['loss'].item():.9f} / "
+          f"{want['loss'].item():.9f}, bit-identical {same}; {n_trainable - len(differ)} of "
+          f"{n_trainable} trainable tensors and {n_moments - len(moments_differ)} of "
+          f"{n_moments} AdamW state tensors bit-identical", flush=True)
+    if not all(same.values()) or differ or moments_differ:
+        fail(f"resume is not bit-identical: {same}, {differ[:3]}, {moments_differ[:3]}")
+    del r
+    torch.cuda.empty_cache()
+
+    step_breakdown(a, wall * 1e3)
+    print(f"  waits for batches (s): {[round(w, 3) for w in a.data_iter.waits]}", flush=True)
+    # The dump prints its failures and raises none: check that it wrote its
+    # files (step 2's dump wrote the same milestone's, so those go first).
+    dumps = [root / "a" / f"{kind}-{a.state.step // cfg.train.save_freq}.wav"
+             for kind in ("sample", "gt")]
+    for p in dumps:
+        p.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    a._eval_dump(x)
+    eval_s = time.perf_counter() - t0
+    for p in dumps:
+        check_wav(p)
+    t0 = time.perf_counter()
+    a.save()
+    save_s = time.perf_counter() - t0
+    size = (root / "a" / "ckpt" / str(a.state.step) / "state.pt").stat().st_size
+    print(f"  eval dump (infer_flowvae at T = {t_raw}, two wavs) {eval_s:.3f} s; checkpoint of "
+          f"{size / 2**30:.2f} GiB: save {save_s:.3f} s, R's restore {load_s:.3f} s", flush=True)
+    a.data_iter = loader
+    a.close()
+    del a
+    torch.cuda.empty_cache()
+
+
+def check_extract_vq(cfg, cfg_path, jsonl, ckpt_dir):
+    """``prepare_cli extract-vq`` in a subprocess, then four files against an
+    exact-length ``encode_masked`` run here."""
+    from detail_tts_tpu_torch.audio.mel import MelFrontend
+    from detail_tts_tpu_torch.data.dataset import read_wav
+    from detail_tts_tpu_torch.models.synthesizer import SynthesizerTrn
+    from detail_tts_tpu_torch.train.checkpoint import restore_variables
+    run_cli(["detail_tts_tpu_torch.data.prepare_cli", "extract-vq", "--jsonl", str(jsonl),
+             "--ckpt", str(ckpt_dir), "--config", str(cfg_path)], timeout=600)
+    rows = [json.loads(x) for x in jsonl.read_text().splitlines()]
+    hop, sr = cfg.data.hop_length, cfg.data.sampling_rate
+    lengths = {}
+    for row in rows:
+        n = len(read_wav(row["path"], sr)) // hop // 4 * 4
+        path = row["path"] + ".vq.npy"
+        if not os.path.isfile(path) or np.load(path).shape != (n // 4,):
+            fail(f"{path}: missing or not {n // 4} codes")
+        lengths[row["path"]] = n
+    with torch.device("cuda"):
+        model = SynthesizerTrn(cfg)
+    model.load_state_dict(restore_variables(ckpt_dir, cfg))
+    model.eval().requires_grad_(False)
+    d = cfg.data
+    fe = MelFrontend(d.sampling_rate, d.filter_length, hop, d.win_length, d.n_mel_channels,
+                     d.mel_fmin, d.mel_fmax, device="cuda")
+    layer = model.quantizer.vq.layers[0]
+    embed = layer._codebook.embed.float()
+    picked = [r["path"] for r in rows[::len(rows) // 4]][:4]
+    ties = []
+    with torch.no_grad():
+        for path in picked:
+            n = lengths[path]
+            mel = fe.mel_spectrogram(torch.from_numpy(read_wav(path, sr)).cuda()[None])[:, :n]
+            exact = model.encode_masked(mel, torch.tensor([n], device="cuda"))[0][0].cpu().numpy()
+            saved = np.load(path + ".vq.npy")
+            z = layer.project_in(model.vq_encode_features(mel))[0].float()
+            for j in np.flatnonzero(saved != exact):
+                da = float((z[j] - embed[saved[j]]).square().sum())
+                db = float((z[j] - embed[exact[j]]).square().sum())
+                gap = abs(da - db) / max(da, db)
+                print(f"  {os.path.basename(path)} code {j}: bucketed {saved[j]} (distance {da}) "
+                      f"vs exact-length {exact[j]} (distance {db}), relative gap {gap:.2e}",
+                      flush=True)
+                if not gap < TIE_REL:
+                    fail(f"{path}: code {j} differs from an exact-length run by more than a tie")
+                ties.append(gap)
+    print(f"  extract-vq: {len(rows)} rows with n_frames // 4 codes; {len(picked)} files "
+          f"against exact-length encode_masked: {len(ties)} codes differ, all ties "
+          f"(relative gap < {TIE_REL:.0e})", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def serve_from_checkpoint(cfg_path, ckpt_dir, clips):
+    """``build_engine`` over the trainer's checkpoint; one request at batch 1
+    with a prepared clip as the prompt.  Returns the B1 launches."""
+    from detail_tts_tpu_torch.data.dataset import read_wav
+    from detail_tts_tpu_torch.serving.api import build_engine
+    from detail_tts_tpu_torch.serving.pipeline import EngineConfig
+    engine = build_engine(str(cfg_path), str(ckpt_dir), engine_cfg=EngineConfig(
+        max_generate_length=200), device="cuda")
+    unfolded = [k for k in engine.model.state_dict() if k.endswith(("weight_g", "weight_v"))]
+    if unfolded:
+        fail(f"the served model kept weight-norm pairs: {unfolded[:3]}")
+    prompt_path = sorted(p for p in os.listdir(clips) if p.startswith("rec"))[0]
+    prompt = read_wav(str(clips / prompt_path), engine.cfg.data.sampling_rate)
+    outs, launches, wall, _ = serve_request(engine, "from the trained checkpoint",
+                                            SENTENCES[3:4], [prompt], seed=0)
+    check_audio(engine, outs, "serving from the trained checkpoint")
+    want = b1_per_request(engine)
+    steps = engine.schedule.num_timesteps
+    print(f"  served {prompt_path} ({len(prompt) / 24000:.2f} s) as the prompt: weight norm "
+          f"folded on load; B1 launches {launches} (steps x 13 + 9 = {steps * 13 + 9})",
+          flush=True)
+    if launches != want or want != steps * 13 + 9:
+        fail(f"serving from the checkpoint launched B1 {launches} times, expected {want}")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_corpus(cfg_full, root):
+    """Phase 7: a corpus on disk through the data-prep CLI, the training CLI,
+    resume, extract-vq and serving.  Returns (training-kernel launches of the
+    in-process steps, B1 launches)."""
+    import dataclasses
+    import pathlib
+    print("== from a corpus on disk", flush=True)
+    root = pathlib.Path(root)
+    root.mkdir(parents=True)
+    cfg = dataclasses.replace(cfg_full, train=dataclasses.replace(
+        cfg_full.train, target="diff", save_freq=2, val_freq=2))
+    cfg_path = root / "config.json"
+    cfg_path.write_text(json.dumps(cfg.to_dict()))
+    jsonl, clips = make_corpus(root, np.random.default_rng(7))
+    check_native_decode(clips)
+
+    cli = root / "cli"
+    run_cli(["detail_tts_tpu_torch.train", "--config", str(cfg_path), "--data", str(jsonl),
+             "--steps", "2", "--logs-folder", str(cli), "--num-workers", "8"], timeout=900)
+    lines = [json.loads(x) for x in (cli / "metrics.jsonl").read_text().splitlines()]
+    last = lines[-1] if lines else {}
+    if not (last.get("step") == 2 and math.isfinite(last.get("loss", math.nan))
+            and math.isfinite(last.get("grad_norm", math.nan))):
+        fail(f"the training CLI's metrics.jsonl ends with {last}")
+    if not (cli / "ckpt" / "2" / "state.pt").is_file():
+        fail("the training CLI wrote no ckpt/2")
+    secs = [check_wav(cli / f"{kind}-1.wav") for kind in ("sample", "gt")]
+    print(f"  training CLI: metrics.jsonl step 2 loss {last['loss']:.6f} grad_norm "
+          f"{last['grad_norm']:.6f} ({last['steps_per_sec']:.3f} steps/s); ckpt/2; "
+          f"sample-1.wav {secs[0]:.2f} s and gt-1.wav {secs[1]:.2f} s finite", flush=True)
+
+    attention.LAUNCHES = 0
+    for name in TRAIN_KERNELS:
+        attention.TRAIN_LAUNCHES[name] = 0
+    resume_in_process(cfg, cfg_path, jsonl, root)
+    train_launches = dict(attention.TRAIN_LAUNCHES)
+    if attention.LAUNCHES != 0:
+        fail(f"training from the corpus launched the serving kernel {attention.LAUNCHES} times")
+    check_extract_vq(cfg, cfg_path, jsonl, cli / "ckpt")
+    attention.LAUNCHES = 0
+    b1 = serve_from_checkpoint(cfg_path, cli / "ckpt", clips)
+    return train_launches, b1
 
 
 def main():
@@ -1194,14 +1634,21 @@ def main():
     del engine
     torch.cuda.empty_cache()
 
-    train_launches = phase_training(cfg)
-    target_launches = phase_train_targets(cfg)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        train_launches = phase_training(cfg, os.path.join(work, "phase6"))
+        target_launches = phase_train_targets(cfg, os.path.join(work, "phase6b"))
+        corpus_launches, corpus_b1 = phase_corpus(cfg, os.path.join(work, "phase7"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     kernels = [dict(
         name="bias_attention_fwd", route="cuda",
         source="detail_tts_tpu_torch/csrc/bias_attention.cu",
         replaces="detail_tts_tpu/ops/pallas/attention.py:404",
-        launches=launches, launches_per_request=per_request,
+        launches=launches + corpus_b1, launches_per_request=per_request,
+        launches_over="phases 4 and 4b, and the request from the trained checkpoint "
+                      "(phase 7)",
         max_abs_err=worst, **times)]
     sources = {"bias_attention_train_fwd": ("bias_attention.cu", 259),
                "bias_attention_bwd_dq_dbias": ("bias_attention_bwd.cu", 286),
@@ -1212,8 +1659,9 @@ def main():
         kernels.append(dict(
             name=name, route="cuda", source=f"detail_tts_tpu_torch/csrc/{src}",
             replaces=f"detail_tts_tpu/ops/pallas/attention.py:{line}",
-            launches=train_launches[name] + target_launches[name],
-            launches_over="3 diff steps (phase 6) and 2 all steps (phase 6b)",
+            launches=train_launches[name] + target_launches[name] + corpus_launches[name],
+            launches_over="3 diff steps (phase 6), 2 all steps (phase 6b) and 6 diff steps "
+                          "from the corpus in this process (phase 7: trainer A's 5, R's 1)",
             max_abs_err=train_worst[name][0], max_scaled_err=train_worst[name][1],
             library=("torch.sum over the batch" if name.endswith("sum") else
                      "scaled_dot_product_attention (" + backend + ")"),

@@ -3,7 +3,8 @@ training stages.
 
 Counterpart of ``detail_tts_tpu/models/synthesizer.py`` for zero-shot
 synthesis (the GPT, the diffusion refiner and the flow-VAE + HiFi-GAN
-decoder path), for the diffusion-free VQ paths (``decode_codes_to_mel``,
+decoder path), for the offline code extraction (``encode_masked``), for the
+diffusion-free VQ paths (``decode_codes_to_mel``,
 ``infer_vqvae``: the VQ decoder with the VQ reference encoder's style) and
 for every training stage's forward: ``forward_vq`` (recon L1 and the
 commitment loss of the training quantizer), ``forward_gpt`` (the GPT's two
@@ -229,6 +230,27 @@ class SynthesizerTrn(nn.Module):
         features)."""
         x = self.vq_encode_features(mel)
         return self.quantizer.encode(x)[0], x
+
+    @torch.no_grad()
+    def encode_masked(self, mel: torch.Tensor, lengths: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Length-exact code extraction on padded buffers: (codes (B, T // 4),
+        code lengths (B,)).
+
+        Each layer's activations past its valid length are zeroed, so the
+        next conv sees the zero padding that an exact-length run (the
+        reference's offline extractor, prepare/extract_vq.py:18-46) sees, and
+        codes within the length do not depend on the pad.  A stride-2, k3,
+        p1 conv maps a valid length L to ceil(L / 2)."""
+        enc = self.vq_enc
+        h = enc[1](mel) * sequence_mask(lengths, mel.shape[1])[..., None].to(mel.dtype)
+        h = enc[4](enc[3](h))
+        l1 = (lengths + 1) // 2
+        h = h * sequence_mask(l1, h.shape[1])[..., None].to(h.dtype)
+        h = enc[6](enc[5](h))
+        l2 = (l1 + 1) // 2
+        h = h * sequence_mask(l2, h.shape[1])[..., None].to(h.dtype)
+        return self.quantizer.encode(enc[7](h))[0], l2
 
     @torch.no_grad()
     def gpt_latents(self, data: Dict[str, torch.Tensor]) -> torch.Tensor:

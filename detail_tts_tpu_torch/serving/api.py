@@ -12,10 +12,10 @@ Usage:
       [--seed 0]
 
 Without ``--ckpt`` the engine runs with random weights (smoke mode).
-``--ckpt`` takes a reference torch checkpoint (``model-*.pt``).  The JAX
-trainer's Orbax directories are not read yet (they wait for the port of
-``train/checkpoint.py``).  The engine runs on the card unless ``--device
-cpu`` is given.
+``--ckpt`` takes a checkpoint directory the port's trainer wrote (its
+newest step, weight norm folded on load) or a torch checkpoint file
+(``model-*.pt`` of the reference, or ``train/checkpoint.py:save_variables``
+output).  The engine runs on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ import dataclasses
 import sys
 
 import numpy as np
+
+from detail_tts_tpu_torch.data.dataset import save_wav
 
 
 def load_wav(path: str, target_sr: int) -> np.ndarray:
@@ -41,20 +43,13 @@ def load_wav(path: str, target_sr: int) -> np.ndarray:
     return wav
 
 
-def save_wav(path: str, wav: np.ndarray, sr: int) -> None:
-    from scipy.io import wavfile
-
-    if wav.dtype == np.int16:  # the engine's pcm16_output mode
-        wavfile.write(path, sr, wav)
-        return
-    pcm = np.clip(wav, -1.0, 1.0)
-    wavfile.write(path, sr, (pcm * 32767.0).astype(np.int16))
-
-
 def build_engine(config: str | None, ckpt: str | None, seed: int = 0,
                  engine_cfg=None, device="cuda"):
-    """An engine from a config file (or ``Config()``) and a reference torch
-    checkpoint (or seeded random weights, with a warning)."""
+    """An engine from a config file (or ``Config()``) and a checkpoint: a
+    trainer's checkpoint directory or a torch checkpoint file (or seeded
+    random weights, with a warning)."""
+    import os
+
     import torch
 
     from detail_tts_tpu_torch.config import Config
@@ -73,6 +68,11 @@ def build_engine(config: str | None, ckpt: str | None, seed: int = 0,
     dev = resolve_device(device)
     with torch.device(dev):
         model = SynthesizerTrn(cfg)
+    if os.path.isdir(ckpt):
+        from detail_tts_tpu_torch.train.checkpoint import restore_variables
+
+        model.load_state_dict(restore_variables(ckpt, cfg))
+        return TTSEngine(model, engine_cfg, device=dev)
     report = load_reference_checkpoint(ckpt, model)
     if report["unused"]:
         print(f"checkpoint: {len(report['unused'])} entries of modules the port "
@@ -88,9 +88,8 @@ def main(argv=None):
     p.add_argument("--out", default="gen.wav")
     p.add_argument("--config", default=None)
     p.add_argument("--ckpt", default=None,
-                   help="reference torch checkpoint (model-*.pt); the JAX "
-                        "trainer's Orbax directories wait for the port of "
-                        "train/checkpoint.py")
+                   help="a checkpoint dir the trainer wrote, or a torch "
+                        "checkpoint file (model-*.pt)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.add_argument("--vq-only", action="store_true",

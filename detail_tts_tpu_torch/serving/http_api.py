@@ -16,7 +16,7 @@ Endpoints:
 
 Run (on the card; ``--device cpu`` for a small model on the CPU):
   python -m detail_tts_tpu_torch.serving.http_api --port 8080 \\
-      [--config cfg.json] [--ckpt model.pt] [--device cuda] \\
+      [--config cfg.json] [--ckpt logs/.../ckpt | model.pt] [--device cuda] \\
       [--max-batch 8] [--wait-ms 20] [--warmup]
 
 Threads: ``ThreadingHTTPServer`` gives one thread per connection; all of
@@ -170,7 +170,8 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--config", default=None)
     p.add_argument("--ckpt", default=None,
-                   help="reference torch checkpoint (model-*.pt)")
+                   help="a checkpoint dir the trainer wrote, or a torch "
+                        "checkpoint file (model-*.pt)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--wait-ms", type=float, default=20.0)

@@ -6,7 +6,8 @@ Counterpart of ``detail_tts_tpu/text/tokenizer.py`` that needs no HF
 them.  The tables are model ``BPE`` (255 tokens, ~200 merges, unknown chars
 map to ``[UNK]`` one by one, no fusing), a ``Whitespace`` pre-tokenizer and
 three added tokens ``[STOP]/[UNK]/[SPACE]`` that are split out of the raw
-text before pre-tokenization.
+text before pre-tokenization.  :class:`CharTokenizer` is the explicit
+``"char"`` opt-in, a different text frontend.
 """
 from __future__ import annotations
 
@@ -137,5 +138,48 @@ class VoiceBpeTokenizer:
         return ids
 
 
-def make_tokenizer(spec: str) -> VoiceBpeTokenizer:
+class CharTokenizer:
+    """Char-level tokenizer with the BPE tables' special-token layout: an
+    explicit opt-in (``make_tokenizer("char")``), never a silent substitute.
+
+    IDs: 0=[STOP], 1=[UNK], 2=[SPACE]; then lower-case ASCII letters, digits
+    and the punctuation of pinyin text, within the GPT's 256-token text
+    embedding (config_24k.json:70)."""
+
+    _ALPHABET = (
+        "abcdefghijklmnopqrstuvwxyz0123456789"
+        "!:~;.\"/,-()'?。，？：；’‘”“、！"
+    )
+
+    def __init__(self):
+        self.stoi = {"[STOP]": 0, "[UNK]": 1, "[SPACE]": 2}
+        for ch in self._ALPHABET:
+            if ch not in self.stoi:
+                self.stoi[ch] = len(self.stoi)
+        self.itos = {v: k for k, v in self.stoi.items()}
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.stoi)
+
+    def encode(self, txt: str) -> List[int]:
+        txt = normalize_punctuation(txt.lower())
+        return [2 if ch == " " else self.stoi.get(ch, 1) for ch in txt]
+
+    def decode(self, ids) -> str:
+        parts = []
+        for i in ids:
+            tok = self.itos.get(int(i), "")
+            if tok == "[SPACE]":
+                parts.append(" ")
+            elif tok not in ("[STOP]", "[UNK]"):
+                parts.append(tok)
+        return "".join(parts)
+
+
+def make_tokenizer(spec: str):
+    """The tokenizer of a config's ``tokenizer_vocab``: ``"char"`` selects
+    :class:`CharTokenizer`, anything else must resolve to a BPE table."""
+    if spec == "char":
+        return CharTokenizer()
     return VoiceBpeTokenizer(resolve_vocab(spec))

@@ -1,0 +1,53 @@
+"""Training CLI: the reference's ``accelerate launch train.py``.
+
+Usage:
+  python -m detail_tts_tpu_torch.train --data data.jsonl \\
+      [--config config.json] [--target diff] [--resume logs/.../ckpt] \\
+      [--steps N] [--logs-folder logs/run] [--num-workers 8] [--device cuda]
+
+Every knob is a flag (the reference hard-codes its paths,
+train.py:462-465).  The run trains on the card unless ``--device cpu`` is
+given.  ``--resume`` restores a checkpoint directory the trainer wrote
+(its newest step), partially where the target differs.  One process, one
+device: multi-GPU training is not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", default=None, help="reference-format JSON")
+    p.add_argument("--data", required=True, help="jsonl with {path, text}")
+    p.add_argument("--target", default=None,
+                   choices=["vqvae", "gpt", "diff", "flowvae", "all"])
+    p.add_argument("--resume", default=None, help="checkpoint dir to resume")
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--logs-folder", default=None)
+    p.add_argument("--num-workers", type=int, default=8)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = p.parse_args(argv)
+
+    from detail_tts_tpu_torch.config import Config
+    from detail_tts_tpu_torch.train.trainer import Trainer
+
+    cfg = Config.from_json(args.config) if args.config else Config()
+    if args.target:
+        cfg = dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, target=args.target))
+
+    trainer = Trainer(cfg, device=args.device, logs_folder=args.logs_folder)
+    try:
+        trainer.default_data(args.data, num_threads=args.num_workers)
+        if args.resume:
+            trainer.load(args.resume)
+        return trainer.train(max_steps=args.steps)
+    finally:
+        trainer.close()
+
+
+if __name__ == "__main__":
+    main()

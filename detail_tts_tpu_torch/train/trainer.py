@@ -1,90 +1,313 @@
-"""Trainer, a subset of ``detail_tts_tpu/train/trainer.py`` (train.py:80-465).
+"""Staged trainer: the reference ``Trainer`` (train.py:80-465).
 
-``Trainer(cfg, data_iter, device, seed).train(max_steps, log_every)`` runs
-the config's target through ``make_train_step`` (the single-loss step of
+Counterpart of ``detail_tts_tpu/train/trainer.py``.  ``Trainer`` runs the
+config's target through ``make_train_step``: the single-loss step of
 ``vqvae``, ``gpt`` and ``diff`` over batches in the layout (accum,
-micro_batch, ...); the GAN step of ``flowvae`` and ``all`` over (batch,
-...), a leading accumulation axis of 1 dropped, as JAX's trainer does) and
-logs every scalar metric to ``metrics.jsonl``.  Checkpoints, eval dumps,
-TensorBoard and the command line come with later slices.
+micro_batch, ...), the GAN step of ``flowvae`` and ``all`` over (batch,
+...), a leading accumulation axis of 1 dropped, as JAX's trainer does.
+
+* data: a jsonl corpus through ``default_data`` (data/dataset.py: numpy
+  batches from decode threads, moved to the trainer's device here), or any
+  iterator of batches;
+* checkpoints every ``save_freq`` steps under ``<logs>/ckpt`` with keep-N
+  (train/checkpoint.py); ``load`` restores one, partially where the target
+  or the parametrization differs;
+* metrics to ``metrics.jsonl`` (and TensorBoard where it is installed);
+* eval dumps every ``val_freq`` steps: ``sample-<milestone>.wav`` and
+  ``gt-<milestone>.wav`` (train.py:229-258), and mel images and audio in
+  TensorBoard;
+* ``train(profile_dir=...)``: a ``torch.profiler`` Chrome trace of a
+  window of steps.
 """
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import Dict, Iterator, Optional
+import traceback
+from typing import Dict, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
+from detail_tts_tpu_torch.audio.mel import MelFrontend
 from detail_tts_tpu_torch.config import Config
+from detail_tts_tpu_torch.data.dataset import (BucketSpec, DataIterator, JsonlTtsDataset,
+                                               save_wav)
+from detail_tts_tpu_torch.nn.common import eval_mode
 from detail_tts_tpu_torch.serving.pipeline import resolve_device
+from detail_tts_tpu_torch.text.tokenizer import make_tokenizer
+from detail_tts_tpu_torch.train import checkpoint as ckpt_lib
 from detail_tts_tpu_torch.train.step import (GAN_TARGETS, make_train_state,
                                              make_train_step)
 
 
+def mel_to_image(mel: np.ndarray) -> np.ndarray:
+    """(T, n_mels) log-mel -> (3, n_mels, T) uint8 spectrogram image.
+
+    Matplotlib-free equivalent of the reference's
+    ``plot_spectrogram_to_numpy`` (log_utils.py:41-55): per-image min/max
+    normalisation through a compact viridis ramp, low bins at the bottom."""
+    m = np.asarray(mel, np.float32).T
+    lo, hi = float(m.min()), float(m.max())
+    x = (m - lo) / max(hi - lo, 1e-6)
+    ramp = np.array([[68, 1, 84], [59, 82, 139], [33, 145, 140],
+                     [94, 201, 98], [253, 231, 37]], np.float32)  # viridis
+    idx = x * (len(ramp) - 1)
+    i0 = np.clip(idx.astype(np.int32), 0, len(ramp) - 2)
+    frac = (idx - i0)[..., None]
+    rgb = ramp[i0] * (1 - frac) + ramp[i0 + 1] * frac
+    return np.flipud(rgb).transpose(2, 0, 1).astype(np.uint8)
+
+
 class MetricsLogger:
-    """Scalars as one JSON object a line in ``<logdir>/metrics.jsonl``."""
+    """Scalars as one JSON object a line in ``<logdir>/metrics.jsonl``, and
+    scalars, mel images and audio in TensorBoard where it is installed
+    (log_utils.py:31-39, train.py:416-439)."""
 
     def __init__(self, logdir: str):
         os.makedirs(logdir, exist_ok=True)
         self.path = os.path.join(logdir, "metrics.jsonl")
         self._f = open(self.path, "a")
+        self.tb = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:  # the package is optional
+            return
+        self.tb = SummaryWriter(log_dir=logdir)
 
     def log(self, step: int, scalars: Dict[str, float]) -> None:
         rec = {"step": step, **{k: float(v) for k, v in scalars.items()}}
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
+        if self.tb is not None:
+            for k, v in rec.items():
+                if k != "step":
+                    self.tb.add_scalar(k, v, step)
+
+    def log_media(self, step: int, mels: Optional[Dict[str, np.ndarray]] = None,
+                  audios: Optional[Dict[str, np.ndarray]] = None,
+                  sr: int = 24000) -> None:
+        """mels: {tag: (T, n_mels) log-mel}; audios: {tag: (N,) float wav}."""
+        if self.tb is None:
+            return
+        for tag, mel in (mels or {}).items():
+            self.tb.add_image(tag, mel_to_image(mel), step)
+        for tag, wav in (audios or {}).items():
+            wav = np.clip(np.asarray(wav, np.float32).reshape(-1), -1, 1)
+            self.tb.add_audio(tag, wav[None], step, sample_rate=sr)
 
     def close(self) -> None:
         self._f.close()
+        if self.tb is not None:
+            self.tb.close()
 
 
 class Trainer:
-    def __init__(self, cfg: Config, data_iter: Iterator, device="cuda",
-                 seed: int = 0, logs_folder: Optional[str] = None):
-        """Seeded random weights (``seed``) and one ``torch.Generator`` on
-        ``device`` for every draw of the steps (seeded from the config's
-        seed and ``seed``).  ``logs_folder``: where ``metrics.jsonl`` goes;
-        None logs nothing to disk.  An unknown target raises ``ValueError``."""
+    def __init__(self, cfg, data_iter: Optional[Iterator] = None, device="cuda",
+                 seed: int = 0, logs_folder: Optional[str] = None,
+                 buckets: BucketSpec = BucketSpec(), synth_eval: bool = False):
+        """``cfg``: a :class:`Config` or the path of a reference-format JSON.
+        Seeded random weights (``seed``) and one ``torch.Generator`` on
+        ``device`` for every draw of the steps (seeded from the config's seed
+        and ``seed``).  ``logs_folder``: metrics, eval dumps and ``ckpt/``;
+        by default ``cfg.train.logs_folder/<timestamp>``.  ``synth_eval``:
+        for ``gpt`` and ``diff``, the eval dump synthesizes from the batch's
+        text and prompt (train.py:229-240).  An unknown target raises
+        ``ValueError``."""
+        if isinstance(cfg, str):
+            cfg = Config.from_json(cfg)
         self.cfg = cfg
+        self.target = cfg.train.target
         self.device = resolve_device(device)
         self.state = make_train_state(cfg, self.device, seed=seed)
         self.step_fn = make_train_step(cfg, self.device)
         self.data_iter = data_iter
+        self.buckets = buckets
+        self.synth_eval = synth_eval
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.train.seed * 1000003 + seed)
-        self.metrics = MetricsLogger(logs_folder) if logs_folder else None
+        self.logs_folder = logs_folder or os.path.join(
+            cfg.train.logs_folder, time.strftime("%Y-%m-%d-%H-%M-%S"))
+        self.metrics = MetricsLogger(self.logs_folder)
         self.last_metrics: Dict[str, object] = {}
 
+    def default_data(self, jsonl_path: str, num_threads: int = 8) -> "Trainer":
+        """Batches from a jsonl corpus: micro-batch ``batch_size``, accum
+        ``gradient_accumulate_every`` (1 for the GAN targets)."""
+        tok = make_tokenizer(self.cfg.data.tokenizer_vocab)
+        ds = JsonlTtsDataset(self.cfg, jsonl_path, tok)
+        accum = 1 if self.target in GAN_TARGETS else self.cfg.train.gradient_accumulate_every
+        self.data_iter = DataIterator(ds, self.cfg.train.batch_size, accum=accum,
+                                      buckets=self.buckets, num_threads=num_threads)
+        return self
+
+    def close(self) -> None:
+        """Stop the corpus's decode threads and close the logs."""
+        if isinstance(self.data_iter, DataIterator):
+            self.data_iter.close()
+        self.metrics.close()
+
+    # ----------------------------------------------------------- checkpoint
+
+    def save(self) -> None:
+        ckpt_lib.save_checkpoint(os.path.join(self.logs_folder, "ckpt"), self.state,
+                                 keep=self.cfg.train.keep_ckpts)
+
+    def load(self, ckpt_dir: str, step: Optional[int] = None) -> "Trainer":
+        """Restore ``ckpt_dir`` (its newest step by default), partially: what
+        does not match keeps its current value and is reported."""
+        ckpt_lib.restore_checkpoint(ckpt_dir, self.state, step)
+        return self
+
+    # ---------------------------------------------------------------- data
+
     def next_batch(self) -> Dict[str, torch.Tensor]:
-        """The next batch in the step's layout: a GAN target's leading
-        accumulation axis (which must be 1) is dropped."""
-        batch = next(self.data_iter)
-        if self.cfg.train.target in GAN_TARGETS and batch["mel"].dim() == 4:
+        """The next batch on the trainer's device in the step's layout: numpy
+        leaves become tensors (integer leaves int64), and a GAN target's
+        leading accumulation axis (which must be 1) is dropped."""
+        batch = {k: _to_device(v, self.device) for k, v in next(self.data_iter).items()}
+        if self.target in GAN_TARGETS and batch["mel"].dim() == 4:
             if batch["mel"].shape[0] != 1:
                 raise ValueError("GAN targets take accum 1, not "
                                  f"{batch['mel'].shape[0]}")
             batch = {k: v[0] for k, v in batch.items()}
         return batch
 
-    def train(self, max_steps: Optional[int] = None,
-              log_every: int = 10) -> Dict[str, float]:
+    # ----------------------------------------------------------------- eval
+
+    def _eval_dump(self, batch: Dict[str, torch.Tensor]) -> None:
+        """``sample-<milestone>.wav`` and ``gt-<milestone>.wav`` from the
+        step's first clip (train.py:229-258), in fp32 with dropout off and
+        from a generator seeded with the step, so the training generator is
+        untouched.  A failure is printed, never raised: eval must not stop
+        training."""
+        try:
+            step = self.state.step
+            milestone = step // max(self.cfg.train.save_freq, 1)
+            sr = self.cfg.data.sampling_rate
+
+            def first(key):
+                v = batch[key]
+                return (v if self.target in GAN_TARGETS else v[0])[:1]
+
+            gen = torch.Generator(device=self.device).manual_seed(step)
+            model = self.state.model
+            with torch.no_grad(), eval_mode(model):
+                if self.target == "vqvae":
+                    _, wav = model.infer_vqvae(first("raw_mel"), generator=gen)
+                    gen_wav = wav[0, :, 0].float().cpu().numpy()
+                elif self.target in ("gpt", "diff") and self.synth_eval:
+                    gen_wav = self._synth_eval(first, step)
+                else:
+                    wav = model.infer_flowvae(first("raw_mel"), first("raw_spec_length"),
+                                              generator=gen)
+                    gen_wav = wav[0, :, 0].float().cpu().numpy()
+            gt_wav = first("raw_wav").reshape(-1).float().cpu().numpy()
+            save_wav(os.path.join(self.logs_folder, f"sample-{milestone}.wav"), gen_wav, sr)
+            save_wav(os.path.join(self.logs_folder, f"gt-{milestone}.wav"), gt_wav, sr)
+            if self.metrics.tb is not None:
+                d = self.cfg.data
+                fe = MelFrontend(d.sampling_rate, d.filter_length, d.hop_length,
+                                 d.win_length, d.n_mel_channels, d.mel_fmin, d.mel_fmax)
+                gen_mel = fe.mel_spectrogram(torch.from_numpy(gen_wav)[None])[0].numpy()
+                self.metrics.log_media(
+                    step, mels={"mel/gt": first("raw_mel")[0].float().cpu().numpy(),
+                                "mel/gen": gen_mel},
+                    audios={"audio/gt": gt_wav, "audio/gen": gen_wav}, sr=sr)
+        except Exception:  # noqa: BLE001 - eval must never kill training
+            print("eval dump failed:", flush=True)
+            traceback.print_exc()
+
+    def _synth_eval(self, first, step: int) -> np.ndarray:
+        """Synthesis from the clip's text and prompt mel on a fresh fp32
+        engine over the folded current weights: ``vq_only`` for ``gpt``
+        (train.py:234-236)."""
+        from detail_tts_tpu_torch.models.synthesizer import SynthesizerTrn
+        from detail_tts_tpu_torch.serving.pipeline import EngineConfig, TTSEngine
+
+        sd = ckpt_lib.fold_state_dict(self.state.model.state_dict())
+        with torch.device(self.device):
+            model = SynthesizerTrn(self.cfg)
+        model.load_state_dict(sd)
+        engine = TTSEngine(model, EngineConfig(max_generate_length=200,
+                                               compute_dtype=torch.float32,
+                                               cache_dtype=torch.float32),
+                           device=self.device)
+        return engine.synthesize_from_ids(first("text"), first("mel"),
+                                          first("spec_length"), seed=step,
+                                          vq_only=self.target == "gpt")[0]
+
+    # ---------------------------------------------------------------- train
+
+    def train(self, max_steps: Optional[int] = None, log_every: int = 10,
+              profile_dir: Optional[str] = None,
+              profile_steps: Tuple[int, int] = (3, 6)) -> Dict[str, float]:
         """Step until ``state.step`` reaches ``max_steps``; every
-        ``log_every`` steps the scalar metrics (and steps per second) are
-        read back and logged.  Returns the last logged scalars."""
-        max_steps = max_steps or self.cfg.train.train_steps
+        ``log_every`` steps and at ``max_steps`` the scalar metrics (and
+        steps per second) are read back and logged, every ``val_freq`` steps an eval dump is
+        written and every ``save_freq`` steps a checkpoint.  ``profile_dir``:
+        a ``torch.profiler`` Chrome trace (``trace.json``) of this call's
+        steps [profile_steps[0], profile_steps[1]).  Returns the last logged
+        scalars."""
+        if self.data_iter is None:
+            raise ValueError("no data: call default_data() or pass data_iter")
+        cfg = self.cfg.train
+        max_steps = max_steps or cfg.train_steps
         logged: Dict[str, float] = {}
-        t_last = time.perf_counter()
-        while self.state.step < max_steps:
-            metrics = self.step_fn(self.state, self.next_batch(), self.generator)
-            self.last_metrics = metrics
-            if self.state.step % log_every == 0:
-                logged = {k: float(v) for k, v in metrics.items()
-                          if torch.is_tensor(v) and v.dim() == 0}
-                now = time.perf_counter()
-                logged["steps_per_sec"] = log_every / (now - t_last)
-                t_last = now
-                if self.metrics is not None:
-                    self.metrics.log(self.state.step, logged)
+        t_last, step_last = time.perf_counter(), self.state.step
+        prof, steps_seen = None, 0
+        try:
+            while self.state.step < max_steps:
+                if profile_dir is not None:
+                    if steps_seen == profile_steps[0] and prof is None:
+                        prof = _start_profile(self.device)
+                    elif steps_seen == profile_steps[1] and prof is not None:
+                        _stop_profile(prof, profile_dir, self.device)
+                        prof = None
+                steps_seen += 1
+                batch = self.next_batch()
+                metrics = self.step_fn(self.state, batch, self.generator)
+                self.last_metrics = metrics
+                step = self.state.step
+                if step % log_every == 0 or step == max_steps:
+                    logged = {k: float(v) for k, v in metrics.items()
+                              if torch.is_tensor(v) and v.dim() == 0}
+                    now = time.perf_counter()
+                    logged["steps_per_sec"] = (step - step_last) / (now - t_last)
+                    t_last, step_last = now, step
+                    self.metrics.log(step, logged)
+                if step % cfg.val_freq == 0:
+                    self._eval_dump(batch)
+                if step % cfg.save_freq == 0:
+                    self.save()
+        finally:
+            if prof is not None:  # max_steps inside the profile window
+                _stop_profile(prof, profile_dir, self.device)
         return logged
+
+
+def _to_device(v, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+    if not t.is_floating_point():
+        t = t.long()
+    return t.to(device)
+
+
+def _start_profile(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str, device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))

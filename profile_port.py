@@ -31,8 +31,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -130,7 +132,8 @@ def profile_train(target: str):
     micro, frames = cfg.train.batch_size, 496
     data = synthetic_batches(cfg, accum, micro, frames, 64, device="cuda",
                              generator=torch.Generator(device="cuda").manual_seed(1))
-    trainer = Trainer(cfg, data, device="cuda", seed=0)
+    logs = tempfile.mkdtemp(prefix="profile_port_")  # metrics of the warm-up step
+    trainer = Trainer(cfg, data, device="cuda", seed=0, logs_folder=logs)
     trainer.train(max_steps=1)  # warm-up: builds the kernels
     wall = {}
     trainer.step_fn(trainer.state, trainer.next_batch(), trainer.generator, timings=wall)
@@ -148,6 +151,8 @@ def profile_train(target: str):
     report(rows, device, target=target, micro_batch=micro, frames=frames, accum=accum,
            mel_frames_per_s=accum * micro * frames / sum(wall.values()),
            kernel_launches=kernels)
+    trainer.close()
+    shutil.rmtree(logs, ignore_errors=True)
 
 
 def main():

@@ -312,3 +312,62 @@ def test_all_step_launches_each_training_kernel_and_repeats(cuda):
     for k, v in runs[0].items():
         if torch.is_tensor(v):
             assert torch.isfinite(v) and torch.equal(v, runs[1][k]), k
+
+
+@pytest.mark.parametrize("t", [512, 1024, 2824])
+def test_train_kernels_at_the_raw_buckets(cuda, t):
+    """The training kernels at the data loader's raw buckets (the smallest,
+    the synthetic corpus's and the largest, whose 8 x 16 x 2880^2 fp32
+    partials hold 1.06e9 elements), batch 8, 16 heads of 48, bf16."""
+    b, h, d = 8, 16, 48
+    qkv, bias, dout = _train_inputs(b, t, h, d, torch.bfloat16, seed=t, device=cuda)
+    out, lse, dqkv, dbias = _check_train(qkv, bias, dout, h, d, torch.bfloat16)
+    _, ref_dbias = attention.bias_attention_bwd_reference(
+        qkv, bias, out, lse, dout, heads=h, sm_scale=1 / math.sqrt(d))
+    assert dbias_err(dbias, ref_dbias) <= DBIAS_TOL
+
+
+def test_native_decoder_builds_and_loads(cuda, tmp_path):
+    import numpy as np
+    from scipy.io import wavfile
+
+    from detail_tts_tpu_torch.native import load_library, load_wav_native
+
+    assert load_library() is not None
+    wav = (np.sin(np.arange(44100) * 0.05) * 0.5 * 32767).astype(np.int16)
+    wavfile.write(str(tmp_path / "a.wav"), 44100, wav)
+    assert load_wav_native(str(tmp_path / "a.wav"), 24000).shape == (24000,)
+
+
+def test_diff_resume_is_bit_identical(cuda, tmp_path):
+    """A small ``diff`` trainer saves at step 2; a second trainer restores it
+    and, from the same generator state, takes step 3 on the same batch with
+    the same bits as the first: loss, grad norm, parameters and moments."""
+    import dataclasses
+
+    from detail_tts_tpu_torch.config import small_test_config
+    from detail_tts_tpu_torch.train import checkpoint as ckpt
+    from detail_tts_tpu_torch.train.step import synthetic_batches
+    from detail_tts_tpu_torch.train.trainer import Trainer
+
+    cfg = small_test_config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, target="diff", save_freq=2, val_freq=10 ** 9))
+    data = synthetic_batches(cfg, 2, 2, 48, 8, device=cuda,
+                             generator=torch.Generator(device=cuda).manual_seed(1))
+    a = Trainer(cfg, data, device=cuda, seed=0, logs_folder=str(tmp_path / "a"))
+    a.train(max_steps=2, log_every=1)
+    batch, gen_state = a.next_batch(), a.generator.get_state()
+    want = a.step_fn(a.state, batch, a.generator)
+    r = Trainer(cfg, None, device=cuda, seed=5, logs_folder=str(tmp_path / "r"))
+    r.load(str(tmp_path / "a" / "ckpt"))
+    r.generator.set_state(gen_state)
+    got = r.step_fn(r.state, batch, r.generator)
+    assert torch.equal(got["loss"], want["loss"]) and torch.equal(got["grad_norm"],
+                                                                  want["grad_norm"])
+    sa, sr = a.state.model.state_dict(), r.state.model.state_dict()
+    assert all(torch.equal(sa[k], sr[k]) for k in sa)
+    ma = ckpt.optimizer_state_by_name(a.state.optimizer, a.state.model)
+    mr = ckpt.optimizer_state_by_name(r.state.optimizer, r.state.model)
+    assert ma.keys() == mr.keys() and all(
+        torch.equal(ma[n][k], mr[n][k]) for n in ma for k in ma[n])
