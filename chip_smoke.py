@@ -33,7 +33,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    and the backward (delta, dq and the dbias partials; dk and dv; the
    partials' sum in batch order) against their plain versions at the
    training step's attention shapes (bf16 and fp32, ragged T, a fully
-   masked row), the sum pass alone against its plain version, the backward
+   masked row; batch 8 and a world-2 rank's batch 4), the sum pass alone
+   against its plain version, the backward
    twice for bit-identical dbias, and CUDA-event times of bare launches on
    buffers allocated beforehand (the training forward also through its
    wrapper) beside the bound, the plain versions and SDPA with a bias mask
@@ -77,7 +78,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    exact-length ``encode_masked`` run on four files (a differing code must
    be a tie within 1e-5 relative); ``build_engine`` over the CLI's
    checkpoint answers one request with a prepared clip as the prompt (B1
-   launched steps x 13 + 9 times).
+   launched steps x 13 + 9 times);
+8. data parallelism and remat at the full width of ``Config()``: (a) the
+   Trainer over a world-1 NCCL process group (TCP store on 127.0.0.1) for
+   ``diff`` (micro-batch 8 x accum 2) and ``all`` (batch 8, GPT dropout
+   0.1), two steps each, bit-identical to the plain Trainer in every metric
+   and trainable tensor, each training kernel launched
+   ``expected_train_launches`` times; (b) two processes on the one card
+   over gloo, ``diff`` (8 a global micro-batch, 4 a rank, x accum 2) and
+   ``vqvae`` from a fresh codebook (the k-means gather) under bf16
+   autocast and in fp32, two steps each: the ranks' tensors bit-identical
+   (SHA-256 of every trainable tensor and buffer), loss and grad norm
+   within 1e-3 relative of world 1, the codebook within 1e-4 of world 1's
+   in fp32 and 1e-2 under bf16 (its bf16 features round per micro-batch
+   shape), each rank's launches, the gradient all-reduce's wall a step and
+   each rank's peak memory; (c) ``gpt``
+   (micro-batch 8 x accum 2, dropout 0.1) with ``remat_gpt`` on and off
+   from one seed: loss and grad norm within 1e-6 relative, a lower peak
+   with remat.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -531,8 +549,11 @@ def phase_train_kernels(sfu_per_s):
     """Training kernels vs plain versions; returns (worst errors, time rows)."""
     print("== train kernels vs plain", flush=True)
     worst = {name: (0.0, 0.0) for name in TRAIN_KERNELS}
+    # B = 4: a rank's micro-batch of 8 over a world of 2 (phase 8)
     cases = [(8, 496, 16, 48, torch.bfloat16), (8, 124, 16, 48, torch.bfloat16),
-             (8, 124, 16, 96, torch.bfloat16), (8, 495, 16, 48, torch.bfloat16),
+             (8, 124, 16, 96, torch.bfloat16), (4, 496, 16, 48, torch.bfloat16),
+             (4, 124, 16, 48, torch.bfloat16), (4, 124, 16, 96, torch.bfloat16),
+             (8, 495, 16, 48, torch.bfloat16),
              (4, 495, 16, 48, torch.float32), (8, 124, 16, 48, torch.float32),
              (8, 124, 16, 96, torch.float32)]
     for i, (b, t, h, d, dtype) in enumerate(cases):
@@ -1602,6 +1623,284 @@ def phase_corpus(cfg_full, root):
     return train_launches, b1
 
 
+# ------------------------------------------- data parallelism and remat
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def zero_counts():
+    attention.LAUNCHES = 0
+    for name in TRAIN_KERNELS:
+        attention.TRAIN_LAUNCHES[name] = 0
+
+
+def phase8_cfg(cfg_full, target, accum, **train):
+    import dataclasses
+    return dataclasses.replace(cfg_full, train=dataclasses.replace(
+        cfg_full.train, target=target, gradient_accumulate_every=accum, **train))
+
+
+def phase8_data(cfg, accum):
+    """The global batches of phase 8: micro-batch 8 x 496 frames, 64 text
+    tokens, seeded on the card."""
+    from detail_tts_tpu_torch.train.step import synthetic_batches
+    return synthetic_batches(cfg, accum, 8, 496, 64, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(1))
+
+
+def phase8_world1(cfg_full, group, logs):
+    """(a): the distributed Trainer (a world-1 NCCL group) against the plain
+    Trainer, bit for bit; returns (launches, world-1 readings of ``diff``)."""
+    from detail_tts_tpu_torch.train.trainer import Trainer
+
+    launches = {name: 0 for name in TRAIN_KERNELS}
+    readings = None
+    for target, accum in (("diff", 2), ("all", 1)):
+        cfg = phase8_cfg(cfg_full, target, accum)
+        runs = []
+        for g in (None, group):
+            t0 = time.perf_counter()
+            trainer = Trainer(cfg, phase8_data(cfg, accum), device="cuda", seed=0,
+                              logs_folder=os.path.join(logs, f"{target}-{g is not None}"),
+                              group=g)
+            steps = []
+            for _ in range(2):
+                zero_counts()
+                trainer.train(max_steps=trainer.state.step + 1, log_every=1)
+                m = trainer.last_metrics
+                got = dict(attention.TRAIN_LAUNCHES)
+                want = expected_train_launches(cfg, m["layers_kept"])
+                if any(v != want for v in got.values()) or attention.LAUNCHES:
+                    fail(f"phase 8 {target}: launches {got}, serving {attention.LAUNCHES}, "
+                         f"expected {want} each and 0")
+                if g is not None:
+                    for name in TRAIN_KERNELS:
+                        launches[name] += got[name]
+                steps.append({k: v.clone() for k, v in m.items() if torch.is_tensor(v)})
+            state = {n: p.detach().clone() for n, p in trainer.state.model.named_parameters()
+                     if p.requires_grad}
+            runs.append((steps, state, time.perf_counter() - t0))
+            if target == "diff" and g is None:
+                readings = [{k: float(v) for k, v in s.items()} for s in steps]
+            trainer.close()
+            del trainer
+            torch.cuda.empty_cache()
+        (plain, sd_plain, _), (dp, sd_dp, wall) = runs
+        same_metrics = all(torch.equal(v, dp[i][k]) for i, s in enumerate(plain)
+                           for k, v in s.items())
+        differ = [n for n, v in sd_plain.items() if not torch.equal(v, sd_dp[n])]
+        key = "loss" if target == "diff" else "loss_gen_all"
+        norm = "grad_norm" if target == "diff" else "grad_norm_g"
+        print(f"  (a) {target} world 1 over NCCL: loss {[s[key].item() for s in dp]}, "
+              f"{norm} {[s[norm].item() for s in dp]}; every metric of 2 steps bit-identical "
+              f"to the plain Trainer's {same_metrics}; {len(sd_plain) - len(differ)} of "
+              f"{len(sd_plain)} trainable tensors bit-identical (trainer built and 2 steps "
+              f"in {wall:.1f} s)", flush=True)
+        if not same_metrics or differ:
+            fail(f"phase 8 {target}: the world-1 step is not the plain step ({differ[:3]})")
+        del runs, sd_plain, sd_dp
+        torch.cuda.empty_cache()
+    return launches, readings
+
+
+# The runs of phase 8 (b): name -> (target, bf16 autocast).  ``vqvae`` runs
+# twice: under bf16 autocast its encoder's features round per micro-batch
+# shape (cuDNN picks other algorithms at 4 rows than at 8), so the codebook,
+# a mean of those features, is held to world 1's at the features' bf16
+# resolution there and at 1e-4 in fp32.
+PHASE8_RUNS = {"diff": ("diff", True), "vqvae": ("vqvae", True),
+               "vqvae_fp32": ("vqvae", False)}
+CODEBOOK_TOL = {True: 1e-2, False: 1e-4}
+
+
+def phase8_rank(rank, port, out_dir, cfg_full):
+    """(b), one of two ranks on the one card over gloo: the runs of
+    :data:`PHASE8_RUNS` (``vqvae`` from a fresh codebook), two steps each,
+    through the Trainer's step with its stage walls; writes what the parent
+    checks."""
+    import torch.distributed as dist
+
+    from detail_tts_tpu_torch.parallel.mesh import init_distributed, shard_batch
+    from detail_tts_tpu_torch.train.trainer import Trainer
+    from dp_port import digest  # SHA-256 of every trainable tensor and buffer
+
+    # the parent's settings (phase 1): TF32 off in matmuls and cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group, dev = init_distributed(f"tcp://127.0.0.1:{port}", backend="gloo",
+                                  device="cuda:0", rank=rank, world_size=2)
+    try:
+        out = {}
+        for run, (target, bf16) in PHASE8_RUNS.items():
+            cfg = phase8_cfg(cfg_full, target, 2, use_bf16=bf16)
+            data = (shard_batch(b, group, 1) for b in phase8_data(cfg, 2))
+            trainer = Trainer(cfg, data, device=dev, seed=0, group=group,
+                              logs_folder=os.path.join(out_dir, f"{run}-{rank}"))
+            state, steps = trainer.state, []
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):
+                zero_counts()
+                timings = {}
+                t0 = time.perf_counter()
+                m = trainer.step_fn(state, trainer.next_batch(), trainer.generator,
+                                    timings=timings,
+                                    dropout_generator=trainer.dropout_generator)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                steps.append({"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                              "launches": dict(attention.TRAIN_LAUNCHES),
+                              "serving": attention.LAUNCHES,
+                              "expected": (expected_train_launches(cfg, m["layers_kept"])
+                                           if target == "diff" else 0),
+                              "allreduce_s": timings["allreduce"], "wall_s": wall,
+                              "digest": digest(state)})
+            out[run] = {"steps": steps,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "grads_mb": sum(p.numel() * 4 for p in state.params) / 1e6,
+                        "embed": state.model.quantizer.vq.layers[0]._codebook.embed.cpu()}
+            trainer.close()
+            del trainer, state
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase8_world1_refs(cfg_full, logs):
+    """World 1 of the ``vqvae`` runs of (b) through the plain Trainer: the
+    metrics of two steps and the codebook after them."""
+    from detail_tts_tpu_torch.train.trainer import Trainer
+
+    refs = {}
+    for run, (target, bf16) in PHASE8_RUNS.items():
+        if target != "vqvae":
+            continue
+        cfg = phase8_cfg(cfg_full, target, 2, use_bf16=bf16)
+        trainer = Trainer(cfg, phase8_data(cfg, 2), device="cuda", seed=0,
+                          logs_folder=os.path.join(logs, f"{run}-w1"))
+        steps = []
+        for _ in range(2):
+            trainer.train(max_steps=trainer.state.step + 1, log_every=1)
+            steps.append({k: float(v) for k, v in trainer.last_metrics.items()
+                          if torch.is_tensor(v)})
+        refs[run] = (steps, trainer.state.model.quantizer.vq.layers[0]._codebook.embed.cpu())
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+    return refs
+
+
+def phase8_world2(cfg_full, diff_ref, logs):
+    """(b): two processes on the one card over gloo, against world 1."""
+    import torch.multiprocessing as mp
+
+    refs = phase8_world1_refs(cfg_full, logs)
+    refs["diff"] = (diff_ref, None)
+    t0 = time.perf_counter()
+    mp.start_processes(phase8_rank, args=(free_port(), logs, cfg_full), nprocs=2,
+                       join=True, start_method="spawn")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(logs, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    launches = {name: 0 for name in TRAIN_KERNELS}
+    for run, (target, bf16) in PHASE8_RUNS.items():
+        ref, embed_ref = refs[run]
+        for i in range(2):
+            s0, s1 = ranks[0][run]["steps"][i], ranks[1][run]["steps"][i]
+            rel = {k: abs(s0[k] - ref[i][k]) / abs(ref[i][k]) for k in ("loss", "grad_norm")}
+            print(f"  (b) {run} world 2 step {i + 1}: loss {s0['loss']:.6f} (world 1 "
+                  f"{ref[i]['loss']:.6f}), grad_norm {s0['grad_norm']:.6f} (world 1 "
+                  f"{ref[i]['grad_norm']:.6f}), relative {json.dumps(rel)}; ranks' tensors "
+                  f"bit-identical {torch.equal(s0['digest'], s1['digest'])}; all-reduce of "
+                  f"{ranks[0][run]['grads_mb']:.1f} MB fp32 grads {s0['allreduce_s']:.3f} / "
+                  f"{s1['allreduce_s']:.3f} s, step wall {s0['wall_s']:.3f} / "
+                  f"{s1['wall_s']:.3f} s (rank 0 / 1, stages synchronised; step 1 holds "
+                  f"the ranks' start skew); launches {s0['launches']} / {s1['launches']} "
+                  f"(expected {s0['expected']} each)", flush=True)
+            if not torch.equal(s0["digest"], s1["digest"]):
+                fail(f"phase 8 {run}: the ranks' tensors differ after step {i + 1}")
+            if any(not r <= ROUTE_TOL[k] for k, r in rel.items()):
+                fail(f"phase 8 {run}: world 2 is {rel} from world 1")
+            for s in (s0, s1):
+                if any(v != s["expected"] for v in s["launches"].values()) or s["serving"]:
+                    fail(f"phase 8 {run}: launches {s['launches']}, serving {s['serving']}")
+                for name in TRAIN_KERNELS:
+                    launches[name] += s["launches"][name]
+        if embed_ref is not None:
+            embed = ranks[0][run]["embed"]
+            err = (embed - embed_ref).abs().max().item() / max(1.0, embed_ref.abs().max().item())
+            print(f"  (b) {run} codebook after 2 steps: max |world 2 - world 1| / max(1, "
+                  f"max |world 1|) {err:.3e} (gate {CODEBOOK_TOL[bf16]:g})", flush=True)
+            if not err <= CODEBOOK_TOL[bf16]:
+                fail(f"phase 8 {run}: the world-2 codebook is {err:.3e} from world 1's")
+    print("  (b) peak device memory per rank (rank 0 / 1): "
+          + ", ".join(f"{run} {ranks[0][run]['peak_gib']:.2f} / {ranks[1][run]['peak_gib']:.2f} "
+                      "GiB" for run in PHASE8_RUNS)
+          + f"; two ranks spawned, built, stepped and joined in {wall:.1f} s", flush=True)
+    return launches
+
+
+def phase8_remat(cfg_full, logs):
+    """(c): ``gpt`` with remat on and off from one seed."""
+    from detail_tts_tpu_torch.train.trainer import Trainer
+
+    runs = {}
+    for remat in (True, False):
+        cfg = phase8_cfg(cfg_full, "gpt", 2, remat_gpt=remat)
+        trainer = Trainer(cfg, phase8_data(cfg, 2), device="cuda", seed=0,
+                          logs_folder=os.path.join(logs, f"gpt-remat-{remat}"))
+        trainer.train(max_steps=1, log_every=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.train(max_steps=2, log_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = trainer.last_metrics
+        runs[remat] = (m["loss"].item(), m["grad_norm"].item(),
+                       torch.cuda.max_memory_allocated() / 2**30, wall)
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    rel = [abs(a - b) / abs(b) for a, b in zip(on[:2], off[:2])]
+    print(f"  (c) gpt, micro-batch 8 x accum 2, dropout {cfg_full.gpt.dropout}, step 2: remat "
+          f"on loss {on[0]:.9f} grad_norm {on[1]:.9f}, off {off[0]:.9f} / {off[1]:.9f} "
+          f"(relative {rel[0]:.2e}, {rel[1]:.2e}; gate 1e-6); peak device memory "
+          f"{on[2]:.2f} GiB with remat, {off[2]:.2f} GiB without; step wall {on[3]:.3f} / "
+          f"{off[3]:.3f} s", flush=True)
+    if any(not r <= 1e-6 for r in rel):
+        fail("phase 8: remat changed the gpt step")
+    if not on[2] < off[2]:
+        fail("phase 8: remat did not lower the gpt step's peak memory")
+
+
+def phase_parallel(cfg_full, logs):
+    """Phase 8: data parallelism and remat; returns the training kernels'
+    launches of (a) and (b)."""
+    import torch.distributed as dist
+    from detail_tts_tpu_torch.parallel.mesh import init_distributed
+
+    print("== data parallelism and remat", flush=True)
+    print(f"  {smi('name,power.limit')}", flush=True)
+    os.makedirs(logs)
+    group, _ = init_distributed(f"tcp://127.0.0.1:{free_port()}", device="cuda:0", rank=0,
+                                world_size=1)
+    try:
+        launches, diff_ref = phase8_world1(cfg_full, group, logs)
+    finally:
+        dist.destroy_process_group()
+    for name, n in phase8_world2(cfg_full, diff_ref, logs).items():
+        launches[name] += n
+    phase8_remat(cfg_full, logs)
+    return launches
+
+
 def main():
     from detail_tts_tpu_torch.config import Config
     from detail_tts_tpu_torch.serving.pipeline import EngineConfig, random_engine
@@ -1639,6 +1938,7 @@ def main():
         train_launches = phase_training(cfg, os.path.join(work, "phase6"))
         target_launches = phase_train_targets(cfg, os.path.join(work, "phase6b"))
         corpus_launches, corpus_b1 = phase_corpus(cfg, os.path.join(work, "phase7"))
+        parallel_launches = phase_parallel(cfg, os.path.join(work, "phase8"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1659,9 +1959,12 @@ def main():
         kernels.append(dict(
             name=name, route="cuda", source=f"detail_tts_tpu_torch/csrc/{src}",
             replaces=f"detail_tts_tpu/ops/pallas/attention.py:{line}",
-            launches=train_launches[name] + target_launches[name] + corpus_launches[name],
-            launches_over="3 diff steps (phase 6), 2 all steps (phase 6b) and 6 diff steps "
-                          "from the corpus in this process (phase 7: trainer A's 5, R's 1)",
+            launches=(train_launches[name] + target_launches[name] + corpus_launches[name]
+                      + parallel_launches[name]),
+            launches_over="3 diff steps (phase 6), 2 all steps (phase 6b), 6 diff steps "
+                          "from the corpus in this process (phase 7: trainer A's 5, R's 1), "
+                          "and in phase 8 the world-1 NCCL Trainer's 2 diff and 2 all steps "
+                          "and both world-2 ranks' 2 diff steps",
             max_abs_err=train_worst[name][0], max_scaled_err=train_worst[name][1],
             library=("torch.sum over the batch" if name.endswith("sum") else
                      "scaled_dot_product_attention (" + backend + ")"),

@@ -19,6 +19,12 @@ batches of micro x accum clips, with JAX's seeding, so one thread gives
 the JAX package's batches exactly.  Batches are numpy arrays in JAX's
 layout ``(accum, micro, ...)``, channels last, int32 lengths and ids; the
 trainer moves them to its device.  The card never sees a decode thread.
+
+Under data parallelism each rank loads its own rows of the corpus
+(``JsonlTtsDataset(rank, world)``) into micro-batches of ``batch_size //
+world``, and the ranks agree on each batch's padded lengths (the max of
+their buckets, one small all-reduce in ``next``), so the world-W batch is a
+world-1 batch cut by rows, as JAX's one global array is.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 from detail_tts_tpu_torch.audio.mel import MelFrontend
 from detail_tts_tpu_torch.config import Config
 from detail_tts_tpu_torch.native import load_wav_native
+from detail_tts_tpu_torch.parallel import mesh
 from detail_tts_tpu_torch.text.pinyin import to_pinyin
 
 
@@ -210,18 +217,40 @@ def collate(samples: List[Dict[str, np.ndarray]], buckets: BucketSpec,
     return out
 
 
+# Keys padded together (axis 2 of (accum, micro, T, ...)): the crop, the
+# raw copies and the text; the wavs in samples.
+_PADDED = (("spec", "mel", "wav"), ("raw_spec", "raw_mel", "raw_wav"), ("text",))
+
+
+def pad_to_agreed(batch: Dict[str, np.ndarray], hop: int, group) -> Dict[str, np.ndarray]:
+    """``batch`` zero-padded to the ranks' largest crop, raw and text
+    lengths (one all-reduce of three integers)."""
+    own = [batch[keys[0]].shape[2] for keys in _PADDED]
+    agreed = mesh.all_reduce_max_host(own, group)
+    out = dict(batch)
+    for n, want, keys in zip(own, agreed, _PADDED):
+        for key in keys:
+            width = [(0, 0)] * out[key].ndim
+            width[2] = (0, (want - n) * (hop if key.endswith("wav") else 1))
+            out[key] = np.pad(out[key], width)
+    return out
+
+
 class DataIterator:
     """Endless shuffled batches from background decode threads.
 
     Each batch holds micro_batch x accum clips in the layout (accum, micro,
     ...).  Thread ``wid`` crops with ``default_rng(hash((wid, 1234)) %
     2**31)``; the visiting order is a permutation from ``default_rng(seed)``,
-    drawn anew at each pass.  ``close()`` stops and joins the threads."""
+    drawn anew at each pass.  ``group``: the data-parallel process group;
+    ``next`` then pads each batch to the ranks' agreed lengths (every rank
+    must call it once a step).  ``close()`` stops and joins the threads."""
 
     def __init__(self, dataset: JsonlTtsDataset, micro_batch: int,
                  accum: int = 1, buckets: BucketSpec = BucketSpec(),
-                 num_threads: int = 8, prefetch: int = 4, seed: int = 0):
+                 num_threads: int = 8, prefetch: int = 4, seed: int = 0, group=None):
         self.ds = dataset
+        self.group = group
         self.micro = micro_batch
         self.accum = accum
         self.buckets = buckets
@@ -273,7 +302,10 @@ class DataIterator:
         return self
 
     def __next__(self) -> Dict[str, np.ndarray]:
-        return self._q.get()
+        batch = self._q.get()
+        if mesh.world(self.group) > 1:
+            batch = pad_to_agreed(batch, self.hop, self.group)
+        return batch
 
     def close(self) -> None:
         self._stop.set()

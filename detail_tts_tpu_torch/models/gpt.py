@@ -16,14 +16,22 @@ Dropout (``GPTConfig.dropout`` in the trunk, 0.1 in the conditioning
 encoder) draws its masks from ``generator`` in ``train()`` mode: on the
 embeddings, then in each block on the attention weights, the attention
 output and the MLP output, as HF GPT-2 and the JAX module place it.
-``TrainConfig.remat_gpt`` has no counterpart: the port keeps every
-activation (``PERF.md`` gives the step's peak memory).
+
+``remat`` (``TrainConfig.remat_gpt``, JAX's ``nn.remat`` over the blocks,
+gpt.py:141-145): in a training forward (grad mode on, no cache) each block
+runs under ``torch.utils.checkpoint`` and its activations are recomputed
+in the backward.  The recompute replays the block's dropout masks: the
+generator's state before the block is saved and set for the recompute,
+and the generator's state at the recompute is restored after it, so the
+gradient is the one of the forward's masks and the step's later draws are
+untouched (``checkpoint`` itself replays torch's global generators only).
 
 Parameter names are the reference's (``gpt.gpt.h.0.attn.c_attn.weight``...);
 HF GPT-2's ``Conv1D`` keeps its (in, out) weight layout.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import List, Optional, Tuple
@@ -31,6 +39,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from detail_tts_tpu_torch.config import GPTConfig
 from detail_tts_tpu_torch.nn.common import (Dense, SeededDropout, TorchLayerNorm,
@@ -125,12 +134,39 @@ class GPT2Block(nn.Module):
         return x + self.mlp(self.ln_2(x), generator)
 
 
+@contextlib.contextmanager
+def _replay(generator: torch.Generator, state: torch.Tensor):
+    """``generator`` at ``state`` inside the block, at its own state after."""
+    now = generator.get_state()
+    generator.set_state(state)
+    try:
+        yield
+    finally:
+        generator.set_state(now)
+
+
+def _remat_block(block: nn.Module, x: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``block(x)`` whose activations are recomputed in the backward, with
+    the forward's dropout masks."""
+    if generator is None:
+        return checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
+    state = generator.get_state()
+    # the block draws from ``generator`` only, so torch's global generators
+    # need no replay
+    return checkpoint(block, x, None, 0, generator, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _replay(generator, state)))
+
+
 class GPT2Stack(nn.Module):
     """GPT-2 trunk over input embeddings (no wte/wpe)."""
 
     def __init__(self, layers: int, dim: int, heads: int, eps: float,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.drop = SeededDropout(dropout)
         self.h = nn.ModuleList([GPT2Block(dim, heads, eps, dropout)
                                 for _ in range(layers)])
@@ -139,7 +175,11 @@ class GPT2Stack(nn.Module):
     def forward(self, emb: torch.Tensor, cache: Optional[KVCache] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.drop(emb, generator)
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
+            if remat:
+                x = _remat_block(block, x, generator)
+                continue
             kv = None if cache is None else (cache.k[i], cache.v[i])
             x = block(x, kv, 0 if cache is None else cache.length, generator)
         if cache is not None:
@@ -157,7 +197,7 @@ class LearnedPositionEmbeddings(nn.Module):
 
 
 class UnifiedVoice(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, remat: bool = False):
         super().__init__()
         c = self.cfg = cfg
         self.conditioning_encoder = MelStyleEncoder(
@@ -170,7 +210,7 @@ class UnifiedVoice(nn.Module):
         self.text_pos_embedding = LearnedPositionEmbeddings(
             c.max_text_tokens + 2, c.model_dim)
         self.gpt = GPT2Stack(c.layers, c.model_dim, c.heads, c.layer_norm_eps,
-                             c.dropout)
+                             c.dropout, remat)
         self.final_norm = TorchLayerNorm(c.model_dim, eps=c.layer_norm_eps)
         self.mel_head = Dense(c.model_dim, c.number_mel_codes)
         self.text_head = Dense(c.model_dim, c.number_text_tokens + 1)

@@ -15,9 +15,18 @@ updated in place.  Distances and k-means run in fp32 with autocast off.
 
 The random draws of a training call (the k-means initial rows and the
 expiry replacements) come in a :class:`VQDraws` drawn from the step's
-generator by :func:`draw_codebook`, or handed in (the tests hand in JAX's).  The
-JAX module's ``axis_name`` collectives belong to data parallelism and are
-not here.
+generator by :func:`draw_codebook`, or handed in (the tests hand in JAX's).
+
+Under data parallelism the training call takes the process group where the
+JAX module takes ``axis_name`` (quantizer.py:108-170).  The draws index
+the *global* flattened vectors, rank r's local rows at offsets [r n, (r+1) n):
+the k-means samples are every rank's first 500 rows gathered in rank order
+and cut to 500 (the global batch's first 500), so every rank runs the same
+k-means; the expiry rows are the global rows, each rank filling its own
+share into one sum (the EMA write overwrites them, core_vq.py:217-229, as
+JAX's replica-0 rows are); the EMA ``counts`` and ``embed_sum`` are summed
+over the ranks in one collective before the update.  Every rank then holds
+the world-1 codebook of the global batch, up to the order of that sum.
 """
 from __future__ import annotations
 
@@ -25,9 +34,11 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn as nn
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from detail_tts_tpu_torch.nn.common import Dense
+from detail_tts_tpu_torch.parallel.mesh import all_gather_rows, rank
 
 KMEANS_SAMPLE_CAP = 500
 
@@ -74,6 +85,19 @@ def _kmeans(samples: torch.Tensor, init_idx: torch.Tensor,
     return means, bins
 
 
+def _global_rows(flat: torch.Tensor, idx: torch.Tensor, group=None) -> torch.Tensor:
+    """Rows ``idx`` of the vectors of every rank stacked in rank order: each
+    rank fills the rows it holds, zeros elsewhere, and one sum joins them."""
+    if group is None:
+        return flat[idx]
+    n = flat.shape[0]
+    local = idx - rank(group) * n
+    mine = (local >= 0) & (local < n)
+    rows = torch.where(mine[:, None], flat[local.clamp(0, n - 1)], 0.0)
+    dist.all_reduce(rows, group=group)
+    return rows
+
+
 class EuclideanCodebook(nn.Module):
     def __init__(self, codebook_size: int, dim: int, decay: float = 0.99,
                  epsilon: float = 1e-5, threshold_ema_dead_code: float = 2.0,
@@ -100,15 +124,17 @@ class EuclideanCodebook(nn.Module):
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, kmeans_idx: torch.Tensor,
-                expire_idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                expire_idx: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """The training call on (..., D): (quantized from the codebook before
         the update, ids), then the codebook state updated in place
         (core_vq.py:96-231).  Whether to initialise is read from ``inited``
-        on the host."""
+        on the host.  ``group``: the data-parallel process group (the
+        indices are then into the global vectors)."""
         flat = x.reshape(-1, self.dim).float()
         with torch.autocast(device_type=flat.device.type, enabled=False):
             if not bool(self.inited):
-                embed, bins = _kmeans(flat[:KMEANS_SAMPLE_CAP], kmeans_idx,
+                samples = all_gather_rows(flat[:KMEANS_SAMPLE_CAP], group)
+                embed, bins = _kmeans(samples[:KMEANS_SAMPLE_CAP], kmeans_idx,
                                       self.kmeans_iters)
                 self.embed.copy_(embed)
                 self.embed_avg.copy_(embed)
@@ -120,11 +146,17 @@ class EuclideanCodebook(nn.Module):
             # EMA write below overwrites the replaced rows, as the reference's
             # does (core_vq.py:217-229)
             expired = self.cluster_size < self.threshold_ema_dead_code
-            self.embed.copy_(torch.where(expired[:, None], flat[expire_idx], self.embed))
+            self.embed.copy_(torch.where(expired[:, None], _global_rows(flat, expire_idx, group),
+                                         self.embed))
             onehot = F.one_hot(ids, self.codebook_size).float()
+            counts, embed_sum = onehot.sum(0), onehot.t() @ flat
+            if group is not None:  # one sum over the ranks: JAX's psum
+                stats = torch.cat([counts[:, None], embed_sum], dim=1)
+                dist.all_reduce(stats, group=group)
+                counts, embed_sum = stats[:, 0], stats[:, 1:]
             d = self.decay
-            self.cluster_size.mul_(d).add_(onehot.sum(0) * (1 - d))
-            self.embed_avg.mul_(d).add_((onehot.t() @ flat) * (1 - d))
+            self.cluster_size.mul_(d).add_(counts * (1 - d))
+            self.embed_avg.mul_(d).add_(embed_sum * (1 - d))
             n = self.cluster_size.sum()
             smoothed = ((self.cluster_size + self.epsilon)
                         / (n + self.codebook_size * self.epsilon) * n)
@@ -149,11 +181,11 @@ class VectorQuantization(nn.Module):
         return self.project_out(self._codebook.lookup(ids))
 
     def forward(self, x: torch.Tensor, kmeans_idx: torch.Tensor,
-                expire_idx: torch.Tensor):
+                expire_idx: torch.Tensor, group=None):
         """Training call: (quantized through the straight-through estimator
         and ``project_out``, ids, commitment MSE in fp32)."""
         z = self.project_in(x)
-        q, ids = self._codebook(z, kmeans_idx, expire_idx)
+        q, ids = self._codebook(z, kmeans_idx, expire_idx, group)
         commit = (q - z.float()).square().mean()
         return self.project_out(z + (q.to(z.dtype) - z).detach()), ids, commit
 
@@ -194,12 +226,14 @@ class ResidualVectorQuantizer(nn.Module):
             out = q if out is None else out + q
         return out
 
-    def forward(self, x: torch.Tensor, draws: VQDraws):
+    def forward(self, x: torch.Tensor, draws: VQDraws, group=None):
         """Training call on (B, T, dimension): (quantized, ids (n_q, B, T),
-        commitment loss averaged over the layers)."""
+        commitment loss averaged over the layers).  ``group``: the
+        data-parallel process group, ``draws`` then index the global
+        vectors."""
         residual, out, all_ids, losses = x, torch.zeros_like(x), [], []
         for i, layer in enumerate(self.vq.layers):
-            q, ids, commit = layer(residual, draws.kmeans[i], draws.expire[i])
+            q, ids, commit = layer(residual, draws.kmeans[i], draws.expire[i], group)
             residual = residual - q
             out = out + q
             all_ids.append(ids)

@@ -16,7 +16,9 @@ on a random segment: the GAN step's generator).  Waveforms are (B, T, 1).
 Random draws come in NamedTuples (:class:`DiffDraws`, ``VQDraws``,
 :class:`FlowDraws`), drawn from the step's generator or handed in; dropout
 masks come from the generator passed to each forward.  The frozen passes
-(codes, GPT latents) draw nothing, as JAX runs them deterministic.
+(codes, GPT latents) draw nothing, as JAX runs them deterministic.  Under
+data parallelism the draws are made for the global batch, identical on
+every rank, and :func:`shard_draws` keeps a rank's rows.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from detail_tts_tpu_torch.nn.common import (Conv1d, ConvTranspose1d, TorchLayerN
                                             sequence_mask, slice_segments)
 from detail_tts_tpu_torch.nn.coupling import ResidualCouplingBlock
 from detail_tts_tpu_torch.nn.style_encoder import MelStyleEncoder
+from detail_tts_tpu_torch.parallel.mesh import shard_rows
 
 
 def make_train_schedule(cfg: Config, device="cpu") -> DiffusionSchedule:
@@ -108,6 +111,20 @@ def draw_flow(cfg: Config, lengths: torch.Tensor, frames: int, generator,
     return FlowDraws(noise, rand_slice_starts(lengths, seg_frames, generator))
 
 
+def shard_draws(draws, group=None):
+    """This rank's share of draws made for the global batch: the rows of
+    :class:`DiffDraws`' ``t``, ``noise`` and ``uncond`` and of
+    :class:`FlowDraws`; the layer-drop flags and ``VQDraws`` (indices into
+    the global vectors) are every rank's."""
+    if group is None or isinstance(draws, VQDraws):
+        return draws
+    if isinstance(draws, DiffDraws):
+        return draws._replace(t=shard_rows(draws.t, group),
+                              noise=shard_rows(draws.noise, group),
+                              uncond=shard_rows(draws.uncond, group))
+    return FlowDraws(*(shard_rows(x, group) for x in draws))
+
+
 class FlowVAEOutputs(NamedTuple):
     y_hat_slice: torch.Tensor  # (B, segment_size, 1) generated wav segment
     ids_slice: torch.Tensor    # (B,) frame starts of the segment
@@ -147,7 +164,7 @@ class SynthesizerTrn(nn.Module):
                                           gin_channels=v.gin_channels)
         self.ref_enc = MelStyleEncoder(d.n_mel_channels,
                                        style_vector_dim=v.gin_channels)
-        self.gpt = UnifiedVoice(cfg.gpt)
+        self.gpt = UnifiedVoice(cfg.gpt, remat=cfg.train.remat_gpt)
         self.quantizer = ResidualVectorQuantizer(
             inter * 4, n_q=v.vq_n_q, bins=v.vq_bins, codebook_dim=v.vq_codebook_dim,
             decay=v.vq_decay, threshold_ema_dead_code=v.vq_threshold_ema_dead_code,
@@ -194,11 +211,12 @@ class SynthesizerTrn(nn.Module):
         return self.vq_ref_enc(mel * mask[..., None].to(mel.dtype), mask)[:, None, :]
 
     def forward_vq(self, mel: torch.Tensor, mel_lengths: torch.Tensor,
-                   draws: VQDraws) -> Tuple[torch.Tensor, torch.Tensor]:
+                   draws: VQDraws, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """VQ-VAE stage (model_24k.py:654-666): (recon L1 in fp32, commit)
-        through the training quantizer, which updates the codebook."""
+        through the training quantizer, which updates the codebook
+        (``group``: the data-parallel process group, see the quantizer)."""
         x = self.vq_encode_features(mel)
-        quantized, _, commit = self.quantizer(x, draws)
+        quantized, _, commit = self.quantizer(x, draws, group)
         recon = self.vq_decode_features(quantized + self.vq_style(mel, mel_lengths))
         return (recon.float() - mel.float()).abs().mean(), commit
 

@@ -8,13 +8,19 @@ Usage:
 Every knob is a flag (the reference hard-codes its paths,
 train.py:462-465).  The run trains on the card unless ``--device cpu`` is
 given.  ``--resume`` restores a checkpoint directory the trainer wrote
-(its newest step), partially where the target differs.  One process, one
-device: multi-GPU training is not ported yet.
+(its newest step), partially where the target differs.
+
+Data parallel on N cards of one host (one process a card, NCCL):
+  torchrun --nproc_per_node N -m detail_tts_tpu_torch.train --data ... \
+      --logs-folder logs/run
+``batch_size`` is then the global micro-batch, ``batch_size // N`` clips a
+card.  With ``WORLD_SIZE`` unset the run is one process, as above.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 
 def main(argv=None):
@@ -31,7 +37,10 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
 
+    import torch.distributed as dist
+
     from detail_tts_tpu_torch.config import Config
+    from detail_tts_tpu_torch.parallel.mesh import init_distributed
     from detail_tts_tpu_torch.train.trainer import Trainer
 
     cfg = Config.from_json(args.config) if args.config else Config()
@@ -39,14 +48,21 @@ def main(argv=None):
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, target=args.target))
 
-    trainer = Trainer(cfg, device=args.device, logs_folder=args.logs_folder)
+    group, device = None, args.device
+    if "WORLD_SIZE" in os.environ:  # under torchrun
+        group, device = init_distributed(device=args.device)
     try:
-        trainer.default_data(args.data, num_threads=args.num_workers)
-        if args.resume:
-            trainer.load(args.resume)
-        return trainer.train(max_steps=args.steps)
+        trainer = Trainer(cfg, device=device, logs_folder=args.logs_folder, group=group)
+        try:
+            trainer.default_data(args.data, num_threads=args.num_workers)
+            if args.resume:
+                trainer.load(args.resume)
+            return trainer.train(max_steps=args.steps)
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        if group is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -9,8 +9,11 @@ JAX's ``vq_state``), the AdamW state keyed by parameter name and, for the
 GAN targets, the discriminator and its AdamW state.  Moments are keyed by
 name, not by ``torch.optim``'s index into the trainable list, because each
 target trains another subset: a staged restore (a ``vqvae`` checkpoint
-into a ``gpt`` trainer) grafts them by name.  No generator state is saved,
-as JAX's ``TrainState`` holds no rng.
+into a ``gpt`` trainer) grafts them by name.  The trainer also saves its
+generators' states under ``rng`` (the step generator, and under data
+parallelism every rank's dropout generator, one row a rank), so that a
+resume draws what the run would have drawn; JAX's ``TrainState`` holds no
+rng.  Under data parallelism rank 0 writes and every rank restores.
 
 ``restore_checkpoint(partial=True)`` is the reference's lax loader made
 explicit: every tensor whose name and shape match is restored, every other
@@ -103,13 +106,16 @@ def load_optimizer_state_by_name(optimizer: torch.optim.Optimizer, module: nn.Mo
     return skipped
 
 
-def save_checkpoint(directory, state, keep: int = 3) -> Path:
+def save_checkpoint(directory, state, keep: int = 3,
+                    rng: Optional[Mapping[str, torch.Tensor]] = None) -> Path:
     """Save a ``TrainState`` as ``directory/<state.step>/state.pt``, then
-    delete all but the newest ``keep`` steps.  Returns the step's
-    directory."""
+    delete all but the newest ``keep`` steps.  ``rng``: generator states
+    saved beside it.  Returns the step's directory."""
     step = int(state.step)
     data = {"step": step, "model": _cpu(state.model.state_dict()),
             "optimizer": optimizer_state_by_name(state.optimizer, state.model)}
+    if rng:
+        data["rng"] = _cpu(rng)
     if state.disc is not None:
         data["disc"] = _cpu(state.disc.state_dict())
         data["d_optimizer"] = optimizer_state_by_name(state.d_optimizer, state.disc)
@@ -196,7 +202,8 @@ def _restore_module(module: nn.Module, saved: Mapping[str, torch.Tensor],
 
 
 def restore_checkpoint(directory, state, step: Optional[int] = None,
-                       partial: bool = True, verbose: bool = True) -> List[str]:
+                       partial: bool = True, verbose: bool = True,
+                       rng: Optional[Dict[str, torch.Tensor]] = None) -> List[str]:
     """Restore a saved step (the newest by default) into ``state`` in place.
 
     ``partial=True``: model and discriminator tensors by name and shape
@@ -204,8 +211,11 @@ def restore_checkpoint(directory, state, step: Optional[int] = None,
     not match keeps its current value and is returned (and printed when
     ``verbose``): ``missing:<name>`` or ``shape:<name> ...`` for the model,
     the same behind ``optimizer.``, ``disc.`` or ``d_optimizer.`` for the
-    rest.  ``partial=False``: every tensor must match."""
+    rest.  ``partial=False``: every tensor must match.  ``rng``: a dict
+    that takes the saved generator states (none if there are none)."""
     data = load_checkpoint(directory, step)
+    if rng is not None:
+        rng.update(data.get("rng", {}))
     skipped = _restore_module(state.model, data["model"], partial)
     skipped += [f"optimizer.{s}" for s in load_optimizer_state_by_name(
         state.optimizer, state.model, data["optimizer"], partial)]

@@ -4,12 +4,22 @@ Counterpart of ``detail_tts_tpu/train/losses.py``.  Feature maps and logits
 come as lists, one entry per discriminator (``MultiPeriodDiscriminator``'s
 return structure); every operand is cast to fp32, as the reference's
 ``.float()`` calls do.
+
+Under data parallelism every loss of a step is averaged over the ranks.
+For an unmasked mean over equally sized shards that average is the
+global-batch value (these losses, the GPT's cross-entropies, the diffusion
+``mean_flat``, the recon, commitment and mel L1); a masked mean is not,
+because the ranks' masks differ: :func:`kl_loss` divides by the global
+mask sum, and so must any masked loss added later.
 """
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+
+from detail_tts_tpu_torch.parallel.mesh import world
 
 
 def feature_loss(fmap_r: Sequence[Sequence[torch.Tensor]],
@@ -45,10 +55,20 @@ def generator_loss(disc_fake: Sequence[torch.Tensor]
 
 
 def kl_loss(z_p: torch.Tensor, logs_q: torch.Tensor, m_p: torch.Tensor,
-            logs_p: torch.Tensor, z_mask: torch.Tensor) -> torch.Tensor:
+            logs_p: torch.Tensor, z_mask: torch.Tensor, group=None) -> torch.Tensor:
     """Masked KL between the flowed posterior and the prior; (B, T, C)
-    tensors, mask (B, T, 1)."""
+    tensors, mask (B, T, 1): sum(kl * mask) / sum(mask).
+
+    ``group``: the data-parallel process group.  The mask sum is then the
+    global batch's (all-reduced, no gradient) and the local sum is scaled
+    by the world, so the ranks' average, and its gradient, is the global
+    ratio."""
     z_p, logs_q, m_p, logs_p = (x.float() for x in (z_p, logs_q, m_p, logs_p))
     z_mask = z_mask.float()
     kl = logs_p - logs_q - 0.5 + 0.5 * (z_p - m_p).square() * torch.exp(-2.0 * logs_p)
-    return (kl * z_mask).sum() / z_mask.sum()
+    den = z_mask.sum()
+    if group is None:
+        return (kl * z_mask).sum() / den
+    den = den.detach().clone()
+    dist.all_reduce(den, group=group)
+    return (kl * z_mask).sum() / den * float(world(group))

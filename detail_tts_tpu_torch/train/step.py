@@ -34,7 +34,24 @@ their (g, v) parametrization.
 Each stage of a step is a ``torch.profiler`` range: ``latents`` (VQ codes
 and GPT latents), ``forward``, ``backward`` and ``optimizer``, and in the
 GAN step ``discriminator`` (its forward, backward and update) and
-``gen_loss`` (the generator's loss against the updated discriminator).
+``gen_loss`` (the generator's loss against the updated discriminator);
+with a process group also ``allreduce`` (the gradients' all-reduce).
+
+Data parallelism (``group``, one process a card; ``parallel/mesh.py``): a
+step of world W on a global batch computes the world-1 step's update on
+that batch, as JAX's step does on any ``data`` factorisation.  Each rank
+holds its rows (batch / W).  The random draws are made for the global
+batch from ``generator``, identical on every rank, and each rank keeps its
+rows; the GAN step gathers the lengths its segment draw needs.  The
+gradients are averaged over the ranks once a backward, after the division
+by ``accum`` and before the clip and AdamW (the discriminator's before its
+update, the generator's before its own).  The masked KL divides by the
+global mask sum; the quantizer sums its EMA statistics over the ranks.
+The loss metrics are averaged in one collective.  At world > 1 the dropout
+masks come from ``dropout_generator``, this rank's own
+(``parallel.mesh.rank_generator``), since one seed on every rank would give
+row i of every rank the same mask; at world 1 they come from ``generator``
+as without a group, so a world-1 step is the plain step bit for bit.
 """
 from __future__ import annotations
 
@@ -55,8 +72,9 @@ from detail_tts_tpu_torch.models.quantizer import VQDraws
 from detail_tts_tpu_torch.models.synthesizer import (DiffDraws, FlowDraws,
                                                      SynthesizerTrn, draw_diff,
                                                      draw_flow, draw_vq,
-                                                     make_train_schedule)
+                                                     make_train_schedule, shard_draws)
 from detail_tts_tpu_torch.nn.common import slice_segments, weight_norm_
+from detail_tts_tpu_torch.parallel import mesh
 from detail_tts_tpu_torch.serving.pipeline import resolve_device
 from detail_tts_tpu_torch.train.losses import (discriminator_loss, feature_loss,
                                                generator_loss, kl_loss)
@@ -249,14 +267,31 @@ def _stages(timings: Optional[Dict[str, float]], dev: torch.device):
     return stage
 
 
-def make_single_loss_step(cfg: Config, device="cuda") -> Callable:
-    """Returns ``step(state, batch, generator, draws=None, timings=None)
-    -> metrics`` for target ``vqvae``, ``gpt`` or ``diff``.
+def _dropout_generator(group, generator, dropout_generator):
+    """The generator of a step's dropout masks: ``generator`` at world 1,
+    this rank's ``dropout_generator`` above."""
+    if mesh.world(group) == 1:
+        return generator
+    if dropout_generator is None:
+        raise ValueError(f"a step over a world of {mesh.world(group)} needs this rank's "
+                         "dropout_generator (parallel.mesh.rank_generator)")
+    return dropout_generator
 
-    ``batch`` leaves have shape (accum, micro_batch, ...).  ``draws``:
-    optional per-microbatch draws, :class:`DiffDraws` (``diff``) or
-    ``VQDraws`` (``vqvae``) (the tests hand in JAX's); else each microbatch
-    draws from ``generator``, which also gives the dropout masks.
+
+def _global_shape(shape, group):
+    return (shape[0] * mesh.world(group),) + tuple(shape[1:])
+
+
+def make_single_loss_step(cfg: Config, device="cuda", group=None) -> Callable:
+    """Returns ``step(state, batch, generator, draws=None, timings=None,
+    dropout_generator=None) -> metrics`` for target ``vqvae``, ``gpt`` or
+    ``diff``; ``group``: the data-parallel process group (see above).
+
+    ``batch`` leaves have shape (accum, micro_batch, ...), this rank's rows.
+    ``draws``: optional per-microbatch draws for the global micro-batch,
+    :class:`DiffDraws` (``diff``) or ``VQDraws`` (``vqvae``) (the tests
+    hand in JAX's); else each microbatch draws from ``generator``, which
+    also gives the dropout masks at world 1.
     ``timings``: optional dict; each stage then ends in a device
     synchronisation and its wall time is added under its name.  Metrics
     (0-d tensors, means over microbatches): ``loss``, ``loss_text`` and
@@ -275,9 +310,11 @@ def make_single_loss_step(cfg: Config, device="cuda") -> Callable:
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              draws: Optional[Sequence] = None,
-             timings: Optional[Dict[str, float]] = None) -> Dict[str, object]:
+             timings: Optional[Dict[str, float]] = None,
+             dropout_generator: Optional[torch.Generator] = None) -> Dict[str, object]:
         stage = _stages(timings, dev)
         model = state.model
+        drop_gen = _dropout_generator(group, generator, dropout_generator)
         accum = next(iter(batch.values())).shape[0]
         parts: Dict[str, List[torch.Tensor]] = {}
         kept = []
@@ -289,22 +326,23 @@ def make_single_loss_step(cfg: Config, device="cuda") -> Callable:
                         latents = model.gpt_latents(mb)
                     with stage("forward"):
                         d = draws[i] if draws is not None else draw_diff(
-                            cfg, schedule, mb["raw_mel"].shape, generator, dev,
-                            train=model.training)
-                        loss = model.forward_diff(mb, schedule, d, latents=latents,
-                                                  generator=generator)
+                            cfg, schedule, _global_shape(mb["raw_mel"].shape, group),
+                            generator, dev, train=model.training)
+                        loss = model.forward_diff(mb, schedule, shard_draws(d, group),
+                                                  latents=latents, generator=drop_gen)
                     kept.append(d.keep)
                     terms = {}
                 elif target == "gpt":
                     with stage("forward"):
-                        loss_text, loss_mel = model.forward_gpt(mb, generator)
+                        loss_text, loss_mel = model.forward_gpt(mb, drop_gen)
                         loss = t.text_weight * loss_text + t.mel_weight * loss_mel
                     terms = {"loss_text": loss_text, "loss_mel": loss_mel}
                 else:  # vqvae
                     with stage("forward"):
                         d = draws[i] if draws is not None else draw_vq(
-                            cfg, mb["mel"].shape, generator, dev)
-                        recon, commit = model.forward_vq(mb["mel"], mb["spec_length"], d)
+                            cfg, _global_shape(mb["mel"].shape, group), generator, dev)
+                        recon, commit = model.forward_vq(mb["mel"], mb["spec_length"], d,
+                                                         group)
                         loss = recon + 0.25 * commit  # model_24k.py:665
                     terms = {"loss_recon": recon, "loss_commit": commit}
             with stage("backward"):
@@ -315,10 +353,15 @@ def make_single_loss_step(cfg: Config, device="cuda") -> Callable:
             with torch.no_grad():
                 grads = [p.grad for p in state.params if p.grad is not None]
                 torch._foreach_div_(grads, float(accum))
+        if group is not None:
+            with stage("allreduce"):
+                mesh.all_reduce_grads(state.params, group)
+        with stage("optimizer"):
             grad_norm = optimizer_step(state.optimizer, state.params, cfg, state.step)
             state.optimizer.zero_grad(set_to_none=True)
             state.step += 1
         metrics: Dict[str, object] = {k: torch.stack(v).mean() for k, v in parts.items()}
+        metrics = mesh.reduce_metrics(metrics, list(parts), group)
         metrics["grad_norm"] = grad_norm
         if target == "diff":
             metrics["layers_kept"] = kept
@@ -335,14 +378,16 @@ class GanDraws(NamedTuple):
     vq: Optional[VQDraws] = None
 
 
-def make_gan_step(cfg: Config, device="cuda") -> Callable:
-    """Returns ``step(state, batch, generator, draws=None, timings=None)
-    -> metrics`` for target ``flowvae`` or ``all`` (train.py:259-447).
+def make_gan_step(cfg: Config, device="cuda", group=None) -> Callable:
+    """Returns ``step(state, batch, generator, draws=None, timings=None,
+    dropout_generator=None) -> metrics`` for target ``flowvae`` or ``all``
+    (train.py:259-447); ``group`` as in :func:`make_single_loss_step`.
 
-    ``batch`` leaves have shape (batch, ...).  ``draws``: an optional
-    :class:`GanDraws` (the tests hand in JAX's); else the step draws from
-    ``generator`` (enc_q's noise and the segment starts, the dropout masks,
-    then under ``all`` the diffusion and VQ draws).  ``timings`` as in
+    ``batch`` leaves have shape (batch, ...), this rank's rows.  ``draws``:
+    an optional :class:`GanDraws` for the global batch (the tests hand in
+    JAX's); else the step draws from ``generator`` (enc_q's noise and the
+    segment starts, the dropout masks at world 1, then under ``all`` the
+    diffusion and VQ draws).  ``timings`` as in
     :func:`make_single_loss_step`.  Metrics, JAX's names, 0-d tensors:
     ``loss_gen_all``, ``loss_gen``, ``loss_fm``, ``loss_mel``, ``loss_kl``,
     ``loss_commit``, ``loss_diff``, ``loss_gpt`` (0 under ``flowvae``),
@@ -367,31 +412,36 @@ def make_gan_step(cfg: Config, device="cuda") -> Callable:
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              draws: Optional[GanDraws] = None,
-             timings: Optional[Dict[str, float]] = None) -> Dict[str, object]:
+             timings: Optional[Dict[str, float]] = None,
+             dropout_generator: Optional[torch.Generator] = None) -> Dict[str, object]:
         stage = _stages(timings, dev)
         model, disc = state.model, state.disc
+        drop_gen = _dropout_generator(group, generator, dropout_generator)
         zero = torch.zeros((), device=dev)
         aux = {"loss_commit": zero, "loss_diff": zero, "loss_gpt": zero}
         kept = None
         with amp():
             with stage("forward"):
                 fd = draws.flow if draws is not None else draw_flow(
-                    cfg, batch["spec_length"], batch["mel"].shape[1], generator, dev)
+                    cfg, mesh.all_gather_rows(batch["spec_length"], group),
+                    batch["mel"].shape[1], generator, dev)
                 outs = model.forward_flowvae(batch["mel"], batch["spec"],
-                                             batch["spec_length"], fd, generator)
+                                             batch["spec_length"], shard_draws(fd, group),
+                                             drop_gen)
             if target == "all":  # model_24k.py:749-772, JAX's order
                 with stage("latents"):
                     latents = model.gpt_latents(batch)
                 with stage("forward"):
                     dd = draws.diff if draws is not None else draw_diff(
-                        cfg, schedule, batch["raw_mel"].shape, generator, dev,
-                        train=model.training)
-                    loss_diff = model.forward_diff(batch, schedule, dd, latents=latents,
-                                                   generator=generator)
-                    loss_text, loss_mel_ce = model.forward_gpt(batch, generator)
+                        cfg, schedule, _global_shape(batch["raw_mel"].shape, group),
+                        generator, dev, train=model.training)
+                    loss_diff = model.forward_diff(batch, schedule, shard_draws(dd, group),
+                                                   latents=latents, generator=drop_gen)
+                    loss_text, loss_mel_ce = model.forward_gpt(batch, drop_gen)
                     vd = draws.vq if draws is not None else draw_vq(
-                        cfg, batch["mel"].shape, generator, dev)
-                    recon, commit = model.forward_vq(batch["mel"], batch["spec_length"], vd)
+                        cfg, _global_shape(batch["mel"].shape, group), generator, dev)
+                    recon, commit = model.forward_vq(batch["mel"], batch["spec_length"], vd,
+                                                     group)
                 aux = {"loss_commit": recon + 0.25 * commit, "loss_diff": loss_diff,
                        "loss_gpt": t.text_weight * loss_text + t.mel_weight * loss_mel_ce}
                 kept = dd.keep
@@ -403,6 +453,10 @@ def make_gan_step(cfg: Config, device="cuda") -> Callable:
                 d_r, d_g, _, _ = disc(y_slice, outs.y_hat_slice.detach())
             loss_disc, _, _ = discriminator_loss(d_r, d_g)
             loss_disc.backward()
+        if group is not None:
+            with stage("allreduce"):
+                mesh.all_reduce_grads(state.d_params, group)
+        with stage("discriminator"):
             grad_norm_d = optimizer_step(state.d_optimizer, state.d_params, cfg,
                                          state.step, clip_norm=None)
             state.d_optimizer.zero_grad(set_to_none=True)
@@ -423,21 +477,25 @@ def make_gan_step(cfg: Config, device="cuda") -> Callable:
                     "loss_fm": feature_loss(fmap_r, fmap_g),
                     "loss_mel": (y_mel.float() - y_hat_mel).abs().mean() * t.c_mel,
                     "loss_kl": kl_loss(outs.z_p, outs.logs_q, outs.m_p, outs.logs_p,
-                                       outs.y_mask) * t.c_kl,
+                                       outs.y_mask, group) * t.c_kl,
                     **aux}
                 total = sum(losses.values())
             with stage("backward"):
                 total.backward()
         finally:
             disc.requires_grad_(True)
+        if group is not None:
+            with stage("allreduce"):
+                mesh.all_reduce_grads(state.params, group)
         with stage("optimizer"):
             grad_norm_g = optimizer_step(state.optimizer, state.params, cfg,
                                          state.step, clip_norm=None)
             state.optimizer.zero_grad(set_to_none=True)
             state.step += 1
         metrics: Dict[str, object] = {k: v.detach() for k, v in losses.items()}
-        metrics.update(loss_gen_all=total.detach(), loss_disc_all=loss_disc.detach(),
-                       grad_norm_g=grad_norm_g, grad_norm_d=grad_norm_d)
+        metrics.update(loss_gen_all=total.detach(), loss_disc_all=loss_disc.detach())
+        metrics = mesh.reduce_metrics(metrics, list(metrics), group)
+        metrics.update(grad_norm_g=grad_norm_g, grad_norm_d=grad_norm_d)
         if kept is not None:
             metrics["layers_kept"] = [kept]
         return metrics
@@ -445,9 +503,9 @@ def make_gan_step(cfg: Config, device="cuda") -> Callable:
     return _deterministic(step)
 
 
-def make_train_step(cfg: Config, device="cuda") -> Callable:
+def make_train_step(cfg: Config, device="cuda", group=None) -> Callable:
     """Dispatch on ``cfg.train.target`` (model_24k.py:738-748)."""
     check_target(cfg.train.target)
     if cfg.train.target in GAN_TARGETS:
-        return make_gan_step(cfg, device)
-    return make_single_loss_step(cfg, device)
+        return make_gan_step(cfg, device, group)
+    return make_single_loss_step(cfg, device, group)

@@ -18,6 +18,16 @@ micro_batch, ...), the GAN step of ``flowvae`` and ``all`` over (batch,
   TensorBoard;
 * ``train(profile_dir=...)``: a ``torch.profiler`` Chrome trace of a
   window of steps.
+
+Data parallelism (``group``, one process a card, ``torchrun``; see
+``parallel/mesh.py`` and the step): ``batch_size`` is the global
+micro-batch, each rank loads ``batch_size // world`` clips a micro-batch
+from its own rows of the corpus (an iterator passed in must yield this
+rank's rows), the initial state is rank 0's, broadcast, and each rank
+draws its dropout masks from its own generator.  Metrics, TensorBoard,
+eval dumps and profiles are rank 0's (JAX's ``_is_host0``); rank 0 writes
+the checkpoints, with every rank's generator state, and every rank
+restores them.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ from detail_tts_tpu_torch.config import Config
 from detail_tts_tpu_torch.data.dataset import (BucketSpec, DataIterator, JsonlTtsDataset,
                                                save_wav)
 from detail_tts_tpu_torch.nn.common import eval_mode
+from detail_tts_tpu_torch.parallel import mesh
 from detail_tts_tpu_torch.serving.pipeline import resolve_device
 from detail_tts_tpu_torch.text.tokenizer import make_tokenizer
 from detail_tts_tpu_torch.train import checkpoint as ckpt_lib
@@ -106,58 +117,97 @@ class MetricsLogger:
 class Trainer:
     def __init__(self, cfg, data_iter: Optional[Iterator] = None, device="cuda",
                  seed: int = 0, logs_folder: Optional[str] = None,
-                 buckets: BucketSpec = BucketSpec(), synth_eval: bool = False):
+                 buckets: BucketSpec = BucketSpec(), synth_eval: bool = False,
+                 group=None):
         """``cfg``: a :class:`Config` or the path of a reference-format JSON.
         Seeded random weights (``seed``) and one ``torch.Generator`` on
         ``device`` for every draw of the steps (seeded from the config's seed
         and ``seed``).  ``logs_folder``: metrics, eval dumps and ``ckpt/``;
         by default ``cfg.train.logs_folder/<timestamp>``.  ``synth_eval``:
         for ``gpt`` and ``diff``, the eval dump synthesizes from the batch's
-        text and prompt (train.py:229-240).  An unknown target raises
-        ``ValueError``."""
+        text and prompt (train.py:229-240).  ``group``: the data-parallel
+        process group (``parallel.mesh.init_distributed``), with ``device``
+        this rank's card.  An unknown target raises ``ValueError``."""
         if isinstance(cfg, str):
             cfg = Config.from_json(cfg)
+        mesh.check_mesh(cfg, group)
         self.cfg = cfg
         self.target = cfg.train.target
+        self.group = group
+        self.rank, self.world = mesh.rank(group), mesh.world(group)
         self.device = resolve_device(device)
         self.state = make_train_state(cfg, self.device, seed=seed)
-        self.step_fn = make_train_step(cfg, self.device)
+        mesh.replicate_tree(self.state.model, group)
+        if self.state.disc is not None:
+            mesh.replicate_tree(self.state.disc, group)
+        self.step_fn = make_train_step(cfg, self.device, group)
         self.data_iter = data_iter
         self.buckets = buckets
         self.synth_eval = synth_eval
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.train.seed * 1000003 + seed)
+        run_seed = cfg.train.seed * 1000003 + seed
+        self.generator = torch.Generator(device=self.device).manual_seed(run_seed)
+        self.dropout_generator = (mesh.rank_generator(run_seed, self.device, group)
+                                  if self.world > 1 else None)
         self.logs_folder = logs_folder or os.path.join(
             cfg.train.logs_folder, time.strftime("%Y-%m-%d-%H-%M-%S"))
-        self.metrics = MetricsLogger(self.logs_folder)
+        self.metrics = MetricsLogger(self.logs_folder) if self.rank == 0 else None
         self.last_metrics: Dict[str, object] = {}
 
     def default_data(self, jsonl_path: str, num_threads: int = 8) -> "Trainer":
-        """Batches from a jsonl corpus: micro-batch ``batch_size``, accum
-        ``gradient_accumulate_every`` (1 for the GAN targets)."""
+        """Batches from a jsonl corpus: this rank's rows, micro-batch
+        ``batch_size // world`` (a ``ValueError`` if the world does not
+        divide it), accum ``gradient_accumulate_every`` (1 for the GAN
+        targets)."""
+        micro, rest = divmod(self.cfg.train.batch_size, self.world)
+        if rest or not micro:
+            raise ValueError(f"batch_size {self.cfg.train.batch_size} does not split over "
+                             f"a world of {self.world}")
         tok = make_tokenizer(self.cfg.data.tokenizer_vocab)
-        ds = JsonlTtsDataset(self.cfg, jsonl_path, tok)
+        ds = JsonlTtsDataset(self.cfg, jsonl_path, tok, rank=self.rank, world=self.world)
         accum = 1 if self.target in GAN_TARGETS else self.cfg.train.gradient_accumulate_every
-        self.data_iter = DataIterator(ds, self.cfg.train.batch_size, accum=accum,
-                                      buckets=self.buckets, num_threads=num_threads)
+        self.data_iter = DataIterator(ds, micro, accum=accum, buckets=self.buckets,
+                                      num_threads=num_threads, group=self.group)
         return self
 
     def close(self) -> None:
         """Stop the corpus's decode threads and close the logs."""
         if isinstance(self.data_iter, DataIterator):
             self.data_iter.close()
-        self.metrics.close()
+        if self.metrics is not None:
+            self.metrics.close()
 
     # ----------------------------------------------------------- checkpoint
 
     def save(self) -> None:
-        ckpt_lib.save_checkpoint(os.path.join(self.logs_folder, "ckpt"), self.state,
-                                 keep=self.cfg.train.keep_ckpts)
+        """Rank 0 writes ``<logs>/ckpt/<step>`` with the step generator's
+        state and every rank's dropout generator state; the ranks wait for
+        it."""
+        rng = {"generator": self.generator.get_state()}
+        if self.dropout_generator is not None:
+            rng["dropout"] = mesh.all_gather_host(self.dropout_generator.get_state(),
+                                                  self.group)
+        if self.rank == 0:
+            ckpt_lib.save_checkpoint(os.path.join(self.logs_folder, "ckpt"), self.state,
+                                     keep=self.cfg.train.keep_ckpts, rng=rng)
+        mesh.barrier(self.group)
 
     def load(self, ckpt_dir: str, step: Optional[int] = None) -> "Trainer":
         """Restore ``ckpt_dir`` (its newest step by default), partially: what
-        does not match keeps its current value and is reported."""
-        ckpt_lib.restore_checkpoint(ckpt_dir, self.state, step)
+        does not match keeps its current value and is reported.  The saved
+        generator states are restored too (a rank's dropout generator only
+        when the checkpoint's world is this one)."""
+        rng: Dict[str, torch.Tensor] = {}
+        ckpt_lib.restore_checkpoint(ckpt_dir, self.state, step, rng=rng)
+        if "generator" in rng:
+            self.generator.set_state(rng["generator"])
+        dropout = rng.get("dropout")
+        if self.dropout_generator is not None and dropout is not None:
+            if dropout.shape[0] == self.world:
+                # a copy: set_state reads a row view from its storage's start
+                self.dropout_generator.set_state(dropout[self.rank].clone())
+            elif self.rank == 0:
+                print(f"checkpoint: saved at a world of {dropout.shape[0]}, not "
+                      f"{self.world}: the dropout generators start from the seed")
         return self
 
     # ---------------------------------------------------------------- data
@@ -182,6 +232,8 @@ class Trainer:
         from a generator seeded with the step, so the training generator is
         untouched.  A failure is printed, never raised: eval must not stop
         training."""
+        if self.rank != 0:
+            return
         try:
             step = self.state.step
             milestone = step // max(self.cfg.train.save_freq, 1)
@@ -206,7 +258,7 @@ class Trainer:
             gt_wav = first("raw_wav").reshape(-1).float().cpu().numpy()
             save_wav(os.path.join(self.logs_folder, f"sample-{milestone}.wav"), gen_wav, sr)
             save_wav(os.path.join(self.logs_folder, f"gt-{milestone}.wav"), gt_wav, sr)
-            if self.metrics.tb is not None:
+            if self.metrics is not None and self.metrics.tb is not None:
                 d = self.cfg.data
                 fe = MelFrontend(d.sampling_rate, d.filter_length, d.hop_length,
                                  d.win_length, d.n_mel_channels, d.mel_fmin, d.mel_fmax)
@@ -248,8 +300,8 @@ class Trainer:
         steps per second) are read back and logged, every ``val_freq`` steps an eval dump is
         written and every ``save_freq`` steps a checkpoint.  ``profile_dir``:
         a ``torch.profiler`` Chrome trace (``trace.json``) of this call's
-        steps [profile_steps[0], profile_steps[1]).  Returns the last logged
-        scalars."""
+        steps [profile_steps[0], profile_steps[1]) (rank 0's).  Returns the
+        last logged scalars."""
         if self.data_iter is None:
             raise ValueError("no data: call default_data() or pass data_iter")
         cfg = self.cfg.train
@@ -257,6 +309,8 @@ class Trainer:
         logged: Dict[str, float] = {}
         t_last, step_last = time.perf_counter(), self.state.step
         prof, steps_seen = None, 0
+        if self.rank != 0:
+            profile_dir = None
         try:
             while self.state.step < max_steps:
                 if profile_dir is not None:
@@ -267,7 +321,8 @@ class Trainer:
                         prof = None
                 steps_seen += 1
                 batch = self.next_batch()
-                metrics = self.step_fn(self.state, batch, self.generator)
+                metrics = self.step_fn(self.state, batch, self.generator,
+                                       dropout_generator=self.dropout_generator)
                 self.last_metrics = metrics
                 step = self.state.step
                 if step % log_every == 0 or step == max_steps:
@@ -276,7 +331,8 @@ class Trainer:
                     now = time.perf_counter()
                     logged["steps_per_sec"] = (step - step_last) / (now - t_last)
                     t_last, step_last = now, step
-                    self.metrics.log(step, logged)
+                    if self.metrics is not None:
+                        self.metrics.log(step, logged)
                 if step % cfg.val_freq == 0:
                     self._eval_dump(batch)
                 if step % cfg.save_freq == 0:

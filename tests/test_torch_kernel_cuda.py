@@ -371,3 +371,49 @@ def test_diff_resume_is_bit_identical(cuda, tmp_path):
     mr = ckpt.optimizer_state_by_name(r.state.optimizer, r.state.model)
     assert ma.keys() == mr.keys() and all(
         torch.equal(ma[n][k], mr[n][k]) for n in ma for k in ma[n])
+
+
+@pytest.mark.parametrize("target", ["diff", "all"])
+def test_world_1_nccl_step_is_the_plain_step(cuda, target):
+    """A small step through a world-1 NCCL process group (gradient
+    all-reduce, metric reduction, the gathered lengths and the KL's global
+    mask sum under ``all``, GPT dropout 0.1) is the plain step bit for bit:
+    metrics and every tensor, each training kernel launched as often."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+
+    from detail_tts_tpu_torch.config import small_test_config
+    from detail_tts_tpu_torch.parallel.mesh import init_distributed
+    from detail_tts_tpu_torch.train.step import (make_train_state, make_train_step,
+                                                 synthetic_batches)
+
+    gan = target == "all"
+    cfg = small_test_config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, target=target, gradient_accumulate_every=1 if gan else 2))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    group, _ = init_distributed(f"tcp://127.0.0.1:{port}", device=cuda, rank=0, world_size=1)
+    try:
+        batch = next(synthetic_batches(cfg, 1 if gan else 2, 2, 48, 8, device=cuda,
+                                       generator=torch.Generator(device=cuda).manual_seed(1)))
+        runs = []
+        for g in (None, group):
+            state = make_train_state(cfg, device=cuda, seed=0)
+            counts = dict(attention.TRAIN_LAUNCHES)
+            m = make_train_step(cfg, cuda, g)(state, batch,
+                                              torch.Generator(device=cuda).manual_seed(5))
+            launches = {k: attention.TRAIN_LAUNCHES[k] - counts[k] for k in counts}
+            runs.append((m, state.model.state_dict(), launches))
+        (m0, sd0, n0), (m1, sd1, n1) = runs
+        assert n0 == n1 and min(n0.values()) > 0
+        for k, v in m0.items():
+            if torch.is_tensor(v):
+                assert torch.equal(v, m1[k]), k
+        for k, v in sd0.items():
+            assert torch.equal(v, sd1[k]), k
+    finally:
+        dist.destroy_process_group()
