@@ -95,7 +95,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    each rank's peak memory; (c) ``gpt``
    (micro-batch 8 x accum 2, dropout 0.1) with ``remat_gpt`` on and off
    from one seed: loss and grad norm within 1e-6 relative, a lower peak
-   with remat.
+   with remat;
+9. the mesh's model axis and sharded serving at the full width of
+   ``Config()``, two gloo ranks on the one card against the one-card
+   engine and the plain Trainer: (a) a (2 x 1) engine, 2 rows a rank of a
+   4-row request at 64 codes under force_full: the deterministic tail
+   (fixed codes -> latents, mel, wav) in fp32 at JAX's mesh tolerances
+   (2e-4, 2e-3, 2e-3 of the one-card output's max), and in fp32 and bf16
+   bit-identical to the one-card engine's computation of the same rows as
+   2-row batches; the sampled fp32 request's codes equal to the one-card
+   engine's, the bf16 request's audio within ``BF16_WAV_TOL``, B1 launched
+   steps x 13 + 9 times a request on each rank; (b) a (1 x 2) engine (the
+   GPT split over the ranks): the same tail in fp32, the sampled codes'
+   agreement printed (a flip is a reading: the split sums in another
+   order); (c) ``gpt`` at (1 x 2), micro-batch 8 x 496 x accum 2, dropout
+   on, in fp32: loss and grad norm within 1e-3 of the plain Trainer's for
+   2 steps, the gathered weights' distance from world 1's within
+   ``STEP_TOL`` of the change world 1's two steps made, tensor by tensor
+   (two planted faults read from the same tensors, no update and one
+   shard's update lost, must read above it; ``NOISE_STEP``, a tensor
+   whose exact gradient is 0, is read and not gated), the replicated tensors
+   bit-identical across the ranks (SHA-256), and the (1 x 2) checkpoint
+   restored at world 1 gives the same third step within 1e-3; under bf16
+   autocast 2 steps within ``GPT_BF16_TOL``; (d) one ``diff`` step at
+   (1 x 2), whose frozen latents pass runs the sharded
+   GPT: within the route tolerances of phase 8's world-1 step, each
+   training kernel launched ``expected_train_launches`` times on each rank.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -106,6 +131,7 @@ import base64
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -128,6 +154,16 @@ PEAK_TFLOPS = {torch.bfloat16: 989.0, torch.float32: 67.0}
 PEAK_BYTES_PER_S = 3.35e12
 SFU_PER_CLOCK_PER_SM = 16
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# Phase 9's bf16 readings against one card (first chip run of the phase,
+# H100 80GB HBM3, 700 W): the (2 x 1) request's audio 0.168 of max |one card|
+# away with every code equal (a data rank's 2-row batches round otherwise
+# than one card's 4-row batch; its tail is held bit for bit to one card's
+# 2-row computation instead), gated at 0.5; the (1 x 2) gpt step under bf16
+# autocast 1.2e-3 off in grad norm at step 2 (the split sums and Adam's
+# ~lr steps on gradients near 0), gated at 5e-3.  The fp32 runs carry the
+# tight gates.
+BF16_WAV_TOL = 0.5
+GPT_BF16_TOL = 5e-3
 
 
 def fail(msg: str) -> None:
@@ -1882,7 +1918,7 @@ def phase8_remat(cfg_full, logs):
 
 def phase_parallel(cfg_full, logs):
     """Phase 8: data parallelism and remat; returns the training kernels'
-    launches of (a) and (b)."""
+    launches of (a) and (b), and world 1's ``diff`` readings."""
     import torch.distributed as dist
     from detail_tts_tpu_torch.parallel.mesh import init_distributed
 
@@ -1898,7 +1934,453 @@ def phase_parallel(cfg_full, logs):
     for name, n in phase8_world2(cfg_full, diff_ref, logs).items():
         launches[name] += n
     phase8_remat(cfg_full, logs)
-    return launches
+    return launches, diff_ref
+
+
+# ------------------------------------------- the model axis, sharded serving
+
+# Phase 9's request: 4 rows (2 a data rank at (2 x 1)), 64 codes under
+# force_full.  The deterministic tail is held at JAX's mesh tolerances
+# (tests/test_serving_mesh.py:67), relative to the one-card output's max.
+PHASE9_ROWS, PHASE9_CODES = 4, 64
+TAIL_TOL = {"latents": 2e-4, "mel": 2e-3, "wav": 2e-3}
+# ||w_tp - w_1|| / ||w_1 - w_0||, the worst trainable GPT tensor after 2 steps
+STEP_TOL = 0.1
+# Read, not gated: the key projection's bias of the conditioning encoder's
+# softmax attention adds q . b to every score of a query, which softmax
+# cancels, so its exact gradient is 0 and its step is rounding noise that
+# AdamW (eps 1e-9) scales to ~lr (it reads 0.64 where the rest read <= 3.6e-3)
+NOISE_STEP = r"gpt\.conditioning_encoder\.slf_attn\.w_ks\.bias"
+PHASE9_MESHES = ((2, 1), (1, 2))
+
+
+def phase9_request(cfg):
+    sr = cfg.data.sampling_rate
+    rng = np.random.default_rng(9)
+    texts = ["你好。", "今天天气很好，我们一起去公园散步吧。", "这是第三个请求。",
+             "欢迎使用语音合成，这是一个长一点的句子。"][:PHASE9_ROWS]
+    # prompts of one length: one prompt bucket, so B1 runs steps x 13 + 9 times
+    wavs = [rng.uniform(-0.3, 0.3, 3 * sr).astype(np.float32) for _ in texts]
+    codes = torch.as_tensor(rng.integers(0, 8192, size=(len(texts), PHASE9_CODES)))
+    eff = np.array([PHASE9_CODES - 3 * i for i in range(len(texts))], np.int64)
+    return texts, wavs, codes, eff
+
+
+def phase9_engine_cfg(dtype):
+    from detail_tts_tpu_torch.serving.pipeline import EngineConfig
+    return EngineConfig(max_generate_length=PHASE9_CODES + 1, compute_dtype=dtype,
+                        cache_dtype=dtype)
+
+
+def engine_tail(engine, texts, wavs, codes, eff, rows=None):
+    """Fixed codes -> (latents, mel, wav) of every item (JAX's
+    ``_deterministic_tail``): this data rank's rows, fixed generators,
+    gathered over the data group.  ``rows`` (a one-card engine): only those
+    rows of the request, at its text width and with its draws, as a data
+    rank computes them."""
+    from detail_tts_tpu_torch.audio.mel import FRAMES_PER_CODE
+    from detail_tts_tpu_torch.parallel.mesh import all_gather_rows
+
+    given = rows is not None
+    rows = rows if given else engine._rows(len(texts))
+    mine = slice(None) if rows is None else slice(rows.start, rows.stop)
+    dev = engine.device
+    with torch.inference_mode():
+        # given rows: the request's text width (its prompts are of one length)
+        text = engine.prepare_text(texts)[0][mine] if given else \
+            engine.prepare_text(texts[mine])[0]
+        refer_mel, refer_len = engine.prepare_prompt(wavs[mine])
+        codes_b, wav_len, bucket = engine._pad_codes(codes[mine].to(dev), eff[mine])
+        latents = engine.model.gpt(refer_mel.to(engine.cdt), refer_len, text, codes_b, wav_len)
+        mel = engine.diffuse(latents, engine.diffusion_cond(refer_mel, refer_len),
+                             engine.attention_biases(bucket * FRAMES_PER_CODE),
+                             torch.Generator(device=dev).manual_seed(7), rows)
+        wav = engine._vocode(mel, eff[mine], torch.Generator(device=dev).manual_seed(8),
+                             rows)[..., 0]
+        out = [latents.float(), mel.float(), wav.float()]
+        if not given and rows is not None and rows.stop - rows.start < rows.total:
+            out = [all_gather_rows(x, engine.mesh.data_group) for x in out]
+    return [x.cpu() for x in out]
+
+
+def sampled_request(engine, texts, wavs):
+    """The request through the split dispatch (seed 0, force_full): (every
+    item's codes, wavs, B1 launches, wall)."""
+    from detail_tts_tpu_torch.parallel.mesh import all_gather_rows
+
+    attention.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = engine.dispatch_decode(texts, wavs, seed=0, force_full=True)
+    codes = pending.codes
+    if pending.rows is not None and pending.rows.stop - pending.rows.start < pending.rows.total:
+        codes = all_gather_rows(codes, engine.mesh.data_group)
+    outs = engine.finalize_batch(engine.dispatch_tail(pending))
+    wall = time.perf_counter() - t0
+    return codes.cpu(), outs, attention.LAUNCHES, wall
+
+
+def phase9_gpt_cfg(cfg_full, target, model, use_bf16=False):
+    """``target`` at accum 2 on a (world / ``model`` x ``model``) mesh;
+    ``gpt`` in fp32 unless ``use_bf16`` (``diff`` as phase 8 runs it)."""
+    import dataclasses
+    cfg = phase8_cfg(cfg_full, target, 2, use_bf16=use_bf16 or target != "gpt")
+    return dataclasses.replace(cfg, mesh=dataclasses.replace(
+        cfg.mesh, data_parallel=-1, model_parallel=model))
+
+
+def phase9_rank(rank, port, out_dir, cfg_full):
+    """One of two ranks on the one card over gloo: the engines at (2 x 1)
+    and (1 x 2), then the ``gpt`` Trainer at (1 x 2) (2 steps, a checkpoint,
+    a third step) and one ``diff`` step at (1 x 2); writes what the parent
+    checks."""
+    import torch.distributed as dist
+
+    from detail_tts_tpu_torch.parallel import mesh
+    from detail_tts_tpu_torch.serving.pipeline import random_engine
+    from detail_tts_tpu_torch.train.trainer import Trainer
+    from dp_port import digest  # SHA-256 of the replicated trainable tensors and buffers
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group, dev = mesh.init_distributed(f"tcp://127.0.0.1:{port}", backend="gloo",
+                                       device="cuda:0", rank=rank, world_size=2)
+    try:
+        texts, wavs, codes, eff = phase9_request(cfg_full)
+        out = {}
+        for data, model in PHASE9_MESHES:
+            m = mesh.make_mesh(data, model, group)
+            res = {}
+            for dtype in ((torch.float32, torch.bfloat16) if data > 1 else (torch.float32,)):
+                engine = random_engine(cfg_full, seed=0, engine_cfg=phase9_engine_cfg(dtype),
+                                       device=dev, mesh=m)
+                res["tail " + str(dtype)] = engine_tail(engine, texts, wavs, codes, eff)
+                res[str(dtype)] = sampled_request(engine, texts, wavs)
+                res["b1_per_request"] = b1_per_request(engine)
+                del engine
+                torch.cuda.empty_cache()
+            out[(data, model)] = res
+
+        # (c) gpt at (1 x 2) under bf16 autocast: 2 steps, a reading
+        cfg = phase9_gpt_cfg(cfg_full, "gpt", 2, use_bf16=True)
+        trainer = Trainer(cfg, phase8_data(cfg, 2), device=dev, seed=0, group=group,
+                          logs_folder=os.path.join(out_dir, "gpt-tp-bf16"))
+        out["gpt_bf16"] = []
+        for _ in range(2):
+            trainer.train(max_steps=trainer.state.step + 1, log_every=1)
+            out["gpt_bf16"].append({k: trainer.last_metrics[k].item()
+                                    for k in ("loss", "grad_norm")})
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+
+        # (c) gpt at (1 x 2) in fp32: 2 steps, a checkpoint, a third step
+        cfg = phase9_gpt_cfg(cfg_full, "gpt", 2)
+        trainer = Trainer(cfg, phase8_data(cfg, 2), device=dev, seed=0, group=group,
+                          logs_folder=os.path.join(out_dir, "gpt-tp"))
+        steps = []
+        for i in range(3):
+            if i == 2:
+                trainer.save()
+            trainer.train(max_steps=trainer.state.step + 1, log_every=1)
+            m = trainer.last_metrics
+            steps.append({"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                          "digest": digest(trainer.state)})
+            if i == 1:  # the gathered weights against world 1's (rank 0 reads them)
+                full = mesh.gather_state_dict(trainer.state.model)
+                err = None
+                if rank == 0:
+                    err = step_readings(full, *(torch.load(
+                        os.path.join(out_dir, f"{w}_gpt.pt"), weights_only=True)
+                        for w in ("w0", "w1")), mesh.model_shards(trainer.state.model))
+                del full
+        out["gpt"] = {"steps": steps, "param_err": err,
+                      "sharded": len(mesh.model_shards(trainer.state.model)),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+
+        # (d) diff at (1 x 2): the frozen latents pass runs the sharded GPT
+        cfg = phase9_gpt_cfg(cfg_full, "diff", 2)
+        trainer = Trainer(cfg, phase8_data(cfg, 2), device=dev, seed=0, group=group,
+                          logs_folder=os.path.join(out_dir, "diff-tp"))
+        zero_counts()
+        trainer.train(max_steps=1, log_every=1)
+        m = trainer.last_metrics
+        out["diff"] = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                       "launches": dict(attention.TRAIN_LAUNCHES),
+                       "serving": attention.LAUNCHES,
+                       "expected": expected_train_launches(cfg, m["layers_kept"]),
+                       "digest": digest(trainer.state)}
+        trainer.close()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase9_world1(cfg_full, logs):
+    """The one-card references: the engine's tail, its fp32 and bf16
+    requests, and the plain ``gpt`` Trainer's first two steps (its GPT
+    weights after them saved for the ranks)."""
+    from detail_tts_tpu_torch.serving.pipeline import random_engine
+    from detail_tts_tpu_torch.train.trainer import Trainer
+
+    from detail_tts_tpu_torch.parallel.mesh import Rows
+
+    texts, wavs, codes, eff = phase9_request(cfg_full)
+    n, half = len(texts), len(texts) // 2
+    ref = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        engine = random_engine(cfg_full, seed=0, engine_cfg=phase9_engine_cfg(dtype),
+                               device="cuda")
+        ref["tail " + str(dtype)] = engine_tail(engine, texts, wavs, codes, eff)
+        # the two halves as the (2 x 1) ranks compute them: 2-row batches
+        halves = [engine_tail(engine, texts, wavs, codes, eff, Rows(a, a + half, n))
+                  for a in (0, half)]
+        ref["halves " + str(dtype)] = [torch.cat(x) for x in zip(*halves)]
+        ref[str(dtype)] = sampled_request(engine, texts, wavs)
+        del engine
+        torch.cuda.empty_cache()
+    for bf16 in (True, False):
+        cfg = phase9_gpt_cfg(cfg_full, "gpt", 1, use_bf16=bf16)
+        trainer = Trainer(cfg, phase8_data(cfg, 2), device="cuda", seed=0,
+                          logs_folder=os.path.join(logs, f"gpt-w1-{bf16}"))
+
+        def save_weights(name):
+            torch.save({n: p.detach().float().cpu() for n, p in
+                        trainer.state.model.named_parameters() if p.requires_grad},
+                       os.path.join(logs, name))
+
+        if not bf16:
+            save_weights("w0_gpt.pt")
+        steps = []
+        for _ in range(2):
+            trainer.train(max_steps=trainer.state.step + 1, log_every=1)
+            steps.append({k: float(v) for k, v in trainer.last_metrics.items()
+                          if torch.is_tensor(v)})
+        if not bf16:
+            save_weights("w1_gpt.pt")
+        ref["gpt_bf16" if bf16 else "gpt"] = steps
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+    return ref
+
+
+def phase9_restored_step(cfg_full, logs):
+    """World 1 restored from the (1 x 2) checkpoint takes the third step."""
+    from detail_tts_tpu_torch.train.trainer import Trainer
+
+    cfg = phase9_gpt_cfg(cfg_full, "gpt", 1)
+    data = phase8_data(cfg, 2)
+    next(data), next(data)
+    trainer = Trainer(cfg, data, device="cuda", seed=5,
+                      logs_folder=os.path.join(logs, "gpt-restored"))
+    trainer.load(os.path.join(logs, "gpt-tp", "ckpt"))
+    if trainer.state.step != 2:
+        fail(f"phase 9: the (1 x 2) checkpoint restored step {trainer.state.step}, not 2")
+    trainer.train(max_steps=3, log_every=1)
+    m = {k: float(v) for k, v in trainer.last_metrics.items() if torch.is_tensor(v)}
+    trainer.close()
+    return m
+
+
+def step_readings(full, w0, w1, shards):
+    """The (1 x 2) GPT's gathered trainable weights ``full`` against world
+    1's after the same steps, ``w1``, from the same start ``w0``: for each
+    tensor ||w_tp - w_1|| / ||w_1 - w_0||, the distance relative to the
+    change that world 1's steps made.  Returns the worst tensor's reading
+    and its name (``NOISE_STEP`` apart, whose reading is returned on its
+    own), and two planted faults read the same way from the same
+    tensors, each the least over the tensors it applies to (the fault
+    hardest to see): no update (w_tp = w_0), and model rank 1's shard of a
+    sharded tensor left at w_0.  A tensor that world 1's steps left
+    unchanged reads 0 where w_tp equals it, else inf."""
+    from detail_tts_tpu_torch.parallel.mesh import shard_tensor
+
+    sound, no_update, lost = {}, {}, {}
+    for n, start in w0.items():
+        step = (w1[n] - start).double()
+        size = step.norm().item()
+        miss = (full[n].cpu().double() - w1[n].double()).norm().item()
+        sound[n] = miss / size if size else (0.0 if miss == 0 else math.inf)
+        if size:
+            no_update[n] = (start - w1[n]).double().norm().item() / size  # w_tp = w_0
+            if n in shards:
+                lost[n] = shard_tensor(step, shards[n]._replace(rank=1)).norm().item() / size
+    noise = {n: sound.pop(n) for n in list(sound) if re.fullmatch(NOISE_STEP, n)}
+    worst = max(sound, key=sound.get)
+    hardest = min(lost, key=lost.get)
+    return {"worst": sound[worst], "worst_tensor": worst, "tensors": len(sound),
+            "noise": noise, "no_update": min(no_update.values()),
+            "lost_shard": lost[hardest], "lost_shard_tensor": hardest}
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b| (b the one-card output)."""
+    return (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-12)
+
+
+def wav_err(outs, ref) -> float:
+    """The largest |sharded - one card| over the items, relative to the
+    one-card audio's max; inf where the lengths differ."""
+    if any(a.shape != b.shape for a, b in zip(outs, ref)):
+        return math.inf
+    scale = max(float(np.abs(b).max()) for b in ref)
+    return max(float(np.abs(a - b).max()) for a, b in zip(outs, ref)) / scale
+
+
+def phase_mesh(cfg_full, diff_ref, logs):
+    """Phase 9: the mesh's model axis and sharded serving on the one card
+    (two gloo ranks); returns (B1 launches, training kernels' launches) of
+    the ranks.  ``diff_ref``: phase 8's world-1 ``diff`` readings (None:
+    one plain step is taken here, to run the phase alone)."""
+    import torch.multiprocessing as mp
+
+    from detail_tts_tpu_torch.train.trainer import Trainer
+
+    print("== the model axis and sharded serving (two gloo ranks on the one card)", flush=True)
+    print(f"  {smi('name,power.limit')}", flush=True)
+    os.makedirs(logs)
+    if diff_ref is None:
+        cfg = phase8_cfg(cfg_full, "diff", 2)
+        trainer = Trainer(cfg, phase8_data(cfg, 2), device="cuda", seed=0,
+                          logs_folder=os.path.join(logs, "diff-w1"))
+        trainer.train(max_steps=1, log_every=1)
+        diff_ref = [{k: float(v) for k, v in trainer.last_metrics.items()
+                     if torch.is_tensor(v)}]
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = phase9_world1(cfg_full, logs)
+    t_ref = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mp.start_processes(phase9_rank, args=(free_port(), logs, cfg_full), nprocs=2,
+                       join=True, start_method="spawn")
+    t_ranks = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(logs, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    b1 = 0
+    fp32, bf16 = str(torch.float32), str(torch.bfloat16)
+    ref_codes, ref_wavs, _, ref_wall = ref[fp32]
+    for data, model in PHASE9_MESHES:
+        label = f"({data} x {model})"
+        for r, out in enumerate(ranks):
+            res = out[(data, model)]
+            errs = {name: rel_err(a, b) for name, a, b in
+                    zip(("latents", "mel", "wav"), res["tail " + fp32], ref["tail " + fp32])}
+            if data > 1:  # a data rank computes its rows as one card's 2-row batch does
+                for dtype in (fp32, bf16):
+                    same = all(torch.equal(a, b) for a, b in
+                               zip(res["tail " + dtype], ref["halves " + dtype]))
+                    spread = {name: float(f"{rel_err(a, b):.3e}") for name, a, b in
+                              zip(("latents", "mel", "wav"), ref["halves " + dtype],
+                                  ref["tail " + dtype])}
+                    print(f"  (a) {label} rank {r} {dtype} tail bit-identical to one card's "
+                          f"2-row batches {same}; those against its 4-row batch "
+                          f"{json.dumps(spread)}", flush=True)
+                    if not same:
+                        fail(f"phase 9 {label} rank {r}: the {dtype} tail is not one card's "
+                             "2-row computation of its rows")
+            codes, wavs, launches, wall = res[fp32]
+            agree = float((codes == ref_codes).float().mean())
+            werr = wav_err(wavs, ref_wavs)
+            print(f"  (a/b) {label} rank {r} fp32: tail max |sharded - one card| / max |one "
+                  f"card| {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} (gates "
+                  f"{json.dumps(TAIL_TOL)}); sampled codes equal to one card's "
+                  f"{agree:.4f}, wav {werr:.3e}; B1 launches {launches} (expected "
+                  f"{res['b1_per_request']}); request wall {wall:.3f} s (one card "
+                  f"{ref_wall:.3f} s)", flush=True)
+            if any(not errs[k] <= TAIL_TOL[k] for k in TAIL_TOL):
+                fail(f"phase 9 {label}: the deterministic tail is {errs} from one card's")
+            if data > 1 and agree != 1.0:
+                fail(f"phase 9 {label}: the fp32 request's codes differ from one card's")
+            if launches != res["b1_per_request"]:
+                fail(f"phase 9 {label} rank {r}: {launches} B1 launches")
+            b1 += launches
+            if bf16 in res:
+                codes16, wavs16, launches16, wall16 = res[bf16]
+                agree16 = float((codes16 == ref[bf16][0]).float().mean())
+                werr16 = wav_err(wavs16, ref[bf16][1])
+                print(f"  (a) {label} rank {r} bf16: sampled codes equal to one card's "
+                      f"{agree16:.4f}, wav max |sharded - one card| / max |one card| "
+                      f"{werr16:.3e} (gate {BF16_WAV_TOL:g}); B1 launches {launches16}; "
+                      f"request wall {wall16:.3f} s (one card {ref[bf16][3]:.3f} s)",
+                      flush=True)
+                if not werr16 <= BF16_WAV_TOL:
+                    fail(f"phase 9 {label}: the bf16 request is {werr16:.3e} from one card's")
+                if launches16 != res["b1_per_request"]:
+                    fail(f"phase 9 {label} rank {r}: {launches16} B1 launches (bf16)")
+                b1 += launches16
+
+    # (c) gpt at (1 x 2) against world 1: under bf16 a reading (gated at
+    # GPT_BF16_TOL), in fp32 the gates
+    for i in range(2):
+        s0, w = ranks[0]["gpt_bf16"][i], ref["gpt_bf16"][i]
+        rel = {k: abs(s0[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm")}
+        print(f"  (c) gpt (1 x 2) bf16 autocast step {i + 1}: loss {s0['loss']:.6f} (world 1 "
+              f"{w['loss']:.6f}), grad_norm {s0['grad_norm']:.6f} (world 1 "
+              f"{w['grad_norm']:.6f}), relative {json.dumps(rel)} (gate {GPT_BF16_TOL:g})",
+              flush=True)
+        if any(not r <= GPT_BF16_TOL for r in rel.values()):
+            fail(f"phase 9 gpt bf16 step {i + 1}: {rel} from world 1")
+    g0, g1 = ranks[0]["gpt"], ranks[1]["gpt"]
+    for i in range(2):
+        s0, s1, w = g0["steps"][i], g1["steps"][i], ref["gpt"][i]
+        rel = {k: abs(s0[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm")}
+        same = torch.equal(s0["digest"], s1["digest"])
+        print(f"  (c) gpt (1 x 2) fp32 step {i + 1}: loss {s0['loss']:.6f} (world 1 {w['loss']:.6f}), "
+              f"grad_norm {s0['grad_norm']:.6f} (world 1 {w['grad_norm']:.6f}), relative "
+              f"{json.dumps(rel)}; replicated tensors bit-identical across the ranks {same}",
+              flush=True)
+        if any(not r <= 1e-3 for r in rel.values()) or not same:
+            fail(f"phase 9 gpt step {i + 1}: {rel}, ranks identical {same}")
+    e = g0["param_err"]
+    noise = json.dumps({n: float(f"{v:.3e}") for n, v in e["noise"].items()})
+    print(f"  (c) gpt (1 x 2): {g0['sharded']} tensors sharded; gathered GPT weights after 2 "
+          f"steps, ||tp - world 1|| / ||world 1 - start||, the worst of {e['tensors']} "
+          f"tensors: {e['worst']:.3e} ({e['worst_tensor']}; gate {STEP_TOL:g}); read, not "
+          f"gated (exact gradient 0): {noise}; planted "
+          f"faults: no update {e['no_update']:.3e}, rank 1's shard not updated "
+          f"{e['lost_shard']:.3e} (the least, {e['lost_shard_tensor']}); peak device memory "
+          f"per rank {g0['peak_gib']:.2f} / {g1['peak_gib']:.2f} GiB", flush=True)
+    if not e["worst"] <= STEP_TOL:
+        fail(f"phase 9 gpt: {e['worst_tensor']} is {e['worst']:.3e} of its step from world 1's")
+    if not min(e["no_update"], e["lost_shard"]) > STEP_TOL:
+        fail(f"phase 9 gpt: a planted fault reads {e} within the gate {STEP_TOL:g}")
+    restored = phase9_restored_step(cfg_full, logs)
+    s0 = g0["steps"][2]
+    rel = {k: abs(s0[k] - restored[k]) / abs(restored[k]) for k in ("loss", "grad_norm")}
+    print(f"  (c) the (1 x 2) checkpoint at step 2 restored at world 1: step 3 loss "
+          f"{restored['loss']:.6f}, grad_norm {restored['grad_norm']:.6f}; (1 x 2)'s step 3 "
+          f"{s0['loss']:.6f} / {s0['grad_norm']:.6f}; relative {json.dumps(rel)}", flush=True)
+    if any(not r <= 1e-3 for r in rel.values()) or not torch.equal(s0["digest"],
+                                                                   g1["steps"][2]["digest"]):
+        fail(f"phase 9: the restored step is {rel} from the (1 x 2) step")
+
+    # (d) diff at (1 x 2)
+    launches = {name: 0 for name in TRAIN_KERNELS}
+    d0, d1 = ranks[0]["diff"], ranks[1]["diff"]
+    rel = {k: abs(d0[k] - diff_ref[0][k]) / abs(diff_ref[0][k]) for k in ("loss", "grad_norm")}
+    print(f"  (d) diff (1 x 2) step 1: loss {d0['loss']:.6f}, grad_norm {d0['grad_norm']:.6f} "
+          f"(world 1, phase 8: {diff_ref[0]['loss']:.6f} / {diff_ref[0]['grad_norm']:.6f}; "
+          f"relative {json.dumps(rel)}); launches {d0['launches']} / {d1['launches']} "
+          f"(expected {d0['expected']} each); ranks bit-identical "
+          f"{torch.equal(d0['digest'], d1['digest'])}", flush=True)
+    if any(not r <= ROUTE_TOL[k] for k, r in rel.items()):
+        fail(f"phase 9 diff: {rel} from world 1")
+    if not torch.equal(d0["digest"], d1["digest"]):
+        fail("phase 9 diff: the ranks' tensors differ")
+    for d in (d0, d1):
+        if any(v != d["expected"] for v in d["launches"].values()) or d["serving"]:
+            fail(f"phase 9 diff: launches {d['launches']}, serving {d['serving']}")
+        for name in TRAIN_KERNELS:
+            launches[name] += d["launches"][name]
+    print(f"  phase 9: references {t_ref:.1f} s, two ranks spawned, run and joined in "
+          f"{t_ranks:.1f} s", flush=True)
+    return b1, launches
 
 
 def main():
@@ -1938,7 +2420,8 @@ def main():
         train_launches = phase_training(cfg, os.path.join(work, "phase6"))
         target_launches = phase_train_targets(cfg, os.path.join(work, "phase6b"))
         corpus_launches, corpus_b1 = phase_corpus(cfg, os.path.join(work, "phase7"))
-        parallel_launches = phase_parallel(cfg, os.path.join(work, "phase8"))
+        parallel_launches, diff_ref = phase_parallel(cfg, os.path.join(work, "phase8"))
+        mesh_b1, mesh_launches = phase_mesh(cfg, diff_ref, os.path.join(work, "phase9"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1946,9 +2429,9 @@ def main():
         name="bias_attention_fwd", route="cuda",
         source="detail_tts_tpu_torch/csrc/bias_attention.cu",
         replaces="detail_tts_tpu/ops/pallas/attention.py:404",
-        launches=launches + corpus_b1, launches_per_request=per_request,
-        launches_over="phases 4 and 4b, and the request from the trained checkpoint "
-                      "(phase 7)",
+        launches=launches + corpus_b1 + mesh_b1, launches_per_request=per_request,
+        launches_over="phases 4 and 4b, the request from the trained checkpoint "
+                      "(phase 7), and each rank's sharded requests (phase 9)",
         max_abs_err=worst, **times)]
     sources = {"bias_attention_train_fwd": ("bias_attention.cu", 259),
                "bias_attention_bwd_dq_dbias": ("bias_attention_bwd.cu", 286),
@@ -1960,11 +2443,12 @@ def main():
             name=name, route="cuda", source=f"detail_tts_tpu_torch/csrc/{src}",
             replaces=f"detail_tts_tpu/ops/pallas/attention.py:{line}",
             launches=(train_launches[name] + target_launches[name] + corpus_launches[name]
-                      + parallel_launches[name]),
+                      + parallel_launches[name] + mesh_launches[name]),
             launches_over="3 diff steps (phase 6), 2 all steps (phase 6b), 6 diff steps "
                           "from the corpus in this process (phase 7: trainer A's 5, R's 1), "
-                          "and in phase 8 the world-1 NCCL Trainer's 2 diff and 2 all steps "
-                          "and both world-2 ranks' 2 diff steps",
+                          "in phase 8 the world-1 NCCL Trainer's 2 diff and 2 all steps "
+                          "and both world-2 ranks' 2 diff steps, and both (1 x 2) ranks' "
+                          "diff step (phase 9)",
             max_abs_err=train_worst[name][0], max_scaled_err=train_worst[name][1],
             library=("torch.sum over the batch" if name.endswith("sum") else
                      "scaled_dot_product_attention (" + backend + ")"),

@@ -24,7 +24,12 @@ Under data parallelism each rank loads its own rows of the corpus
 (``JsonlTtsDataset(rank, world)``) into micro-batches of ``batch_size //
 world``, and the ranks agree on each batch's padded lengths (the max of
 their buckets, one small all-reduce in ``next``), so the world-W batch is a
-world-1 batch cut by rows, as JAX's one global array is.
+world-1 batch cut by rows, as JAX's one global array is.  Under tensor
+parallelism the rows are the data rank's (``JsonlTtsDataset(data rank,
+D)``), and every model peer of a data rank must hold the same batch: model
+rank 0 decodes it and sends it to its peers (``DataIterator(model_group=)``),
+since the decode threads' interleaving is not reproducible across
+processes.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from detail_tts_tpu_torch.audio.mel import MelFrontend
 from detail_tts_tpu_torch.config import Config
@@ -242,15 +248,22 @@ class DataIterator:
     Each batch holds micro_batch x accum clips in the layout (accum, micro,
     ...).  Thread ``wid`` crops with ``default_rng(hash((wid, 1234)) %
     2**31)``; the visiting order is a permutation from ``default_rng(seed)``,
-    drawn anew at each pass.  ``group``: the data-parallel process group;
-    ``next`` then pads each batch to the ranks' agreed lengths (every rank
-    must call it once a step).  ``close()`` stops and joins the threads."""
+    drawn anew at each pass.  ``group``: the process group of every rank
+    (the world); ``next`` then pads each batch to the ranks' agreed lengths
+    (every rank must call it once a step).  ``model_group``: this rank's
+    model group under tensor parallelism; its rank 0 decodes and broadcasts
+    each batch, and the other peers run no decode thread.  ``close()``
+    stops and joins the threads."""
 
     def __init__(self, dataset: JsonlTtsDataset, micro_batch: int,
                  accum: int = 1, buckets: BucketSpec = BucketSpec(),
-                 num_threads: int = 8, prefetch: int = 4, seed: int = 0, group=None):
+                 num_threads: int = 8, prefetch: int = 4, seed: int = 0, group=None,
+                 model_group=None):
         self.ds = dataset
         self.group = group
+        self.model_group = model_group
+        if model_group is not None and mesh.rank(model_group) > 0:
+            num_threads = 0  # the batches come from model rank 0
         self.micro = micro_batch
         self.accum = accum
         self.buckets = buckets
@@ -302,7 +315,12 @@ class DataIterator:
         return self
 
     def __next__(self) -> Dict[str, np.ndarray]:
-        batch = self._q.get()
+        batch = self._q.get() if self._threads else None
+        if self.model_group is not None:
+            box = [batch]
+            dist.broadcast_object_list(box, src=dist.get_global_rank(self.model_group, 0),
+                                       group=self.model_group)
+            batch = box[0]
         if mesh.world(self.group) > 1:
             batch = pad_to_agreed(batch, self.hop, self.group)
         return batch

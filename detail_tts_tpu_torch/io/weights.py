@@ -17,6 +17,11 @@ folded port ``weight`` from a JAX (g, v) pair (folded), a port
 ``weight_g``/``weight_v`` pair from JAX's (g, v) or from a folded kernel
 (g = ||kernel||, v = kernel).
 
+Both load full weights into an unsharded model; on a (D x M) mesh
+``parallel.mesh.shard_module_`` then cuts the GPT's tensors (the engine and
+``make_train_state(mesh=)`` do so), so one set of seeded JAX variables
+feeds a one-card model, a sharded one and JAX alike.
+
 ``random_weights_`` fills a module in place from a seeded generator: norm
 scales near 1, weights ~ N(0, 1/fan_in), small biases, VQ codebooks
 (``embed`` buffers) ~ N(0, 1).

@@ -23,6 +23,8 @@ from typing import Callable, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from detail_tts_tpu_torch.parallel.mesh import Rows, draw_rows
+
 
 def get_named_beta_schedule(name: str, num_steps: int) -> np.ndarray:
     """(diffusion.py:84-107)."""
@@ -217,12 +219,15 @@ ModelFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tenso
 def p_sample_loop(schedule: DiffusionSchedule, model_fn: ModelFn,
                   noise: torch.Tensor, *, cond_free_k: float = 2.0,
                   generator: Optional[torch.Generator] = None,
-                  noise_seq: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  noise_seq: Optional[torch.Tensor] = None,
+                  rows: Optional[Rows] = None) -> torch.Tensor:
     """Ancestral sampler with ramped CFG (diffusion.py:445-485).
 
     Each step is one model call on 2B rows [cond | uncond].  ``noise_seq``:
     optional (num_timesteps, *x.shape) injection noises in the order they are
-    used (first entry -> highest timestep); else drawn from ``generator``.
+    used (first entry -> highest timestep); else drawn from ``generator``,
+    for the whole request when ``x`` is its ``rows`` (a data rank of a
+    sharded engine, ``parallel.mesh.draw_rows``).
     """
     n = schedule.num_timesteps
     x = noise.float()
@@ -238,7 +243,8 @@ def p_sample_loop(schedule: DiffusionSchedule, model_fn: ModelFn,
             x = mean
             continue
         z = (noise_seq[step].to(x) if noise_seq is not None else
-             torch.randn(x.shape, generator=generator, device=x.device))
+             draw_rows(lambda shape: torch.randn(shape, generator=generator,
+                                                 device=x.device), x.shape, rows))
         x = mean + torch.exp(0.5 * logvar) * z
     return x
 

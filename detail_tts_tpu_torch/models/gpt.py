@@ -26,6 +26,23 @@ and the generator's state at the recompute is restored after it, so the
 gradient is the one of the forward's masks and the step's later draws are
 untouched (``checkpoint`` itself replays torch's global generators only).
 
+Tensor parallelism (``parallel.mesh.shard_module_`` over a mesh's model
+group, Megatron's layout; JAX shards the same tensors by its
+``PARTITION_RULES``): the attention's ``c_attn`` is column-parallel by head
+(this rank's heads of q, k and v) and its ``c_proj`` row-parallel, the
+sum over the model group taken *before* the bias is added; the MLP's
+``c_fc`` column-parallel and ``c_proj`` row-parallel; ``mel_embedding``
+vocab-parallel (a masked lookup of this rank's rows, then the sum); the
+heads (where the vocab splits) give vocab-sharded logits, which the
+training loss takes through a vocab-parallel cross-entropy and the decode
+gathers whole (the warpers read the whole vocab).  The KV cache holds the
+local heads.  Every activation outside the sharded heads is replicated on
+the model peers, so they draw the same dropout masks from the same
+generator; the attention-weight dropout draws the mask of every head and
+keeps this rank's, so the step is the one-card step mask for mask.  The
+recompute of ``remat`` re-runs the block's collectives.  A module whose
+``tp`` is None runs exactly the one-card code.
+
 Parameter names are the reference's (``gpt.gpt.h.0.attn.c_attn.weight``...);
 HF GPT-2's ``Conv1D`` keeps its (in, out) weight layout.
 """
@@ -46,6 +63,10 @@ from detail_tts_tpu_torch.nn.common import (Dense, SeededDropout, TorchLayerNorm
                                             sequence_mask)
 from detail_tts_tpu_torch.nn.style_encoder import MelStyleEncoder
 from detail_tts_tpu_torch.ops.sampling import sample_token
+from detail_tts_tpu_torch.parallel.mesh import (Rows, Shard, all_reduce_max_host,
+                                                copy_to_model, gather_from_model,
+                                                reduce_from_model,
+                                                vocab_parallel_cross_entropy)
 
 
 def gelu_new(x: torch.Tensor) -> torch.Tensor:
@@ -75,7 +96,18 @@ class KVCache:
     length: int = 0
 
 
+def _row_parallel(proj: Conv1D, x: torch.Tensor, tp: Optional[Shard]) -> torch.Tensor:
+    """``proj(x)`` of a row-parallel projection: this rank's rows of the
+    weight, the sum over the model group, then the (replicated) bias."""
+    if tp is None:
+        return proj(x)
+    y = reduce_from_model(F.linear(x, proj.weight.to(x.dtype).t()), tp)
+    return y + proj.bias.to(y.dtype)
+
+
 class GPT2Attention(nn.Module):
+    tp: Optional[Shard] = None  # the model group, set by shard_module_
+
     def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.dim, self.heads = dim, heads
@@ -91,8 +123,10 @@ class GPT2Attention(nn.Module):
         """Causal self-attention; with a cache, x's keys land at
         [start, start + T) and the queries attend over [0, start + T)."""
         b, t, _ = x.shape
-        h, ch = self.heads, self.dim // self.heads
-        q, k, v = self.c_attn(x).reshape(b, t, 3, h, ch).unbind(2)
+        tp = self.tp
+        ch = self.dim // self.heads
+        h = self.heads if tp is None else self.heads // tp.size  # this rank's heads
+        q, k, v = self.c_attn(copy_to_model(x, tp)).reshape(b, t, 3, h, ch).unbind(2)
         if cache_kv is not None:
             k_cache, v_cache = cache_kv
             k_cache[:, start:start + t] = k.to(k_cache.dtype)
@@ -104,12 +138,15 @@ class GPT2Attention(nn.Module):
         k_pos = torch.arange(k.shape[1], device=x.device)
         causal = k_pos[None, :] <= q_pos[:, None]
         logits = logits.masked_fill(~causal, -1e9)
-        w = self.attn_dropout(torch.softmax(logits, dim=-1).to(x.dtype), generator)
-        out = torch.einsum("bhts,bshd->bthd", w, v).reshape(b, t, self.dim)
-        return self.resid_dropout(self.c_proj(out), generator)
+        w = self.attn_dropout(torch.softmax(logits, dim=-1).to(x.dtype), generator,
+                              None if tp is None else (1, tp.rank, tp.size))
+        out = torch.einsum("bhts,bshd->bthd", w, v).reshape(b, t, h * ch)
+        return self.resid_dropout(_row_parallel(self.c_proj, out, tp), generator)
 
 
 class GPT2MLP(nn.Module):
+    tp: Optional[Shard] = None  # the model group, set by shard_module_
+
     def __init__(self, dim: int, dropout: float = 0.0):
         super().__init__()
         self.c_fc = Conv1D(dim, 4 * dim)
@@ -118,7 +155,8 @@ class GPT2MLP(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.dropout(self.c_proj(gelu_new(self.c_fc(x))), generator)
+        h = gelu_new(self.c_fc(copy_to_model(x, self.tp)))
+        return self.dropout(_row_parallel(self.c_proj, h, self.tp), generator)
 
 
 class GPT2Block(nn.Module):
@@ -197,6 +235,8 @@ class LearnedPositionEmbeddings(nn.Module):
 
 
 class UnifiedVoice(nn.Module):
+    tp: Optional[Shard] = None  # the model group, set by shard_module_
+
     def __init__(self, cfg: GPTConfig, remat: bool = False):
         super().__init__()
         c = self.cfg = cfg
@@ -227,8 +267,34 @@ class UnifiedVoice(nn.Module):
         pos = torch.arange(inp.shape[1], device=text.device)
         return self.text_embedding(inp) + self.text_pos_embedding(pos)
 
+    def _vocab_tp(self, weight: torch.Tensor, width: int) -> Optional[Shard]:
+        """The model group where ``weight``'s vocab rows are this rank's
+        slice of ``width``; None where they are whole (no mesh, or demoted)."""
+        return None if self.tp is None or weight.shape[0] == width else self.tp
+
     def _mel_embeddings(self, codes: torch.Tensor, positions) -> torch.Tensor:
-        return self.mel_embedding(codes) + self.mel_pos_embedding(positions)
+        w = self.mel_embedding.weight
+        tp = self._vocab_tp(w, self.cfg.number_mel_codes)
+        if tp is None:
+            emb = self.mel_embedding(codes)
+        else:  # vocab-parallel: this rank's rows, zeros elsewhere, summed
+            v = w.shape[0]
+            local = codes - tp.rank * v
+            mine = (local >= 0) & (local < v)
+            emb = reduce_from_model(F.embedding(local.clamp(0, v - 1), w)
+                                    * mine[..., None].to(w.dtype), tp)
+        return emb + self.mel_pos_embedding(positions)
+
+    def _head(self, head: nn.Module, x: torch.Tensor, width: int):
+        """(logits, model group): the head's logits, vocab-sharded when its
+        rows are (the group is then returned, else None)."""
+        tp = self._vocab_tp(head.weight, width)
+        return head(copy_to_model(x, tp)), tp
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The mel head's full-vocab logits (gathered over the model group)."""
+        logits, tp = self._head(self.mel_head, x, self.cfg.number_mel_codes)
+        return gather_from_model(logits, tp)
 
     def forward(self, cond_mel, cond_lengths, text, mel_codes, wav_lengths,
                 return_latent: bool = True,
@@ -260,8 +326,10 @@ class UnifiedVoice(nn.Module):
         text_tar = F.pad(F.pad(text, (0, 1), value=c.stop_text_token), (0, 1),
                          value=c.stop_text_token)
         mel_tar = F.pad(codes, (0, 1), value=c.stop_mel_token)
-        return (_mean_ce(self.text_head(enc[:, :text_emb.shape[1]]), text_tar),
-                _mean_ce(self.mel_head(mel_latents), mel_tar))
+        return (_mean_ce(*self._head(self.text_head, enc[:, :text_emb.shape[1]],
+                                     c.number_text_tokens + 1), text_tar),
+                _mean_ce(*self._head(self.mel_head, mel_latents, c.number_mel_codes),
+                         mel_tar))
 
     def prefill_embeddings(self, cond_mel, cond_lengths, text) -> torch.Tensor:
         """[cond, text_emb, start_mel_emb] prefix (gpt/model.py:514-530)."""
@@ -274,8 +342,11 @@ class UnifiedVoice(nn.Module):
         return torch.cat([cond, text_emb, start_emb], dim=1)
 
     def init_cache(self, batch: int, max_len: int, dtype, device) -> KVCache:
+        """Per-layer (B, max_len, H, ch) keys and values, H this rank's
+        heads."""
         c = self.cfg
-        shape = (batch, max_len, c.heads, c.model_dim // c.heads)
+        heads = c.heads if self.tp is None else c.heads // self.tp.size
+        shape = (batch, max_len, heads, c.model_dim // c.heads)
         return KVCache([torch.zeros(shape, dtype=dtype, device=device)
                         for _ in range(c.layers)],
                        [torch.zeros(shape, dtype=dtype, device=device)
@@ -284,20 +355,25 @@ class UnifiedVoice(nn.Module):
     def decode_prefill(self, emb: torch.Tensor, cache: KVCache) -> torch.Tensor:
         """Fill the cache with the prefix; mel logits at its last position."""
         hidden = self.gpt(emb, cache)
-        return self.mel_head(self.final_norm(hidden[:, -1]))
+        return self._logits(self.final_norm(hidden[:, -1]))
 
     def decode_step(self, token: torch.Tensor, position: torch.Tensor,
                     cache: KVCache) -> torch.Tensor:
         """One cached step: token (B,), mel position (B,) -> logits (B, V)."""
         emb = self._mel_embeddings(token[:, None], position[:, None])
         hidden = self.gpt(emb, cache)
-        return self.mel_head(self.final_norm(hidden[:, -1]))
+        return self._logits(self.final_norm(hidden[:, -1]))
 
 
-def _mean_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def _mean_ce(logits: torch.Tensor, tp: Optional[Shard],
+             targets: torch.Tensor) -> torch.Tensor:
     """Unmasked mean cross-entropy in fp32 (the reference's plain
-    ``F.cross_entropy``: padding is stop-token supervised by construction)."""
-    return F.cross_entropy(logits.float().flatten(0, -2), targets.flatten())
+    ``F.cross_entropy``: padding is stop-token supervised by construction);
+    vocab-parallel over ``tp`` where the logits are this rank's columns."""
+    logits = logits.float().flatten(0, -2)
+    if tp is None:
+        return F.cross_entropy(logits, targets.flatten())
+    return vocab_parallel_cross_entropy(logits, targets.flatten(), tp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -315,11 +391,16 @@ class SamplingConfig:
 def generate_speech_tokens(model: UnifiedVoice, cond_mel, cond_lengths, text,
                            sampling: SamplingConfig = SamplingConfig(),
                            generator: Optional[torch.Generator] = None,
-                           cache_dtype=torch.bfloat16):
+                           cache_dtype=torch.bfloat16, rows: Optional[Rows] = None,
+                           group=None):
     """AR decode with a KV cache.
 
     Returns (codes (B, max_len) padded with stop tokens, lengths (B,)), where
-    ``lengths`` counts generated tokens including the stop token.
+    ``lengths`` counts generated tokens including the stop token.  On a data
+    rank of a sharded engine the batch is this rank's ``rows`` of the
+    request: each step's Gumbel noise is drawn for the whole request, and
+    the early stop waits for every row of ``group`` (the data group), so the
+    generator moves and the decode ends as on one card.
     """
     c = model.cfg
     b = text.shape[0]
@@ -336,22 +417,31 @@ def generate_speech_tokens(model: UnifiedVoice, cond_mel, cond_lengths, text,
     codes = torch.full((b, n), c.stop_mel_token, dtype=torch.long, device=dev)
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     lengths = torch.zeros(b, dtype=torch.long, device=dev)
-    rows = torch.arange(b, device=dev)
+    batch = torch.arange(b, device=dev)
     for step in range(n):
-        if not sampling.force_full_length and step and bool(finished.all()):
+        if not sampling.force_full_length and step and _all_finished(finished, group):
             break
         tok = sample_token(logits, seen_mask=seen,
                            temperature=sampling.temperature,
                            top_p=sampling.top_p,
                            repetition_penalty=sampling.repetition_penalty,
                            typical_mass=sampling.typical_mass,
-                           generator=generator)
+                           generator=generator, rows=rows)
         tok = torch.where(finished, c.stop_mel_token, tok)
         codes[:, step] = tok
-        seen[rows, tok] = True
+        seen[batch, tok] = True
         lengths = torch.where(finished, lengths, lengths + 1)
         if not sampling.force_full_length:
             finished = finished | (tok == c.stop_mel_token)
         if step + 1 < n:
             logits = model.decode_step(tok, torch.full_like(tok, step + 1), cache)
     return codes, lengths
+
+
+def _all_finished(finished: torch.Tensor, group=None) -> bool:
+    """Every row has stopped: this rank's (a host synchronisation), and with
+    a group every rank's (one small all-reduce)."""
+    done = bool(finished.all())
+    if group is None:
+        return done
+    return not all_reduce_max_host([int(not done)], group)[0]

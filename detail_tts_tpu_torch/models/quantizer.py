@@ -18,7 +18,11 @@ expiry replacements) come in a :class:`VQDraws` drawn from the step's
 generator by :func:`draw_codebook`, or handed in (the tests hand in JAX's).
 
 Under data parallelism the training call takes the process group where the
-JAX module takes ``axis_name`` (quantizer.py:108-170).  The draws index
+JAX module takes ``axis_name`` (quantizer.py:108-170): the mesh's **data**
+group, over which every collective here runs (the k-means gather, the
+expiry rows, the EMA sums).  Model peers of a (D x M) mesh hold the same
+rows, so a collective over the world would count each row M times and
+misplace the expiry rows.  The draws index
 the *global* flattened vectors, rank r's local rows at offsets [r n, (r+1) n):
 the k-means samples are every rank's first 500 rows gathered in rank order
 and cut to 500 (the global batch's first 500), so every rank runs the same

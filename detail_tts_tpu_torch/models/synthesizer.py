@@ -44,7 +44,7 @@ from detail_tts_tpu_torch.nn.common import (Conv1d, ConvTranspose1d, TorchLayerN
                                             sequence_mask, slice_segments)
 from detail_tts_tpu_torch.nn.coupling import ResidualCouplingBlock
 from detail_tts_tpu_torch.nn.style_encoder import MelStyleEncoder
-from detail_tts_tpu_torch.parallel.mesh import shard_rows
+from detail_tts_tpu_torch.parallel.mesh import Rows, draw_rows, shard_rows
 
 
 def make_train_schedule(cfg: Config, device="cpu") -> DiffusionSchedule:
@@ -336,16 +336,19 @@ class SynthesizerTrn(nn.Module):
     def infer_flowvae(self, mel: torch.Tensor, lengths: torch.Tensor,
                       noise_scale: float = 0.667,
                       generator: Optional[torch.Generator] = None,
-                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      noise: Optional[torch.Tensor] = None,
+                      rows: Optional[Rows] = None) -> torch.Tensor:
         """mel (B, T, n_mels) -> wav (B, T * hop, 1) (model_24k.py:848-863).
 
         The prior sample's standard-normal ``noise`` is drawn from
-        ``generator`` unless given."""
+        ``generator`` unless given, for the whole request when ``mel`` is
+        its ``rows`` (``parallel.mesh.draw_rows``)."""
         y_mask = sequence_mask(lengths, mel.shape[1])[..., None]
         g = self.ref_enc(mel * y_mask, y_mask[..., 0])
         _, m_p, logs_p = self.enc_p(self.in_proj(mel), lengths)
         if noise is None:
-            noise = torch.randn(m_p.shape, generator=generator, device=m_p.device)
+            noise = draw_rows(lambda shape: torch.randn(shape, generator=generator,
+                                                        device=m_p.device), m_p.shape, rows)
         z_p = m_p + noise.to(m_p.dtype) * torch.exp(logs_p) * noise_scale
         z = self.flow.reverse(z_p, y_mask, g=g)
         return self.dec(z, g=g)

@@ -16,7 +16,7 @@ it wraps (:func:`weight_norm_`), and the GAN step's random segment slices
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -55,13 +55,24 @@ class SeededDropout(nn.Dropout):
     is held to determinism from its seed."""
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+        """``shard`` = (dim, rank, size): ``x`` is slice ``rank`` of ``size``
+        equal slices along ``dim`` of a larger activation; the whole
+        activation's mask is drawn and this slice's part kept, so the
+        generator moves and the masks fall as for the whole."""
         if not self.training or self.p == 0.0:
             return x
         if generator is None:
             raise ValueError(f"dropout {self.p} in train() mode needs the step's "
                              "torch.Generator; none was given")
-        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.p
+        shape = list(x.shape)
+        if shard is not None:
+            shape[shard[0]] *= shard[2]
+        keep = torch.rand(shape, generator=generator, device=x.device) >= self.p
+        if shard is not None:
+            dim, n = shard[0], x.shape[shard[0]]
+            keep = keep.narrow(dim, shard[1] * n, n)
         scale = 1.0 / (1.0 - self.p) if self.p < 1.0 else 0.0
         return x * keep.to(x.dtype) * scale
 

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from detail_tts_tpu_torch.parallel.mesh import Rows, draw_rows
+
 
 def apply_repetition_penalty(logits: torch.Tensor, seen_mask: torch.Tensor,
                              penalty: float) -> torch.Tensor:
@@ -63,10 +65,14 @@ def apply_typical(logits: torch.Tensor, mass: float = 0.9) -> torch.Tensor:
 
 
 def gumbel_like(logits: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Standard Gumbel noise of ``logits``' shape, fp32."""
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Rows] = None) -> torch.Tensor:
+    """Standard Gumbel noise of ``logits``' shape, fp32; ``rows``: the
+    logits are these rows of a larger batch, whose noise is drawn
+    (``parallel.mesh.draw_rows``)."""
     tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = draw_rows(lambda shape: torch.rand(shape, generator=generator,
+                                           device=logits.device), logits.shape, rows)
     return -torch.log(-torch.log(u.clamp_min(tiny)))
 
 
@@ -74,13 +80,15 @@ def sample_token(logits: torch.Tensor, *, seen_mask: torch.Tensor,
                  temperature: float = 0.8, top_p: float = 0.8,
                  repetition_penalty: float = 2.0, typical_mass: float = 1.0,
                  generator: Optional[torch.Generator] = None,
-                 gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One decode-step sample, (B, V) -> (B,) int64."""
+                 gumbel: Optional[torch.Tensor] = None,
+                 rows: Optional[Rows] = None) -> torch.Tensor:
+    """One decode-step sample, (B, V) -> (B,) int64; ``rows`` as in
+    :func:`gumbel_like`."""
     logits = logits.float()
     logits = apply_repetition_penalty(logits, seen_mask, repetition_penalty)
     logits = apply_temperature(logits, temperature)
     logits = apply_typical(logits, typical_mass)
     logits = apply_top_p(logits, top_p)
     if gumbel is None:
-        gumbel = gumbel_like(logits, generator)
+        gumbel = gumbel_like(logits, generator, rows)
     return torch.argmax(logits + gumbel, dim=-1)

@@ -28,6 +28,19 @@ off for both matmuls and convolutions.  All randomness of a request comes
 from one ``torch.Generator`` seeded by the request's ``seed``, drawn in
 stage order: the decode, then the diffusion noise, then the vocoder's prior
 sample.
+
+Sharded serving (``TTSEngine(mesh=)``, a ``parallel.mesh.Mesh`` of the
+ranks, one process a card; JAX's engine on a ``(data, model)`` mesh): every
+rank calls the same method with the whole request, in SPMD style, and gets
+every item's audio.  The rows are split over the data group (every rank
+runs every row where D does not divide the batch, as JAX's ``shard_batch``
+replicates what it cannot split); the GPT is sharded over the model group
+(``shard_module_``), the rest replicated.  So that a rank's rows come out
+as on one card: every draw is made at the request's shape and the rank
+keeps its rows (``draw_rows``); the text, prompt and code buckets are
+agreed over the data group (a text bucket of another width moves every mel
+position of the GPT's input); the decode's early stop waits for every
+row; and the audio is gathered to every rank before it is cut to length.
 """
 from __future__ import annotations
 
@@ -50,6 +63,9 @@ from detail_tts_tpu_torch.models.diffusion import (ddim_sample_loop,
                                                    p_sample_loop)
 from detail_tts_tpu_torch.models.gpt import SamplingConfig, generate_speech_tokens
 from detail_tts_tpu_torch.models.synthesizer import SynthesizerTrn, make_infer_schedule
+from detail_tts_tpu_torch.parallel.mesh import (Mesh, Rows, all_gather_host,
+                                                all_gather_rows, all_reduce_max_host,
+                                                draw_rows, shard_module_)
 from detail_tts_tpu_torch.text.pinyin import to_pinyin
 from detail_tts_tpu_torch.text.tokenizer import make_tokenizer
 
@@ -106,6 +122,7 @@ class InflightBatch:
     n: int
     timings: Optional[Dict[str, float]] = None
     _t0: float = 0.0
+    rows: Optional[Rows] = None  # this data rank's rows of the request
 
 
 @dataclasses.dataclass
@@ -129,6 +146,7 @@ class PendingDecode:
     force_full: bool
     timings: Optional[Dict[str, float]] = None
     _t0: float = 0.0
+    rows: Optional[Rows] = None  # this data rank's rows of the request
 
 
 def _bucket_up(n: int, buckets: Sequence[int]) -> int:
@@ -159,12 +177,20 @@ def _clamp_to_model(cfg: Config, ecfg: EngineConfig) -> EngineConfig:
         code_buckets=tuple(b for b in ecfg.code_buckets if b <= mel_cap) or (mel_cap,))
 
 
+def _take(items, rows: Optional[Rows]):
+    return items if rows is None else items[rows.start:rows.stop]
+
+
 class TTSEngine:
-    """Serving engine around a ``SynthesizerTrn`` with loaded weights."""
+    """Serving engine around a ``SynthesizerTrn`` with loaded weights.
+
+    ``mesh``: a ``parallel.mesh.Mesh`` of the ranks, each rank's engine on
+    its own ``device`` (see the module's docstring); its GPT is sharded
+    here.  ``None`` is the one-card engine, bit for bit."""
 
     def __init__(self, model: SynthesizerTrn,
                  engine_cfg: EngineConfig = EngineConfig(), device="cuda",
-                 tokenizer=None):
+                 tokenizer=None, mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -173,6 +199,10 @@ class TTSEngine:
         self.cdt = self.ecfg.compute_dtype
         self.model = model.to(device=self.device, dtype=self.cdt).eval()
         self.model.requires_grad_(False)
+        self.mesh = mesh
+        self._data_group = None if mesh is None else mesh.data_group
+        if mesh is not None:
+            shard_module_(self.model, mesh)
         d = cfg.data
         self.frontend = MelFrontend(d.sampling_rate, d.filter_length,
                                     d.hop_length, d.win_length,
@@ -186,14 +216,37 @@ class TTSEngine:
         self.tokenizer = tokenizer or make_tokenizer(d.tokenizer_vocab)
         self._bias_cache: "OrderedDict[int, List[torch.Tensor]]" = OrderedDict()
 
+    # ------------------------------------------------------------ the mesh
+
+    def _rows(self, n: int) -> Optional[Rows]:
+        """This data rank's rows of an ``n``-row request (None without a
+        data axis)."""
+        return None if self.mesh is None or self.mesh.data == 1 else self.mesh.rows(n)
+
+    def _agree(self, *sizes: int) -> List[int]:
+        """Host sizes as the data ranks agree them: their max."""
+        if self._data_group is None:
+            return list(sizes)
+        return all_reduce_max_host(sizes, self._data_group)
+
+    def _gather(self, wav: torch.Tensor, eff: np.ndarray, rows: Optional[Rows]):
+        """(wav, eff) of every row of the request, in order, on every rank."""
+        if rows is None or rows.stop - rows.start == rows.total:
+            return wav, eff
+        wide = wav.to(torch.int32) if wav.dtype == torch.int16 else wav  # NCCL has no int16
+        wav = all_gather_rows(wide, self._data_group).to(wav.dtype)
+        eff = all_gather_host(torch.as_tensor(eff), self._data_group).reshape(-1).numpy()
+        return wav, eff
+
     # ------------------------------------------------------------- host prep
 
     def prepare_text(self, texts: Sequence[str]) -> Tuple[torch.Tensor, np.ndarray]:
-        """pinyin -> BPE -> right-pad with stop (0) to a shared text bucket."""
+        """pinyin -> BPE -> right-pad with stop (0) to a shared text bucket
+        (agreed over the data group on a sharded engine)."""
         cap = self.ecfg.text_buckets[-1] - 1
         encoded = [self.tokenizer.encode(to_pinyin(t))[:cap] for t in texts]
         lengths = np.array([len(e) for e in encoded], np.int64)
-        width = _bucket_up(int(lengths.max()) + 1, self.ecfg.text_buckets)
+        width, = self._agree(_bucket_up(int(lengths.max()) + 1, self.ecfg.text_buckets))
         out = np.zeros((len(texts), width), np.int64)
         for i, e in enumerate(encoded):
             out[i, :len(e)] = e
@@ -204,7 +257,8 @@ class TTSEngine:
         """24 kHz waveforms -> fp32 prompt mels padded up to a bucket, and
         the true per-item frame counts.  Wavs are zero-padded to a 0.5 s grid
         before the STFT (one batched STFT per padded length); each item keeps
-        its own frames, cropped to the largest bucket."""
+        its own frames, cropped to the largest bucket.  The bucket is agreed
+        over the data group on a sharded engine."""
         hop = self.cfg.data.hop_length
         chunk = self.cfg.data.sampling_rate // 2
         cap = self.ecfg.prompt_buckets[-1]
@@ -225,7 +279,7 @@ class TTSEngine:
             for j, i in enumerate(idx):
                 mels[i] = batch[j, :padded[i][1]]
         lengths = [m.shape[0] for m in mels]
-        width = _bucket_up(max(lengths), self.ecfg.prompt_buckets)
+        width, = self._agree(_bucket_up(max(lengths), self.ecfg.prompt_buckets))
         out = torch.zeros((len(wavs), width, mels[0].shape[1]),
                           dtype=torch.float32, device=self.device)
         for i, m in enumerate(mels):
@@ -277,8 +331,9 @@ class TTSEngine:
         return np.maximum(lengths.cpu().numpy() - 1, 1).astype(np.int64)
 
     def _decode(self, refer_mel, refer_len, text, generator, max_len: int,
-                force_full: bool):
-        """AR decode -> (codes (B, max_len), lengths (B,)) on the device."""
+                force_full: bool, rows: Optional[Rows] = None):
+        """AR decode -> (codes (B, max_len), lengths (B,)) on the device;
+        ``rows``: the batch is these rows of the request."""
         e = self.ecfg
         sampling = SamplingConfig(
             temperature=e.temperature, top_p=e.top_p,
@@ -287,24 +342,26 @@ class TTSEngine:
             force_full_length=force_full)
         return generate_speech_tokens(
             self.model.gpt, refer_mel.to(self.cdt), refer_len, text, sampling,
-            generator=generator, cache_dtype=e.cache_dtype)
+            generator=generator, cache_dtype=e.cache_dtype, rows=rows,
+            group=self._data_group)
 
     def generate_codes(self, refer_mel, refer_len, text, generator,
                        force_full: bool = False,
-                       max_len: Optional[int] = None):
+                       max_len: Optional[int] = None, rows: Optional[Rows] = None):
         """AR decode -> (codes (B, max_len), effective lengths (B,))."""
         max_len = max_len or self.ecfg.max_generate_length
         codes, lengths = self._decode(refer_mel, refer_len, text, generator,
-                                      max_len, force_full)
+                                      max_len, force_full, rows)
         return codes, self._effective_lengths(codes.shape[0], lengths,
                                               max_len, force_full)
 
     def _pad_codes(self, codes: torch.Tensor, eff: np.ndarray, vq_safe: bool = False):
         """Crop codes to a bucket and stop-fill past each effective length;
         ``vq_safe`` maps ids at or above the VQ codebook size (the GPT's
-        start and stop ids, and the fill) to 0."""
-        bucket = min(_bucket_up(int(eff.max()), self.ecfg.code_buckets),
-                     codes.shape[1])
+        start and stop ids, and the fill) to 0.  The bucket is agreed over
+        the data group on a sharded engine."""
+        bucket, = self._agree(min(_bucket_up(int(eff.max()), self.ecfg.code_buckets),
+                                  codes.shape[1]))
         eff_t = torch.as_tensor(eff, device=codes.device)
         pos = torch.arange(bucket, device=codes.device)[None, :]
         codes_b = torch.where(pos < eff_t[:, None], codes[:, :bucket],
@@ -314,9 +371,12 @@ class TTSEngine:
         return codes_b, eff_t * self.cfg.gpt.mel_length_compression, bucket
 
     def diffuse(self, latents: torch.Tensor, cond_latent: torch.Tensor,
-                biases: List[torch.Tensor], generator) -> torch.Tensor:
+                biases: List[torch.Tensor], generator,
+                rows: Optional[Rows] = None) -> torch.Tensor:
         """latents (B, Tc, D) -> denormalised mel (B, 4 Tc, n_mels), fp32,
-        by the configured sampler; each model evaluation is one CFG call."""
+        by the configured sampler; each model evaluation is one CFG call.
+        ``rows``: the batch is these rows of the request, whose noise is
+        drawn."""
         code_emb = self.model.diffusion_code_embedding(
             latents.to(self.cdt), cond_latent.to(self.cdt))
 
@@ -326,13 +386,14 @@ class TTSEngine:
 
         shape = (latents.shape[0], latents.shape[1] * FRAMES_PER_CODE,
                  self.cfg.diffusion.in_channels)
-        noise = torch.randn(shape, generator=generator, device=self.device) \
+        noise = draw_rows(lambda s: torch.randn(s, generator=generator,
+                                                device=self.device), shape, rows) \
             * self.ecfg.diffusion_temperature
         k = self.cfg.diffusion.cond_free_k
         sampler = self.ecfg.diffusion_sampler
         if sampler == "ancestral":
             mel = p_sample_loop(self.schedule, model_fn, noise, cond_free_k=k,
-                                generator=generator)
+                                generator=generator, rows=rows)
         elif sampler == "ddim":
             mel = ddim_sample_loop(self.schedule, model_fn, noise, cond_free_k=k)
         elif sampler == "dpmpp_2m":
@@ -342,11 +403,13 @@ class TTSEngine:
             mel = dpmpp_2m_sample_loop(self.schedule, model_fn, noise, cond_free_k=k)
         return denormalize_mel(mel)
 
-    def _vocode(self, mel: torch.Tensor, eff: np.ndarray, generator) -> torch.Tensor:
+    def _vocode(self, mel: torch.Tensor, eff: np.ndarray, generator,
+                rows: Optional[Rows] = None) -> torch.Tensor:
         """mel -> wav (B, T, 1), fp32 or (with ``pcm16_output``) int16."""
         mel_len = torch.as_tensor(eff * FRAMES_PER_CODE, device=self.device)
         wav = self.model.infer_flowvae(mel.to(self.cdt), mel_len,
-                                       self.ecfg.noise_scale, generator=generator)
+                                       self.ecfg.noise_scale, generator=generator,
+                                       rows=rows)
         return to_pcm16(wav) if self.ecfg.pcm16_output else wav.float()
 
     def _codes_to_mel(self, codes: torch.Tensor, refer_mel: torch.Tensor,
@@ -387,8 +450,11 @@ class TTSEngine:
         """Phase 1: host prep, then the AR decode and the diffusion
         conditioning.  Nothing waits for the decode's lengths here (the
         decode loop itself synchronises on early stop unless ``force_full``);
-        see :class:`PendingDecode`."""
+        see :class:`PendingDecode`.  On a sharded engine the batch is this
+        data rank's rows of the request."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        rows = self._rows(len(texts))
+        texts, prompt_wavs = _take(texts, rows), _take(prompt_wavs, rows)
         with self._stage("prepare", timings):
             text, _ = self.prepare_text(texts)
             refer_mel, refer_len = self.prepare_prompt(prompt_wavs)
@@ -397,7 +463,7 @@ class TTSEngine:
         # the decode is enqueued first; the conditioning's host work follows
         with self._stage("generate", timings, wait=False):
             codes, lengths = self._decode(refer_mel, refer_len, text, gen,
-                                          max_len, force_full)
+                                          max_len, force_full, rows)
             done = torch.cuda.Event() if self.device.type == "cuda" else None
             if done is not None:
                 done.record()
@@ -408,7 +474,7 @@ class TTSEngine:
                              refer_mel=refer_mel, refer_len=refer_len, text=text,
                              generator=gen, n=len(texts), max_len=max_len,
                              force_full=force_full, timings=timings,
-                             _t0=time.perf_counter())
+                             _t0=time.perf_counter(), rows=rows)
 
     @torch.inference_mode()
     def dispatch_tail(self, pending: PendingDecode) -> InflightBatch:
@@ -431,11 +497,12 @@ class TTSEngine:
                                      pending.text, codes_b, wav_len)
         with self._stage("diffuse", timings):
             mel = self.diffuse(latents, pending.diff_cond,
-                               self.attention_biases(bucket * FRAMES_PER_CODE), gen)
+                               self.attention_biases(bucket * FRAMES_PER_CODE), gen,
+                               pending.rows)
         with self._stage("vocode", timings):
-            wav = self._vocode(mel, eff, gen)
+            wav = self._vocode(mel, eff, gen, pending.rows)
         return InflightBatch(wav=wav, eff=eff, n=pending.n, timings=timings,
-                             _t0=time.perf_counter())
+                             _t0=time.perf_counter(), rows=pending.rows)
 
     def dispatch_batch(self, texts: Sequence[str],
                        prompt_wavs: Sequence[np.ndarray], seed: int = 0,
@@ -449,9 +516,10 @@ class TTSEngine:
 
     @torch.inference_mode()
     def finalize_batch(self, inflight: InflightBatch) -> List[np.ndarray]:
-        """Fetch and trim a dispatched batch (waits for the device)."""
+        """Fetch and trim a dispatched batch (waits for the device); on a
+        sharded engine every row of the request, gathered first."""
         with torch.profiler.record_function("host"):
-            outs = self._trim(inflight.wav, inflight.eff)
+            outs = self._trim(*self._gather(inflight.wav, inflight.eff, inflight.rows))
         if inflight.timings is not None:
             inflight.timings["host"] = (inflight.timings.get("host", 0.0)
                                         + time.perf_counter() - inflight._t0)
@@ -483,7 +551,10 @@ class TTSEngine:
         """Low-level entry on token ids and a prompt mel (the reference's
         eval-time ``infer_gpt`` / ``infer`` calls, train.py:234-236)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        codes, eff = self.generate_codes(refer_mel, refer_len, text_ids, gen)
+        rows = self._rows(text_ids.shape[0])
+        text_ids, refer_mel, refer_len = (_take(x, rows) for x in (text_ids, refer_mel,
+                                                                   refer_len))
+        codes, eff = self.generate_codes(refer_mel, refer_len, text_ids, gen, rows=rows)
         codes_b, wav_len, bucket = self._pad_codes(codes, eff, vq_safe=vq_only)
         if vq_only:
             mel = self._codes_to_mel(codes_b, refer_mel, refer_len)
@@ -491,8 +562,8 @@ class TTSEngine:
             latents = self.model.gpt(refer_mel.to(self.cdt), refer_len, text_ids,
                                      codes_b, wav_len)
             mel = self.diffuse(latents, self.diffusion_cond(refer_mel, refer_len),
-                               self.attention_biases(bucket * FRAMES_PER_CODE), gen)
-        return self._trim(self._vocode(mel, eff, gen), eff)
+                               self.attention_biases(bucket * FRAMES_PER_CODE), gen, rows)
+        return self._trim(*self._gather(self._vocode(mel, eff, gen, rows), eff, rows))
 
     @torch.inference_mode()
     def synthesize_vq_batch(self, texts: Sequence[str],
@@ -501,15 +572,16 @@ class TTSEngine:
         """Diffusion-free path (reference ``infer_gpt``, model_24k.py:811-846):
         codes -> ``vq_dec`` mel -> vocoder."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        text, _ = self.prepare_text(texts)
-        refer_mel, refer_len = self.prepare_prompt(prompt_wavs)
+        rows = self._rows(len(texts))
+        text, _ = self.prepare_text(_take(texts, rows))
+        refer_mel, refer_len = self.prepare_prompt(_take(prompt_wavs, rows))
         codes, eff = self.generate_codes(refer_mel, refer_len, text, gen,
-                                         force_full=force_full)
+                                         force_full=force_full, rows=rows)
         # vq_safe: the GPT's start/stop ids lie past the VQ codebook and never
         # index it in the reference's exact-length batch-1 path
         codes_b, _, _ = self._pad_codes(codes, eff, vq_safe=True)
         mel = self._codes_to_mel(codes_b, refer_mel, refer_len)
-        return self._trim(self._vocode(mel, eff, gen), eff)
+        return self._trim(*self._gather(self._vocode(mel, eff, gen, rows), eff, rows))
 
     @torch.inference_mode()
     def vq_roundtrip(self, mel, seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -548,10 +620,11 @@ class TTSEngine:
 
 def random_engine(cfg: Optional[Config] = None, seed: int = 0,
                   engine_cfg: EngineConfig = EngineConfig(),
-                  device="cuda") -> TTSEngine:
-    """Engine with seeded random weights made on ``device`` (tests, smoke)."""
+                  device="cuda", mesh: Optional[Mesh] = None) -> TTSEngine:
+    """Engine with seeded random weights made on ``device`` (tests, smoke);
+    ``mesh`` as in :class:`TTSEngine`."""
     dev = resolve_device(device)
     with torch.device(dev):
         model = SynthesizerTrn(cfg or Config())
     random_weights_(model, seed)
-    return TTSEngine(model, engine_cfg, device=dev)
+    return TTSEngine(model, engine_cfg, device=dev, mesh=mesh)

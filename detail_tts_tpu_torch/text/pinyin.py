@@ -6,7 +6,7 @@ path (``bundled_lazy_pinyin``): the reference calls
 the table ``pinyin_data.json`` (copied from the JAX package) reproduces it
 without ``pypinyin``: longest-match phrases first, then per-char readings;
 runs of non-hanzi characters stay verbatim as single items; hanzi absent
-from the table pass through.
+from the table pass through.  :func:`coverage` is the table's diagnostic.
 """
 from __future__ import annotations
 
@@ -67,3 +67,12 @@ def to_pinyin(text: str) -> str:
     if has_cjk(text):
         text = " ".join(bundled_lazy_pinyin(text))
     return " " + text + " "
+
+
+def coverage(text: str) -> Tuple[int, List[str]]:
+    """(the number of hanzi in ``text``, those in neither the table's
+    characters nor its phrases): the bundled table's diagnostic."""
+    chars, phrases, _ = _load_table()
+    cjk = [c for c in text if _CJK_RE.match(c)]
+    in_phrase = set("".join(phrases))
+    return len(cjk), [c for c in cjk if c not in chars and c not in in_phrase]

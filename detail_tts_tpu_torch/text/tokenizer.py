@@ -6,8 +6,12 @@ Counterpart of ``detail_tts_tpu/text/tokenizer.py`` that needs no HF
 them.  The tables are model ``BPE`` (255 tokens, ~200 merges, unknown chars
 map to ``[UNK]`` one by one, no fusing), a ``Whitespace`` pre-tokenizer and
 three added tokens ``[STOP]/[UNK]/[SPACE]`` that are split out of the raw
-text before pre-tokenization.  :class:`CharTokenizer` is the explicit
-``"char"`` opt-in, a different text frontend.
+text before pre-tokenization.  ``decode`` inverts the same tables (HF's
+decode of a table with no decoder, then the JAX package's clean-up), and
+:func:`train_bpe` makes a new table with ``tokenizers``, imported where it
+is called (the training host has it, the card's machine need not).
+:class:`CharTokenizer` is the explicit ``"char"`` opt-in, a different text
+frontend.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import json
 import os
 import re
 import unicodedata
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 _VOCAB_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vocabs")
 BUNDLED_VOCABS = ("zh", "en", "jp", "kr")
@@ -93,6 +97,7 @@ class VoiceBpeTokenizer:
             a, b = merge.split(" ") if isinstance(merge, str) else merge
             self.ranks[(a, b)] = i
         self.added = {t["content"]: t["id"] for t in data["added_tokens"]}
+        self.id_to_token = {i: t for t, i in {**self.vocab, **self.added}.items()}
         self._added_re = re.compile("|".join(
             re.escape(t) for t in sorted(self.added, key=len, reverse=True)))
         self._cache: Dict[str, List[int]] = {}
@@ -137,6 +142,17 @@ class VoiceBpeTokenizer:
         ids.extend(self._encode_plain(txt[pos:]))
         return ids
 
+    def decode(self, ids: Sequence[int]) -> str:
+        """Ids -> text as the JAX package decodes (``tokenizer.py:87``): the
+        tokens joined (HF joins them with spaces when a table has no
+        decoder, and the spaces are then removed), ``[STOP]`` and ``[UNK]``
+        dropped, ``[SPACE]`` made a space; ids outside the table are
+        skipped, as HF skips them."""
+        txt = "".join(self.id_to_token.get(int(i), "") for i in ids)
+        for special in ("[STOP]", "[UNK]"):
+            txt = txt.replace(special, "")
+        return txt.replace("[SPACE]", " ")
+
 
 class CharTokenizer:
     """Char-level tokenizer with the BPE tables' special-token layout: an
@@ -175,6 +191,30 @@ class CharTokenizer:
             elif tok not in ("[STOP]", "[UNK]"):
                 parts.append(tok)
         return "".join(parts)
+
+
+def train_bpe(lines: Sequence[str], save_path: str, vocab_size: int = 255) -> None:
+    """Train a BPE table of this format on ``lines`` and save it as JSON at
+    ``save_path`` (reference ``train()``, voice_tokenizer.py:57): the three
+    added tokens, ``[UNK]`` for unknown characters, a ``Whitespace``
+    pre-tokenizer, lines lower-cased and punctuation-normalised first.
+    Needs the ``tokenizers`` package, imported here."""
+    from tokenizers import Tokenizer
+    from tokenizers.models import BPE
+    from tokenizers.pre_tokenizers import Whitespace
+    from tokenizers.trainers import BpeTrainer
+
+    trainer = BpeTrainer(special_tokens=["[STOP]", "[UNK]", "[SPACE]"],
+                         vocab_size=vocab_size)
+    tokenizer = Tokenizer(BPE(unk_token="[UNK]"))
+    tokenizer.pre_tokenizer = Whitespace()
+
+    def batches(size: int = 1000):
+        for i in range(0, len(lines), size):
+            yield [normalize_punctuation(t.lower()) for t in lines[i:i + size]]
+
+    tokenizer.train_from_iterator(batches(), trainer, length=len(lines))
+    tokenizer.save(save_path)
 
 
 def make_tokenizer(spec: str):

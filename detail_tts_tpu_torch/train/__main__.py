@@ -15,6 +15,13 @@ Data parallel on N cards of one host (one process a card, NCCL):
       --logs-folder logs/run
 ``batch_size`` is then the global micro-batch, ``batch_size // N`` clips a
 card.  With ``WORLD_SIZE`` unset the run is one process, as above.
+
+A (D x M) mesh: ``--model-parallel M`` (``cfg.mesh.model_parallel``) splits
+the GPT over M cards (Megatron tensor parallelism, ``parallel/mesh.py``)
+and the rows over D = N / M; rank r sits at (r // M, r % M):
+  torchrun --nproc_per_node N -m detail_tts_tpu_torch.train --data ... \
+      --model-parallel M --logs-folder logs/run
+``batch_size // D`` clips a card then, the same on the M cards of a row.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ def main(argv=None):
     p.add_argument("--logs-folder", default=None)
     p.add_argument("--num-workers", type=int, default=8)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--model-parallel", type=int, default=None,
+                   help="cards a GPT is split over (cfg.mesh.model_parallel)")
     args = p.parse_args(argv)
 
     import torch.distributed as dist
@@ -47,6 +56,9 @@ def main(argv=None):
     if args.target:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, target=args.target))
+    if args.model_parallel:
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, model_parallel=args.model_parallel))
 
     group, device = None, args.device
     if "WORLD_SIZE" in os.environ:  # under torchrun

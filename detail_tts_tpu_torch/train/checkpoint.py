@@ -13,7 +13,12 @@ into a ``gpt`` trainer) grafts them by name.  The trainer also saves its
 generators' states under ``rng`` (the step generator, and under data
 parallelism every rank's dropout generator, one row a rank), so that a
 resume draws what the run would have drawn; JAX's ``TrainState`` holds no
-rng.  Under data parallelism rank 0 writes and every rank restores.
+rng.  Under data parallelism rank 0 writes and every rank restores.  Under
+tensor parallelism (a ``parallel.mesh.Mesh`` with a model axis) the file
+still holds full tensors: the saving ranks gather the GPT's shards and
+AdamW's moments over the model group, and a restore cuts them again, so
+the format does not depend on the mesh and a (D x M) checkpoint restores at
+world 1 and back, as JAX's Orbax checkpoints are layout-free.
 
 ``restore_checkpoint(partial=True)`` is the reference's lax loader made
 explicit: every tensor whose name and shape match is restored, every other
@@ -33,6 +38,8 @@ import torch
 import torch.nn as nn
 
 from detail_tts_tpu_torch.io.weights import fold_weight_norm
+from detail_tts_tpu_torch.parallel.mesh import (Mesh, gather_state_dict, gather_tensor,
+                                                localize, localize_tensor)
 
 STATE_FILE = "state.pt"
 
@@ -59,16 +66,23 @@ def _param_names(module: nn.Module) -> Dict[int, str]:
     return {id(p): n for n, p in module.named_parameters()}
 
 
-def optimizer_state_by_name(optimizer: torch.optim.Optimizer,
-                            module: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
+def optimizer_state_by_name(optimizer: torch.optim.Optimizer, module: nn.Module,
+                            gather: bool = False) -> Dict[str, Dict[str, torch.Tensor]]:
     """The optimizer's per-parameter state keyed by ``module``'s parameter
-    names, on the CPU."""
+    names, on the CPU.  ``gather``: the moments of a sharded parameter are
+    gathered whole over its model group (every model peer calls it)."""
     names = _param_names(module)
     out = {}
     for group in optimizer.param_groups:
         for p in group["params"]:
             if p in optimizer.state:
-                out[names[id(p)]] = _cpu(optimizer.state[p])
+                state = optimizer.state[p]
+                shard = getattr(p, "model_shard", None)
+                if gather and shard is not None:
+                    state = {k: gather_tensor(v, shard)
+                             if torch.is_tensor(v) and v.shape == p.shape else v
+                             for k, v in state.items()}
+                out[names[id(p)]] = _cpu(state)
     return out
 
 
@@ -81,6 +95,9 @@ def load_optimizer_state_by_name(optimizer: torch.optim.Optimizer, module: nn.Mo
     reported; ``partial=False`` raises instead.  Hyperparameters stay the
     optimizer's own (the step sets the LR)."""
     names = _param_names(module)
+    params = dict(module.named_parameters())
+    saved = {n: {k: localize_tensor(v, params[n]) if torch.is_tensor(v) and n in params
+                 else v for k, v in s.items()} for n, s in saved.items()}
     sd = optimizer.state_dict()
     order = [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
     shapes = {names[id(p)]: tuple(p.shape) for g in optimizer.param_groups
@@ -107,13 +124,22 @@ def load_optimizer_state_by_name(optimizer: torch.optim.Optimizer, module: nn.Mo
 
 
 def save_checkpoint(directory, state, keep: int = 3,
-                    rng: Optional[Mapping[str, torch.Tensor]] = None) -> Path:
+                    rng: Optional[Mapping[str, torch.Tensor]] = None,
+                    mesh: Optional[Mesh] = None) -> Optional[Path]:
     """Save a ``TrainState`` as ``directory/<state.step>/state.pt``, then
     delete all but the newest ``keep`` steps.  ``rng``: generator states
-    saved beside it.  Returns the step's directory."""
+    saved beside it.  Returns the step's directory.  ``mesh``: every rank
+    calls it; data rank 0's model group gathers the shards whole, rank 0
+    writes and the others return None."""
+    if mesh is not None and mesh.data_rank != 0:
+        return None
+    gather = mesh is not None and mesh.model > 1
     step = int(state.step)
-    data = {"step": step, "model": _cpu(state.model.state_dict()),
-            "optimizer": optimizer_state_by_name(state.optimizer, state.model)}
+    model_sd = gather_state_dict(state.model) if gather else state.model.state_dict()
+    moments = optimizer_state_by_name(state.optimizer, state.model, gather)
+    if mesh is not None and mesh.rank != 0:
+        return None
+    data = {"step": step, "model": _cpu(model_sd), "optimizer": moments}
     if rng:
         data["rng"] = _cpu(rng)
     if state.disc is not None:
@@ -196,6 +222,7 @@ def graft_state(current: Mapping[str, torch.Tensor],
 def _restore_module(module: nn.Module, saved: Mapping[str, torch.Tensor],
                     partial: bool) -> List[str]:
     current = module.state_dict()
+    saved = localize(saved, module)
     grafted, skipped = graft_state(current, saved) if partial else (saved, [])
     module.load_state_dict(grafted)
     return skipped
@@ -212,7 +239,9 @@ def restore_checkpoint(directory, state, step: Optional[int] = None,
     ``verbose``): ``missing:<name>`` or ``shape:<name> ...`` for the model,
     the same behind ``optimizer.``, ``disc.`` or ``d_optimizer.`` for the
     rest.  ``partial=False``: every tensor must match.  ``rng``: a dict
-    that takes the saved generator states (none if there are none)."""
+    that takes the saved generator states (none if there are none).  The
+    file holds full tensors; a sharded state (``parallel.mesh.shard_module_``)
+    takes this rank's slices of them, with no collective."""
     data = load_checkpoint(directory, step)
     if rng is not None:
         rng.update(data.get("rng", {}))

@@ -59,7 +59,8 @@ def kl_loss(z_p: torch.Tensor, logs_q: torch.Tensor, m_p: torch.Tensor,
     """Masked KL between the flowed posterior and the prior; (B, T, C)
     tensors, mask (B, T, 1): sum(kl * mask) / sum(mask).
 
-    ``group``: the data-parallel process group.  The mask sum is then the
+    ``group``: the data group (model peers hold the same rows, so not the
+    world).  The mask sum is then the
     global batch's (all-reduced, no gradient) and the local sum is scaled
     by the world, so the ranks' average, and its gradient, is the global
     ratio."""

@@ -17,12 +17,19 @@ leaf whose gradient is zero (its moments decay, weight decay applies) while
 torch skips a parameter whose ``.grad`` is None, so :func:`optimizer_step`
 gives every trainable parameter a zero gradient first (a layer-dropped
 layer, an unused unconditioned embedding).
+
+Under tensor parallelism (``parallel.mesh.shard_module_``) a rank holds a
+slice of each sharded tensor and its gradient: the global norm is the norm
+of the full gradient, each sharded tensor's sum of squares summed over the
+model group and each replicated tensor counted once, so every rank clips by
+the same factor and the replicas stay equal.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from detail_tts_tpu_torch.config import Config
@@ -80,21 +87,40 @@ def make_d_optimizer(params: Sequence[nn.Parameter], cfg: Config
     return make_optimizer(params, cfg)
 
 
+def _model_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the model group (the sharded tensors' share of
+    the norm)."""
+    dist.all_reduce(x, group=group)
+    return x
+
+
 @torch.no_grad()
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: Sequence[torch.Tensor],
+                shards: Optional[Sequence] = None) -> torch.Tensor:
     """fp32 L2 norm over every tensor (optax.global_norm), from sums of
     squares: ``torch.linalg.vector_norm`` of a 5M-element fp32 tensor on
-    the CPU is 5e-4 off in torch 2.13, ``sum`` is not."""
-    return torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    the CPU is 5e-4 off in torch 2.13, ``sum`` is not.  ``shards``: each
+    gradient's ``parallel.mesh.Shard`` (None where it is replicated); the
+    sharded ones' squares are summed over their model group."""
+    squares = [g.float().square().sum() for g in grads]
+    shards = shards or [None] * len(squares)
+    sharded = [s for s, shard in zip(squares, shards) if shard is not None]
+    total = torch.stack([s for s, shard in zip(squares, shards) if shard is None]
+                        or [squares[0].new_zeros(())]).sum()
+    if sharded:
+        group = next(shard for shard in shards if shard is not None).group
+        total = total + _model_sum(torch.stack(sharded).sum(), group)
+    return total.sqrt()
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: Sequence[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                         shards: Optional[Sequence] = None) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / norm`` when their global norm
     reaches ``max_norm`` (optax.clip_by_global_norm); returns the norm
-    before clipping.  No host synchronisation."""
-    norm = global_norm(grads)
+    before clipping.  No host synchronisation.  ``shards`` as in
+    :func:`global_norm`."""
+    norm = global_norm(grads, shards)
     coef = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(list(grads), coef)
     return norm
@@ -113,7 +139,9 @@ def optimizer_step(optimizer: torch.optim.Optimizer,
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
-    norm = global_norm(grads) if clip_norm is None else clip_by_global_norm_(grads, clip_norm)
+    shards = [getattr(p, "model_shard", None) for p in params]
+    norm = (global_norm(grads, shards) if clip_norm is None
+            else clip_by_global_norm_(grads, clip_norm, shards))
     for group in optimizer.param_groups:
         group["lr"] = lr_at(cfg, step)
     optimizer.step()

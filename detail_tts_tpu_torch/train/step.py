@@ -37,21 +37,28 @@ GAN step ``discriminator`` (its forward, backward and update) and
 ``gen_loss`` (the generator's loss against the updated discriminator);
 with a process group also ``allreduce`` (the gradients' all-reduce).
 
-Data parallelism (``group``, one process a card; ``parallel/mesh.py``): a
-step of world W on a global batch computes the world-1 step's update on
-that batch, as JAX's step does on any ``data`` factorisation.  Each rank
-holds its rows (batch / W).  The random draws are made for the global
+Data parallelism (``group``, the data group of a ``parallel.mesh.Mesh``,
+one process a card; ``parallel/mesh.py``): a step over D data ranks on a
+global batch computes the world-1 step's update on that batch, as JAX's
+step does on any ``data`` factorisation.  Each rank holds its rows
+(batch / D); under tensor parallelism its model peers hold the same rows
+and other shards of the GPT (``make_train_state(mesh=)``), whose own
+collectives run inside the GPT's forward and backward and in the grad norm
+(``train/optim.py``), so every collective named here runs over the data
+group only.  The random draws are made for the global
 batch from ``generator``, identical on every rank, and each rank keeps its
 rows; the GAN step gathers the lengths its segment draw needs.  The
 gradients are averaged over the ranks once a backward, after the division
 by ``accum`` and before the clip and AdamW (the discriminator's before its
 update, the generator's before its own).  The masked KL divides by the
 global mask sum; the quantizer sums its EMA statistics over the ranks.
-The loss metrics are averaged in one collective.  At world > 1 the dropout
-masks come from ``dropout_generator``, this rank's own
-(``parallel.mesh.rank_generator``), since one seed on every rank would give
-row i of every rank the same mask; at world 1 they come from ``generator``
-as without a group, so a world-1 step is the plain step bit for bit.
+The loss metrics are averaged in one collective.  At D > 1 the dropout
+masks come from ``dropout_generator``, this data rank's own
+(``parallel.mesh.rank_generator`` keyed by the data rank, so model peers
+draw alike), since one seed on every rank would give row i of every rank
+the same mask; at D = 1 they come from ``generator`` as without a group, so
+a world-1 step is the plain step bit for bit and a (1 x M) step draws the
+one-card step's masks.
 """
 from __future__ import annotations
 
@@ -75,6 +82,7 @@ from detail_tts_tpu_torch.models.synthesizer import (DiffDraws, FlowDraws,
                                                      make_train_schedule, shard_draws)
 from detail_tts_tpu_torch.nn.common import slice_segments, weight_norm_
 from detail_tts_tpu_torch.parallel import mesh
+from detail_tts_tpu_torch.parallel.mesh import Mesh, replicate_tree, shard_module_
 from detail_tts_tpu_torch.serving.pipeline import resolve_device
 from detail_tts_tpu_torch.train.losses import (discriminator_loss, feature_loss,
                                                generator_loss, kl_loss)
@@ -204,12 +212,16 @@ def _clone_optimizer_state(sd: dict) -> dict:
 
 def make_train_state(cfg: Config, device="cuda", seed: int = 0,
                      model: Optional[SynthesizerTrn] = None,
-                     disc: Optional[MultiPeriodDiscriminator] = None) -> TrainState:
+                     disc: Optional[MultiPeriodDiscriminator] = None,
+                     mesh: Optional[Mesh] = None) -> TrainState:
     """Model (seeded random weights made on ``device`` unless ``model`` is
     given), the target's trainable mask and AdamW over that subtree; for the
     GAN targets also the discriminator (seeded from ``seed + 1`` unless
     given) and its AdamW.  Under ``TrainConfig.weight_norm`` the
-    weight-normed convs switch to (g, v) first."""
+    weight-normed convs switch to (g, v) first.  ``mesh``: the state
+    becomes rank 0's on every rank (JAX's ``replicate_tree``), then the GPT
+    is sharded over the model group (``shard_module_``), then AdamW is made,
+    so that it holds shards."""
     dev = resolve_device(device)
     target = cfg.train.target
     check_target(target)
@@ -220,6 +232,9 @@ def make_train_state(cfg: Config, device="cuda", seed: int = 0,
     model = model.to(dev).train()
     if cfg.train.weight_norm:
         weight_norm_(model)
+    if mesh is not None:
+        replicate_tree(model, mesh.world_group)
+        shard_module_(model, mesh)
     params = [p for _, p in trainable_parameters(model, target)]
     state = TrainState(model, params, make_optimizer(params, cfg))
     if target in GAN_TARGETS:
@@ -230,6 +245,8 @@ def make_train_state(cfg: Config, device="cuda", seed: int = 0,
         disc = disc.to(dev).train()
         if cfg.train.weight_norm:
             weight_norm_(disc)
+        if mesh is not None:
+            replicate_tree(disc, mesh.world_group)
         state.disc, state.d_params = disc, list(disc.parameters())
         state.d_optimizer = make_d_optimizer(state.d_params, cfg)
     return state

@@ -19,14 +19,18 @@ micro_batch, ...), the GAN step of ``flowvae`` and ``all`` over (batch,
 * ``train(profile_dir=...)``: a ``torch.profiler`` Chrome trace of a
   window of steps.
 
-Data parallelism (``group``, one process a card, ``torchrun``; see
-``parallel/mesh.py`` and the step): ``batch_size`` is the global
-micro-batch, each rank loads ``batch_size // world`` clips a micro-batch
-from its own rows of the corpus (an iterator passed in must yield this
-rank's rows), the initial state is rank 0's, broadcast, and each rank
-draws its dropout masks from its own generator.  Metrics, TensorBoard,
-eval dumps and profiles are rank 0's (JAX's ``_is_host0``); rank 0 writes
-the checkpoints, with every rank's generator state, and every rank
+Parallelism (``group``, every rank, one process a card, ``torchrun``; see
+``parallel/mesh.py`` and the step): the ranks form the (``data_parallel``
+x ``model_parallel``) mesh of ``cfg.mesh``.  ``batch_size`` is the global
+micro-batch; each data rank loads ``batch_size // D`` clips a micro-batch
+from its own rows of the corpus, and its model peers take the same batch
+(an iterator passed in must yield this data rank's rows).  The initial
+state is rank 0's, broadcast, then the GPT is sharded over the model group
+and AdamW made on the shards.  Each data rank draws its dropout masks from
+its own generator.  Metrics, TensorBoard and profiles are rank 0's (JAX's
+``_is_host0``), and so are eval dumps, which data rank 0's model group
+computes where they run the split GPT; rank 0 writes the checkpoints, with
+full tensors and every data rank's generator state, and every rank
 restores them.
 """
 from __future__ import annotations
@@ -126,47 +130,55 @@ class Trainer:
         by default ``cfg.train.logs_folder/<timestamp>``.  ``synth_eval``:
         for ``gpt`` and ``diff``, the eval dump synthesizes from the batch's
         text and prompt (train.py:229-240).  ``group``: the data-parallel
-        process group (``parallel.mesh.init_distributed``), with ``device``
-        this rank's card.  An unknown target raises ``ValueError``."""
+        process group of every rank (``parallel.mesh.init_distributed``),
+        with ``device`` this rank's card; the mesh is ``cfg.mesh`` over it.
+        An unknown target raises ``ValueError``."""
         if isinstance(cfg, str):
             cfg = Config.from_json(cfg)
         mesh.check_mesh(cfg, group)
         self.cfg = cfg
         self.target = cfg.train.target
+        self.mesh = mesh.make_mesh(cfg.mesh.data_parallel, cfg.mesh.model_parallel, group)
         self.group = group
         self.rank, self.world = mesh.rank(group), mesh.world(group)
+        # the data axis: this rank's rows and the collectives of the step
+        self.data_group = self.mesh.data_group
+        self.data_rank, self.data_world = self.mesh.data_rank, self.mesh.data
         self.device = resolve_device(device)
-        self.state = make_train_state(cfg, self.device, seed=seed)
-        mesh.replicate_tree(self.state.model, group)
-        if self.state.disc is not None:
-            mesh.replicate_tree(self.state.disc, group)
-        self.step_fn = make_train_step(cfg, self.device, group)
+        self.state = make_train_state(cfg, self.device, seed=seed,
+                                      mesh=None if group is None else self.mesh)
+        if self.mesh.model > 1 and self.rank == 0:
+            print(mesh.describe_shards(self.state.model, self.mesh), flush=True)
+        self.step_fn = make_train_step(cfg, self.device, self.data_group)
         self.data_iter = data_iter
         self.buckets = buckets
         self.synth_eval = synth_eval
         run_seed = cfg.train.seed * 1000003 + seed
         self.generator = torch.Generator(device=self.device).manual_seed(run_seed)
-        self.dropout_generator = (mesh.rank_generator(run_seed, self.device, group)
-                                  if self.world > 1 else None)
+        self.dropout_generator = (mesh.rank_generator(run_seed, self.device,
+                                                      self.data_group)
+                                  if self.data_world > 1 else None)
         self.logs_folder = logs_folder or os.path.join(
             cfg.train.logs_folder, time.strftime("%Y-%m-%d-%H-%M-%S"))
         self.metrics = MetricsLogger(self.logs_folder) if self.rank == 0 else None
         self.last_metrics: Dict[str, object] = {}
 
     def default_data(self, jsonl_path: str, num_threads: int = 8) -> "Trainer":
-        """Batches from a jsonl corpus: this rank's rows, micro-batch
-        ``batch_size // world`` (a ``ValueError`` if the world does not
+        """Batches from a jsonl corpus: this data rank's rows, micro-batch
+        ``batch_size // D`` (a ``ValueError`` if the data axis does not
         divide it), accum ``gradient_accumulate_every`` (1 for the GAN
-        targets)."""
-        micro, rest = divmod(self.cfg.train.batch_size, self.world)
+        targets); model peers take model rank 0's batches."""
+        micro, rest = divmod(self.cfg.train.batch_size, self.data_world)
         if rest or not micro:
             raise ValueError(f"batch_size {self.cfg.train.batch_size} does not split over "
-                             f"a world of {self.world}")
+                             f"a data axis of {self.data_world}")
         tok = make_tokenizer(self.cfg.data.tokenizer_vocab)
-        ds = JsonlTtsDataset(self.cfg, jsonl_path, tok, rank=self.rank, world=self.world)
+        ds = JsonlTtsDataset(self.cfg, jsonl_path, tok, rank=self.data_rank,
+                             world=self.data_world)
         accum = 1 if self.target in GAN_TARGETS else self.cfg.train.gradient_accumulate_every
         self.data_iter = DataIterator(ds, micro, accum=accum, buckets=self.buckets,
-                                      num_threads=num_threads, group=self.group)
+                                      num_threads=num_threads, group=self.group,
+                                      model_group=self.mesh.model_group)
         return self
 
     def close(self) -> None:
@@ -179,35 +191,37 @@ class Trainer:
     # ----------------------------------------------------------- checkpoint
 
     def save(self) -> None:
-        """Rank 0 writes ``<logs>/ckpt/<step>`` with the step generator's
-        state and every rank's dropout generator state; the ranks wait for
-        it."""
+        """Rank 0 writes ``<logs>/ckpt/<step>`` (full tensors, gathered over
+        the model group) with the step generator's state and every data
+        rank's dropout generator state; the ranks wait for it."""
         rng = {"generator": self.generator.get_state()}
         if self.dropout_generator is not None:
             rng["dropout"] = mesh.all_gather_host(self.dropout_generator.get_state(),
-                                                  self.group)
-        if self.rank == 0:
-            ckpt_lib.save_checkpoint(os.path.join(self.logs_folder, "ckpt"), self.state,
-                                     keep=self.cfg.train.keep_ckpts, rng=rng)
+                                                  self.data_group)
+        ckpt_lib.save_checkpoint(os.path.join(self.logs_folder, "ckpt"), self.state,
+                                 keep=self.cfg.train.keep_ckpts, rng=rng,
+                                 mesh=None if self.group is None else self.mesh)
         mesh.barrier(self.group)
 
     def load(self, ckpt_dir: str, step: Optional[int] = None) -> "Trainer":
         """Restore ``ckpt_dir`` (its newest step by default), partially: what
         does not match keeps its current value and is reported.  The saved
         generator states are restored too (a rank's dropout generator only
-        when the checkpoint's world is this one)."""
+        when the checkpoint's data axis is this one).  The GPT's shards are
+        cut from the saved full tensors, whatever mesh saved them."""
         rng: Dict[str, torch.Tensor] = {}
-        ckpt_lib.restore_checkpoint(ckpt_dir, self.state, step, rng=rng)
+        ckpt_lib.restore_checkpoint(ckpt_dir, self.state, step, rng=rng,
+                                    verbose=self.rank == 0)
         if "generator" in rng:
             self.generator.set_state(rng["generator"])
         dropout = rng.get("dropout")
         if self.dropout_generator is not None and dropout is not None:
-            if dropout.shape[0] == self.world:
+            if dropout.shape[0] == self.data_world:
                 # a copy: set_state reads a row view from its storage's start
-                self.dropout_generator.set_state(dropout[self.rank].clone())
+                self.dropout_generator.set_state(dropout[self.data_rank].clone())
             elif self.rank == 0:
-                print(f"checkpoint: saved at a world of {dropout.shape[0]}, not "
-                      f"{self.world}: the dropout generators start from the seed")
+                print(f"checkpoint: saved at a data axis of {dropout.shape[0]}, not "
+                      f"{self.data_world}: the dropout generators start from the seed")
         return self
 
     # ---------------------------------------------------------------- data
@@ -230,10 +244,18 @@ class Trainer:
         """``sample-<milestone>.wav`` and ``gt-<milestone>.wav`` from the
         step's first clip (train.py:229-258), in fp32 with dropout off and
         from a generator seeded with the step, so the training generator is
-        untouched.  A failure is printed, never raised: eval must not stop
-        training."""
-        if self.rank != 0:
+        untouched.  Rank 0 computes and writes it, alone unless the dump
+        synthesizes through a GPT split over ``model_parallel`` M > 1: then
+        data rank 0's M ranks compute it together (the other data ranks
+        return at once).  A failure is printed, never raised, where no peer
+        can be waiting on the failed rank (eval must not stop training);
+        a failure while the split GPT runs raises instead, so that the run
+        ends rather than leave a model peer waiting in a collective."""
+        split = (self.mesh.model > 1 and self.synth_eval
+                 and self.target in ("gpt", "diff"))
+        if self.rank != 0 and not (split and self.data_rank == 0):
             return
+        gen_wav = None
         try:
             step = self.state.step
             milestone = step // max(self.cfg.train.save_freq, 1)
@@ -255,6 +277,8 @@ class Trainer:
                     wav = model.infer_flowvae(first("raw_mel"), first("raw_spec_length"),
                                               generator=gen)
                     gen_wav = wav[0, :, 0].float().cpu().numpy()
+            if self.rank != 0:
+                return
             gt_wav = first("raw_wav").reshape(-1).float().cpu().numpy()
             save_wav(os.path.join(self.logs_folder, f"sample-{milestone}.wav"), gen_wav, sr)
             save_wav(os.path.join(self.logs_folder, f"gt-{milestone}.wav"), gt_wav, sr)
@@ -268,24 +292,31 @@ class Trainer:
                                 "mel/gen": gen_mel},
                     audios={"audio/gt": gt_wav, "audio/gen": gen_wav}, sr=sr)
         except Exception:  # noqa: BLE001 - eval must never kill training
+            if split and gen_wav is None:
+                raise  # a model peer may be waiting in one of the split GPT's collectives
             print("eval dump failed:", flush=True)
             traceback.print_exc()
 
     def _synth_eval(self, first, step: int) -> np.ndarray:
         """Synthesis from the clip's text and prompt mel on a fresh fp32
         engine over the folded current weights: ``vq_only`` for ``gpt``
-        (train.py:234-236)."""
+        (train.py:234-236).  Under tensor parallelism the weights are
+        gathered whole and the engine shards them over a (1 x M) mesh of
+        this rank's model group, with no data group."""
         from detail_tts_tpu_torch.models.synthesizer import SynthesizerTrn
         from detail_tts_tpu_torch.serving.pipeline import EngineConfig, TTSEngine
 
-        sd = ckpt_lib.fold_state_dict(self.state.model.state_dict())
+        sd = ckpt_lib.fold_state_dict(mesh.gather_state_dict(self.state.model))
         with torch.device(self.device):
             model = SynthesizerTrn(self.cfg)
         model.load_state_dict(sd)
+        m = self.mesh
         engine = TTSEngine(model, EngineConfig(max_generate_length=200,
                                                compute_dtype=torch.float32,
                                                cache_dtype=torch.float32),
-                           device=self.device)
+                           device=self.device,
+                           mesh=None if m.model == 1 else mesh.Mesh(
+                               1, m.model, m.model_rank, m.model_group, None, m.model_group))
         return engine.synthesize_from_ids(first("text"), first("mel"),
                                           first("spec_length"), seed=step,
                                           vq_only=self.target == "gpt")[0]

@@ -1,7 +1,9 @@
 """The bias-attention CUDA kernels against their plain versions, on the card:
 the serving forward, and the training forward (with its row statistic) and
 the three backward kernels (delta, dq and the dbias partials; dk and dv; the
-partials' sum) behind ``BiasAttentionFunction``.
+partials' sum) behind ``BiasAttentionFunction``; and the paths that run
+them: the samplers, the training steps, and a (1 x 2) sharded engine of two
+gloo ranks on the one card.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip elsewhere.
 They import nothing of JAX, so on a machine without it run them with the
@@ -417,3 +419,63 @@ def test_world_1_nccl_step_is_the_plain_step(cuda, target):
             assert torch.equal(v, sd1[k]), k
     finally:
         dist.destroy_process_group()
+
+
+def _tp_tail_rank(rank, port, path, args):
+    """One of two gloo ranks on cuda:0: the deterministic tail of a (1 x 2)
+    engine (the GPT split over the ranks), with its B1 launches."""
+    import torch.distributed as dist
+
+    from detail_tts_tpu_torch.parallel.mesh import init_distributed
+    import torch_dist  # this directory (pytest puts it on the path); not `tests.`,
+    # which another installed package of that name may shadow
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group, dev = init_distributed(f"tcp://127.0.0.1:{port}", backend="gloo",
+                                  device="cuda:0", rank=rank, world_size=2)
+    try:
+        attention.LAUNCHES = 0
+        out = torch_dist.engine_tail(group, 1, 2, *args, device=dev)
+        torch.save((out, attention.LAUNCHES), f"{path}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_tp_engine_on_one_card_matches_the_one_card_engine(cuda, tmp_path):
+    """A (1 x 2) engine of two gloo ranks on the one card, fp32: its
+    deterministic tail (fixed codes -> latents, mel, wav) within JAX's mesh
+    tolerances of the one-card engine's, and B1 launched as often on each
+    rank as on one card."""
+    import socket
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from detail_tts_tpu_torch.config import small_test_config
+    from detail_tts_tpu_torch.serving.pipeline import EngineConfig
+    import torch_dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ecfg = EngineConfig(max_generate_length=12, text_buckets=(16, 32),
+                        prompt_buckets=(32, 64), code_buckets=(8, 12),
+                        compute_dtype=torch.float32, cache_dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    wavs = [rng.uniform(-0.3, 0.3, 24000 + 3000 * i).astype(np.float32) for i in range(4)]
+    args = (small_test_config(), ecfg, ["你好", "三", "今天天气很好。", "第四个请求"], wavs,
+            torch.as_tensor(rng.integers(0, 20, size=(4, 8))), np.array([6, 8, 5, 8]))
+    attention.LAUNCHES = 0
+    one = torch_dist.engine_tail(None, 1, 1, *args, device=cuda)
+    one_launches = attention.LAUNCHES
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(_tp_tail_rank, args=(port, str(tmp_path), args), nprocs=2, join=True,
+                       start_method="spawn")
+    for rank in range(2):
+        out, launches = torch.load(tmp_path / f"rank{rank}.pt", weights_only=False)
+        assert launches == one_launches > 0
+        for a, b, tol in zip(one, out, (2e-4, 2e-3, 2e-3)):
+            scale = max(a.abs().max().item(), 1e-3)
+            assert (a - b).abs().max().item() <= tol * scale

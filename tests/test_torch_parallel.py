@@ -21,7 +21,7 @@ of 1, 2 and 4 ranks (``tests/torch_dist.py``):
     state is in it), and a ``batch_size`` the world does not divide is
     refused;
 (g) the training CLI on two ranks in torchrun's environment;
-and ``check_mesh``'s refusals.
+and ``check_mesh``'s refusals (tensor parallelism: ``test_torch_tensor_parallel``).
 """
 import dataclasses
 
@@ -359,12 +359,19 @@ def test_world_2_checkpoint_resumes_bit_identically(tmp_path):
 def test_check_mesh_refuses_what_is_not_ported(monkeypatch):
     cfg = small_test_config()
     mesh.check_mesh(cfg)
-    with pytest.raises(NotImplementedError, match="A7"):
-        mesh.check_mesh(dataclasses.replace(cfg, mesh=dataclasses.replace(
-            cfg.mesh, model_parallel=2)))
     with pytest.raises(ValueError, match="data_parallel"):
         mesh.check_mesh(dataclasses.replace(cfg, mesh=dataclasses.replace(
             cfg.mesh, data_parallel=2)))
+    # a mesh that does not multiply to the world
+    monkeypatch.setattr(mesh, "world", lambda group=None: 4)
+    with pytest.raises(ValueError, match="is not the world of 4"):
+        mesh.check_mesh(dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, data_parallel=3, model_parallel=2)), "group")
+    # a model axis that does not divide the GPT's heads
+    monkeypatch.setattr(mesh, "world", lambda group=None: 3)
+    with pytest.raises(ValueError, match="does not divide gpt.heads"):
+        mesh.check_mesh(dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, data_parallel=1, model_parallel=3)), "group")
     monkeypatch.setattr(mesh, "world", lambda group=None: 2)
     monkeypatch.setattr(mesh, "rank", lambda group=None: 1)
     assert torch.equal(mesh.shard_rows(torch.arange(4), "group"), torch.tensor([2, 3]))

@@ -264,11 +264,13 @@ def test_prepare_cli_subcommands(tmp_path, monkeypatch):
     jsonl = tmp_path / "data.jsonl"
     prepare_cli.main(["transcripts", "--table", str(table), "--jsonl", str(jsonl),
                       "--clips-dir", str(clips)])
-    (tmp_path / "fake_asr.py").write_text("def transcribe(wav, sr):\n    return '谢谢大家'\n")
+    # a module name of its own: the process caches the module, and
+    # tests/test_prepare.py's stub recognizer is named fake_asr
+    (tmp_path / "fake_asr_port.py").write_text("def transcribe(wav, sr):\n    return '谢谢大家'\n")
     monkeypatch.syspath_prepend(str(tmp_path))
     asr_jsonl = tmp_path / "asr.jsonl"
     prepare_cli.main(["asr", "--clips-dir", str(clips), "--jsonl", str(asr_jsonl),
-                      "--recognizer", "fake_asr", "--workers", "1"])
+                      "--recognizer", "fake_asr_port", "--workers", "1"])
     assert len(_lines(jsonl)) == 2 and len(_lines(asr_jsonl)) == 4
     assert {r["text"] for r in _lines(asr_jsonl)} == {"谢谢大家"}
 

@@ -45,10 +45,11 @@ def _entry(rank: int, fn: Callable, world: int, path: str, args) -> None:
         dist.destroy_process_group()
 
 
-def build_state(cfg, model_sd, disc=None, no_dropout=True):
+def build_state(cfg, model_sd, disc=None, no_dropout=True, mesh_=None):
     """A training state on the CPU from a model state dict (weight-normed
     under ``cfg.train.weight_norm``) and, for the GAN targets, a
-    discriminator module; every dropout at p = 0 when ``no_dropout``."""
+    discriminator module; every dropout at p = 0 when ``no_dropout``;
+    sharded over ``mesh_``'s model group when given."""
     model = SynthesizerTrn(cfg)
     if cfg.train.weight_norm:
         weight_norm_(model)
@@ -58,7 +59,7 @@ def build_state(cfg, model_sd, disc=None, no_dropout=True):
             if isinstance(m, SeededDropout):
                 m.p = 0.0
     return make_train_state(cfg, device="cpu", model=model,
-                            disc=None if disc is None else copy.deepcopy(disc))
+                            disc=None if disc is None else copy.deepcopy(disc), mesh=mesh_)
 
 
 def moments(optimizer, module) -> Dict[str, torch.Tensor]:
@@ -223,3 +224,164 @@ def _cli_rank(rank: int, world: int, port: int, argv: List[str], path: str) -> N
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     torch.save(train_cli.main(argv), f"{path}/rank{rank}.pt")
+
+
+def tp_train_steps(group, cfg, model_sd, batches: Sequence[Dict[str, torch.Tensor]],
+                   draws: Optional[Sequence] = None, norm_all_reduce: bool = True,
+                   step_group: str = "data") -> dict:
+    """:func:`train_steps` on the (``cfg.mesh``) mesh of ``group``'s ranks,
+    dropout 0: the GPT sharded over the model group, this data rank's rows.
+    Returns the metrics, the gathered state dict and AdamW first moments,
+    and each replicated tensor of this rank.  Negative controls:
+    ``norm_all_reduce=False`` drops the model-group sum of the grad norm;
+    ``step_group="world"`` runs the step's collectives (the quantizer's
+    among them) over every rank instead of the data group."""
+    from detail_tts_tpu_torch.train import optim
+    from detail_tts_tpu_torch.train.checkpoint import optimizer_state_by_name
+
+    m = mesh.make_mesh(cfg.mesh.data_parallel, cfg.mesh.model_parallel, group)
+    if not norm_all_reduce:  # this process only: a spawned rank
+        optim._model_sum = lambda x, group: x
+    state = build_state(cfg, model_sd, mesh_=m)
+    over = group if step_group == "world" else m.data_group
+    step = make_train_step(cfg, "cpu", over)
+    drop_gen = mesh.rank_generator(0, "cpu", over) if mesh.world(over) > 1 else None
+    axis = 0 if cfg.train.target in GAN_TARGETS else 1
+    metrics = []
+    for k, batch in enumerate(batches):
+        out = step(state, mesh.shard_batch(batch, m.data_group, axis),
+                   torch.Generator().manual_seed(k), draws=None if draws is None else draws[k],
+                   dropout_generator=drop_gen)
+        metrics.append({n: v.clone() for n, v in out.items() if torch.is_tensor(v)})
+    moments = optimizer_state_by_name(state.optimizer, state.model, gather=True)
+    return {"metrics": metrics, "model": mesh.gather_state_dict(state.model),
+            "moments": {n: s["exp_avg"] for n, s in moments.items()},
+            "replicated": {n: v.clone() for n, v in state.model.state_dict().items()
+                           if n not in mesh.model_shards(state.model)}}
+
+
+def tp_checkpoint_call(group, cfg, model_sd, batch, save_dir: Optional[str],
+                       restore_dir: Optional[str]) -> dict:
+    """On the (``cfg.mesh``) mesh, dropout 0: restore ``restore_dir`` (else
+    start from ``model_sd``), take one step on ``batch``, save into
+    ``save_dir`` when given.  Returns the gathered state after the restore
+    and after the step, the step's metrics and the gathered moments."""
+    from detail_tts_tpu_torch.train import checkpoint as ckpt
+
+    m = mesh.make_mesh(cfg.mesh.data_parallel, cfg.mesh.model_parallel, group)
+    state = build_state(cfg, model_sd, mesh_=m)
+    if restore_dir is not None:
+        ckpt.restore_checkpoint(restore_dir, state, partial=False, verbose=False)
+    restored = ({k: v.clone() for k, v in mesh.gather_state_dict(state.model).items()},
+                ckpt.optimizer_state_by_name(state.optimizer, state.model, gather=True))
+    step = make_train_step(cfg, "cpu", m.data_group)
+    metrics = step(state, mesh.shard_batch(batch, m.data_group, 1),
+                   torch.Generator().manual_seed(0))
+    if save_dir is not None:
+        ckpt.save_checkpoint(save_dir, state, mesh=m)
+    return {"restored": restored, "metrics": {n: v for n, v in metrics.items()
+                                              if torch.is_tensor(v)},
+            "model": mesh.gather_state_dict(state.model),
+            "moments": ckpt.optimizer_state_by_name(state.optimizer, state.model,
+                                                    gather=True)}
+
+
+def tp_eval_dump(group, cfg, batch: Dict[str, torch.Tensor], logs: str,
+                 fail_rank: Optional[int] = None) -> dict:
+    """A ``Trainer`` with ``synth_eval`` on the (``cfg.mesh``) mesh of
+    ``group``'s ranks writes the eval dump of ``batch`` into ``logs``;
+    returns how often this rank synthesized.  ``fail_rank``: that rank's
+    synthesis raises before the split GPT runs."""
+    from detail_tts_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, device="cpu", seed=0, logs_folder=logs, synth_eval=True, group=group)
+    synth, calls = tr._synth_eval, []
+
+    def counted(first, step):
+        calls.append(step)
+        if mesh.rank(group) == fail_rank:
+            raise RuntimeError("eval exploded")
+        return synth(first, step)
+
+    tr._synth_eval = counted
+    try:
+        tr._eval_dump(batch)
+    finally:
+        tr.close()
+    return {"synthesized": len(calls)}
+
+
+def region_ops_call(group, x, w_col, w_row, logits, targets) -> dict:
+    """Megatron's operators over a model group of every rank: a
+    column-parallel then row-parallel pair on ``x`` (w_col (in, hidden),
+    w_row (hidden, out), split by columns and rows), the vocab-parallel
+    cross-entropy and the gathered logits of ``logits`` (N, V) split by
+    columns; each forward and the gradients with respect to the full
+    inputs (this rank's slices gathered)."""
+    m = mesh.make_mesh(1, mesh.world(group), group)
+    tp = mesh.Shard(m.model_group, m.model_rank, m.model)
+    col, row, vocab = tp._replace(axis=1), tp._replace(axis=0), tp._replace(axis=1)
+    x = x.clone().requires_grad_(True)
+    wc = mesh.shard_tensor(w_col, col).requires_grad_(True)
+    wr = mesh.shard_tensor(w_row, row).requires_grad_(True)
+    y = mesh.reduce_from_model(torch.tanh(mesh.copy_to_model(x, tp) @ wc) @ wr, tp)
+    y.square().sum().backward()
+    lg = mesh.shard_tensor(logits, vocab).requires_grad_(True)
+    ce = mesh.vocab_parallel_cross_entropy(lg, targets, tp)
+    ce.backward()
+    lg2 = mesh.shard_tensor(logits, vocab).requires_grad_(True)
+    full = mesh.gather_from_model(lg2, tp)
+    (full * torch.arange(full.shape[-1], dtype=full.dtype)).sum().backward()
+    return {"y": y.detach(), "dx": x.grad, "dw_col": mesh.gather_tensor(wc.grad, col),
+            "dw_row": mesh.gather_tensor(wr.grad, row), "ce": ce.detach(),
+            "dlogits": mesh.gather_tensor(lg.grad, vocab), "gathered": full.detach(),
+            "dgathered": mesh.gather_tensor(lg2.grad, vocab)}
+
+
+def engine_requests(group, data, model, cfg, ecfg, texts, wavs, seed: int = 3) -> dict:
+    """A (data x model) engine of seeded random weights over ``group``'s
+    ranks (the one-card engine without a group) answers one request through
+    each entry: ``synthesize_batch`` under ``force_full``, the split
+    dispatch with early stop, ``synthesize_vq_batch`` and
+    ``synthesize_from_ids``; every rank returns every item."""
+    from detail_tts_tpu_torch.serving.pipeline import random_engine
+
+    m = None if group is None else mesh.make_mesh(data, model, group)
+    eng = random_engine(cfg, engine_cfg=ecfg, device="cpu", mesh=m)
+    text, _ = eng.prepare_text(texts)
+    refer_mel, refer_len = eng.prepare_prompt(wavs)
+    return {"batch": eng.synthesize_batch(texts, wavs, seed=seed, force_full=True),
+            "split": eng.finalize_batch(eng.dispatch_tail(eng.dispatch_decode(
+                texts, wavs, seed=seed + 1))),
+            "vq": eng.synthesize_vq_batch(texts, wavs, seed=seed + 2),
+            "ids": eng.synthesize_from_ids(text, refer_mel, refer_len, seed=seed + 3)}
+
+
+def engine_tail(group, data, model, cfg, ecfg, texts, wavs, codes, eff,
+                device="cpu") -> tuple:
+    """The deterministic tail of a (data x model) engine (JAX's
+    ``tests/test_serving_mesh.py`` ``_deterministic_tail``): fixed codes ->
+    (latents, mel, wav) of every item on the CPU, with fixed generators and
+    this data rank's rows gathered."""
+    from detail_tts_tpu_torch.audio.mel import FRAMES_PER_CODE
+    from detail_tts_tpu_torch.serving.pipeline import random_engine
+
+    m = None if group is None else mesh.make_mesh(data, model, group)
+    eng = random_engine(cfg, engine_cfg=ecfg, device=device, mesh=m)
+    dev = eng.device
+    rows = eng._rows(len(texts))
+    mine = slice(None) if rows is None else slice(rows.start, rows.stop)
+    with torch.inference_mode():
+        text, _ = eng.prepare_text(texts[mine])
+        refer_mel, refer_len = eng.prepare_prompt(wavs[mine])
+        codes_b, wav_len, bucket = eng._pad_codes(codes[mine].to(dev), eff[mine])
+        latents = eng.model.gpt(refer_mel, refer_len, text, codes_b, wav_len)
+        mel = eng.diffuse(latents, eng.diffusion_cond(refer_mel, refer_len),
+                          eng.attention_biases(bucket * FRAMES_PER_CODE),
+                          torch.Generator(device=dev).manual_seed(7), rows)
+        wav = eng._vocode(mel, eff[mine], torch.Generator(device=dev).manual_seed(8),
+                          rows)[..., 0]
+    out = (latents, mel, wav)
+    if rows is not None and rows.stop - rows.start < rows.total:
+        out = tuple(mesh.all_gather_rows(x, m.data_group) for x in out)
+    return tuple(x.cpu() for x in out)
