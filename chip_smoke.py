@@ -120,7 +120,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    autocast 2 steps within ``GPT_BF16_TOL``; (d) one ``diff`` step at
    (1 x 2), whose frozen latents pass runs the sharded
    GPT: within the route tolerances of phase 8's world-1 step, each
-   training kernel launched ``expected_train_launches`` times on each rank.
+   training kernel launched ``expected_train_launches`` times on each rank;
+10. the front ends over the sharded engine (``serving/spmd.py``) at the
+   full width of ``Config()``, two gloo ranks on the one card, a (2 x 1)
+   engine in fp32 and in bf16, ancestral 50 with early stop at up to
+   ``PHASE10_CODES`` codes: rank 0 serves through a ``LeaderEngine``, rank
+   1 runs ``follow``.  A ``TTSServer`` answers 4 concurrent requests (zh
+   texts of 3-20 characters, 3 s prompts) as one batch, then as two
+   back-to-back batches of 2; a batch with a fault planted on rank 1 must
+   fail its futures with a ``RuntimeError`` naming rank 1, and the next
+   batch must resolve; one HTTP ``/synthesize`` and a 3-chunk
+   ``synthesize_long``.  Each batch is held against the one-card front
+   ends given the same groups and seeds: fp32 every code equal and the
+   audio within 2e-3 of max, bf16 at least 0.9 of the codes equal and the
+   audio of each item whose codes all agree within ``BF16_WAV_TOL``; B1
+   launched steps x 13 + 9 times a batch on each rank; every decode on the
+   engine's card (rank 0's on the server's dispatch thread); both
+   processes exit 0.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -335,16 +351,21 @@ def time_kernel(b, t, h, d, sfu_per_s):
     q, k, v = (x.transpose(1, 2) for x in qkv.view(b, t, h, 3, d).unbind(3))
     mask = (bias.float() / attention.LOG2E).to(torch.bfloat16)[None]
     kernel_ms = cuda_ms(lambda: attention.bias_attention(qkv, bias, heads=h, sm_scale=sm))
+    kernel_device_ms = device_ms(lambda: attention.bias_attention(qkv, bias, heads=h,
+                                                                  sm_scale=sm),
+                                 only="serve_fwd_mma")
     plain_ms = cuda_ms(lambda: attention.bias_attention_reference(
         qkv, bias, heads=h, sm_scale=sm))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=sm))
     bound_ms, bound_by = attention_bound_ms(b, t, h, d, torch.bfloat16, sfu_per_s)
     print(f"  time B={b} T={t} H={h} d={d} bf16: kernel_ms {kernel_ms} "
-          f"plain_ms {plain_ms} library_ms(sdpa) {library_ms} bound_ms {bound_ms} "
-          f"({bound_by}) -> {bound_ms / kernel_ms:.1%} of bound", flush=True)
-    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, shape=[b, t, h, d])
+          f"device_ms {kernel_device_ms} plain_ms {plain_ms} library_ms(sdpa) {library_ms} "
+          f"bound_ms {bound_ms} ({bound_by}) -> {bound_ms / kernel_ms:.1%} of bound",
+          flush=True)
+    return dict(ms=kernel_ms, device_ms=kernel_device_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                shape=[b, t, h, d])
 
 
 # ------------------------------------------------------- training kernels
@@ -2383,6 +2404,299 @@ def phase_mesh(cfg_full, diff_ref, logs):
     return b1, launches
 
 
+# ---------------------------------------- the front ends over the sharded engine
+
+# Phase 10's requests: zh texts of 3-20 characters, 3 s prompts, ancestral 50
+# with early stop at up to PHASE10_CODES codes; a batch of FAULT_TEXT raises
+# on rank 1 after its call ran (a rank-local fault: no rank waits in a
+# collective).  fp32: every code equal and the audio at JAX's mesh tolerance
+# for wav (tests/test_serving_mesh.py).  bf16 (the engine is not
+# batch-invariant, phase 9): CODES_EQUAL of the codes, and BF16_WAV_TOL on
+# the audio of each item whose codes all agree.  An item with a flipped code
+# is another utterance from there on, and its audio is read, not gated: such
+# an item of a 2-row batch with 0.970 of its codes equal read 0.504 of max
+# (H100 80GB HBM3, 700 W; PERF.md §6).
+PHASE10_CODES = 40
+PHASE10_TEXTS = ("你好。", "今天天气很好，我们一起去公园散步吧。", "这是第三个请求。",
+                 "欢迎使用语音合成，这是一个长一点的句子。")
+PHASE10_LONG = "今天天气很好。我们一起去公园散步吧！你好，欢迎使用语音合成。"  # 3 chunks
+FAULT_TEXT = "这一批在一个进程上出错。"
+WAV_TOL = {torch.float32: 2e-3, torch.bfloat16: BF16_WAV_TOL}
+CODES_EQUAL = {torch.float32: 1.0, torch.bfloat16: 0.9}
+
+
+def phase10_requests(cfg):
+    sr = cfg.data.sampling_rate
+    rng = np.random.default_rng(10)
+    return [(t, rng.uniform(-0.3, 0.3, 3 * sr).astype(np.float32), 20 + i)
+            for i, t in enumerate(PHASE10_TEXTS)]
+
+
+def phase10_engine(cfg_full, dtype, device, mesh=None):
+    from detail_tts_tpu_torch.serving.pipeline import EngineConfig, random_engine
+    return random_engine(cfg_full, seed=0, device=device, mesh=mesh, engine_cfg=EngineConfig(
+        max_generate_length=PHASE10_CODES + 1, compute_dtype=dtype, cache_dtype=dtype))
+
+
+def phase10_hooks(engine, rank=0):
+    """On ``engine``'s instance: record each ``dispatch_decode``'s thread,
+    current card, whether its batch is ``FAULT_TEXT``'s and B1 launches
+    (the diffusion conditioning's), and each ``dispatch_tail``'s label (set
+    by the scenario), rows, codes and B1 launches; on rank 1 a batch of
+    ``FAULT_TEXT`` raises after its ``dispatch_decode`` ran."""
+    import threading
+
+    rec = {"label": None, "decodes": [], "tails": []}
+    decode, tail = engine.dispatch_decode, engine.dispatch_tail
+
+    def dispatch_decode(texts, *args, **kwargs):
+        before = attention.LAUNCHES
+        out = decode(texts, *args, **kwargs)
+        rec["decodes"].append((threading.current_thread().name, torch.cuda.current_device(),
+                               FAULT_TEXT in texts, attention.LAUNCHES - before))
+        if rank == 1 and FAULT_TEXT in texts:
+            raise RuntimeError("a fault planted on rank 1")
+        return out
+
+    def dispatch_tail(pending):
+        before = attention.LAUNCHES
+        out = tail(pending)
+        rec["tails"].append((rec["label"], pending.rows, pending.codes.cpu(),
+                             attention.LAUNCHES - before))
+        return out
+
+    engine.dispatch_decode, engine.dispatch_tail = dispatch_decode, dispatch_tail
+    return rec
+
+
+def phase10_scenario(engine, requests, rec, fault):
+    """The front ends over ``engine`` (a ``LeaderEngine`` or a one-card
+    engine): a ``TTSServer`` answers the 4 requests as one batch, then as
+    two back-to-back batches of 2; with ``fault`` a batch of ``FAULT_TEXT``
+    and the first pair again; one HTTP ``/synthesize``; a 3-chunk
+    ``synthesize_long``.  Returns (outputs, walls)."""
+    import threading
+    import urllib.request
+
+    from detail_tts_tpu_torch.serving.http_api import _decode_wav_bytes, _encode_wav_bytes, serve
+    from detail_tts_tpu_torch.serving.longform import synthesize_long
+    from detail_tts_tpu_torch.serving.server import TTSServer
+
+    out, walls = {}, {}
+    for label, max_batch in (("four", 4), ("pairs", 2)):
+        rec["label"] = label
+        with TTSServer(engine, max_batch=max_batch, max_wait_ms=1000.0) as server:
+            t0 = time.perf_counter()
+            futs = [server.submit(t, w, seed=s) for t, w, s in requests]
+            out[label] = [f.result(timeout=600) for f in futs]
+            walls[label] = time.perf_counter() - t0
+            if label == "pairs" and fault:
+                rec["label"] = "fault next"
+                futs = [server.submit(FAULT_TEXT, w, seed=s) for _, w, s in requests[:2]]
+                futs += [server.submit(t, w, seed=s) for t, w, s in requests[:2]]
+                out["fault"] = []
+                for f in futs[:2]:
+                    try:
+                        f.result(timeout=600)
+                        out["fault"].append(None)
+                    except RuntimeError as e:
+                        out["fault"].append(str(e))
+                out["fault next"] = [f.result(timeout=600) for f in futs[2:]]
+        out[label + " batches"] = server.batches_dispatched
+
+    rec["label"] = "http"
+    sr = engine.cfg.data.sampling_rate
+    box = {}
+    thread = threading.Thread(target=serve, kwargs=dict(
+        engine=engine, host="127.0.0.1", port=0, max_batch=2, max_wait_ms=5.0,
+        httpd_box=box), daemon=True)
+    thread.start()
+    deadline = time.monotonic() + 60
+    while "httpd" not in box and time.monotonic() < deadline:
+        time.sleep(0.01)
+    if "httpd" not in box:
+        fail("phase 10: the HTTP server did not start")
+    text, wav, seed = requests[1]
+    body = json.dumps({"text": text, "seed": seed, "prompt_wav_b64": base64.b64encode(
+        _encode_wav_bytes(wav, sr)).decode()}).encode()
+    local = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # no proxy
+    try:
+        t0 = time.perf_counter()
+        with local.open(urllib.request.Request(
+                "http://127.0.0.1:%d/synthesize" % box["httpd"].server_address[1],
+                data=body, headers={"Content-Type": "application/json"}), timeout=600) as r:
+            out["http"] = [_decode_wav_bytes(r.read(), sr)] if r.status == 200 else []
+        walls["http"] = time.perf_counter() - t0
+    finally:
+        box["httpd"].shutdown()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        fail("phase 10: the HTTP server did not stop")
+
+    rec["label"] = "long"
+    t0 = time.perf_counter()
+    out["long"] = [synthesize_long(engine, PHASE10_LONG, requests[0][1], seed=7)]
+    walls["long"] = time.perf_counter() - t0
+    return out, walls
+
+
+def phase10_rank(rank, port, out_dir, cfg_full):
+    """One of two ranks on the one card over gloo: for each dtype a (2 x 1)
+    engine, rank 0 running the scenario through a ``LeaderEngine``, rank 1
+    in ``follow``; writes what the parent checks."""
+    import torch.distributed as dist
+
+    from detail_tts_tpu_torch.parallel import mesh
+    from detail_tts_tpu_torch.serving.spmd import LeaderEngine, follow
+    from dp_port import channel_summary, time_channel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group, dev = mesh.init_distributed(f"tcp://127.0.0.1:{port}", backend="gloo",
+                                       device="cuda:0", rank=rank, world_size=2)
+    channel = time_channel()  # the leader's broadcasts and outcome agreements
+    try:
+        requests = phase10_requests(cfg_full)
+        out = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            engine = phase10_engine(cfg_full, dtype, dev, mesh.make_mesh(2, 1, group))
+            rec = phase10_hooks(engine, rank)
+            zero_counts()
+            for v in channel.values():
+                v.clear()
+            t0 = time.perf_counter()
+            if rank == 0:
+                with LeaderEngine(engine) as leader:
+                    res, walls = phase10_scenario(leader, requests, rec, fault=True)
+            else:
+                res, walls = {"followed": follow(engine)}, {}
+            res.update(rec=rec, walls=walls, launches=attention.LAUNCHES,
+                       b1_per_request=b1_per_request(engine), wall=time.perf_counter() - t0,
+                       device=engine.device.index, channel=channel_summary(channel))
+            out[str(dtype)] = res
+            del engine
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase10_codes(tails):
+    """Each labelled batch's codes of every row, from the ranks' tails."""
+    out = []
+    for calls in zip(*tails):
+        label, rows, codes, _ = calls[0]
+        full = torch.full((codes.shape[0] if rows is None else rows.total, codes.shape[1]), -1,
+                          dtype=codes.dtype)
+        for _, rows, codes, _ in calls:
+            full[slice(None) if rows is None else slice(rows.start, rows.stop)] = codes
+        out.append((label, full))
+    return out
+
+
+def phase_frontends(cfg_full, logs):
+    """Phase 10: the server, HTTP and long form over a (2 x 1) engine of two
+    gloo ranks on the one card against the one-card front ends; returns the
+    ranks' B1 launches."""
+    import torch.multiprocessing as mp
+
+    print("== the front ends over the sharded engine (two gloo ranks on the one card)",
+          flush=True)
+    print(f"  {smi('name,power.limit')}", flush=True)
+    os.makedirs(logs)
+    requests = phase10_requests(cfg_full)
+    ref = {}
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        engine = phase10_engine(cfg_full, dtype, "cuda")
+        rec = phase10_hooks(engine)
+        ref[str(dtype)] = phase10_scenario(engine, requests, rec, fault=False) + (rec,)
+        del engine
+        torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # join=True raises unless both ranks exit 0
+    mp.start_processes(phase10_rank, args=(free_port(), logs, cfg_full), nprocs=2,
+                       join=True, start_method="spawn")
+    t_ranks = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(logs, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+
+    def fmt(x):
+        return "none" if x is None else f"{x:.3e}"
+
+    b1 = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        one, one_walls, one_rec = ref[str(dtype)]
+        r0, r1 = ranks[0][str(dtype)], ranks[1][str(dtype)]
+        want = r0["b1_per_request"]
+        tails = phase10_codes([r0["rec"]["tails"], r1["rec"]["tails"]])
+        for r, res in enumerate((r0, r1)):
+            # a batch's launches: its decode's (the conditioning) and its tail's
+            decodes = [n for *_, fault, n in res["rec"]["decodes"] if not fault]
+            faulted = sum(n for *_, fault, n in res["rec"]["decodes"] if fault)
+            per_batch = [d + n for d, (*_, n) in zip(decodes, res["rec"]["tails"])]
+            print(f"  {dtype} rank {r}: B1 launches {res['launches']} over "
+                  f"{len(per_batch)} batches ({per_batch}; expected {want} each) and the "
+                  f"faulted batch's decode ({faulted})", flush=True)
+            if (per_batch != [want] * len(tails) or len(decodes) != len(tails)
+                    or res["launches"] != want * len(tails) + faulted):
+                fail(f"phase 10 {dtype} rank {r}: B1 launches {per_batch}, expected {want} "
+                     "a batch")
+            b1 += res["launches"]
+        threads = {name for name, *_ in r0["rec"]["decodes"]}
+        cards = {card for _, card, *_ in r0["rec"]["decodes"] + r1["rec"]["decodes"]}
+        if cards != {r0["device"]} or "tts-dispatch" not in threads:
+            fail(f"phase 10 {dtype}: decodes ran on threads {threads}, cards {cards}")
+        # each label's batches in order; "fault next" is the first pair again
+        one_codes, codes = {}, {}
+        for label, c in phase10_codes([one_rec["tails"]]):
+            one_codes.setdefault(label, []).append(c)
+        one_codes["fault next"] = one_codes["pairs"][:1]
+        for label, c in tails:
+            codes.setdefault(label, []).append(c)
+        one = dict(one, **{"fault next": one["pairs"][:2]})
+        for label in ("four", "pairs", "fault next", "http", "long"):
+            a, b = codes.get(label, []), one_codes[label]
+            if [x.shape for x in a] != [x.shape for x in b] or len(r0[label]) != len(
+                    one[label]):
+                fail(f"phase 10 {dtype} {label}: batches of {[x.shape for x in a]} codes and "
+                     f"{len(r0[label])} outputs, one card {[x.shape for x in b]} and "
+                     f"{len(one[label])}")
+            same = torch.cat(a) == torch.cat(b)
+            agree = float(same.float().mean())
+            # the audio of an item whose codes all agree; an item with a
+            # flipped code is another utterance from there on: read only
+            rows = same.all(dim=1).tolist()
+            if len(rows) != len(one[label]):  # long form: one wav of every row
+                rows = [all(rows)] * len(one[label])
+            werr, flipped = (wav_err([x for x, k in zip(r0[label], rows) if k == keep],
+                                     [y for y, k in zip(one[label], rows) if k == keep])
+                             if keep in rows else None for keep in (True, False))
+            print(f"  {dtype} {label}: {len(a)} batch(es) of {[x.shape[0] for x in a]} rows, "
+                  f"codes equal to one card's {agree:.4f} (items with every code equal "
+                  f"{rows}), wav max |sharded - one card| / max |one card| of those "
+                  f"{fmt(werr)} (gates {CODES_EQUAL[dtype]:g}, {WAV_TOL[dtype]:g}), of the "
+                  f"others {fmt(flipped)} (read); wall "
+                  f"{r0['walls'].get(label, math.nan):.3f} "
+                  f"s (one card {one_walls.get(label, math.nan):.3f} s)", flush=True)
+            if not (agree >= CODES_EQUAL[dtype] and werr is not None
+                    and werr <= WAV_TOL[dtype]):
+                fail(f"phase 10 {dtype} {label}: codes {agree}, wav {werr}")
+        if (r0["four batches"], r0["pairs batches"]) != (1, 3):
+            fail(f"phase 10 {dtype}: batches {r0['four batches']}, {r0['pairs batches']}")
+        print(f"  {dtype} planted fault on rank 1: {r0['fault']}; the next batch resolved; "
+              f"rank 1 followed {r1['followed']} calls; ranks' walls {r0['wall']:.1f} / "
+              f"{r1['wall']:.1f} s; control channel on rank 0 {json.dumps(r0['channel'])}",
+              flush=True)
+        if not all(e and "rank 1: RuntimeError: a fault planted on rank 1" in e
+                   and "rank 0:" not in e for e in r0["fault"]):
+            fail(f"phase 10 {dtype}: the planted fault read {r0['fault']}")
+    print(f"  phase 10: one-card references {t_ref:.1f} s, two ranks spawned, run and joined "
+          f"in {t_ranks:.1f} s", flush=True)
+    return b1
+
+
 def main():
     from detail_tts_tpu_torch.config import Config
     from detail_tts_tpu_torch.serving.pipeline import EngineConfig, random_engine
@@ -2422,6 +2736,7 @@ def main():
         corpus_launches, corpus_b1 = phase_corpus(cfg, os.path.join(work, "phase7"))
         parallel_launches, diff_ref = phase_parallel(cfg, os.path.join(work, "phase8"))
         mesh_b1, mesh_launches = phase_mesh(cfg, diff_ref, os.path.join(work, "phase9"))
+        frontends_b1 = phase_frontends(cfg, os.path.join(work, "phase10"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2429,9 +2744,12 @@ def main():
         name="bias_attention_fwd", route="cuda",
         source="detail_tts_tpu_torch/csrc/bias_attention.cu",
         replaces="detail_tts_tpu/ops/pallas/attention.py:404",
-        launches=launches + corpus_b1 + mesh_b1, launches_per_request=per_request,
+        launches=launches + corpus_b1 + mesh_b1 + frontends_b1,
+        launches_per_request=per_request,
         launches_over="phases 4 and 4b, the request from the trained checkpoint "
-                      "(phase 7), and each rank's sharded requests (phase 9)",
+                      "(phase 7), each rank's sharded requests (phase 9) and each "
+                      "rank's batches under the server, HTTP and long form over the "
+                      "leader (phase 10)",
         max_abs_err=worst, **times)]
     sources = {"bias_attention_train_fwd": ("bias_attention.cu", 259),
                "bias_attention_bwd_dq_dbias": ("bias_attention_bwd.cu", 286),

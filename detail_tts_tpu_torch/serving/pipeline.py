@@ -240,11 +240,37 @@ class TTSEngine:
 
     # ------------------------------------------------------------- host prep
 
+    def _encode(self, text: str) -> List[int]:
+        """pinyin -> BPE ids, cut to the largest text bucket less one."""
+        return self.tokenizer.encode(to_pinyin(text))[:self.ecfg.text_buckets[-1] - 1]
+
+    def _prompt_frames(self, i: int, wav: np.ndarray) -> int:
+        """The frames of prompt ``i``; a prompt shorter than one hop raises."""
+        hop = self.cfg.data.hop_length
+        n_true = wav.shape[-1] // hop
+        if n_true < 1:
+            raise ValueError(f"prompt wav {i} too short: {wav.shape[-1]} "
+                             f"samples (< one hop of {hop})")
+        return n_true
+
+    def _split(self, texts: Sequence[str], prompt_wavs: Sequence[np.ndarray]):
+        """(rows, this data rank's texts, its prompt wavs) of a request.
+        On a sharded engine every rank checks every row first, so a request
+        that host prep refuses raises on every rank, as on one card, and
+        before any rank enters a collective."""
+        if len(texts) != len(prompt_wavs):
+            raise ValueError(f"{len(texts)} texts and {len(prompt_wavs)} prompt wavs")
+        rows = self._rows(len(texts))
+        if rows is not None:
+            for i, (t, w) in enumerate(zip(texts, prompt_wavs)):
+                self._encode(t)
+                self._prompt_frames(i, np.asarray(w, np.float32))
+        return rows, _take(texts, rows), _take(prompt_wavs, rows)
+
     def prepare_text(self, texts: Sequence[str]) -> Tuple[torch.Tensor, np.ndarray]:
         """pinyin -> BPE -> right-pad with stop (0) to a shared text bucket
         (agreed over the data group on a sharded engine)."""
-        cap = self.ecfg.text_buckets[-1] - 1
-        encoded = [self.tokenizer.encode(to_pinyin(t))[:cap] for t in texts]
+        encoded = [self._encode(t) for t in texts]
         lengths = np.array([len(e) for e in encoded], np.int64)
         width, = self._agree(_bucket_up(int(lengths.max()) + 1, self.ecfg.text_buckets))
         out = np.zeros((len(texts), width), np.int64)
@@ -259,17 +285,13 @@ class TTSEngine:
         before the STFT (one batched STFT per padded length); each item keeps
         its own frames, cropped to the largest bucket.  The bucket is agreed
         over the data group on a sharded engine."""
-        hop = self.cfg.data.hop_length
         chunk = self.cfg.data.sampling_rate // 2
         cap = self.ecfg.prompt_buckets[-1]
         padded = []
         for i, w in enumerate(wavs):
             w = np.asarray(w, np.float32)
-            n_true = w.shape[-1] // hop
-            if n_true < 1:
-                raise ValueError(f"prompt wav {i} too short: {w.shape[-1]} "
-                                 f"samples (< one hop of {hop})")
-            padded.append((np.pad(w, (0, (-len(w)) % chunk)), min(n_true, cap)))
+            padded.append((np.pad(w, (0, (-len(w)) % chunk)),
+                           min(self._prompt_frames(i, w), cap)))
         mels: List[Optional[torch.Tensor]] = [None] * len(wavs)
         for plen in sorted({p.shape[-1] for p, _ in padded}):
             idx = [i for i, (p, _) in enumerate(padded) if p.shape[-1] == plen]
@@ -452,9 +474,8 @@ class TTSEngine:
         decode loop itself synchronises on early stop unless ``force_full``);
         see :class:`PendingDecode`.  On a sharded engine the batch is this
         data rank's rows of the request."""
+        rows, texts, prompt_wavs = self._split(texts, prompt_wavs)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        rows = self._rows(len(texts))
-        texts, prompt_wavs = _take(texts, rows), _take(prompt_wavs, rows)
         with self._stage("prepare", timings):
             text, _ = self.prepare_text(texts)
             refer_mel, refer_len = self.prepare_prompt(prompt_wavs)
@@ -550,6 +571,9 @@ class TTSEngine:
                             vq_only: bool = False) -> List[np.ndarray]:
         """Low-level entry on token ids and a prompt mel (the reference's
         eval-time ``infer_gpt`` / ``infer`` calls, train.py:234-236)."""
+        n = {text_ids.shape[0], refer_mel.shape[0], refer_len.shape[0]}
+        if len(n) != 1:  # checked on every rank before it takes its rows
+            raise ValueError(f"text_ids, refer_mel and refer_len of {sorted(n)} rows")
         gen = torch.Generator(device=self.device).manual_seed(seed)
         rows = self._rows(text_ids.shape[0])
         text_ids, refer_mel, refer_len = (_take(x, rows) for x in (text_ids, refer_mel,
@@ -571,10 +595,10 @@ class TTSEngine:
                             force_full: bool = False) -> List[np.ndarray]:
         """Diffusion-free path (reference ``infer_gpt``, model_24k.py:811-846):
         codes -> ``vq_dec`` mel -> vocoder."""
+        rows, texts, prompt_wavs = self._split(texts, prompt_wavs)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        rows = self._rows(len(texts))
-        text, _ = self.prepare_text(_take(texts, rows))
-        refer_mel, refer_len = self.prepare_prompt(_take(prompt_wavs, rows))
+        text, _ = self.prepare_text(texts)
+        refer_mel, refer_len = self.prepare_prompt(prompt_wavs)
         codes, eff = self.generate_codes(refer_mel, refer_len, text, gen,
                                          force_full=force_full, rows=rows)
         # vq_safe: the GPT's start/stop ids lie past the VQ codebook and never

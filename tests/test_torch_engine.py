@@ -86,7 +86,8 @@ def test_port_imports_nothing_of_jax():
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'detail_tts_tpu')]\n"
-        "print(len([m for m in sys.modules if m.startswith('detail_tts_tpu_torch')]), bad)\n")
+        "print(len([m for m in sys.modules if m.startswith('detail_tts_tpu_torch')]),\n"
+        "      'detail_tts_tpu_torch.serving.spmd' in sys.modules, bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True).stdout.split()
-    assert int(out[0]) > 20 and out[1:] == ["[]"]
+    assert int(out[0]) > 20 and out[1:] == ["True", "[]"]

@@ -10,6 +10,7 @@ from __future__ import annotations
 import copy
 import itertools
 import os
+import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -23,15 +24,27 @@ from detail_tts_tpu_torch.parallel import mesh
 from detail_tts_tpu_torch.train.step import GAN_TARGETS, make_train_state, make_train_step
 
 _runs = itertools.count()
+DEADLINE_S = 600.0  # a spawn that outlives it is a hang: its ranks are killed
 
 
-def spawn(fn: Callable, world: int, tmp_path, *args) -> List[object]:
+def spawn(fn: Callable, world: int, tmp_path, *args,
+          deadline: float = DEADLINE_S) -> List[object]:
     """``fn(group, *args)`` on ranks 0..world-1, one process each; returns
-    each rank's result in rank order."""
+    each rank's result in rank order.  Raises ``TimeoutError``, after
+    killing the ranks, if they have not all returned within ``deadline``
+    seconds."""
     path = Path(tmp_path) / f"dist{os.getpid()}_{next(_runs)}"
     path.mkdir(parents=True)
-    mp.start_processes(_entry, args=(fn, world, str(path), args), nprocs=world,
-                       join=True, start_method="spawn")
+    ctx = mp.start_processes(_entry, args=(fn, world, str(path), args), nprocs=world,
+                             join=False, start_method="spawn")
+    end = time.monotonic() + deadline
+    while not ctx.join(timeout=max(end - time.monotonic(), 0.0)):
+        if time.monotonic() >= end:
+            for p in ctx.processes:
+                p.kill()
+                p.join()
+            raise TimeoutError(f"{fn.__name__} on {world} ranks outlived its "
+                               f"deadline of {deadline:g} s")
     return [torch.load(path / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -385,3 +398,203 @@ def engine_tail(group, data, model, cfg, ecfg, texts, wavs, codes, eff,
     if rows is not None and rows.stop - rows.start < rows.total:
         out = tuple(mesh.all_gather_rows(x, m.data_group) for x in out)
     return tuple(x.cpu() for x in out)
+
+
+# ------------------------------------------------ front ends over a mesh engine
+
+FRONT_WAIT_S = 120.0  # for any one future or HTTP call
+IDLE_TIMEOUT_S = 3.0  # the control channel's timeout in the idle check
+
+
+def _http():
+    import urllib.request
+
+    return urllib.request.build_opener(urllib.request.ProxyHandler({}))  # no proxy
+
+
+def _failure(fut):
+    """(type name, message) of a future that must fail."""
+    try:
+        fut.result(timeout=FRONT_WAIT_S)
+    except Exception as e:  # noqa: BLE001 - the future's own exception
+        return type(e).__name__, str(e)
+    return None
+
+
+def frontends_scenario(engine, requests, long_text, full: bool) -> dict:
+    """The front ends over ``engine`` (a ``LeaderEngine`` or a one-card
+    ``TTSEngine``): a ``TTSServer`` answers ``requests`` (text, prompt,
+    seed) as one batch of 4, then as two back-to-back batches of 2.  With
+    ``full``: batches of 2 whose texts are ``boom`` or ``fault`` (a fault
+    planted on every rank, or on rank 1 only, of a mesh), each followed by
+    a good batch; ``synthesize_long`` and ``synthesize_long_stream`` of
+    ``long_text``; the HTTP endpoint (``/healthz``, one ``/synthesize``, a
+    bad request), shut down through ``httpd_box``."""
+    import base64
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from detail_tts_tpu_torch.serving.http_api import (_decode_wav_bytes,
+                                                       _encode_wav_bytes, serve)
+    from detail_tts_tpu_torch.serving.longform import synthesize_long, synthesize_long_stream
+    from detail_tts_tpu_torch.serving.server import TTSServer
+
+    out = {}
+    with TTSServer(engine, max_batch=4, max_wait_ms=1000.0) as server:
+        futs = [server.submit(t, w, seed=s) for t, w, s in requests]
+        out["four"] = [f.result(timeout=FRONT_WAIT_S) for f in futs]
+    with TTSServer(engine, max_batch=2, max_wait_ms=1000.0) as server:
+        futs = [server.submit(t, w, seed=s) for t, w, s in requests]
+        out["pairs"] = [f.result(timeout=FRONT_WAIT_S) for f in futs]
+        if full:
+            for marker in ("boom", "fault"):
+                futs = [server.submit(marker, w, seed=s) for _, w, s in requests[:2]]
+                futs += [server.submit(t, w, seed=s) for t, w, s in requests[:2]]
+                out[marker] = [_failure(f) for f in futs[:2]]
+                out[marker + " next"] = [f.result(timeout=FRONT_WAIT_S) for f in futs[2:]]
+    out["batches"] = server.batches_dispatched
+    if not full:
+        return out
+    prompt = requests[0][1]
+    out["long"] = synthesize_long(engine, long_text, prompt, seed=7, batch_size=2)
+    out["stream"] = list(synthesize_long_stream(engine, long_text, prompt, seed=7,
+                                                batch_size=2))
+    box = {}
+    thread = threading.Thread(target=serve, kwargs=dict(
+        engine=engine, port=0, max_batch=2, max_wait_ms=5.0, httpd_box=box), daemon=True)
+    thread.start()
+    end = time.monotonic() + FRONT_WAIT_S
+    while "httpd" not in box and time.monotonic() < end:
+        time.sleep(0.01)
+    host, port = box["httpd"].server_address
+    url = f"http://{host}:{port}"
+    try:
+        with _http().open(url + "/healthz", timeout=FRONT_WAIT_S) as r:
+            out["health"] = json.loads(r.read())
+        text, wav, seed = requests[1]
+        for name, prompt_bytes in (("http", _encode_wav_bytes(wav, 24000)),
+                                   ("http bad", _encode_wav_bytes(wav[:16], 24000))):
+            body = json.dumps({"text": text, "seed": seed,
+                               "prompt_wav_b64": base64.b64encode(prompt_bytes).decode()})
+            req = urllib.request.Request(url + "/synthesize", data=body.encode(),
+                                         headers={"Content-Type": "application/json"})
+            try:
+                with _http().open(req, timeout=FRONT_WAIT_S) as r:
+                    out[name] = (r.status, _decode_wav_bytes(r.read(), 24000))
+            except urllib.error.HTTPError as e:
+                out[name] = (e.code, None)
+    finally:
+        box["httpd"].shutdown()
+        thread.join(timeout=FRONT_WAIT_S)
+    out["http alive"] = thread.is_alive()
+    return out
+
+
+def recorded(engine) -> Dict[str, list]:
+    """Record on ``engine`` (its instance attributes) the name of each of
+    its entry points called, in order, and each ``dispatch_tail``'s rows and
+    codes."""
+    from detail_tts_tpu_torch.serving.spmd import CALLS
+
+    log = {"calls": [], "codes": []}
+
+    def wrap(name, fn):
+        def run(*args, **kwargs):
+            log["calls"].append(name)
+            if name == "dispatch_tail":
+                p = args[0]
+                log["codes"].append((p.rows, p.codes.clone()))
+            return fn(*args, **kwargs)
+        return run
+
+    for name in CALLS:
+        setattr(engine, name, wrap(name, getattr(engine, name)))
+    return log
+
+
+def plant_faults(engine, rank: int) -> None:
+    """``dispatch_decode`` of a batch of ``boom`` texts raises on every rank
+    before it runs; of ``fault`` texts on rank 1 only, after it ran (so no
+    rank waits in a collective)."""
+    real = engine.dispatch_decode
+
+    def faulty(texts, *args, **kwargs):
+        if "boom" in texts:
+            raise RuntimeError("planted on every rank")
+        out = real(texts, *args, **kwargs)
+        if "fault" in texts and rank == 1:
+            raise RuntimeError("planted on rank 1")
+        return out
+
+    engine.dispatch_decode = faulty
+
+
+def mesh_frontends(group, data, model, cfg, ecfg, requests, long_text, full: bool) -> dict:
+    """:func:`frontends_scenario` on a (data x model) engine of seeded
+    random weights: rank 0 through a ``LeaderEngine``, every other rank in
+    ``follow``; each rank returns its :func:`recorded` log.  With ``full``
+    (faults planted) a second channel with a timeout of
+    ``IDLE_TIMEOUT_S`` then idles for twice that before one call."""
+    import datetime
+
+    from detail_tts_tpu_torch.serving.pipeline import random_engine
+    from detail_tts_tpu_torch.serving.spmd import LeaderEngine, follow
+
+    m = mesh.make_mesh(data, model, group)
+    eng = random_engine(cfg, engine_cfg=ecfg, device="cpu", mesh=m)
+    log = recorded(eng)
+    if full:
+        plant_faults(eng, m.rank)
+    if m.rank == 0:
+        with LeaderEngine(eng) as leader:
+            out = frontends_scenario(leader, requests, long_text, full)
+    else:
+        out = {"followed": follow(eng)}
+    out["log"] = log
+    if full:
+        mesh.barrier(group)
+        short = datetime.timedelta(seconds=IDLE_TIMEOUT_S)
+        texts, wavs, _ = zip(*requests)
+        if m.rank == 0:
+            with LeaderEngine(eng, timeout=short) as leader:
+                time.sleep(2 * IDLE_TIMEOUT_S)
+                out["after idle"] = leader.synthesize_vq_batch(list(texts[:2]),
+                                                               list(wavs[:2]), seed=5)
+        else:
+            out["followed after idle"] = follow(eng, timeout=short)
+    return out
+
+
+def refused_requests(group, data, model, cfg, ecfg, texts, wavs) -> dict:
+    """Requests that the one-card engine refuses, on a (data x model)
+    engine (one card without a group): each entry's ``ValueError`` message
+    (None where it returned).  After each call the ranks meet in a barrier
+    of a group of their own, as a server's ranks agree a call's outcome: a
+    rank that raised while another waits in a collective of the engine
+    leaves both waiting."""
+    import torch.distributed as dist
+
+    from detail_tts_tpu_torch.serving.pipeline import random_engine
+
+    m = None if group is None else mesh.make_mesh(data, model, group)
+    after = None if group is None else dist.new_group(backend="gloo")
+    eng = random_engine(cfg, engine_cfg=ecfg, device="cpu", mesh=m)
+    short = list(wavs[:-1]) + [wavs[-1][:100]]  # the last row: less than one hop
+    text = torch.zeros((len(texts), 8), dtype=torch.long)
+    mel = torch.zeros((len(texts) - 1, 32, cfg.data.n_mel_channels))
+    calls = {"dispatch_decode": lambda: eng.dispatch_decode(texts, short),
+             "synthesize_batch": lambda: eng.synthesize_batch(texts, short),
+             "synthesize_vq_batch": lambda: eng.synthesize_vq_batch(texts, short),
+             "synthesize_from_ids": lambda: eng.synthesize_from_ids(
+                 text, mel, torch.full((len(texts),), 32))}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+        mesh.barrier(after)
+    return out
