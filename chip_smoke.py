@@ -6,8 +6,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 
 1. environment: the card's name and power limit, torch/CUDA versions, TF32
    settings; a CUDA device is required;
-2. build: compiles ``detail_tts_tpu_torch/csrc/bias_attention.cu`` and
-   ``bias_attention_bwd.cu`` with nvcc, one process each, at once; prints
+2. build: compiles ``detail_tts_tpu_torch/csrc/bias_attention.cu``,
+   ``bias_attention_bwd.cu`` and ``threefry.cu`` with nvcc, one process
+   each, at once; prints
    each kernel's ``ptxas -v`` registers and spills, and the CTAs per SM of
    the serving forward, the training forward and the backward kernels at
    d=48 and d=96;
@@ -17,12 +18,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    times of the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (the yardstick, never used by the
    port) beside the card's bound;
+3b. threefry: ``threefry_draw`` (JAX's threefry2x32 bits, uniforms,
+   normals and Gumbels) against its plain version at the main path's draw
+   shapes (a decode step's (B, 8194) Gumbels, the diffusion's (B, 4 x
+   bucket, 128) and the vocoder's (B, 4 x bucket, 192) normals, at b8 / 400
+   and b2 / 200 codes) and at odd sizes: bits bit-identical, floats within
+   ``PRNG_ULPS``; a scaled draw; ``threefry_keys``' decode chain and split
+   bit-identical; a draw under a device key row equal to the host key's;
+   row 0 of a batch-2 draw equal to the batch-1 draw and a draw from an
+   offset equal to those rows of the whole; CUDA-event and device times
+   beside the bound (integer operations at 64 a clock an SM, or bytes
+   written) and the plain version's;
 4. serving: ``random_engine(Config())`` at full width, bf16, answers three
-   requests through ``synthesize_batch``; checks the audio and that every
-   ``AttentionBlock`` call of the path launched the kernel;
+   requests through ``synthesize_batch``; checks the audio, that every
+   ``AttentionBlock`` call of the path launched the kernel and that every
+   random draw of the request launched ``threefry_draw`` (max_len + steps +
+   1 a request) and its two key buffers ``threefry_keys``; reads row 0 of
+   the first request alone against its batch;
 4b. serving paths, on the same weights: each other sampler (``ddim``,
    ``dpmpp_2m_karras`` and ``dpmpp_2m`` at 50 steps, ``dpmpp_2m`` at 25)
-   twice at batch 2, with its kernel launches (steps x 13 + 9 a request) and
+   twice at batch 2, with its kernel launches (steps x 13 + 9 a request;
+   threefry max_len + 2 draws and one key buffer outside ``ancestral``) and
    bit-identical repeats; ``pcm16_output`` against the float output's
    conversion; the diffusion-free VQ path (no launch) and ``vq_roundtrip``;
    a ``TTSServer`` answering 4 concurrent requests and refusing a sub-hop
@@ -161,7 +177,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from detail_tts_tpu_torch.ops import attention  # noqa: E402
+from detail_tts_tpu_torch.ops import attention, prng  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
 # fp32 outside them, HBM3.  The exp2 peak is derived from the card itself:
@@ -169,6 +185,16 @@ from detail_tts_tpu_torch.ops import attention  # noqa: E402
 PEAK_TFLOPS = {torch.bfloat16: 989.0, torch.float32: 67.0}
 PEAK_BYTES_PER_S = 3.35e12
 SFU_PER_CLOCK_PER_SM = 16
+# 32-bit integer results per clock per SM of Hopper (the H100 white paper's
+# 64 INT32 units an SM), and those that threefry2x32 takes an element (20
+# rounds of add, rotate, xor; 6 key injections of two adds; the final xor;
+# csrc/threefry.cu): the threefry kernels' operations bound
+INT32_PER_CLOCK_PER_SM = 64
+THREEFRY_INT_OPS = 73
+# the threefry kernels' floats against their plain versions, in units of
+# the last place of max(|plain|, 1) (the same libdevice functions, one
+# rounding an operation on both sides: read bit-identical)
+PRNG_ULPS = 2
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # Phase 9's bf16 readings against one card (first chip run of the phase,
 # H100 80GB HBM3, 700 W): the (2 x 1) request's audio 0.168 of max |one card|
@@ -284,6 +310,7 @@ def phase_build():
     print(f"build wall {time.perf_counter() - t0:.1f} s (parallel)", flush=True)
     fwd = attention._library(attention.SOURCE)
     lib = attention._library(attention.BWD_SOURCE)
+    prng._library()  # threefry.cu's entries bound
     for d in (48, 96):
         serve = fwd.bias_attention_fwd_blocks_per_sm(d)
         train = fwd.bias_attention_train_fwd_blocks_per_sm(d)
@@ -366,6 +393,152 @@ def time_kernel(b, t, h, d, sfu_per_s):
     return dict(ms=kernel_ms, device_ms=kernel_device_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 shape=[b, t, h, d])
+
+
+# ------------------------------------------------------ threefry kernels
+
+# draws the main path makes (b2 / 200 codes in phase 4, b8 / 400 in the
+# benchmark's shape): a decode step's Gumbel (B, 8194), the diffusion's
+# normals (B, 4 x bucket, 128), the vocoder's (B, 4 x bucket, 192); and odd sizes
+PRNG_SHAPES = [(8, 8194), (8, 1600, 128), (8, 1600, 192), (2, 8194), (2, 800, 128),
+               (1,), (3,), (7, 33), (5, 257, 3)]
+
+
+def prng_ulps(x, ref) -> float:
+    """max |x - ref| in units of the last place of max(|ref|, 1), float32."""
+    m = ref.float().abs().clamp_min(1.0)
+    spacing = torch.nextafter(m, torch.full_like(m, math.inf)) - m
+    return ((x.float() - ref.float()).abs() / spacing).max().item()
+
+
+def int32_per_s() -> float:
+    """The card's 32-bit integer results a second: SMs x 64 x max SM clock."""
+    props = torch.cuda.get_device_properties(0)
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
+    return props.multi_processor_count * INT32_PER_CLOCK_PER_SM * clock_mhz * 1e6
+
+
+def phase_prng():
+    """Phase 3b: the threefry kernels against their plain versions; returns
+    (max abs error, max error in ulps, timing row of ``threefry_draw``, of
+    ``threefry_keys``)."""
+    print("== threefry kernels vs plain", flush=True)
+    dev = torch.device("cuda")
+    key = prng.split(prng.PRNGKey(2024))[1]
+    worst = worst_abs = 0.0
+    for shape in PRNG_SHAPES:
+        for kind in prng.KINDS:
+            out = prng.draw(key, shape, kind, device=dev)
+            ref = prng.draw_reference(key, shape, kind, device=dev)
+            torch.cuda.synchronize()
+            differ = int((out != ref).sum())
+            err = 0.0 if kind == "bits" and not differ else (
+                math.inf if kind == "bits" else prng_ulps(out, ref))
+            ok = out.shape == ref.shape and out.dtype == ref.dtype and err <= PRNG_ULPS
+            if kind != "bits":
+                ok = ok and bool(torch.isfinite(out).all())
+            print(f"  {kind} {shape}: {differ} of {out.numel()} elements differ, "
+                  f"max {err:g} ulp (gate {PRNG_ULPS}) {'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                fail(f"threefry_draw disagrees with its plain version: {kind} {shape}")
+            worst = max(worst, err)
+            if kind != "bits":
+                worst_abs = max(worst_abs, (out - ref).abs().max().item())
+    # a scaled draw (the diffusion's temperature), a device key, row prefix, offset
+    scaled = prng.draw(key, (8, 1600, 128), "normal", scale=0.5, device=dev)
+    err = prng_ulps(scaled, prng.draw_reference(key, (8, 1600, 128), "normal", scale=0.5,
+                                                device=dev))
+    chain = prng.decode_keys(key, 200, dev)
+    split = prng.split_keys(key, 50, dev)
+    want_chain = torch.from_numpy(prng.keys_reference(key, 200, True).view(np.int32)).to(dev)
+    want_split = torch.from_numpy(prng.keys_reference(key, 50, False).view(np.int32)).to(dev)
+    step_key = tuple(int(w) for w in want_chain[17].cpu().numpy().view(np.uint32))
+    checks = {
+        "scaled normal within the gate": err <= PRNG_ULPS,
+        "decode key chain (200) bit-identical": torch.equal(chain, want_chain),
+        "split keys (50) bit-identical": torch.equal(split, want_split),
+        "draw under a device key row = under the host key": torch.equal(
+            prng.draw(chain[17], (8, 8194), "gumbel"),
+            prng.draw(step_key, (8, 8194), "gumbel", device=dev)),
+    }
+    for kind in prng.KINDS:
+        whole = prng.draw(key, (8, 1600, 128), kind, device=dev)
+        checks[f"{kind}: row 0 of a batch-2 draw = the batch-1 draw"] = torch.equal(
+            prng.draw(key, (2, 1600, 128), kind, device=dev)[:1],
+            prng.draw(key, (1, 1600, 128), kind, device=dev))
+        checks[f"{kind}: rows 5-7 from their offset = those rows of the whole"] = torch.equal(
+            prng.draw(key, (3, 1600, 128), kind, offset=5 * 1600 * 128, device=dev),
+            whole[5:])
+    torch.cuda.synchronize()
+    for what, ok in checks.items():
+        print(f"  {what}: {'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            fail(f"threefry: {what}")
+    rate = int32_per_s()
+    rows = [time_prng_draw(key, shape, kind, rate)
+            for shape, kind in (((8, 1600, 128), "normal"), ((8, 8194), "gumbel"),
+                                ((2, 800, 128), "normal"), ((2, 8194), "gumbel"))]
+    return worst_abs, worst, rows[0], time_prng_keys(key, 200, rate)
+
+
+def time_prng_draw(key, shape, kind, rate):
+    """CUDA-event and device times of ``threefry_draw`` and of its plain
+    version at one shape, beside the bound (no library call draws JAX's
+    threefry)."""
+    dev = torch.device("cuda")
+    n = math.prod(shape)
+    kernel_ms = cuda_ms(lambda: prng.draw(key, shape, kind, device=dev))
+    kernel_device_ms = device_ms(lambda: prng.draw(key, shape, kind, device=dev),
+                                 only="draw_kernel")
+    plain_ms = cuda_ms(lambda: prng.draw_reference(key, shape, kind, device=dev), runs=5)
+    t_bytes = 4.0 * n / PEAK_BYTES_PER_S * 1e3
+    t_ops = float(THREEFRY_INT_OPS) * n / rate * 1e3
+    bound_ms, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    print(f"  time threefry_draw {kind} {shape}: kernel_ms {kernel_ms} device_ms "
+          f"{kernel_device_ms} plain_ms {plain_ms} bound_ms {bound_ms} ({bound_by}) -> "
+          f"{bound_ms / kernel_ms:.1%} of bound by events", flush=True)
+    return dict(ms=kernel_ms, device_ms=kernel_device_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, shape=list(shape),
+                kind=kind)
+
+
+def time_prng_keys(key, n, rate):
+    """Times of ``threefry_keys`` writing the decode's chain of ``n`` keys,
+    against its plain version (host numpy, then the copy to the card)."""
+    dev = torch.device("cuda")
+    kernel_ms = cuda_ms(lambda: prng.decode_keys(key, n, dev))
+    kernel_device_ms = device_ms(lambda: prng.decode_keys(key, n, dev), only="chain_kernel")
+    plain_ms = cuda_ms(lambda: torch.from_numpy(
+        prng.keys_reference(key, n, True).view(np.int32)).to(dev), runs=5)
+    t_bytes = 8.0 * n / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2.0 * THREEFRY_INT_OPS * n / rate * 1e3
+    bound_ms, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    print(f"  time threefry_keys chain of {n}: kernel_ms {kernel_ms} device_ms "
+          f"{kernel_device_ms} plain_ms {plain_ms} bound_ms {bound_ms} ({bound_by}); one "
+          f"thread walks the chain, so it runs far from its bound", flush=True)
+    return dict(ms=kernel_ms, device_ms=kernel_device_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, keys=n)
+
+
+def prng_per_request(engine, decode_steps: int, vq: bool = False):
+    """threefry launches of one request: (draws, key buffers).  A Gumbel draw
+    a decode step and the vocoder's; the diffusion's initial noise, and
+    under ``ancestral`` one normal a step but the last (which adds none);
+    a key buffer for the decode's chain and one for the ancestral steps."""
+    if vq:
+        return decode_steps + 1, 1
+    ancestral = engine.ecfg.diffusion_sampler == "ancestral"
+    steps = engine.schedule.num_timesteps - 1 if ancestral else 0
+    return decode_steps + 1 + steps + 1, 1 + ancestral
+
+
+def zero_prng():
+    for name in prng.LAUNCHES:
+        prng.LAUNCHES[name] = 0
+
+
+def prng_counts():
+    return prng.LAUNCHES["threefry_draw"], prng.LAUNCHES["threefry_keys"]
 
 
 # ------------------------------------------------------- training kernels
@@ -675,16 +848,20 @@ def b1_per_request(engine) -> int:
 
 
 def phase_serving(engine, requests):
-    """Answer ``requests`` through synthesize_batch; check audio and launches.
-    Returns (launches, launches per request, (wall, timings) per request)."""
+    """Answer ``requests`` through synthesize_batch; check audio and launches
+    (B1's and the threefry kernels', each counted from 0 before the first
+    request).  Returns (B1 launches, B1 launches per request, (wall,
+    timings) per request, threefry launches (draws, key buffers))."""
     print("== serving", flush=True)
     per_request = b1_per_request(engine)
+    prng_want = prng_per_request(engine, engine.ecfg.max_generate_length)
     sr = engine.cfg.data.sampling_rate
     hop_per_code = engine.cfg.gpt.mel_length_compression
     outputs, counts, records = [], [], []
     attention.LAUNCHES = 0
+    zero_prng()
     for texts, wavs, seed in requests:
-        before = attention.LAUNCHES
+        before, prng_before = attention.LAUNCHES, prng_counts()
         timings = {}
         t0 = time.perf_counter()
         outs = engine.synthesize_batch(texts, wavs, seed=seed, force_full=True,
@@ -692,10 +869,12 @@ def phase_serving(engine, requests):
         wall = time.perf_counter() - t0
         records.append((wall, timings))
         counts.append(attention.LAUNCHES - before)
+        prng_got = tuple(a - b for a, b in zip(prng_counts(), prng_before))
         audio_s = sum(len(o) for o in outs) / sr
         print(f"  request batch={len(texts)} seed={seed}: {audio_s:.2f} s of audio "
               f"in {wall:.3f} s wall ({audio_s / wall:.2f}x real time); "
-              f"kernel launches {counts[-1]} (expected {per_request}); timings "
+              f"kernel launches {counts[-1]} (expected {per_request}); threefry draws, "
+              f"key buffers {prng_got} (expected {prng_want}); timings "
               + json.dumps({k: round(v, 4) for k, v in timings.items()}), flush=True)
         eff = engine.ecfg.max_generate_length - 1
         for o in outs:
@@ -703,12 +882,22 @@ def phase_serving(engine, requests):
                 fail(f"bad audio: shape {o.shape}, finite {np.all(np.isfinite(o))}")
         if counts[-1] != per_request:
             fail(f"{counts[-1]} kernel launches, expected {per_request}")
+        if prng_got != prng_want:
+            fail(f"threefry launches {prng_got}, expected {prng_want}")
         outputs.append(outs)
     if not all(np.array_equal(a, b) for a, b in zip(outputs[0], outputs[-1])):
         fail("the repeated request with the same seed gave different audio")
-    print(f"  repeated request reproduced its audio; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return attention.LAUNCHES, counts, records
+    launches, prng_launches = attention.LAUNCHES, prng_counts()
+    # the first request's row 0 alone: the same draws (tests/test_torch_invariance.py
+    # holds the audio at 5e-4 in fp32); read, not gated: bf16 rounds a batch of 1
+    # otherwise than one of 2, and a code that flips makes another utterance
+    texts, wavs, seed = requests[0]
+    alone = engine.synthesize_batch(texts[:1], wavs[:1], seed=seed, force_full=True)[0]
+    apart = float(np.abs(alone - outputs[0][0]).max() / np.abs(outputs[0][0]).max())
+    print(f"  repeated request reproduced its audio; row 0 alone against its batch of "
+          f"{len(texts)}: max |diff| / max |batched| {apart:.4g} (read); peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return launches, counts, records, prng_launches
 
 
 # ------------------------------------------------------------ serving paths
@@ -727,9 +916,11 @@ def check_audio(engine, outs, what, dtype=np.float32):
 
 
 def serve_request(engine, label, texts, wavs, seed, vq=False):
-    """One force_full request, its B1 launches counted from 0; prints the
-    wall time, audio seconds per wall second and the stage timings."""
+    """One force_full request, its B1 and threefry launches counted from 0;
+    prints the wall time, audio seconds per wall second and the stage
+    timings."""
     attention.LAUNCHES = 0
+    zero_prng()
     timings = {}
     t0 = time.perf_counter()
     if vq:
@@ -741,13 +932,14 @@ def serve_request(engine, label, texts, wavs, seed, vq=False):
     audio_s = sum(len(o) for o in outs) / engine.cfg.data.sampling_rate
     print(f"  {label} batch={len(texts)} seed={seed}: {audio_s:.2f} s of audio in "
           f"{wall:.3f} s wall ({audio_s / wall:.2f}x real time); kernel launches "
-          f"{attention.LAUNCHES}; timings "
+          f"{attention.LAUNCHES}; threefry draws, key buffers {prng_counts()}; timings "
           + json.dumps({k: round(v, 4) for k, v in timings.items()}), flush=True)
     return outs, attention.LAUNCHES, wall, timings
 
 
 def phase_serving_paths(engine, texts, prompts, ancestral_records):
-    """Phase 4b on ``engine``'s weights; returns the B1 launches of its paths."""
+    """Phase 4b on ``engine``'s weights; returns the B1 launches of its paths
+    and the threefry launches (draws, key buffers)."""
     import dataclasses
     import threading
     import urllib.error
@@ -766,6 +958,7 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
 
     pair, prompts2 = texts[:2], prompts[:2]
     total, diffuse_ms, walls, fast = 0, {}, {}, None
+    prng_total = np.zeros(2, np.int64)
     # (a) each sampler twice at batch 2
     for sampler, steps in SAMPLER_RUNS:
         eng = variant(diffusion_sampler=sampler, diffusion_steps=steps)
@@ -775,10 +968,15 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
             outs, launches, wall, timings = serve_request(eng, f"{sampler} {steps} steps",
                                                           pair, prompts2, seed=0)
             total += launches
+            prng_total += np.array(prng_counts())
             check_audio(eng, outs, f"{sampler} at {steps} steps")
             if launches != want or want != steps * 13 + 9:
                 fail(f"{sampler} at {steps} steps: {launches} kernel launches, expected "
                      f"{want} (steps x 13 + 9 = {steps * 13 + 9})")
+            prng_want = prng_per_request(eng, eng.ecfg.max_generate_length)
+            if prng_counts() != prng_want:
+                fail(f"{sampler} at {steps} steps: threefry launches {prng_counts()}, "
+                     f"expected {prng_want}")
             runs.append(outs)
         if not all(np.array_equal(a, b) for a, b in zip(*runs)):
             fail(f"{sampler} at {steps} steps: the repeated request gave different audio")
@@ -798,6 +996,7 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
         variant(diffusion_sampler=FAST_MODE[0], diffusion_steps=FAST_MODE[1], pcm16_output=True),
         "pcm16 %s %d steps" % FAST_MODE, pair, prompts2, seed=0)
     total += launches
+    prng_total += np.array(prng_counts())
     check_audio(fast, outs, "pcm16", dtype=np.int16)
     if not all(np.array_equal(o, to_pcm16(torch.from_numpy(f)).numpy())
                for o, f in zip(outs, fast_outs)):
@@ -807,14 +1006,20 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
     # (c) the diffusion-free VQ path and the VQ round trip
     outs, launches, _, _ = serve_request(engine, "vq", pair, prompts2, seed=0, vq=True)
     total += launches
+    prng_total += np.array(prng_counts())
     check_audio(engine, outs, "the VQ path")
     if launches != 0:
         fail(f"the VQ path launched the diffusion kernel {launches} times")
+    prng_want = prng_per_request(engine, engine.ecfg.max_generate_length, vq=True)
+    if prng_counts() != prng_want:
+        fail(f"the VQ path: threefry launches {prng_counts()}, expected {prng_want}")
     mel, mel_len = engine.prepare_prompt(prompts[:1])
     n = int(mel_len[0]) // 4 * 4
     attention.LAUNCHES = 0
+    zero_prng()
     recon, wav = engine.vq_roundtrip(mel[:, :n])
     total += attention.LAUNCHES
+    prng_total += np.array(prng_counts())
     if (recon.shape != (1, n, mel.shape[2]) or wav.shape != (1, n * engine.cfg.data.hop_length, 1)
             or not (torch.isfinite(recon).all() and torch.isfinite(wav).all())):
         fail(f"vq_roundtrip: mel {tuple(recon.shape)}, wav {tuple(wav.shape)}, or not finite")
@@ -824,6 +1029,7 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
     # (d) the server: 4 concurrent requests, a refused sub-hop prompt; the
     # split dispatch against synthesize_batch
     attention.LAUNCHES = 0
+    zero_prng()
     with TTSServer(engine, max_batch=4, max_wait_ms=200.0) as server:
         try:
             server.submit("短", np.zeros(100, np.float32))
@@ -836,6 +1042,7 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
         outs = [f.result(timeout=300) for f in futs]
         wall = time.perf_counter() - t0
     total += attention.LAUNCHES
+    prng_total += np.array(prng_counts())
     for o in outs:
         if o.ndim != 1 or not len(o) or not np.all(np.isfinite(o)):
             fail(f"a server request gave bad audio: shape {o.shape}")
@@ -846,8 +1053,10 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
     if server.requests_served != 4:
         fail(f"the server served {server.requests_served} requests, not 4")
     attention.LAUNCHES = 0
+    zero_prng()
     split = fast.finalize_batch(fast.dispatch_batch(pair, prompts2, seed=0, force_full=True))
     total += attention.LAUNCHES
+    prng_total += np.array(prng_counts())
     if not all(np.array_equal(a, b) for a, b in zip(split, fast_outs)):
         fail("dispatch_batch + finalize_batch differs from synthesize_batch")
     print("  dispatch_batch + finalize_batch bit-identical to synthesize_batch", flush=True)
@@ -855,11 +1064,13 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
     # (e) long form: the joined stream equals the one-shot result
     text = "今天天气很好。我们一起去公园散步吧！你好，欢迎使用语音合成。"
     attention.LAUNCHES = 0
+    zero_prng()
     t0 = time.perf_counter()
     whole = synthesize_long(fast, text, prompts[0], seed=3, batch_size=2)
     wall = time.perf_counter() - t0
     parts = list(synthesize_long_stream(fast, text, prompts[0], seed=3, batch_size=2))
     total += attention.LAUNCHES
+    prng_total += np.array(prng_counts())
     joined = np.concatenate(parts)
     print(f"  long form, 3 sentences in batches of 2 ({FAST_MODE[0]} {FAST_MODE[1]} steps): "
           f"{len(whole) / engine.cfg.data.sampling_rate:.2f} s of audio in {wall:.3f} s "
@@ -871,6 +1082,7 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
     # (f) the HTTP endpoint
     box = {}
     attention.LAUNCHES = 0
+    zero_prng()
     thread = threading.Thread(target=serve, kwargs=dict(
         engine=fast, host="127.0.0.1", port=0, max_batch=2, max_wait_ms=5.0,
         httpd_box=box), daemon=True)
@@ -909,6 +1121,7 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
         box["httpd"].shutdown()
         thread.join(timeout=60)
     total += attention.LAUNCHES
+    prng_total += np.array(prng_counts())
     print(f"  HTTP: /healthz {health}; /synthesize twice: "
           + "; ".join(f"{st} {ct}, {len(a) / engine.cfg.data.sampling_rate:.2f} s of audio "
                       f"in {w:.3f} s" for (st, ct, _, w), a in zip(answers, audio))
@@ -918,7 +1131,7 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
             st == 200 and ct == "audio/wav" and len(a) and np.all(np.isfinite(a))
             for (st, ct, _, _), a in zip(answers, audio))):
         fail("the HTTP endpoint did not answer as it should")
-    return total
+    return total, tuple(int(x) for x in prng_total)
 
 
 # ----------------------------------------------------------------- training
@@ -1995,7 +2208,7 @@ def phase9_engine_cfg(dtype):
 
 def engine_tail(engine, texts, wavs, codes, eff, rows=None):
     """Fixed codes -> (latents, mel, wav) of every item (JAX's
-    ``_deterministic_tail``): this data rank's rows, fixed generators,
+    ``_deterministic_tail``): this data rank's rows, fixed keys,
     gathered over the data group.  ``rows`` (a one-card engine): only those
     rows of the request, at its text width and with its draws, as a data
     rank computes them."""
@@ -2014,10 +2227,9 @@ def engine_tail(engine, texts, wavs, codes, eff, rows=None):
         codes_b, wav_len, bucket = engine._pad_codes(codes[mine].to(dev), eff[mine])
         latents = engine.model.gpt(refer_mel.to(engine.cdt), refer_len, text, codes_b, wav_len)
         mel = engine.diffuse(latents, engine.diffusion_cond(refer_mel, refer_len),
-                             engine.attention_biases(bucket * FRAMES_PER_CODE),
-                             torch.Generator(device=dev).manual_seed(7), rows)
-        wav = engine._vocode(mel, eff[mine], torch.Generator(device=dev).manual_seed(8),
-                             rows)[..., 0]
+                             engine.attention_biases(bucket * FRAMES_PER_CODE), (0, 7),
+                             rows)
+        wav = engine._vocode(mel, eff[mine], (0, 8), rows)[..., 0]
         out = [latents.float(), mel.float(), wav.float()]
         if not given and rows is not None and rows.stop - rows.start < rows.total:
             out = [all_gather_rows(x, engine.mesh.data_group) for x in out]
@@ -2716,6 +2928,7 @@ def main():
     served = serving_attention_shapes(
         cfg, ecfg, batches=(2, 1), prompt_frames=3 * sr // cfg.data.hop_length)
     worst, times = phase_kernel(sfu_per_s, served, timed_shapes=served[1:2])
+    prng_abs, prng_ulp, prng_times, keys_times = phase_prng()
     train_worst, train_times, backend = phase_train_kernels(sfu_per_s)
 
     t0 = time.perf_counter()
@@ -2724,8 +2937,9 @@ def main():
     n_params = sum(p.numel() for p in engine.model.parameters())
     print(f"== engine: Config() at full width, {n_params / 1e6:.1f} M parameters "
           f"{engine.cdt}, built in {time.perf_counter() - t0:.1f} s", flush=True)
-    launches, per_request, records = phase_serving(engine, requests)
-    launches += phase_serving_paths(engine, texts, prompts, records)
+    launches, per_request, records, prng_launches = phase_serving(engine, requests)
+    paths_launches, paths_prng = phase_serving_paths(engine, texts, prompts, records)
+    launches += paths_launches
     del engine
     torch.cuda.empty_cache()
 
@@ -2751,6 +2965,19 @@ def main():
                       "rank's batches under the server, HTTP and long form over the "
                       "leader (phase 10)",
         max_abs_err=worst, **times)]
+    for i, (name, row, replaces, per) in enumerate((
+            ("threefry_draw", prng_times, "detail_tts_tpu/ops/sampling.py:96",
+             "max_len + steps + 1 a request: a Gumbel a decode step, the diffusion's "
+             "initial noise, a normal an ancestral step but the last, the vocoder's"),
+            ("threefry_keys", keys_times, "detail_tts_tpu/models/gpt.py:358",
+             "2 a request: the decode's key chain, the ancestral steps' split"))):
+        kernels.append(dict(
+            name=name, route="cuda", source="detail_tts_tpu_torch/csrc/threefry.cu",
+            replaces=replaces, launches=prng_launches[i] + paths_prng[i],
+            launches_per_request=per,
+            launches_over="phases 4 and 4b (every request, server, long form and HTTP)",
+            max_abs_err=prng_abs if i == 0 else 0.0, max_ulp=prng_ulp if i == 0 else 0.0,
+            library="none draws JAX's threefry", **row))
     sources = {"bias_attention_train_fwd": ("bias_attention.cu", 259),
                "bias_attention_bwd_dq_dbias": ("bias_attention_bwd.cu", 286),
                "bias_attention_bwd_dkv": ("bias_attention_bwd.cu", 308),

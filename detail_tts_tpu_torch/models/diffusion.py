@@ -23,7 +23,8 @@ from typing import Callable, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from detail_tts_tpu_torch.parallel.mesh import Rows, draw_rows
+from detail_tts_tpu_torch.ops import prng
+from detail_tts_tpu_torch.parallel.mesh import Rows
 
 
 def get_named_beta_schedule(name: str, num_steps: int) -> np.ndarray:
@@ -218,19 +219,22 @@ ModelFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tenso
 @torch.no_grad()
 def p_sample_loop(schedule: DiffusionSchedule, model_fn: ModelFn,
                   noise: torch.Tensor, *, cond_free_k: float = 2.0,
-                  generator: Optional[torch.Generator] = None,
+                  key: prng.Seed = 0,
                   noise_seq: Optional[torch.Tensor] = None,
                   rows: Optional[Rows] = None) -> torch.Tensor:
     """Ancestral sampler with ramped CFG (diffusion.py:445-485).
 
     Each step is one model call on 2B rows [cond | uncond].  ``noise_seq``:
     optional (num_timesteps, *x.shape) injection noises in the order they are
-    used (first entry -> highest timestep); else drawn from ``generator``,
-    for the whole request when ``x`` is its ``rows`` (a data rank of a
-    sharded engine, ``parallel.mesh.draw_rows``).
+    used (first entry -> highest timestep); else step j draws a standard
+    normal of ``x``'s shape under key j of JAX's ``split(key, n)`` (written
+    to a device buffer in one launch), where ``rows``: ``x`` is these rows of
+    the request's.  The last step adds no noise, so it draws none (JAX
+    multiplies its draw by 0).
     """
     n = schedule.num_timesteps
     x = noise.float()
+    keys = prng.split_keys(key, n, x.device) if noise_seq is None else None
     for step, i in enumerate(range(n - 1, -1, -1)):
         t_orig = schedule.timestep_map[i].expand(2 * x.shape[0])
         eps2, var2 = model_fn(torch.cat([x, x], dim=0), t_orig)
@@ -243,8 +247,7 @@ def p_sample_loop(schedule: DiffusionSchedule, model_fn: ModelFn,
             x = mean
             continue
         z = (noise_seq[step].to(x) if noise_seq is not None else
-             draw_rows(lambda shape: torch.randn(shape, generator=generator,
-                                                 device=x.device), x.shape, rows))
+             prng.draw(keys[step], x.shape, "normal", offset=prng.row_offset(rows, x.shape)))
         x = mean + torch.exp(0.5 * logvar) * z
     return x
 

@@ -7,7 +7,9 @@ gelu_new, learned per-modality positions, no global positions) over
 * ``decode_prefill``/``decode_step`` over a preallocated per-layer KV cache
   that is written in place;
 * ``generate_speech_tokens``: a Python loop of cached steps that stops when
-  every row has emitted the stop token (or after ``max_generate_length``);
+  every row has emitted the stop token (or after ``max_generate_length``),
+  step s sampling with the Gumbel noise of JAX's key chain ``rng, key =
+  split(rng)`` (``ops/prng.py``);
 * ``forward``: the ``return_latent=True`` pass (latents of the mel positions,
   ``mel_latents[:, :-2]``) and the training pass, the text and mel heads'
   unmasked mean cross-entropies in fp32.
@@ -62,6 +64,7 @@ from detail_tts_tpu_torch.config import GPTConfig
 from detail_tts_tpu_torch.nn.common import (Dense, SeededDropout, TorchLayerNorm,
                                             sequence_mask)
 from detail_tts_tpu_torch.nn.style_encoder import MelStyleEncoder
+from detail_tts_tpu_torch.ops import prng
 from detail_tts_tpu_torch.ops.sampling import sample_token
 from detail_tts_tpu_torch.parallel.mesh import (Rows, Shard, all_reduce_max_host,
                                                 copy_to_model, gather_from_model,
@@ -390,17 +393,19 @@ class SamplingConfig:
 @torch.no_grad()
 def generate_speech_tokens(model: UnifiedVoice, cond_mel, cond_lengths, text,
                            sampling: SamplingConfig = SamplingConfig(),
-                           generator: Optional[torch.Generator] = None,
+                           key: prng.Seed = 0,
                            cache_dtype=torch.bfloat16, rows: Optional[Rows] = None,
                            group=None):
     """AR decode with a KV cache.
 
     Returns (codes (B, max_len) padded with stop tokens, lengths (B,)), where
-    ``lengths`` counts generated tokens including the stop token.  On a data
-    rank of a sharded engine the batch is this rank's ``rows`` of the
-    request: each step's Gumbel noise is drawn for the whole request, and
-    the early stop waits for every row of ``group`` (the data group), so the
-    generator moves and the decode ends as on one card.
+    ``lengths`` counts generated tokens including the stop token.  Step s
+    draws its Gumbel noise under the s-th key of JAX's chain from ``key``
+    (``rng, key = split(rng)`` a step, written to a device buffer in one
+    launch before the loop).  On a data rank of a sharded engine the batch
+    is this rank's ``rows`` of the request, whose elements of each step's
+    draw it takes, and the early stop waits for every row of ``group`` (the
+    data group), so the decode ends as on one card.
     """
     c = model.cfg
     b = text.shape[0]
@@ -418,6 +423,7 @@ def generate_speech_tokens(model: UnifiedVoice, cond_mel, cond_lengths, text,
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     lengths = torch.zeros(b, dtype=torch.long, device=dev)
     batch = torch.arange(b, device=dev)
+    keys = prng.decode_keys(key, n, dev)
     for step in range(n):
         if not sampling.force_full_length and step and _all_finished(finished, group):
             break
@@ -426,7 +432,7 @@ def generate_speech_tokens(model: UnifiedVoice, cond_mel, cond_lengths, text,
                            top_p=sampling.top_p,
                            repetition_penalty=sampling.repetition_penalty,
                            typical_mass=sampling.typical_mass,
-                           generator=generator, rows=rows)
+                           key=keys[step], rows=rows)
         tok = torch.where(finished, c.stop_mel_token, tok)
         codes[:, step] = tok
         seen[batch, tok] = True

@@ -13,7 +13,9 @@ GPT latents, then the diffusion MSE + VB loss at random timesteps) and
 ``forward_flowvae`` (prior and posterior encoders, the flow and the vocoder
 on a random segment: the GAN step's generator).  Waveforms are (B, T, 1).
 
-Random draws come in NamedTuples (:class:`DiffDraws`, ``VQDraws``,
+Inference draws its one sample, the vocoder's prior noise in
+``infer_flowvae``, under a JAX threefry key (``ops/prng.py``), as JAX does.
+Training's random draws come in NamedTuples (:class:`DiffDraws`, ``VQDraws``,
 :class:`FlowDraws`), drawn from the step's generator or handed in; dropout
 masks come from the generator passed to each forward.  The frozen passes
 (codes, GPT latents) draw nothing, as JAX runs them deterministic.  Under
@@ -44,7 +46,8 @@ from detail_tts_tpu_torch.nn.common import (Conv1d, ConvTranspose1d, TorchLayerN
                                             sequence_mask, slice_segments)
 from detail_tts_tpu_torch.nn.coupling import ResidualCouplingBlock
 from detail_tts_tpu_torch.nn.style_encoder import MelStyleEncoder
-from detail_tts_tpu_torch.parallel.mesh import Rows, draw_rows, shard_rows
+from detail_tts_tpu_torch.ops import prng
+from detail_tts_tpu_torch.parallel.mesh import Rows, shard_rows
 
 
 def make_train_schedule(cfg: Config, device="cpu") -> DiffusionSchedule:
@@ -229,18 +232,18 @@ class SynthesizerTrn(nn.Module):
         return self.vq_decode_features(latent + self.vq_style(refer_mel, refer_lengths))
 
     @torch.no_grad()
-    def infer_vqvae(self, mel: torch.Tensor, generator: Optional[torch.Generator] = None,
+    def infer_vqvae(self, mel: torch.Tensor, key: prng.Seed = 0,
                     noise: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """VQ round trip and vocoder (model_24k.py:864-876): mel -> (the
         reconstructed mel, wav).  The eval quantizer call is encode then
-        decode; ``generator``/``noise`` feed the vocoder's prior sample."""
+        decode; ``key``/``noise`` feed the vocoder's prior sample."""
         lengths = torch.full((mel.shape[0],), mel.shape[1], dtype=torch.long,
                              device=mel.device)
         x = self.vq_encode_features(mel)
         q = self.quantizer.decode(self.quantizer.encode(x))
         recon = self.vq_decode_features(q + self.vq_style(mel, lengths))
-        return recon, self.infer_flowvae(recon, lengths, generator=generator, noise=noise)
+        return recon, self.infer_flowvae(recon, lengths, key=key, noise=noise)
 
     @torch.no_grad()
     def encode(self, mel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -334,21 +337,20 @@ class SynthesizerTrn(nn.Module):
                               logs_q, y_mask)
 
     def infer_flowvae(self, mel: torch.Tensor, lengths: torch.Tensor,
-                      noise_scale: float = 0.667,
-                      generator: Optional[torch.Generator] = None,
+                      noise_scale: float = 0.667, key: prng.Seed = 0,
                       noise: Optional[torch.Tensor] = None,
                       rows: Optional[Rows] = None) -> torch.Tensor:
         """mel (B, T, n_mels) -> wav (B, T * hop, 1) (model_24k.py:848-863).
 
-        The prior sample's standard-normal ``noise`` is drawn from
-        ``generator`` unless given, for the whole request when ``mel`` is
-        its ``rows`` (``parallel.mesh.draw_rows``)."""
+        The prior sample's standard-normal ``noise`` is drawn under ``key``
+        (JAX's ``normal(key, m_p.shape)``) unless given, where ``rows``:
+        ``mel`` is these rows of the request's."""
         y_mask = sequence_mask(lengths, mel.shape[1])[..., None]
         g = self.ref_enc(mel * y_mask, y_mask[..., 0])
         _, m_p, logs_p = self.enc_p(self.in_proj(mel), lengths)
         if noise is None:
-            noise = draw_rows(lambda shape: torch.randn(shape, generator=generator,
-                                                        device=m_p.device), m_p.shape, rows)
+            noise = prng.draw(key, m_p.shape, "normal",
+                              offset=prng.row_offset(rows, m_p.shape), device=m_p.device)
         z_p = m_p + noise.to(m_p.dtype) * torch.exp(logs_p) * noise_scale
         z = self.flow.reverse(z_p, y_mask, g=g)
         return self.dec(z, g=g)

@@ -250,9 +250,11 @@ def build(source: Path = SOURCE) -> Tuple[Path, float, str]:
 
 
 def build_all() -> List[Tuple[Path, float, str]]:
-    """Build every kernel library at once, one nvcc process per source."""
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        return list(pool.map(build, (SOURCE, BWD_SOURCE)))
+    """Build every kernel library of ``csrc/`` at once (the attention
+    kernels and ``threefry.cu``), one nvcc process per source."""
+    sources = sorted(CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        return list(pool.map(build, sources))
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

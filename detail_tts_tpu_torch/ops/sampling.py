@@ -1,10 +1,10 @@
 """Token sampling with HF ``generate`` semantics (counterpart of ``ops/sampling.py``).
 
 Repetition penalty -> temperature -> typical -> top-p, all on fp32 logits,
-then ``argmax(logits + gumbel)``, which is a draw from the categorical.  The
-Gumbel noise comes from a ``torch.Generator`` or is passed in (a test can
-feed JAX's draws: ``jax.random.categorical(key, l)`` is
-``argmax(l + jax.random.gumbel(key, l.shape))``).
+then ``argmax(logits + gumbel)``, which is a draw from the categorical:
+``jax.random.categorical(key, l)`` is ``argmax(gumbel(key, l.shape) + l)``.
+The Gumbel noise is drawn under a JAX key (``ops/prng.py``: a host key, or
+a row of the decode's device key buffer) or is passed in.
 """
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ from typing import Optional
 
 import torch
 
-from detail_tts_tpu_torch.parallel.mesh import Rows, draw_rows
+from detail_tts_tpu_torch.ops import prng
+from detail_tts_tpu_torch.parallel.mesh import Rows
 
 
 def apply_repetition_penalty(logits: torch.Tensor, seen_mask: torch.Tensor,
@@ -64,31 +65,20 @@ def apply_typical(logits: torch.Tensor, mass: float = 0.9) -> torch.Tensor:
     return logits.masked_fill(remove, float("-inf"))
 
 
-def gumbel_like(logits: torch.Tensor,
-                generator: Optional[torch.Generator] = None,
-                rows: Optional[Rows] = None) -> torch.Tensor:
-    """Standard Gumbel noise of ``logits``' shape, fp32; ``rows``: the
-    logits are these rows of a larger batch, whose noise is drawn
-    (``parallel.mesh.draw_rows``)."""
-    tiny = torch.finfo(torch.float32).tiny
-    u = draw_rows(lambda shape: torch.rand(shape, generator=generator,
-                                           device=logits.device), logits.shape, rows)
-    return -torch.log(-torch.log(u.clamp_min(tiny)))
-
-
 def sample_token(logits: torch.Tensor, *, seen_mask: torch.Tensor,
                  temperature: float = 0.8, top_p: float = 0.8,
                  repetition_penalty: float = 2.0, typical_mass: float = 1.0,
-                 generator: Optional[torch.Generator] = None,
-                 gumbel: Optional[torch.Tensor] = None,
+                 key=None, gumbel: Optional[torch.Tensor] = None,
                  rows: Optional[Rows] = None) -> torch.Tensor:
-    """One decode-step sample, (B, V) -> (B,) int64; ``rows`` as in
-    :func:`gumbel_like`."""
+    """One decode-step sample, (B, V) -> (B,) int64.  The Gumbel noise is
+    ``gumbel``, else drawn under ``key`` (``prng.draw``), where ``rows``: the
+    logits are these rows of the request's (B, V) draw."""
     logits = logits.float()
     logits = apply_repetition_penalty(logits, seen_mask, repetition_penalty)
     logits = apply_temperature(logits, temperature)
     logits = apply_typical(logits, typical_mass)
     logits = apply_top_p(logits, top_p)
     if gumbel is None:
-        gumbel = gumbel_like(logits, generator, rows)
-    return torch.argmax(logits + gumbel, dim=-1)
+        gumbel = prng.draw(key, logits.shape, "gumbel",
+                           offset=prng.row_offset(rows, logits.shape), device=logits.device)
+    return torch.argmax(gumbel + logits, dim=-1)

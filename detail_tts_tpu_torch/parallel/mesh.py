@@ -19,9 +19,10 @@ Over the **data** group (the rows):
 * the step's loss scalars, averaged in one collective
   (:func:`reduce_metrics`); every loss but the masked KL is an unmasked
   mean over equally sized shards, so the average is the global value;
-* the random draws: every rank draws for the global batch from the step's
-  generator, identical on every rank, and keeps its rows
-  (:func:`shard_rows`, :func:`draw_rows`); rows that a draw needs from
+* the training step's random draws: every rank draws for the global batch
+  from the step's generator, identical on every rank, and keeps its rows
+  (:func:`shard_rows`; serving draws a rank's rows alone, from JAX's
+  threefry keys, ``ops/prng.py``); rows that a draw needs from
   every rank (the GAN step's lengths, the quantizer's k-means samples)
   come through :func:`all_gather_rows`.  Model peers hold the same rows, so
   a collective over the world would count them M times.
@@ -49,7 +50,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import Any, Callable, Dict, Iterable, List, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -336,7 +337,7 @@ def barrier(group=None) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Global-batch draws on a data rank
+# A data rank's rows of a global batch
 # ---------------------------------------------------------------------------
 
 
@@ -346,17 +347,6 @@ class Rows(NamedTuple):
     start: int
     stop: int
     total: int
-
-
-def draw_rows(draw: Callable[[Tuple[int, ...]], torch.Tensor], shape,
-              rows: Optional[Rows] = None) -> torch.Tensor:
-    """``draw(shape)`` for this rank's rows of a global batch: the draw is
-    made at the global batch's shape, so the generator moves as it does for
-    one card, and the rank keeps ``rows`` (``None``: the shape's own
-    draw)."""
-    if rows is None:
-        return draw(tuple(shape))
-    return draw((rows.total,) + tuple(shape[1:]))[rows.start:rows.stop]
 
 
 # ---------------------------------------------------------------------------

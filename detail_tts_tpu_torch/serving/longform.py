@@ -4,8 +4,9 @@ Counterpart of ``detail_tts_tpu/serving/longform.py``.  The model bounds its
 context (GPT generation cap 600 codes, about 25.6 s), so long text is split
 at sentence punctuation, the chunks go through the engine in batches with
 the same voice prompt (zero-shot prompt reuse keeps the speaker), and the
-pieces are joined with short crossfades.  Chunk batch k takes the seed
-``SeedSequence([seed, k])``.
+pieces are joined with short crossfades.  Chunk batch k takes the k-th key
+of JAX's chain from ``seed`` (an int, ``PRNGKey(seed)``, or a key):
+``rng, key = split(rng)`` a batch.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import re
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from detail_tts_tpu_torch.ops import prng
 
 _SENT_SPLIT = re.compile(r"(?<=[。！？!?；;.])\s*")
 
@@ -50,17 +53,18 @@ def crossfade_concat(wavs: Sequence[np.ndarray], sr: int,
     return out
 
 
-def _chunk_batches(engine, chunks: List[str], prompt_wav: np.ndarray, seed: int,
+def _chunk_batches(engine, chunks: List[str], prompt_wav: np.ndarray, seed: prng.Seed,
                    batch_size: int, vq_only: bool) -> Iterator[List[np.ndarray]]:
     """The audio of each batch of chunks, in order."""
     fn = engine.synthesize_vq_batch if vq_only else engine.synthesize_batch
-    for k, i in enumerate(range(0, len(chunks), batch_size)):
+    rng = prng.as_key(seed)
+    for i in range(0, len(chunks), batch_size):
         group = chunks[i:i + batch_size]
-        key = int(np.random.SeedSequence([seed & 0x7FFFFFFF, k]).generate_state(1)[0])
+        rng, key = prng.split(rng)
         yield fn(group, [prompt_wav] * len(group), seed=key)
 
 
-def synthesize_long(engine, text: str, prompt_wav: np.ndarray, seed: int = 0,
+def synthesize_long(engine, text: str, prompt_wav: np.ndarray, seed: prng.Seed = 0,
                     batch_size: int = 8, max_chars: int = 120,
                     fade_ms: float = 20.0, vq_only: bool = False) -> np.ndarray:
     """Synthesize arbitrarily long text through the bounded-context engine."""
@@ -74,7 +78,7 @@ def synthesize_long(engine, text: str, prompt_wav: np.ndarray, seed: int = 0,
 
 
 def synthesize_long_stream(engine, text: str, prompt_wav: np.ndarray,
-                           seed: int = 0, batch_size: int = 8,
+                           seed: prng.Seed = 0, batch_size: int = 8,
                            max_chars: int = 120, fade_ms: float = 20.0,
                            vq_only: bool = False) -> Iterator[np.ndarray]:
     """Streaming long-form synthesis: yields playable segments as each chunk

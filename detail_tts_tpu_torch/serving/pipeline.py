@@ -25,9 +25,14 @@ stop tokens.  On the card weights and activations are bf16 with fp32
 islands (norm statistics, softmax, sampler and schedule math, STFT/mel, the
 diffusion trunk's tail); the KV cache and the T5 biases are bf16.  TF32 is
 off for both matmuls and convolutions.  All randomness of a request comes
-from one ``torch.Generator`` seeded by the request's ``seed``, drawn in
-stage order: the decode, then the diffusion noise, then the vocoder's prior
-sample.
+from JAX's threefry key tree (``ops/prng.py``, the ``threefry_draw`` kernel
+on the card), as the JAX engine draws it: ``seed`` means ``PRNGKey(seed)``
+(or is a key), split into the decode's, the diffusion's and the vocoder's
+keys (``g, d, v = split(key, 3)``); the decode takes one key a step from
+the chain ``rng, key = split(rng)``, the diffusion splits ``d`` into the
+initial noise's key and the ancestral steps' keys.  An element of a draw
+depends on the key and its flat index only, so a row's audio does not
+depend on the rows batched after it.
 
 Sharded serving (``TTSEngine(mesh=)``, a ``parallel.mesh.Mesh`` of the
 ranks, one process a card; JAX's engine on a ``(data, model)`` mesh): every
@@ -36,11 +41,12 @@ every item's audio.  The rows are split over the data group (every rank
 runs every row where D does not divide the batch, as JAX's ``shard_batch``
 replicates what it cannot split); the GPT is sharded over the model group
 (``shard_module_``), the rest replicated.  So that a rank's rows come out
-as on one card: every draw is made at the request's shape and the rank
-keeps its rows (``draw_rows``); the text, prompt and code buckets are
-agreed over the data group (a text bucket of another width moves every mel
-position of the GPT's input); the decode's early stop waits for every
-row; and the audio is gathered to every rank before it is cut to length.
+as on one card: a rank draws only its rows' elements of each draw, from
+the offset of its first row (``prng.row_offset``); the text, prompt and
+code buckets are agreed over the data group (a text bucket of another
+width moves every mel position of the GPT's input); the decode's early stop
+waits for every row; and the audio is gathered to every rank before it is
+cut to length.
 """
 from __future__ import annotations
 
@@ -63,9 +69,10 @@ from detail_tts_tpu_torch.models.diffusion import (ddim_sample_loop,
                                                    p_sample_loop)
 from detail_tts_tpu_torch.models.gpt import SamplingConfig, generate_speech_tokens
 from detail_tts_tpu_torch.models.synthesizer import SynthesizerTrn, make_infer_schedule
+from detail_tts_tpu_torch.ops import prng
 from detail_tts_tpu_torch.parallel.mesh import (Mesh, Rows, all_gather_host,
                                                 all_gather_rows, all_reduce_max_host,
-                                                draw_rows, shard_module_)
+                                                shard_module_)
 from detail_tts_tpu_torch.text.pinyin import to_pinyin
 from detail_tts_tpu_torch.text.tokenizer import make_tokenizer
 
@@ -131,7 +138,8 @@ class PendingDecode:
     diffusion conditioning are enqueued on the device, and the decode-length
     (``eff``) synchronisation that :meth:`TTSEngine.dispatch_tail` makes has
     not happened yet, so a server can finalize the previous batch between
-    the two.  ``generator`` is the request's, for the later stages."""
+    the two.  ``d_key`` and ``v_key`` are the request's diffusion and
+    vocoder keys, for the later stages."""
 
     codes: torch.Tensor
     lengths: Optional[torch.Tensor]  # device tensor; None under force_full
@@ -140,7 +148,8 @@ class PendingDecode:
     refer_mel: torch.Tensor
     refer_len: torch.Tensor
     text: torch.Tensor
-    generator: torch.Generator
+    d_key: prng.Key
+    v_key: prng.Key
     n: int
     max_len: int
     force_full: bool
@@ -352,10 +361,10 @@ class TTSEngine:
             return np.full((n,), max(max_len - 1, 1), np.int64)
         return np.maximum(lengths.cpu().numpy() - 1, 1).astype(np.int64)
 
-    def _decode(self, refer_mel, refer_len, text, generator, max_len: int,
+    def _decode(self, refer_mel, refer_len, text, key: prng.Key, max_len: int,
                 force_full: bool, rows: Optional[Rows] = None):
-        """AR decode -> (codes (B, max_len), lengths (B,)) on the device;
-        ``rows``: the batch is these rows of the request."""
+        """AR decode under ``key`` -> (codes (B, max_len), lengths (B,)) on
+        the device; ``rows``: the batch is these rows of the request."""
         e = self.ecfg
         sampling = SamplingConfig(
             temperature=e.temperature, top_p=e.top_p,
@@ -364,15 +373,15 @@ class TTSEngine:
             force_full_length=force_full)
         return generate_speech_tokens(
             self.model.gpt, refer_mel.to(self.cdt), refer_len, text, sampling,
-            generator=generator, cache_dtype=e.cache_dtype, rows=rows,
+            key=key, cache_dtype=e.cache_dtype, rows=rows,
             group=self._data_group)
 
-    def generate_codes(self, refer_mel, refer_len, text, generator,
+    def generate_codes(self, refer_mel, refer_len, text, key: prng.Key,
                        force_full: bool = False,
                        max_len: Optional[int] = None, rows: Optional[Rows] = None):
         """AR decode -> (codes (B, max_len), effective lengths (B,))."""
         max_len = max_len or self.ecfg.max_generate_length
-        codes, lengths = self._decode(refer_mel, refer_len, text, generator,
+        codes, lengths = self._decode(refer_mel, refer_len, text, key,
                                       max_len, force_full, rows)
         return codes, self._effective_lengths(codes.shape[0], lengths,
                                               max_len, force_full)
@@ -393,12 +402,13 @@ class TTSEngine:
         return codes_b, eff_t * self.cfg.gpt.mel_length_compression, bucket
 
     def diffuse(self, latents: torch.Tensor, cond_latent: torch.Tensor,
-                biases: List[torch.Tensor], generator,
+                biases: List[torch.Tensor], key: prng.Key,
                 rows: Optional[Rows] = None) -> torch.Tensor:
         """latents (B, Tc, D) -> denormalised mel (B, 4 Tc, n_mels), fp32,
         by the configured sampler; each model evaluation is one CFG call.
-        ``rows``: the batch is these rows of the request, whose noise is
-        drawn."""
+        ``key`` splits into the initial noise's and the ancestral steps'
+        (JAX's ``n_rng, s_rng = split(d_rng)``).  ``rows``: the batch is
+        these rows of the request, whose elements of each draw are drawn."""
         code_emb = self.model.diffusion_code_embedding(
             latents.to(self.cdt), cond_latent.to(self.cdt))
 
@@ -408,14 +418,14 @@ class TTSEngine:
 
         shape = (latents.shape[0], latents.shape[1] * FRAMES_PER_CODE,
                  self.cfg.diffusion.in_channels)
-        noise = draw_rows(lambda s: torch.randn(s, generator=generator,
-                                                device=self.device), shape, rows) \
-            * self.ecfg.diffusion_temperature
+        n_key, s_key = prng.split(key)
+        noise = prng.draw(n_key, shape, "normal", scale=self.ecfg.diffusion_temperature,
+                          offset=prng.row_offset(rows, shape), device=self.device)
         k = self.cfg.diffusion.cond_free_k
         sampler = self.ecfg.diffusion_sampler
         if sampler == "ancestral":
             mel = p_sample_loop(self.schedule, model_fn, noise, cond_free_k=k,
-                                generator=generator, rows=rows)
+                                key=s_key, rows=rows)
         elif sampler == "ddim":
             mel = ddim_sample_loop(self.schedule, model_fn, noise, cond_free_k=k)
         elif sampler == "dpmpp_2m":
@@ -425,13 +435,13 @@ class TTSEngine:
             mel = dpmpp_2m_sample_loop(self.schedule, model_fn, noise, cond_free_k=k)
         return denormalize_mel(mel)
 
-    def _vocode(self, mel: torch.Tensor, eff: np.ndarray, generator,
+    def _vocode(self, mel: torch.Tensor, eff: np.ndarray, key: prng.Key,
                 rows: Optional[Rows] = None) -> torch.Tensor:
-        """mel -> wav (B, T, 1), fp32 or (with ``pcm16_output``) int16."""
+        """mel -> wav (B, T, 1), fp32 or (with ``pcm16_output``) int16; the
+        prior sample under ``key``."""
         mel_len = torch.as_tensor(eff * FRAMES_PER_CODE, device=self.device)
         wav = self.model.infer_flowvae(mel.to(self.cdt), mel_len,
-                                       self.ecfg.noise_scale, generator=generator,
-                                       rows=rows)
+                                       self.ecfg.noise_scale, key=key, rows=rows)
         return to_pcm16(wav) if self.ecfg.pcm16_output else wav.float()
 
     def _codes_to_mel(self, codes: torch.Tensor, refer_mel: torch.Tensor,
@@ -466,16 +476,17 @@ class TTSEngine:
 
     @torch.inference_mode()
     def dispatch_decode(self, texts: Sequence[str],
-                        prompt_wavs: Sequence[np.ndarray], seed: int = 0,
+                        prompt_wavs: Sequence[np.ndarray], seed: prng.Seed = 0,
                         force_full: bool = False,
                         timings: Optional[Dict[str, float]] = None) -> PendingDecode:
         """Phase 1: host prep, then the AR decode and the diffusion
         conditioning.  Nothing waits for the decode's lengths here (the
         decode loop itself synchronises on early stop unless ``force_full``);
-        see :class:`PendingDecode`.  On a sharded engine the batch is this
-        data rank's rows of the request."""
+        see :class:`PendingDecode`.  ``seed``: an int (``PRNGKey(seed)``) or
+        a key.  On a sharded engine the batch is this data rank's rows of the
+        request."""
         rows, texts, prompt_wavs = self._split(texts, prompt_wavs)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        g_key, d_key, v_key = prng.split(prng.as_key(seed), 3)
         with self._stage("prepare", timings):
             text, _ = self.prepare_text(texts)
             refer_mel, refer_len = self.prepare_prompt(prompt_wavs)
@@ -483,7 +494,7 @@ class TTSEngine:
         max_len = self.ecfg.max_generate_length
         # the decode is enqueued first; the conditioning's host work follows
         with self._stage("generate", timings, wait=False):
-            codes, lengths = self._decode(refer_mel, refer_len, text, gen,
+            codes, lengths = self._decode(refer_mel, refer_len, text, g_key,
                                           max_len, force_full, rows)
             done = torch.cuda.Event() if self.device.type == "cuda" else None
             if done is not None:
@@ -493,7 +504,7 @@ class TTSEngine:
         return PendingDecode(codes=codes, lengths=None if force_full else lengths,
                              codes_done=done, diff_cond=diff_cond,
                              refer_mel=refer_mel, refer_len=refer_len, text=text,
-                             generator=gen, n=len(texts), max_len=max_len,
+                             d_key=d_key, v_key=v_key, n=len(texts), max_len=max_len,
                              force_full=force_full, timings=timings,
                              _t0=time.perf_counter(), rows=rows)
 
@@ -506,7 +517,6 @@ class TTSEngine:
         timings = pending.timings
         if timings is not None:
             timings["gap"] = timings.get("gap", 0.0) + time.perf_counter() - pending._t0
-        gen = pending.generator
         with self._stage("generate", timings, wait=pending.codes_done or True):
             eff = self._effective_lengths(pending.codes.shape[0], pending.lengths,
                                           pending.max_len, pending.force_full)
@@ -518,15 +528,15 @@ class TTSEngine:
                                      pending.text, codes_b, wav_len)
         with self._stage("diffuse", timings):
             mel = self.diffuse(latents, pending.diff_cond,
-                               self.attention_biases(bucket * FRAMES_PER_CODE), gen,
-                               pending.rows)
+                               self.attention_biases(bucket * FRAMES_PER_CODE),
+                               pending.d_key, pending.rows)
         with self._stage("vocode", timings):
-            wav = self._vocode(mel, eff, gen, pending.rows)
+            wav = self._vocode(mel, eff, pending.v_key, pending.rows)
         return InflightBatch(wav=wav, eff=eff, n=pending.n, timings=timings,
                              _t0=time.perf_counter(), rows=pending.rows)
 
     def dispatch_batch(self, texts: Sequence[str],
-                       prompt_wavs: Sequence[np.ndarray], seed: int = 0,
+                       prompt_wavs: Sequence[np.ndarray], seed: prng.Seed = 0,
                        force_full: bool = False,
                        timings: Optional[Dict[str, float]] = None) -> InflightBatch:
         """Enqueue all device work of one batch; no output fetch.  Pass the
@@ -547,7 +557,7 @@ class TTSEngine:
         return outs
 
     def synthesize_batch(self, texts: Sequence[str],
-                         prompt_wavs: Sequence[np.ndarray], seed: int = 0,
+                         prompt_wavs: Sequence[np.ndarray], seed: prng.Seed = 0,
                          force_full: bool = False,
                          timings: Optional[Dict[str, float]] = None
                          ) -> List[np.ndarray]:
@@ -561,24 +571,24 @@ class TTSEngine:
             texts, prompt_wavs, seed=seed, force_full=force_full, timings=timings))
 
     def synthesize(self, text: str, prompt_wav: np.ndarray,
-                   seed: int = 0) -> np.ndarray:
+                   seed: prng.Seed = 0) -> np.ndarray:
         """Single-utterance convenience (the api.py surface)."""
         return self.synthesize_batch([text], [prompt_wav], seed)[0]
 
     @torch.inference_mode()
     def synthesize_from_ids(self, text_ids: torch.Tensor, refer_mel: torch.Tensor,
-                            refer_len: torch.Tensor, seed: int = 0,
+                            refer_len: torch.Tensor, seed: prng.Seed = 0,
                             vq_only: bool = False) -> List[np.ndarray]:
         """Low-level entry on token ids and a prompt mel (the reference's
         eval-time ``infer_gpt`` / ``infer`` calls, train.py:234-236)."""
         n = {text_ids.shape[0], refer_mel.shape[0], refer_len.shape[0]}
         if len(n) != 1:  # checked on every rank before it takes its rows
             raise ValueError(f"text_ids, refer_mel and refer_len of {sorted(n)} rows")
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        g_key, d_key, v_key = prng.split(prng.as_key(seed), 3)
         rows = self._rows(text_ids.shape[0])
         text_ids, refer_mel, refer_len = (_take(x, rows) for x in (text_ids, refer_mel,
                                                                    refer_len))
-        codes, eff = self.generate_codes(refer_mel, refer_len, text_ids, gen, rows=rows)
+        codes, eff = self.generate_codes(refer_mel, refer_len, text_ids, g_key, rows=rows)
         codes_b, wav_len, bucket = self._pad_codes(codes, eff, vq_safe=vq_only)
         if vq_only:
             mel = self._codes_to_mel(codes_b, refer_mel, refer_len)
@@ -586,34 +596,34 @@ class TTSEngine:
             latents = self.model.gpt(refer_mel.to(self.cdt), refer_len, text_ids,
                                      codes_b, wav_len)
             mel = self.diffuse(latents, self.diffusion_cond(refer_mel, refer_len),
-                               self.attention_biases(bucket * FRAMES_PER_CODE), gen, rows)
-        return self._trim(*self._gather(self._vocode(mel, eff, gen, rows), eff, rows))
+                               self.attention_biases(bucket * FRAMES_PER_CODE), d_key, rows)
+        return self._trim(*self._gather(self._vocode(mel, eff, v_key, rows), eff, rows))
 
     @torch.inference_mode()
     def synthesize_vq_batch(self, texts: Sequence[str],
-                            prompt_wavs: Sequence[np.ndarray], seed: int = 0,
+                            prompt_wavs: Sequence[np.ndarray], seed: prng.Seed = 0,
                             force_full: bool = False) -> List[np.ndarray]:
         """Diffusion-free path (reference ``infer_gpt``, model_24k.py:811-846):
         codes -> ``vq_dec`` mel -> vocoder."""
         rows, texts, prompt_wavs = self._split(texts, prompt_wavs)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        g_key, v_key = prng.split(prng.as_key(seed))
         text, _ = self.prepare_text(texts)
         refer_mel, refer_len = self.prepare_prompt(prompt_wavs)
-        codes, eff = self.generate_codes(refer_mel, refer_len, text, gen,
+        codes, eff = self.generate_codes(refer_mel, refer_len, text, g_key,
                                          force_full=force_full, rows=rows)
         # vq_safe: the GPT's start/stop ids lie past the VQ codebook and never
         # index it in the reference's exact-length batch-1 path
         codes_b, _, _ = self._pad_codes(codes, eff, vq_safe=True)
         mel = self._codes_to_mel(codes_b, refer_mel, refer_len)
-        return self._trim(*self._gather(self._vocode(mel, eff, gen, rows), eff, rows))
+        return self._trim(*self._gather(self._vocode(mel, eff, v_key, rows), eff, rows))
 
     @torch.inference_mode()
-    def vq_roundtrip(self, mel, seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    def vq_roundtrip(self, mel, seed: prng.Seed = 0) -> Tuple[torch.Tensor, torch.Tensor]:
         """mel (B, T, n_mels) -> codes -> mel -> wav (reference
-        ``infer_vqvae``): (reconstructed mel fp32, wav (B, T * hop, 1) fp32)."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        ``infer_vqvae``): (reconstructed mel fp32, wav (B, T * hop, 1) fp32);
+        the vocoder's prior sample under the key itself, as JAX's."""
         mel = torch.as_tensor(mel, device=self.device).to(self.cdt)
-        recon, wav = self.model.infer_vqvae(mel, generator=gen)
+        recon, wav = self.model.infer_vqvae(mel, key=prng.as_key(seed))
         return recon.float(), wav.float()
 
     @torch.inference_mode()
@@ -627,19 +637,19 @@ class TTSEngine:
         tb = text_bucket or self.ecfg.text_buckets[0]
         pb = prompt_bucket or self.ecfg.prompt_buckets[0]
         cb = code_bucket or self.ecfg.code_buckets[0]
-        gen = torch.Generator(device=self.device).manual_seed(0)
+        key = prng.PRNGKey(0)  # every stage under the one key, as JAX's warmup
         text = torch.zeros((batch_size, tb), dtype=torch.long, device=self.device)
         refer = torch.full((batch_size, pb, self.cfg.data.n_mel_channels), -6.0,
                            device=self.device)
         refer_len = torch.full((batch_size,), pb, dtype=torch.long, device=self.device)
-        codes, _ = self._decode(refer, refer_len, text, gen,
+        codes, _ = self._decode(refer, refer_len, text, key,
                                 self.ecfg.max_generate_length, force_full)
         eff = np.full((batch_size,), min(cb, int(codes.shape[1])), np.int64)
         codes_b, wav_len, _ = self._pad_codes(codes, eff)
         latents = self.model.gpt(refer.to(self.cdt), refer_len, text, codes_b, wav_len)
         mel = self.diffuse(latents, self.diffusion_cond(refer, [pb] * batch_size),
-                           self.attention_biases(codes_b.shape[1] * FRAMES_PER_CODE), gen)
-        self._trim(self._vocode(mel, eff, gen), eff)
+                           self.attention_biases(codes_b.shape[1] * FRAMES_PER_CODE), key)
+        self._trim(self._vocode(mel, eff, key), eff)
 
 
 def random_engine(cfg: Optional[Config] = None, seed: int = 0,

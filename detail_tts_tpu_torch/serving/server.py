@@ -9,9 +9,10 @@ above batch 1's:
   requests (waiting at most ``max_wait_ms`` for stragglers once the first
   request of a batch arrives) and runs them as one batch;
 * voice conditioning stays per item (the engine pads prompts per item and
-  masks); the batch's sampling noise comes from one seed folded from the
-  group's size and seeds, so exact sample-level reproducibility of a
-  (text, prompt, seed) needs a direct batch-1 engine call.
+  masks); the batch's sampling noise comes from one key folded from the
+  group's size and seeds (JAX's ``_batch_rng``), so exact sample-level
+  reproducibility of a (text, prompt, seed) needs a direct batch-1 engine
+  call.
 
 One dispatch thread means one batch in flight per engine.  Within it the
 loop double-buffers: batch N+1's decode is dispatched before batch N's audio
@@ -31,6 +32,8 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
+
+from detail_tts_tpu_torch.ops import prng
 
 
 @dataclass
@@ -178,7 +181,7 @@ class TTSServer:
                     pending = self._guard(group, self.engine.dispatch_decode,
                                           [r.text for r in group],
                                           [r.prompt_wav for r in group],
-                                          seed=self._batch_seed(group))
+                                          seed=self._batch_key(group))
                     if inflight is not None:
                         self._finalize(*inflight)
                         inflight = None
@@ -190,11 +193,13 @@ class TTSServer:
             self._finalize(*inflight)
 
     @staticmethod
-    def _batch_seed(group: List[_Request]) -> int:
-        """One seed for the batch, folded deterministically from the group's
-        size and its requests' seeds."""
-        words = [len(group)] + [r.seed & 0x7FFFFFFF for r in group]
-        return int(np.random.SeedSequence(words).generate_state(1)[0])
+    def _batch_key(group: List[_Request]) -> prng.Key:
+        """The batch's key: each request's seed folded into
+        ``PRNGKey(len(group))`` in order (JAX's ``_batch_rng``)."""
+        key = prng.PRNGKey(len(group))
+        for r in group:
+            key = prng.fold_in(key, r.seed & 0x7FFFFFFF)
+        return key
 
     @staticmethod
     def _guard(group: List[_Request], fn, *args, **kwargs):
@@ -225,6 +230,6 @@ class TTSServer:
         """One batched diffusion-free engine call for the group."""
         outs = self._guard(group, self.engine.synthesize_vq_batch,
                            [r.text for r in group], [r.prompt_wav for r in group],
-                           seed=self._batch_seed(group))
+                           seed=self._batch_key(group))
         if outs is not None:
             self._resolve(group, outs)

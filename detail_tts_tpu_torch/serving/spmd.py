@@ -14,7 +14,7 @@ method with the whole request (``serving/pipeline.py``).  So on a mesh:
 
 Each engine call of the leader is first broadcast to every rank of the
 mesh: a call id, the method and its host arguments (texts, prompt wavs as
-numpy, the seed folded on rank 0, knobs; tensors on the CPU).  A handle
+numpy, the key folded on rank 0, knobs; tensors on the CPU).  A handle
 that an earlier call returned (``PendingDecode``, ``InflightBatch``) goes
 as that call's id, and every rank keeps its own handles by id.  Then every
 rank runs the call, and one all-reduce of an error flag agrees its outcome:

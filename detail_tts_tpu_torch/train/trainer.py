@@ -265,17 +265,16 @@ class Trainer:
                 v = batch[key]
                 return (v if self.target in GAN_TARGETS else v[0])[:1]
 
-            gen = torch.Generator(device=self.device).manual_seed(step)
-            model = self.state.model
+            model = self.state.model  # the vocoder's prior draws under JAX's PRNGKey(step)
             with torch.no_grad(), eval_mode(model):
                 if self.target == "vqvae":
-                    _, wav = model.infer_vqvae(first("raw_mel"), generator=gen)
+                    _, wav = model.infer_vqvae(first("raw_mel"), key=step)
                     gen_wav = wav[0, :, 0].float().cpu().numpy()
                 elif self.target in ("gpt", "diff") and self.synth_eval:
                     gen_wav = self._synth_eval(first, step)
                 else:
                     wav = model.infer_flowvae(first("raw_mel"), first("raw_spec_length"),
-                                              generator=gen)
+                                              key=step)
                     gen_wav = wav[0, :, 0].float().cpu().numpy()
             if self.rank != 0:
                 return

@@ -22,7 +22,8 @@ micro-batches), and for the GAN targets ``discriminator`` and
 
 Each prints each stage's wall time, device busy time and idle share
 (1 - busy / wall), the device launches, the kernels with the most device
-time, and the device time of each of the port's own bias-attention kernels.
+time, and the device time of each of the port's own kernels (bias attention,
+threefry).
 The last line is one JSON object with the same numbers.
 Needs a CUDA device.
 """
@@ -43,8 +44,9 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-# name fragments of the port's hand-written kernels (csrc/)
-OWN_KERNELS = ("_mma<", "dbias_sum", "bias_attention_simt")
+# name fragments of the port's hand-written kernels (csrc/: bias attention, threefry)
+OWN_KERNELS = ("_mma<", "dbias_sum", "bias_attention_simt", "draw_kernel", "chain_kernel",
+               "split_kernel")
 STAGES = ("prepare", "generate", "diff_cond", "latents", "diffuse", "vocode", "host")
 TRAIN_STAGES = ("latents", "forward", "discriminator", "gen_loss", "backward",
                 "optimizer")
@@ -107,7 +109,7 @@ def report(rows, device, **extra):
     for name, (n, ms) in top:
         print(f"  {ms:9.2f} {n:7d}  {name[:100]}")
     own = {k: v for k, v in per_kernel.items() if any(f in k for f in OWN_KERNELS)}
-    print("the port's bias-attention kernels (ms, launches, name):")
+    print("the port's own kernels (ms, launches, name):")
     for name, (n, ms) in sorted(own.items(), key=lambda kv: -kv[1][1]):
         print(f"  {ms:9.2f} {n:7d}  {name[:100]}")
     print(json.dumps(dict(

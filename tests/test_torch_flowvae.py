@@ -16,8 +16,7 @@ def test_infer_flowvae_matches_with_zero_noise_scale():
     ref = japply(lambda m, x, n: m.infer_flowvae(x, n, jax.random.PRNGKey(0),
                                                  noise_scale=0.0),
                  jnp.asarray(mel), jnp.asarray(lengths))
-    ours = port.infer_flowvae(t(mel), t(lengths, torch.long), noise_scale=0.0,
-                              generator=torch.Generator().manual_seed(0))
+    ours = port.infer_flowvae(t(mel), t(lengths, torch.long), noise_scale=0.0, key=0)
     assert ours.shape == (2, 20 * 256, 1)
     close(ours, ref)
 

@@ -163,7 +163,7 @@ def test_server_bad_submit_does_not_poison_concurrent_batch():
 
 def test_server_back_to_back_batches_and_batch_seed():
     """Waves of requests go through the double-buffered loop; a batch's
-    seed folds its size and seeds, so the same group repeats its audio."""
+    key folds its size and seeds, so the same group repeats its audio."""
     eng = _engine()
     with TTSServer(eng, max_batch=2, max_wait_ms=100.0) as server:
         futs = []
@@ -174,9 +174,9 @@ def test_server_back_to_back_batches_and_batch_seed():
     assert all(w.ndim == 1 and len(w) > 0 and np.isfinite(w).all() for w in outs)
     assert server.requests_served == 6
     group = [type("R", (), {"seed": s}) for s in (3, -1)]
-    seed = TTSServer._batch_seed(group)
-    assert seed == TTSServer._batch_seed(group) != TTSServer._batch_seed(group[:1])
-    assert 0 <= seed < 2 ** 32
+    key = TTSServer._batch_key(group)
+    assert key == TTSServer._batch_key(group) != TTSServer._batch_key(group[:1])
+    assert len(key) == 2 and all(0 <= w < 2 ** 32 for w in key)
 
 
 # --------------------------------------------------------------- long form

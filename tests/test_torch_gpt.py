@@ -70,8 +70,7 @@ def test_generate_stops_and_counts_the_stop_token():
             codes, lengths = generate_speech_tokens(
                 gpt, t(cond), t(clen, torch.long), t(text, torch.long),
                 SamplingConfig(max_generate_length=8, top_p=1.0),
-                generator=torch.Generator().manual_seed(0),
-                cache_dtype=torch.float32)
+                key=0, cache_dtype=torch.float32)
         finally:
             gpt.mel_head.bias[stop] -= 50.0
     assert codes.shape == (B, 8)
@@ -80,5 +79,5 @@ def test_generate_stops_and_counts_the_stop_token():
     full, full_len = generate_speech_tokens(
         gpt, t(cond), t(clen, torch.long), t(text, torch.long),
         SamplingConfig(max_generate_length=5, force_full_length=True),
-        generator=torch.Generator().manual_seed(0), cache_dtype=torch.float32)
+        key=0, cache_dtype=torch.float32)
     assert full_len.tolist() == [5, 5]

@@ -1,9 +1,10 @@
-"""The bias-attention CUDA kernels against their plain versions, on the card:
-the serving forward, and the training forward (with its row statistic) and
-the three backward kernels (delta, dq and the dbias partials; dk and dv; the
-partials' sum) behind ``BiasAttentionFunction``; and the paths that run
-them: the samplers, the training steps, and a (1 x 2) sharded engine of two
-gloo ranks on the one card.
+"""The CUDA kernels against their plain versions, on the card: the
+bias-attention serving forward, and the training forward (with its row
+statistic) and the three backward kernels (delta, dq and the dbias partials;
+dk and dv; the partials' sum) behind ``BiasAttentionFunction``; the threefry
+draws and key buffers (``ops/prng.py``); and the paths that run them: the
+samplers, the training steps, and a (1 x 2) sharded engine of two gloo ranks
+on the one card.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip elsewhere.
 They import nothing of JAX, so on a machine without it run them with the
@@ -16,7 +17,7 @@ import math
 import pytest
 import torch
 
-from detail_tts_tpu_torch.ops import attention
+from detail_tts_tpu_torch.ops import attention, prng
 
 pytestmark = pytest.mark.cuda
 
@@ -479,3 +480,98 @@ def test_tp_engine_on_one_card_matches_the_one_card_engine(cuda, tmp_path):
         for a, b, tol in zip(one, out, (2e-4, 2e-3, 2e-3)):
             scale = max(a.abs().max().item(), 1e-3)
             assert (a - b).abs().max().item() <= tol * scale
+
+
+# ------------------------------------------------------------ threefry
+
+PRNG_ULPS = 2  # floats in units of the last place of max(|plain|, 1)
+
+
+def _ulps(x, ref):
+    m = ref.abs().clamp_min(1.0)
+    return ((x - ref).abs() / (torch.nextafter(m, torch.full_like(m, math.inf)) - m)).max().item()
+
+
+@pytest.mark.parametrize("kind", list(prng.KINDS))
+@pytest.mark.parametrize("shape", [(8, 8194), (8, 1600, 128), (2, 800, 192), (1,), (3,),
+                                   (7, 33), (5, 257, 3)])
+def test_threefry_kernel_matches_plain_version(cuda, kind, shape):
+    key = prng.split(prng.PRNGKey(7))[1]
+    before = prng.LAUNCHES["threefry_draw"]
+    out = prng.draw(key, shape, kind, device=cuda)
+    ref = prng.draw_reference(key, shape, kind, device=cuda)
+    torch.cuda.synchronize()
+    assert prng.LAUNCHES["threefry_draw"] == before + 1
+    assert out.dtype == ref.dtype and out.shape == ref.shape and out.device == ref.device
+    if kind == "bits":
+        assert torch.equal(out, ref)
+    else:
+        assert _ulps(out, ref) <= PRNG_ULPS
+
+
+@pytest.mark.parametrize("kind", list(prng.KINDS))
+def test_threefry_rows_offsets_and_device_keys(cuda, kind):
+    """Row 0 of a batch-2 draw is the batch-1 draw, a draw from an offset is
+    those rows of the whole, and a device key row draws as its host key."""
+    key = prng.PRNGKey(3)
+    whole = prng.draw(key, (8, 1600, 128), kind, device=cuda)
+    assert torch.equal(prng.draw(key, (2, 1600, 128), kind, device=cuda)[:1],
+                       prng.draw(key, (1, 1600, 128), kind, device=cuda))
+    assert torch.equal(prng.draw(key, (3, 1600, 128), kind, offset=5 * 1600 * 128,
+                                 device=cuda), whole[5:])
+    keys = prng.split_keys(key, 4, cuda)
+    host = tuple(int(w) for w in keys[2].cpu().numpy().view("uint32"))
+    assert torch.equal(prng.draw(keys[2], (8, 8194), kind),
+                       prng.draw(host, (8, 8194), kind, device=cuda))
+
+
+@pytest.mark.parametrize("n", [1, 7, 200, 600])
+def test_threefry_key_buffers_match_plain_version(cuda, n):
+    import numpy as np
+
+    key = prng.PRNGKey(11)
+    before = prng.LAUNCHES["threefry_keys"]
+    for chain, got in ((True, prng.decode_keys(key, n, cuda)),
+                       (False, prng.split_keys(key, n, cuda))):
+        want = torch.from_numpy(prng.keys_reference(key, n, chain).view(np.int32))
+        assert torch.equal(got.cpu(), want)
+    assert prng.LAUNCHES["threefry_keys"] == before + 2
+
+
+def test_threefry_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    with pytest.raises(ValueError):
+        prng.draw(torch.zeros(3, dtype=torch.int32, device=cuda), (4,), "normal")
+    with pytest.raises(ValueError):
+        prng.draw(torch.zeros(2, dtype=torch.int64, device=cuda), (4,), "normal")
+    with pytest.raises(ValueError):
+        prng.draw((0, 1), (4,), "poisson", device=cuda)
+
+
+@pytest.mark.parametrize("sampler", ["ancestral", "dpmpp_2m"])
+def test_serving_draws_run_the_threefry_kernel(cuda, sampler):
+    """Every draw of a request launches ``threefry_draw`` (a Gumbel a decode
+    step, the initial noise, a normal an ancestral step but the last, the
+    vocoder's) from its key buffers, and in fp32 an item's audio alone is
+    its audio batched with another text within JAX's 5e-4."""
+    import numpy as np
+
+    from detail_tts_tpu_torch.config import small_test_config
+    from detail_tts_tpu_torch.serving.pipeline import EngineConfig, random_engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    eng = random_engine(small_test_config(), device=cuda, engine_cfg=EngineConfig(
+        diffusion_sampler=sampler, max_generate_length=16, text_buckets=(16,),
+        prompt_buckets=(24, 48), code_buckets=(8, 16), compute_dtype=torch.float32,
+        cache_dtype=torch.float32))
+    wav = np.random.default_rng(7).uniform(-0.3, 0.3, 9600).astype(np.float32)
+    before = dict(prng.LAUNCHES)
+    solo = eng.synthesize_batch(["ni3 hao3"], [wav], seed=42, force_full=True)
+    ancestral = sampler == "ancestral"
+    steps = eng.schedule.num_timesteps - 1 if ancestral else 0
+    assert prng.LAUNCHES["threefry_draw"] - before["threefry_draw"] == 16 + 1 + steps + 1
+    assert prng.LAUNCHES["threefry_keys"] - before["threefry_keys"] == 1 + ancestral
+    pair = eng.synthesize_batch(["ni3 hao3", "wo3 men5 hao3"], [wav, wav], seed=42,
+                                force_full=True)
+    assert solo[0].shape == pair[0].shape
+    assert np.max(np.abs(solo[0] - pair[0])) <= 5e-4

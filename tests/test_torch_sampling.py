@@ -72,9 +72,10 @@ def test_tokens_match_given_jax_gumbel(typical_mass):
 
 
 def test_generator_draws_are_reproducible():
+    """Draws under a key repeat; another key draws otherwise."""
     x, seen = torch.from_numpy(_logits()), torch.from_numpy(_seen())
-    a = tsamp.sample_token(x, seen_mask=seen,
-                           generator=torch.Generator().manual_seed(3))
-    b = tsamp.sample_token(x, seen_mask=seen,
-                           generator=torch.Generator().manual_seed(3))
+    a = tsamp.sample_token(x, seen_mask=seen, key=(0, 3))
+    b = tsamp.sample_token(x, seen_mask=seen, key=(0, 3))
     assert a.tolist() == b.tolist()
+    draws = [tsamp.sample_token(x, seen_mask=seen, key=(0, k)).tolist() for k in range(8)]
+    assert len({tuple(d) for d in draws}) > 1

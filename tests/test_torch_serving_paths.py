@@ -58,13 +58,15 @@ def _slice_inputs():
 
 @pytest.mark.parametrize("sampler", ["ddim", "dpmpp_2m"])
 def test_engine_slice_matches_composed_jax_functions(sampler):
-    """fixed codes -> latents -> the engine's diffuse (matched initial noise)
+    """fixed codes -> latents -> the engine's diffuse (its initial noise
+    under key PRNGKey(9), JAX's ``normal(split(key)[0])`` for the JAX side)
     -> vocoder with noise_scale 0, against the JAX functions by hand."""
     model, jvars, port = synth_pair()
     x = _slice_inputs()
     b, tc = x["codes"].shape
     eng = TTSEngine(port, EngineConfig(diffusion_sampler=sampler, **F32), device="cpu")
-    noise = torch.randn((b, 4 * tc, 128), generator=torch.Generator().manual_seed(9))
+    n_rng, _ = jax.random.split(jax.random.PRNGKey(9))
+    noise = jax.random.normal(n_rng, (b, 4 * tc, 128), jnp.float32)
 
     def fn(xx, t_in, _):
         return model.apply(jvars, xx, t_in, x["emb"], x["biases"],
@@ -72,11 +74,11 @@ def test_engine_slice_matches_composed_jax_functions(sampler):
 
     sched = jax_schedule(model.cfg)
     if sampler == "ddim":
-        ref = jdiff.ddim_sample_loop(sched, fn, jnp.asarray(noise.numpy()),
-                                     cond_free_k=2.0, conditioning_free=True)
+        ref = jdiff.ddim_sample_loop(sched, fn, noise, cond_free_k=2.0,
+                                     conditioning_free=True)
     else:
         ref = jdiff.dpmpp_2m_reference_sample_loop(
-            fn, jnp.asarray(noise.numpy()), steps=sched.num_timesteps, guidance_scale=2.0)
+            fn, noise, steps=sched.num_timesteps, guidance_scale=2.0)
     ref_mel = jax_denorm(ref)
     ref_wav = japply(lambda m, mel, n: m.infer_flowvae(mel, n, jax.random.PRNGKey(1),
                                                        noise_scale=0.0),
@@ -86,7 +88,7 @@ def test_engine_slice_matches_composed_jax_functions(sampler):
         lat = port.gpt(t(x["prompt"]), t(x["plen"], torch.long), t(x["text"], torch.long),
                        t(x["codes"], torch.long), t(x["eff"] * 1024, torch.long))
         mel = eng.diffuse(lat, eng.diffusion_cond(t(x["prompt"]), x["plen"].tolist()),
-                          eng.attention_biases(4 * tc), torch.Generator().manual_seed(9))
+                          eng.attention_biases(4 * tc), (0, 9))
         wav = port.infer_flowvae(mel, t(x["eff"] * 4, torch.long), noise_scale=0.0)
 
     assert np.mean(np.abs(mel.numpy() - np.asarray(ref_mel))) <= 1e-3

@@ -390,10 +390,8 @@ def engine_tail(group, data, model, cfg, ecfg, texts, wavs, codes, eff,
         codes_b, wav_len, bucket = eng._pad_codes(codes[mine].to(dev), eff[mine])
         latents = eng.model.gpt(refer_mel, refer_len, text, codes_b, wav_len)
         mel = eng.diffuse(latents, eng.diffusion_cond(refer_mel, refer_len),
-                          eng.attention_biases(bucket * FRAMES_PER_CODE),
-                          torch.Generator(device=dev).manual_seed(7), rows)
-        wav = eng._vocode(mel, eff[mine], torch.Generator(device=dev).manual_seed(8),
-                          rows)[..., 0]
+                          eng.attention_biases(bucket * FRAMES_PER_CODE), (0, 7), rows)
+        wav = eng._vocode(mel, eff[mine], (0, 8), rows)[..., 0]
     out = (latents, mel, wav)
     if rows is not None and rows.stop - rows.start < rows.total:
         out = tuple(mesh.all_gather_rows(x, m.data_group) for x in out)
