@@ -7,8 +7,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 1. environment: the card's name and power limit, torch/CUDA versions, TF32
    settings; a CUDA device is required;
 2. build: compiles ``detail_tts_tpu_torch/csrc/bias_attention.cu``,
-   ``bias_attention_bwd.cu`` and ``threefry.cu`` with nvcc, one process
-   each, at once; prints
+   ``bias_attention_bwd.cu``, ``threefry.cu`` and ``sample.cu`` with nvcc,
+   one process each, at once; prints
    each kernel's ``ptxas -v`` registers and spills, and the CTAs per SM of
    the serving forward, the training forward and the backward kernels at
    d=48 and d=96;
@@ -29,22 +29,44 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    offset equal to those rows of the whole; CUDA-event and device times
    beside the bound (integer operations at 64 a clock an SM, or bytes
    written) and the plain version's;
+3c. the sample step: ``sample_step`` (the decode step's penalty,
+   temperature, typical and top-p filters, Gumbels, argmax and bookkeeping
+   in one kernel) against ``sample_step_reference`` at (B, V) = (1, 2, 8,
+   16) x 8194, (1, 8) x 8193 and (2, 16) x 1000, bf16 and fp32 logits,
+   under ``SAMPLE_SETTINGS`` (top-p, top-p and typical, typical, both off),
+   with and without force_full and a data rank's offset, on random logits,
+   logits tied at the top-p boundary, a -0.0 / +0.0 pair and rows with one
+   finite logit: every token equal except in rows whose plain boundary
+   mass lies within ``SAMPLE_NEAR`` of its threshold, those rows under
+   ``SAMPLE_FLIPS`` of all, and codes, seen, lengths and finished
+   bit-identical where the tokens agree; CUDA-event and device times at
+   (1, 2, 8) x 8194 under top-p, top-p and typical, and both off, beside the
+   bound (bytes), the floor (an empty kernel's launch-to-launch time on the
+   same grid), the plain version's and the parent's decode step (stock
+   launches around a ``threefry_draw``), each with its device launches.
+   After phase 4, on real decode steps: every step of a b8 / 200-code bf16
+   decode of phase 4's engine recorded and held the same way; an fp32
+   engine's b2 decode through the kernel against the same decode stepping
+   through ``sample_step_reference`` (every code and length equal, unless
+   the first differing step is a row at the boundary);
 4. serving: ``random_engine(Config())`` at full width, bf16, answers three
    requests through ``synthesize_batch``; checks the audio, that every
-   ``AttentionBlock`` call of the path launched the kernel and that every
-   random draw of the request launched ``threefry_draw`` (max_len + steps +
-   1 a request) and its two key buffers ``threefry_keys``; reads row 0 of
-   the first request alone against its batch;
+   ``AttentionBlock`` call of the path launched the kernel, that every
+   random draw of the request launched ``threefry_draw`` (steps + 1 a
+   request: none in the decode) and its two key buffers ``threefry_keys``,
+   and that every decode step executed launched ``sample_step`` once;
+   reads row 0 of the first request alone against its batch;
 4b. serving paths, on the same weights: each other sampler (``ddim``,
    ``dpmpp_2m_karras`` and ``dpmpp_2m`` at 50 steps, ``dpmpp_2m`` at 25)
    twice at batch 2, with its kernel launches (steps x 13 + 9 a request;
-   threefry max_len + 2 draws and one key buffer outside ``ancestral``) and
-   bit-identical repeats; ``pcm16_output`` against the float output's
-   conversion; the diffusion-free VQ path (no launch) and ``vq_roundtrip``;
-   a ``TTSServer`` answering 4 concurrent requests and refusing a sub-hop
-   prompt, ``dispatch_batch`` + ``finalize_batch`` against
-   ``synthesize_batch``; long-form streaming against ``synthesize_long``;
-   the HTTP endpoint on 127.0.0.1;
+   threefry 2 draws and one key buffer outside ``ancestral``, a sample step
+   a decode step) and bit-identical repeats; ``pcm16_output`` against the
+   float output's conversion; the diffusion-free VQ path (no launch) and
+   ``vq_roundtrip``; a ``TTSServer`` answering 4 concurrent requests and
+   refusing a sub-hop prompt, ``dispatch_batch`` + ``finalize_batch``
+   against ``synthesize_batch``; long-form streaming against
+   ``synthesize_long``; the HTTP endpoint on 127.0.0.1; on each, one
+   ``sample_step`` launch for every decode step executed (``DecodeSteps``);
 5. train kernels vs plain: the training forward (with its row statistic)
    and the backward (delta, dq and the dbias partials; dk and dv; the
    partials' sum in batch order) against their plain versions at the
@@ -121,7 +143,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    bit-identical to the one-card engine's computation of the same rows as
    2-row batches; the sampled fp32 request's codes equal to the one-card
    engine's, the bf16 request's audio within ``BF16_WAV_TOL``, B1 launched
-   steps x 13 + 9 times a request on each rank; (b) a (1 x 2) engine (the
+   steps x 13 + 9 times a request on each rank, and the threefry kernels
+   and a ``sample_step`` a decode step as in phase 4 on each rank; (b) a (1 x 2) engine (the
    GPT split over the ranks): the same tail in fp32, the sampled codes'
    agreement printed (a flip is a reading: the split sums in another
    order); (c) ``gpt`` at (1 x 2), micro-batch 8 x 496 x accum 2, dropout
@@ -150,7 +173,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    ends given the same groups and seeds: fp32 every code equal and the
    audio within 2e-3 of max, bf16 at least 0.9 of the codes equal and the
    audio of each item whose codes all agree within ``BF16_WAV_TOL``; B1
-   launched steps x 13 + 9 times a batch on each rank; every decode on the
+   launched steps x 13 + 9 times a batch on each rank, and on each rank
+   and on one card a ``sample_step`` for every decode step executed (the
+   early stop waits for every rank) and ``threefry_draw`` only in the
+   tails; every decode on the
    engine's card (rank 0's on the server's dispatch thread); both
    processes exit 0.
 
@@ -177,7 +203,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from detail_tts_tpu_torch.ops import attention, prng  # noqa: E402
+from detail_tts_tpu_torch.ops import attention, prng, sampling  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
 # fp32 outside them, HBM3.  The exp2 peak is derived from the card itself:
@@ -191,6 +217,15 @@ SFU_PER_CLOCK_PER_SM = 16
 # csrc/threefry.cu): the threefry kernels' operations bound
 INT32_PER_CLOCK_PER_SM = 64
 THREEFRY_INT_OPS = 73
+# The decode's key chain is sequential: step s + 1's key is threefry2x32 of
+# step s's.  One threefry2x32 is 46 dependent integer operations (each of
+# its 20 rounds an add, then the xor that needs it, the rotate beside the
+# add; one add at each of the 5 key injections and at the start), each
+# issued ~4 clocks after the one it waits for (the dependent-issue latency
+# of Hopper's integer add, xor and funnel shift): the chain's bound is n x
+# 46 x 4 clocks, whatever the card's throughput.
+THREEFRY_DEPTH = 46
+INT_LATENCY_CLOCKS = 4
 # the threefry kernels' floats against their plain versions, in units of
 # the last place of max(|plain|, 1) (the same libdevice functions, one
 # rounding an operation on both sides: read bit-identical)
@@ -511,34 +546,412 @@ def time_prng_keys(key, n, rate):
     plain_ms = cuda_ms(lambda: torch.from_numpy(
         prng.keys_reference(key, n, True).view(np.int32)).to(dev), runs=5)
     t_bytes = 8.0 * n / PEAK_BYTES_PER_S * 1e3
-    t_ops = 2.0 * THREEFRY_INT_OPS * n / rate * 1e3
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    # the chain's latency: n dependent threefry2x32 (the throughput bound,
+    # 2 x 73 operations a key over the card, is ~10,000 x less)
+    t_ops = max(2.0 * THREEFRY_INT_OPS * n / rate,
+                n * THREEFRY_DEPTH * INT_LATENCY_CLOCKS / clock_hz) * 1e3
     bound_ms, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
     print(f"  time threefry_keys chain of {n}: kernel_ms {kernel_ms} device_ms "
-          f"{kernel_device_ms} plain_ms {plain_ms} bound_ms {bound_ms} ({bound_by}); one "
-          f"thread walks the chain, so it runs far from its bound", flush=True)
+          f"{kernel_device_ms} plain_ms {plain_ms} bound_ms {bound_ms} ({bound_by}: the "
+          f"latency of {n} dependent threefry2x32, {THREEFRY_DEPTH} dependent integer "
+          f"operations each at {INT_LATENCY_CLOCKS} clocks)", flush=True)
     return dict(ms=kernel_ms, device_ms=kernel_device_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None, keys=n)
 
 
 def prng_per_request(engine, decode_steps: int, vq: bool = False):
-    """threefry launches of one request: (draws, key buffers).  A Gumbel draw
-    a decode step and the vocoder's; the diffusion's initial noise, and
-    under ``ancestral`` one normal a step but the last (which adds none);
-    a key buffer for the decode's chain and one for the ancestral steps."""
+    """Launches of one request: (threefry draws, key buffers, sample steps).
+    The decode draws inside ``sample_step``, once a decode step, and makes
+    no ``threefry_draw``; the draws are the vocoder's, and the diffusion's
+    initial noise and under ``ancestral`` one normal a step but the last
+    (which adds none); a key buffer for the decode's chain and one for the
+    ancestral steps."""
     if vq:
-        return decode_steps + 1, 1
+        return 1, 1, decode_steps
     ancestral = engine.ecfg.diffusion_sampler == "ancestral"
     steps = engine.schedule.num_timesteps - 1 if ancestral else 0
-    return decode_steps + 1 + steps + 1, 1 + ancestral
+    return 1 + steps + 1, 1 + ancestral, decode_steps
 
 
 def zero_prng():
     for name in prng.LAUNCHES:
         prng.LAUNCHES[name] = 0
+    sampling.LAUNCHES["sample_step"] = 0
 
 
 def prng_counts():
-    return prng.LAUNCHES["threefry_draw"], prng.LAUNCHES["threefry_keys"]
+    """(threefry draws, key buffers, sample steps) launched."""
+    return (prng.LAUNCHES["threefry_draw"], prng.LAUNCHES["threefry_keys"],
+            sampling.LAUNCHES["sample_step"])
+
+
+class DecodeSteps:
+    """While entered, counts the decode steps that each
+    ``generate_speech_tokens`` call of the engines executed: max(lengths)
+    over the request's rows (every row under force_full; under early stop
+    the step at which the last row stopped, or all of them), over the data
+    group where the call has one (its early stop waits for every rank)."""
+
+    def __init__(self):
+        self.steps = 0
+
+    def __enter__(self):
+        from detail_tts_tpu_torch.serving import pipeline
+        self._orig = pipeline.generate_speech_tokens
+
+        def counted(*args, **kwargs):
+            from detail_tts_tpu_torch.parallel.mesh import all_reduce_max_host
+            codes, lengths = self._orig(*args, **kwargs)
+            n = int(lengths.max())
+            if kwargs.get("group") is not None:
+                n = all_reduce_max_host([n], kwargs["group"])[0]
+            self.steps += n
+            return codes, lengths
+
+        pipeline.generate_speech_tokens = counted
+        return self
+
+    def __exit__(self, *exc):
+        from detail_tts_tpu_torch.serving import pipeline
+        pipeline.generate_speech_tokens = self._orig
+
+
+# ------------------------------------------------------ the sample step
+
+# Phase 3c's settings, (temperature, top_p, repetition_penalty,
+# typical_mass): the engine's defaults, typical on beside them and alone,
+# both filters off.
+SAMPLE_SETTINGS = {"top-p": (0.8, 0.8, 2.0, 1.0), "top-p+typical": (0.8, 0.8, 2.0, 0.9),
+                   "typical": (1.0, 1.0, 2.0, 0.9), "off": (1.0, 1.0, 1.0, 1.0)}
+SAMPLE_SHAPES = [(1, 8194), (2, 8194), (8, 8194), (16, 8194), (1, 8193), (8, 8193),
+                 (2, 1000), (16, 1000)]
+# A token may differ from the plain version's only in a row whose plain
+# boundary mass (its cumulative probability nearest 1 - top_p, or the
+# typical mass) lies within SAMPLE_NEAR of it: the kernel's sums run in
+# another order.  Such rows must stay under SAMPLE_FLIPS of the rows.
+SAMPLE_NEAR = 1e-5
+SAMPLE_FLIPS = 1e-3
+
+
+def boundary_margin(logits, seen, temperature, top_p, repetition_penalty, typical_mass):
+    """(B,) distance of the plain version's cumulative masses from their
+    thresholds, the least over typical filtering and top-p (inf where both
+    are off)."""
+    x = sampling.apply_temperature(sampling.apply_repetition_penalty(
+        logits.float(), seen, repetition_penalty), temperature)
+    margin = torch.full((x.shape[0],), math.inf, device=x.device)
+    if typical_mass < 1.0:
+        logp = torch.log_softmax(x, dim=-1)
+        p = logp.exp()
+        entropy = -torch.where(p > 0, p * logp, 0.0).sum(dim=-1, keepdim=True)
+        order = torch.sort((-logp - entropy).abs(), dim=-1, stable=True)[1]
+        cum = p.gather(-1, order).cumsum(dim=-1)
+        margin = torch.minimum(margin, (cum - float(np.float32(typical_mass))).abs().amin(-1))
+        x = sampling.apply_typical(x, typical_mass)
+    if top_p < 1.0:
+        cum = torch.softmax(torch.sort(x, dim=-1, stable=True)[0], dim=-1).cumsum(dim=-1)
+        margin = torch.minimum(margin, (cum - float(np.float32(1.0 - top_p))).abs().amin(-1))
+    return margin
+
+
+def check_sample_step(logits, seen, codes, lengths, finished, step, key, setting,
+                      offset=0, force_full=False, stop=8193):
+    """The kernel against its plain version on copies of one step's inputs:
+    returns (rows, rows whose tokens differ, those of them near the boundary,
+    what failed or None, max |token - plain token|).  Where the tokens
+    agree, codes, seen, lengths and finished must be bit-identical."""
+    t, top_p, pen, mass = setting
+    kw = dict(temperature=t, top_p=top_p, repetition_penalty=pen, typical_mass=mass,
+              stop_token=stop, force_full=force_full, offset=offset)
+    state = (seen, codes, lengths, finished)
+    mine = [x.clone() for x in state]
+    plain = [x.clone() for x in state]
+    tok = sampling.sample_step(logits, *mine, step, key, **kw)
+    ref = sampling.sample_step_reference(logits, *plain, step, key, **kw)
+    torch.cuda.synchronize()
+    same = tok == ref
+    differ = (~same).nonzero().flatten().tolist()
+    near = []
+    if differ:
+        margin = boundary_margin(logits, seen, t, top_p, pen, mass)
+        near = [r for r in differ if margin[r].item() < SAMPLE_NEAR]
+    problem = None
+    if len(near) != len(differ):
+        problem = f"rows {sorted(set(differ) - set(near))} differ away from the boundary"
+    for name, a, b in zip(("seen", "codes", "lengths", "finished"), mine, plain):
+        if not torch.equal(a[same], b[same]):
+            problem = f"{name} differs where the tokens agree"
+    if tok.dtype != torch.int64 or tok.shape != ref.shape:
+        problem = f"tokens {tok.dtype} {tuple(tok.shape)}"
+    return tok.shape[0], differ, near, problem, int((tok - ref).abs().max())
+
+
+def sample_inputs(b, v, dtype, seed, case="random"):
+    """One step's seeded inputs on the card: logits ~ 2 N(0, 1) in ``dtype``
+    (``case``: "ties" rounds them to quarters, so values tie at the top-p
+    boundary; "zeros" adds a -0.0 / +0.0 pair in every row; "one-finite"
+    sets all but one logit of each row to -inf), seen ~1%, a third of the
+    rows finished, codes and lengths mid-request, step 5 of a 200-step key
+    chain."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, v), generator=g, device=dev) * 2.0
+    if case == "ties":
+        x = torch.round(x * 4.0) / 4.0
+    elif case == "zeros":
+        x[:, 3], x[:, 7] = -0.0, 0.0
+    elif case == "one-finite":
+        keep = torch.randint(0, v, (b,), generator=g, device=dev)
+        x = torch.where(torch.arange(v, device=dev) == keep[:, None], x, -math.inf)
+    seen = torch.rand((b, v), generator=g, device=dev) < 0.01
+    codes = torch.randint(0, v, (b, 200), generator=g, device=dev)
+    lengths = torch.randint(0, 6, (b,), generator=g, device=dev)
+    finished = torch.rand((b,), generator=g, device=dev) < 0.33
+    keys = prng.decode_keys(seed, 200, dev)
+    return x.to(dtype).contiguous(), seen, codes, lengths, finished, 5, keys[5]
+
+
+def sample_bound_ms(b, v, dtype):
+    """Least time of one step: logits and seen read once, the tokens, a
+    codes column and the seen, lengths and finished entries written, over
+    the card's memory rate (the operations, ~100 a token with its Gumbel,
+    take less at 132 SMs)."""
+    nbytes = b * v * (torch.finfo(dtype).bits // 8 + 1) + b * (8 + 8 + 1 + 8 + 1)
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def time_sample_step(b, v, setting, label, against_plain):
+    """CUDA-event and device times of the kernel and the floor (an empty
+    kernel on the same grid, launched back to back); with
+    ``against_plain``, the times and device launches of its plain version
+    and of the parent's decode step too."""
+    dev = torch.device("cuda")
+    x, seen, codes, lengths, finished, step, key = sample_inputs(b, v, torch.float32, 77)
+    t, top_p, pen, mass = setting
+    kw = dict(temperature=t, top_p=top_p, repetition_penalty=pen, typical_mass=mass,
+              stop_token=v - 1, force_full=True)
+    row = dict(shape=[b, v], setting=label, bound_ms=sample_bound_ms(b, v, torch.float32),
+               bound_by="bytes", library_ms=None)
+    row["ms"] = cuda_ms(lambda: sampling.sample_step(x, seen, codes, lengths, finished, step,
+                                                     key, **kw))
+    row["device_ms"] = device_ms(lambda: sampling.sample_step(
+        x, seen, codes, lengths, finished, step, key, **kw), only="sample_step_kernel")
+    if against_plain:
+        for name, fn in (("plain", sampling.sample_step_reference),
+                         ("chain", parent_chain_step)):
+            row[f"{name}_ms"] = cuda_ms(lambda: fn(x, seen, codes, lengths, finished, step,
+                                                   key, **kw), runs=5)
+            row[f"{name}_device_ms"], row[f"{name}_launches"] = device_profile(
+                lambda: fn(x, seen, codes, lengths, finished, step, key, **kw))
+    runs = 200
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sampling._launch("sample_step_floor", b, stream)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        sampling._launch("sample_step_floor", b, stream)
+    end.record()
+    end.synchronize()
+    row["floor_ms"] = start.elapsed_time(end) / runs
+    plain = (f"; plain version ms {row['plain_ms']} device_ms {row['plain_device_ms']} "
+             f"launches {row['plain_launches']}; the parent's step (stock launches and the "
+             f"threefry_draw kernel) ms {row['chain_ms']} device_ms "
+             f"{row['chain_device_ms']} launches {row['chain_launches']}"
+             if against_plain else "")
+    print(f"  time sample_step {label} ({b}, {v}) fp32: kernel_ms {row['ms']} device_ms "
+          f"{row['device_ms']}{plain}; bound_ms {row['bound_ms']} (bytes); floor_ms "
+          f"{row['floor_ms']} (an empty kernel on the grid, back to back)", flush=True)
+    return row
+
+
+def parent_chain_step(logits, seen, codes, lengths, finished, step, key, *, temperature,
+                      top_p, repetition_penalty, typical_mass, stop_token, force_full):
+    """The decode step as the loop ran it before ``sample_step``: the
+    warpers as stock launches (dividing by a Python number), the Gumbel draw
+    of ``threefry_draw`` (a kernel), the argmax and seven bookkeeping
+    launches.  Timed beside the kernel; nothing of the port calls it."""
+    x = logits.float()
+    if repetition_penalty != 1.0:
+        x = torch.where(seen, torch.where(x > 0, x / repetition_penalty,
+                                          x * repetition_penalty), x)
+    if temperature != 1.0:
+        x = x / temperature
+    x = sampling.apply_top_p(sampling.apply_typical(x, typical_mass), top_p)
+    tok = torch.argmax(prng.draw(key, x.shape, "gumbel") + x, dim=-1)
+    tok = torch.where(finished, stop_token, tok)
+    codes[:, step] = tok
+    seen[torch.arange(tok.shape[0], device=tok.device), tok] = True
+    lengths = torch.where(finished, lengths, lengths + 1)
+    if not force_full:
+        finished = finished | (tok == stop_token)
+    return tok
+
+
+def device_profile(fn, runs: int = 5):
+    """(device ms, device launches) of one ``fn()``: the summed durations and
+    the count of the kernels and copies that ``runs`` calls launch, from the
+    profiler, over ``runs``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    return sum(spans) / runs / 1e3, len(spans) / runs
+
+
+class SampleTally:
+    """Rows compared in phase 3c, the rows whose tokens differ and those of
+    them near the boundary."""
+
+    def __init__(self):
+        self.rows, self.differ, self.near, self.max_abs = 0, 0, 0, 0
+
+    def add(self, what, result):
+        rows, differ, near, problem, max_abs = result
+        self.max_abs = max(self.max_abs, max_abs)
+        self.rows += rows
+        self.differ += len(differ)
+        self.near += len(near)
+        if differ:
+            print(f"  {what}: tokens differ in rows {differ} (near the boundary {near})",
+                  flush=True)
+        if problem:
+            fail(f"sample_step disagrees with its plain version: {what}: {problem}")
+
+    def gate(self, what):
+        print(f"  {what}: {self.rows} rows, tokens differ in {self.differ} (near the "
+              f"boundary {self.near}; gate: all near it and under {SAMPLE_FLIPS:g} of the "
+              f"rows)", flush=True)
+        if self.differ and self.differ >= SAMPLE_FLIPS * self.rows:
+            fail(f"sample_step: {self.differ} of {self.rows} rows differ near the boundary")
+
+
+def phase_sample():
+    """Phase 3c: ``sample_step`` against its plain version at the decode's
+    shapes and settings and at odd ones; returns the tally and the timing
+    rows."""
+    print("== sample_step vs plain", flush=True)
+    tally = SampleTally()
+    cases = [(b, v, dtype, "random") for b, v in SAMPLE_SHAPES
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(8, 8194, torch.float32, c) for c in ("ties", "zeros", "one-finite")]
+    cases += [(16, 1000, torch.bfloat16, c) for c in ("ties", "zeros", "one-finite")]
+    seed = 0
+    for b, v, dtype, case in cases:
+        for label, setting in SAMPLE_SETTINGS.items():
+            for force_full, offset in ((False, 0), (True, 3 * v)):
+                seed += 1
+                inputs = sample_inputs(b, v, dtype, seed, case)
+                tally.add(f"({b}, {v}) {str(dtype)[6:]} {case} {label} force_full "
+                          f"{force_full} offset {offset}",
+                          check_sample_step(*inputs, setting, offset=offset,
+                                            force_full=force_full, stop=v - 1))
+    tally.gate("synthetic steps")
+    times = [time_sample_step(b, 8194, SAMPLE_SETTINGS[label], label, against_plain=b == 8)
+             for label in ("top-p", "top-p+typical", "off") for b in (1, 2, 8)]
+    return tally, times
+
+
+class StepRecorder:
+    """In place of ``models.gpt.sample_step`` while entered: keeps a copy
+    of every decode step's inputs, then runs ``fn`` (the kernel's wrapper,
+    or the plain version called by name)."""
+
+    def __init__(self, fn=None):
+        self.fn, self.steps = fn or sampling.sample_step, []
+
+    def __enter__(self):
+        from detail_tts_tpu_torch.models import gpt
+        self._orig, gpt.sample_step = gpt.sample_step, self
+        return self
+
+    def __exit__(self, *exc):
+        from detail_tts_tpu_torch.models import gpt
+        gpt.sample_step = self._orig
+
+    def __call__(self, logits, seen, codes, lengths, finished, step, key, **kw):
+        self.steps.append((logits.clone(), seen.clone(), codes.clone(), lengths.clone(),
+                           finished.clone(), step, key.clone(), kw))
+        return self.fn(logits, seen, codes, lengths, finished, step, key, **kw)
+
+
+def check_recorded_steps(recorder, what, tally):
+    """Every recorded decode step through the kernel and its plain version."""
+    for logits, seen, codes, lengths, finished, step, key, kw in recorder.steps:
+        setting = (kw["temperature"], kw["top_p"], kw["repetition_penalty"],
+                   kw["typical_mass"])
+        tally.add(f"{what} step {step}", check_sample_step(
+            logits, seen, codes, lengths, finished, step, key, setting, offset=kw["offset"],
+            force_full=kw["force_full"], stop=kw["stop_token"]))
+
+
+def phase_sample_decode(engine, cfg, texts, prompts, tally):
+    """Phase 3c on real decode steps, after phase 4: a b8 decode of the
+    phase's engine (bf16) recorded and every step held against the plain
+    version; then an fp32 engine's b2 request decoded through the kernel and
+    through ``sample_step_reference`` (called by name in
+    ``generate_speech_tokens``): every code and length equal, unless the
+    first step that differs is a row near the boundary."""
+    from detail_tts_tpu_torch.serving.pipeline import EngineConfig, random_engine
+
+    texts8 = [texts[i % len(texts)] for i in range(8)]
+    prompts8 = [prompts[i % len(prompts)] for i in range(8)]
+    zero_prng()
+    with StepRecorder() as rec, DecodeSteps() as steps:
+        pending = engine.dispatch_decode(texts8, prompts8, seed=5, force_full=True)
+        torch.cuda.synchronize()
+    n = engine.ecfg.max_generate_length
+    if prng_counts() != (0, 1, n) or steps.steps != n:
+        fail(f"the b8 decode: launches {prng_counts()} (draws, key buffers, sample steps), "
+             f"expected (0, 1, {n}); executed steps {steps.steps}")
+    check_recorded_steps(rec, "b8 bf16 decode", tally)
+    print(f"  b8 bf16 decode of {n} steps: every step held against the plain version; "
+          f"codes {tuple(pending.codes.shape)}", flush=True)
+
+    fp32 = random_engine(cfg, seed=0, device="cuda", engine_cfg=EngineConfig(
+        max_generate_length=n, compute_dtype=torch.float32, cache_dtype=torch.float32))
+    runs = {}
+    for name, fn in (("kernel", sampling.sample_step),
+                     ("plain", sampling.sample_step_reference)):
+        zero_prng()
+        with StepRecorder(fn) as rec:
+            pending = fp32.dispatch_decode(texts[:2], prompts[:2], seed=11)
+            runs[name] = (pending.codes.cpu(), pending.lengths.cpu(), rec, prng_counts())
+    (codes, lengths, rec, counts), (pcodes, plengths, _, pcounts) = runs["kernel"], runs["plain"]
+    executed = int(lengths.max())
+    if counts != (0, 1, executed) or pcounts != (0, 1, 0):
+        fail(f"the fp32 decode: launches {counts} through the kernel (expected (0, 1, "
+             f"{executed})), {pcounts} through the plain version")
+    differ = (codes != pcodes).nonzero().tolist()
+    if differ or not torch.equal(lengths, plengths):
+        if not differ:
+            fail("the fp32 decode: lengths differ with every code equal")
+        first = min(s for _, s in differ)
+        rows = sorted({r for r, s in differ if s == first})
+        logits, seen, _, _, _, step, _, kw = rec.steps[first]
+        margin = boundary_margin(logits, seen, kw["temperature"], kw["top_p"],
+                                 kw["repetition_penalty"], kw["typical_mass"])
+        near = [r for r in rows if margin[r].item() < SAMPLE_NEAR]
+        print(f"  fp32 decode: codes first differ at step {first}, rows {rows} (near the "
+              f"boundary {near})", flush=True)
+        if near != rows:
+            fail(f"the fp32 decode through the kernel differs from the plain version's at "
+                 f"step {first}, rows {rows}, away from the boundary")
+        tally.differ += len(rows)
+        tally.near += len(rows)
+    tally.rows += codes.shape[0] * executed
+    print(f"  fp32 b2 decode through the kernel and through sample_step_reference: "
+          f"{executed} steps, codes equal {not differ}, lengths {lengths.tolist()} / "
+          f"{plengths.tolist()}", flush=True)
+    del fp32
+    torch.cuda.empty_cache()
+    tally.gate("synthetic and decode steps")
 
 
 # ------------------------------------------------------- training kernels
@@ -864,8 +1277,9 @@ def phase_serving(engine, requests):
         before, prng_before = attention.LAUNCHES, prng_counts()
         timings = {}
         t0 = time.perf_counter()
-        outs = engine.synthesize_batch(texts, wavs, seed=seed, force_full=True,
-                                       timings=timings)
+        with DecodeSteps() as executed:
+            outs = engine.synthesize_batch(texts, wavs, seed=seed, force_full=True,
+                                           timings=timings)
         wall = time.perf_counter() - t0
         records.append((wall, timings))
         counts.append(attention.LAUNCHES - before)
@@ -874,8 +1288,11 @@ def phase_serving(engine, requests):
         print(f"  request batch={len(texts)} seed={seed}: {audio_s:.2f} s of audio "
               f"in {wall:.3f} s wall ({audio_s / wall:.2f}x real time); "
               f"kernel launches {counts[-1]} (expected {per_request}); threefry draws, "
-              f"key buffers {prng_got} (expected {prng_want}); timings "
+              f"key buffers, sample steps {prng_got} (expected {prng_want}; decode steps "
+              f"executed {executed.steps}); timings "
               + json.dumps({k: round(v, 4) for k, v in timings.items()}), flush=True)
+        if executed.steps != prng_want[2]:
+            fail(f"the decode executed {executed.steps} steps, expected {prng_want[2]}")
         eff = engine.ecfg.max_generate_length - 1
         for o in outs:
             if o.shape != (eff * hop_per_code,) or not np.all(np.isfinite(o)):
@@ -883,7 +1300,7 @@ def phase_serving(engine, requests):
         if counts[-1] != per_request:
             fail(f"{counts[-1]} kernel launches, expected {per_request}")
         if prng_got != prng_want:
-            fail(f"threefry launches {prng_got}, expected {prng_want}")
+            fail(f"threefry and sample step launches {prng_got}, expected {prng_want}")
         outputs.append(outs)
     if not all(np.array_equal(a, b) for a, b in zip(outputs[0], outputs[-1])):
         fail("the repeated request with the same seed gave different audio")
@@ -916,25 +1333,38 @@ def check_audio(engine, outs, what, dtype=np.float32):
 
 
 def serve_request(engine, label, texts, wavs, seed, vq=False):
-    """One force_full request, its B1 and threefry launches counted from 0;
-    prints the wall time, audio seconds per wall second and the stage
-    timings."""
+    """One force_full request, its B1, threefry and sample step launches
+    counted from 0 (a sample step for each decode step it executed); prints
+    the wall time, audio seconds per wall second and the stage timings."""
     attention.LAUNCHES = 0
     zero_prng()
     timings = {}
     t0 = time.perf_counter()
-    if vq:
-        outs = engine.synthesize_vq_batch(texts, wavs, seed=seed, force_full=True)
-    else:
-        outs = engine.synthesize_batch(texts, wavs, seed=seed, force_full=True,
-                                       timings=timings)
+    with DecodeSteps() as executed:
+        if vq:
+            outs = engine.synthesize_vq_batch(texts, wavs, seed=seed, force_full=True)
+        else:
+            outs = engine.synthesize_batch(texts, wavs, seed=seed, force_full=True,
+                                           timings=timings)
     wall = time.perf_counter() - t0
     audio_s = sum(len(o) for o in outs) / engine.cfg.data.sampling_rate
     print(f"  {label} batch={len(texts)} seed={seed}: {audio_s:.2f} s of audio in "
           f"{wall:.3f} s wall ({audio_s / wall:.2f}x real time); kernel launches "
-          f"{attention.LAUNCHES}; threefry draws, key buffers {prng_counts()}; timings "
+          f"{attention.LAUNCHES}; threefry draws, key buffers, sample steps {prng_counts()} "
+          f"(decode steps executed {executed.steps}); timings "
           + json.dumps({k: round(v, 4) for k, v in timings.items()}), flush=True)
+    if executed.steps != engine.ecfg.max_generate_length:
+        fail(f"{label}: the decode executed {executed.steps} steps under force_full")
     return outs, attention.LAUNCHES, wall, timings
+
+
+def sample_steps_gate(what, executed):
+    """One ``sample_step`` launch for each decode step executed."""
+    got = sampling.LAUNCHES["sample_step"]
+    print(f"  {what}: sample_step launches {got}, decode steps executed {executed.steps}",
+          flush=True)
+    if got != executed.steps:
+        fail(f"{what}: {got} sample_step launches for {executed.steps} decode steps")
 
 
 def phase_serving_paths(engine, texts, prompts, ancestral_records):
@@ -958,7 +1388,7 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
 
     pair, prompts2 = texts[:2], prompts[:2]
     total, diffuse_ms, walls, fast = 0, {}, {}, None
-    prng_total = np.zeros(2, np.int64)
+    prng_total = np.zeros(3, np.int64)
     # (a) each sampler twice at batch 2
     for sampler, steps in SAMPLER_RUNS:
         eng = variant(diffusion_sampler=sampler, diffusion_steps=steps)
@@ -975,7 +1405,8 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
                      f"{want} (steps x 13 + 9 = {steps * 13 + 9})")
             prng_want = prng_per_request(eng, eng.ecfg.max_generate_length)
             if prng_counts() != prng_want:
-                fail(f"{sampler} at {steps} steps: threefry launches {prng_counts()}, "
+                fail(f"{sampler} at {steps} steps: threefry and sample step launches "
+                     f"{prng_counts()}, "
                      f"expected {prng_want}")
             runs.append(outs)
         if not all(np.array_equal(a, b) for a, b in zip(*runs)):
@@ -1012,7 +1443,8 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
         fail(f"the VQ path launched the diffusion kernel {launches} times")
     prng_want = prng_per_request(engine, engine.ecfg.max_generate_length, vq=True)
     if prng_counts() != prng_want:
-        fail(f"the VQ path: threefry launches {prng_counts()}, expected {prng_want}")
+        fail(f"the VQ path: threefry and sample step launches {prng_counts()}, expected "
+             f"{prng_want}")
     mel, mel_len = engine.prepare_prompt(prompts[:1])
     n = int(mel_len[0]) // 4 * 4
     attention.LAUNCHES = 0
@@ -1020,6 +1452,8 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
     recon, wav = engine.vq_roundtrip(mel[:, :n])
     total += attention.LAUNCHES
     prng_total += np.array(prng_counts())
+    if prng_counts()[2]:
+        fail(f"vq_roundtrip launched sample_step {prng_counts()[2]} times")
     if (recon.shape != (1, n, mel.shape[2]) or wav.shape != (1, n * engine.cfg.data.hop_length, 1)
             or not (torch.isfinite(recon).all() and torch.isfinite(wav).all())):
         fail(f"vq_roundtrip: mel {tuple(recon.shape)}, wav {tuple(wav.shape)}, or not finite")
@@ -1030,7 +1464,8 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
     # split dispatch against synthesize_batch
     attention.LAUNCHES = 0
     zero_prng()
-    with TTSServer(engine, max_batch=4, max_wait_ms=200.0) as server:
+    with DecodeSteps() as executed, TTSServer(engine, max_batch=4,
+                                              max_wait_ms=200.0) as server:
         try:
             server.submit("短", np.zeros(100, np.float32))
             fail("the server took a prompt shorter than one hop")
@@ -1052,11 +1487,15 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
           f"kernel launches {attention.LAUNCHES}", flush=True)
     if server.requests_served != 4:
         fail(f"the server served {server.requests_served} requests, not 4")
+    sample_steps_gate("the server", executed)
     attention.LAUNCHES = 0
     zero_prng()
-    split = fast.finalize_batch(fast.dispatch_batch(pair, prompts2, seed=0, force_full=True))
+    with DecodeSteps() as executed:
+        split = fast.finalize_batch(fast.dispatch_batch(pair, prompts2, seed=0,
+                                                        force_full=True))
     total += attention.LAUNCHES
     prng_total += np.array(prng_counts())
+    sample_steps_gate("the split dispatch", executed)
     if not all(np.array_equal(a, b) for a, b in zip(split, fast_outs)):
         fail("dispatch_batch + finalize_batch differs from synthesize_batch")
     print("  dispatch_batch + finalize_batch bit-identical to synthesize_batch", flush=True)
@@ -1066,11 +1505,13 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
     attention.LAUNCHES = 0
     zero_prng()
     t0 = time.perf_counter()
-    whole = synthesize_long(fast, text, prompts[0], seed=3, batch_size=2)
-    wall = time.perf_counter() - t0
-    parts = list(synthesize_long_stream(fast, text, prompts[0], seed=3, batch_size=2))
+    with DecodeSteps() as executed:
+        whole = synthesize_long(fast, text, prompts[0], seed=3, batch_size=2)
+        wall = time.perf_counter() - t0
+        parts = list(synthesize_long_stream(fast, text, prompts[0], seed=3, batch_size=2))
     total += attention.LAUNCHES
     prng_total += np.array(prng_counts())
+    sample_steps_gate("long form", executed)
     joined = np.concatenate(parts)
     print(f"  long form, 3 sentences in batches of 2 ({FAST_MODE[0]} {FAST_MODE[1]} steps): "
           f"{len(whole) / engine.cfg.data.sampling_rate:.2f} s of audio in {wall:.3f} s "
@@ -1102,26 +1543,28 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
             url + "/synthesize", data=body, headers={"Content-Type": "application/json"}),
             timeout=300)
 
-    try:
-        with local.open(url + "/healthz", timeout=60) as r:
-            health = json.loads(r.read())
-        answers = []  # the first request on the server's thread, then a warm one
-        for _ in range(2):
-            t0 = time.perf_counter()
-            with post(prompts[1]) as r:
-                answers.append((r.status, r.headers["Content-Type"], r.read(),
-                                time.perf_counter() - t0))
-        audio = [_decode_wav_bytes(a[2], engine.cfg.data.sampling_rate) for a in answers]
+    with DecodeSteps() as executed:  # the requests' decodes, on the server's thread
         try:
-            post(np.zeros(100, np.float32))
-            refused = None
-        except urllib.error.HTTPError as e:
-            refused = e.code
-    finally:
-        box["httpd"].shutdown()
-        thread.join(timeout=60)
+            with local.open(url + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            answers = []  # the first request on the server's thread, then a warm one
+            for _ in range(2):
+                t0 = time.perf_counter()
+                with post(prompts[1]) as r:
+                    answers.append((r.status, r.headers["Content-Type"], r.read(),
+                                    time.perf_counter() - t0))
+            audio = [_decode_wav_bytes(a[2], engine.cfg.data.sampling_rate) for a in answers]
+            try:
+                post(np.zeros(100, np.float32))
+                refused = None
+            except urllib.error.HTTPError as e:
+                refused = e.code
+        finally:
+            box["httpd"].shutdown()
+            thread.join(timeout=60)
     total += attention.LAUNCHES
     prng_total += np.array(prng_counts())
+    sample_steps_gate("HTTP", executed)
     print(f"  HTTP: /healthz {health}; /synthesize twice: "
           + "; ".join(f"{st} {ct}, {len(a) / engine.cfg.data.sampling_rate:.2f} s of audio "
                       f"in {w:.3f} s" for (st, ct, _, w), a in zip(answers, audio))
@@ -2238,10 +2681,13 @@ def engine_tail(engine, texts, wavs, codes, eff, rows=None):
 
 def sampled_request(engine, texts, wavs):
     """The request through the split dispatch (seed 0, force_full): (every
-    item's codes, wavs, B1 launches, wall)."""
+    item's codes, wavs, B1 launches, wall); fails unless it launched
+    ``prng_per_request``'s threefry kernels and a sample step for each
+    decode step."""
     from detail_tts_tpu_torch.parallel.mesh import all_gather_rows
 
     attention.LAUNCHES = 0
+    zero_prng()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pending = engine.dispatch_decode(texts, wavs, seed=0, force_full=True)
@@ -2250,6 +2696,10 @@ def sampled_request(engine, texts, wavs):
         codes = all_gather_rows(codes, engine.mesh.data_group)
     outs = engine.finalize_batch(engine.dispatch_tail(pending))
     wall = time.perf_counter() - t0
+    want = prng_per_request(engine, engine.ecfg.max_generate_length)
+    if prng_counts() != want:
+        fail(f"phase 9 on {engine.device}: threefry and sample step launches "
+             f"{prng_counts()}, expected {want}")
     return codes.cpu(), outs, attention.LAUNCHES, wall
 
 
@@ -2774,15 +3224,19 @@ def phase10_rank(rank, port, out_dir, cfg_full):
             engine = phase10_engine(cfg_full, dtype, dev, mesh.make_mesh(2, 1, group))
             rec = phase10_hooks(engine, rank)
             zero_counts()
+            zero_prng()
             for v in channel.values():
                 v.clear()
             t0 = time.perf_counter()
-            if rank == 0:
-                with LeaderEngine(engine) as leader:
-                    res, walls = phase10_scenario(leader, requests, rec, fault=True)
-            else:
-                res, walls = {"followed": follow(engine)}, {}
+            with DecodeSteps() as executed:
+                if rank == 0:
+                    with LeaderEngine(engine) as leader:
+                        res, walls = phase10_scenario(leader, requests, rec, fault=True)
+                else:
+                    res, walls = {"followed": follow(engine)}, {}
             res.update(rec=rec, walls=walls, launches=attention.LAUNCHES,
+                       prng=prng_counts(), executed=executed.steps,
+                       draws_per_tail=prng_per_request(engine, 0)[0],
                        b1_per_request=b1_per_request(engine), wall=time.perf_counter() - t0,
                        device=engine.device.index, channel=channel_summary(channel))
             out[str(dtype)] = res
@@ -2822,7 +3276,10 @@ def phase_frontends(cfg_full, logs):
     for dtype in (torch.float32, torch.bfloat16):
         engine = phase10_engine(cfg_full, dtype, "cuda")
         rec = phase10_hooks(engine)
-        ref[str(dtype)] = phase10_scenario(engine, requests, rec, fault=False) + (rec,)
+        zero_prng()
+        with DecodeSteps() as executed:
+            ref[str(dtype)] = phase10_scenario(engine, requests, rec, fault=False) + (rec,)
+        sample_steps_gate(f"{dtype} one card", executed)
         del engine
         torch.cuda.empty_cache()
     t_ref = time.perf_counter() - t0
@@ -2856,6 +3313,16 @@ def phase_frontends(cfg_full, logs):
                 fail(f"phase 10 {dtype} rank {r}: B1 launches {per_batch}, expected {want} "
                      "a batch")
             b1 += res["launches"]
+            # a sample step for each decode step executed (the faulted batch's
+            # too); the threefry draws are the tails' only
+            draws, buffers, steps = res["prng"]
+            print(f"  {dtype} rank {r}: sample_step launches {steps} for {res['executed']} "
+                  f"decode steps executed; threefry draws {draws} over {len(tails)} tails "
+                  f"(expected {res['draws_per_tail']} each), key buffers {buffers}",
+                  flush=True)
+            if steps != res["executed"] or draws != res["draws_per_tail"] * len(tails):
+                fail(f"phase 10 {dtype} rank {r}: launches {res['prng']}, decode steps "
+                     f"{res['executed']}")
         threads = {name for name, *_ in r0["rec"]["decodes"]}
         cards = {card for _, card, *_ in r0["rec"]["decodes"] + r1["rec"]["decodes"]}
         if cards != {r0["device"]} or "tts-dispatch" not in threads:
@@ -2909,12 +3376,22 @@ def phase_frontends(cfg_full, logs):
     return b1
 
 
+_T0 = time.perf_counter()
+
+
+def stamp():
+    """The seconds since the script started, after each phase."""
+    print(f"-- {time.perf_counter() - _T0:.1f} s", flush=True)
+
+
 def main():
     from detail_tts_tpu_torch.config import Config
     from detail_tts_tpu_torch.serving.pipeline import EngineConfig, random_engine
 
     sfu_per_s = phase_environment()
+    stamp()
     phase_build()
+    stamp()
     cfg = Config()
     ecfg = EngineConfig(max_generate_length=200)
     sr = cfg.data.sampling_rate
@@ -2928,8 +3405,13 @@ def main():
     served = serving_attention_shapes(
         cfg, ecfg, batches=(2, 1), prompt_frames=3 * sr // cfg.data.hop_length)
     worst, times = phase_kernel(sfu_per_s, served, timed_shapes=served[1:2])
+    stamp()
     prng_abs, prng_ulp, prng_times, keys_times = phase_prng()
+    stamp()
+    sample_tally, sample_times = phase_sample()
+    stamp()
     train_worst, train_times, backend = phase_train_kernels(sfu_per_s)
+    stamp()
 
     t0 = time.perf_counter()
     engine = random_engine(cfg, seed=0, engine_cfg=ecfg, device="cuda")
@@ -2938,19 +3420,30 @@ def main():
     print(f"== engine: Config() at full width, {n_params / 1e6:.1f} M parameters "
           f"{engine.cdt}, built in {time.perf_counter() - t0:.1f} s", flush=True)
     launches, per_request, records, prng_launches = phase_serving(engine, requests)
+    stamp()
+    phase_sample_decode(engine, cfg, texts, prompts, sample_tally)
+    stamp()
+    sample_launches = prng_counts()[2]  # the b8 decode's
     paths_launches, paths_prng = phase_serving_paths(engine, texts, prompts, records)
     launches += paths_launches
+    stamp()
     del engine
     torch.cuda.empty_cache()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         train_launches = phase_training(cfg, os.path.join(work, "phase6"))
+        stamp()
         target_launches = phase_train_targets(cfg, os.path.join(work, "phase6b"))
+        stamp()
         corpus_launches, corpus_b1 = phase_corpus(cfg, os.path.join(work, "phase7"))
+        stamp()
         parallel_launches, diff_ref = phase_parallel(cfg, os.path.join(work, "phase8"))
+        stamp()
         mesh_b1, mesh_launches = phase_mesh(cfg, diff_ref, os.path.join(work, "phase9"))
+        stamp()
         frontends_b1 = phase_frontends(cfg, os.path.join(work, "phase10"))
+        stamp()
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2966,9 +3459,10 @@ def main():
                       "leader (phase 10)",
         max_abs_err=worst, **times)]
     for i, (name, row, replaces, per) in enumerate((
-            ("threefry_draw", prng_times, "detail_tts_tpu/ops/sampling.py:96",
-             "max_len + steps + 1 a request: a Gumbel a decode step, the diffusion's "
-             "initial noise, a normal an ancestral step but the last, the vocoder's"),
+            ("threefry_draw", prng_times, "detail_tts_tpu/models/diffusion.py:285",
+             "steps + 1 a request under ancestral (the diffusion's initial noise, a "
+             "normal an ancestral step but the last, the vocoder's), 2 under the other "
+             "samplers, 1 on the VQ path; none in the decode"),
             ("threefry_keys", keys_times, "detail_tts_tpu/models/gpt.py:358",
              "2 a request: the decode's key chain, the ancestral steps' split"))):
         kernels.append(dict(
@@ -2978,6 +3472,19 @@ def main():
             launches_over="phases 4 and 4b (every request, server, long form and HTTP)",
             max_abs_err=prng_abs if i == 0 else 0.0, max_ulp=prng_ulp if i == 0 else 0.0,
             library="none draws JAX's threefry", **row))
+    sample_row = next(t for t in sample_times if t["shape"] == [8, 8194]
+                      and t["setting"] == "top-p")
+    kernels.append(dict(
+        name="sample_step", route="cuda", source="detail_tts_tpu_torch/csrc/sample.cu",
+        replaces="detail_tts_tpu/ops/sampling.py:86 sample_token and "
+                 "detail_tts_tpu/models/gpt.py:364-371 body_fn's bookkeeping (no pallas_call)",
+        launches=prng_launches[2] + sample_launches + paths_prng[2],
+        launches_per_request="one a decode step executed (max_len under force_full)",
+        launches_over="phases 4 and 4b (every request, server, long form and HTTP) and "
+                      "phase 3c's b8 decode; phases 9 and 10 gate each rank's",
+        max_abs_err=sample_tally.max_abs, rows_compared=sample_tally.rows,
+        rows_differ=sample_tally.differ,
+        library="none", **sample_row))
     sources = {"bias_attention_train_fwd": ("bias_attention.cu", 259),
                "bias_attention_bwd_dq_dbias": ("bias_attention_bwd.cu", 286),
                "bias_attention_bwd_dkv": ("bias_attention_bwd.cu", 308),

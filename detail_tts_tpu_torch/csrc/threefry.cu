@@ -43,41 +43,16 @@
 
 #include <cstdint>
 
+#include "threefry.cuh"
+
 namespace {
+
+using threefry::threefry2x32;
+using threefry::unit_float;
 
 constexpr int kThreads = 256;
 
 enum Kind : int { kBits = 0, kUniform = 1, kNormal = 2, kGumbel = 3 };
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-// threefry2x32 with 20 rounds, as jax/_src/prng.py _threefry2x32_lowering.
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0,
-                                             uint32_t& x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0;
-  x1 += k1;
-#define TF_ROUND(r) \
-  x0 += x1;         \
-  x1 = rotl(x1, r) ^ x0;
-#define TF_ROUNDS_A TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-#define TF_ROUNDS_B TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  TF_ROUNDS_A x0 += k1; x1 += k2 + 1u;
-  TF_ROUNDS_B x0 += k2; x1 += k0 + 2u;
-  TF_ROUNDS_A x0 += k0; x1 += k1 + 3u;
-  TF_ROUNDS_B x0 += k1; x1 += k2 + 4u;
-  TF_ROUNDS_A x0 += k2; x1 += k0 + 5u;
-#undef TF_ROUNDS_B
-#undef TF_ROUNDS_A
-#undef TF_ROUND
-}
-
-// A uniform float on [0, 1) from 32 random bits (jax.random._uniform).
-__device__ __forceinline__ float unit_float(uint32_t bits) {
-  return __fadd_rn(__uint_as_float((bits >> 9) | 0x3F800000u), -1.0f);
-}
 
 // XLA's float32 ErfInv (Giles' polynomial in w = -log1p(-x^2), two ranges).
 __device__ __forceinline__ float erfinv32(float x) {
@@ -108,27 +83,21 @@ __global__ void __launch_bounds__(kThreads)
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n;
        i += stride) {
-    const unsigned long long j = offset + static_cast<unsigned long long>(i);
-    uint32_t x0 = static_cast<uint32_t>(j >> 32), x1 = static_cast<uint32_t>(j);
-    threefry2x32(k0, k1, x0, x1);
-    const uint32_t bits = x0 ^ x1;
+    const uint32_t bits =
+        threefry::random_bits(k0, k1, offset + static_cast<unsigned long long>(i));
     if constexpr (KIND == kBits) {
       static_cast<uint32_t*>(out)[i] = bits;
     } else {
-      const float f = unit_float(bits);
       float v;
       if constexpr (KIND == kUniform) {
-        v = fmaxf(0.0f, f);
+        v = fmaxf(0.0f, unit_float(bits));
       } else if constexpr (KIND == kNormal) {
         // uniform on [nextafter(-1, 0), 1): f * (1 - lo) + lo, 1 - lo == 2
         const float lo = -0.99999994f;
-        const float u = fmaxf(lo, __fadd_rn(__fmul_rn(f, 2.0f), lo));
+        const float u = fmaxf(lo, __fadd_rn(__fmul_rn(unit_float(bits), 2.0f), lo));
         v = __fmul_rn(1.41421356f, erfinv32(u));
       } else {
-        // uniform on [tiny, 1): f * (1 - tiny) + tiny, 1 - tiny == 1
-        const float tiny = 1.17549435e-38f;
-        const float u = fmaxf(tiny, __fadd_rn(f, tiny));
-        v = -logf(-logf(u));
+        v = threefry::gumbel(bits);
       }
       static_cast<float*>(out)[i] = __fmul_rn(v, scale);
     }

@@ -9,7 +9,8 @@ gelu_new, learned per-modality positions, no global positions) over
 * ``generate_speech_tokens``: a Python loop of cached steps that stops when
   every row has emitted the stop token (or after ``max_generate_length``),
   step s sampling with the Gumbel noise of JAX's key chain ``rng, key =
-  split(rng)`` (``ops/prng.py``);
+  split(rng)`` (``ops/prng.py``), each step's sampling and bookkeeping one
+  ``ops/sampling.py`` ``sample_step`` (one kernel launch on CUDA);
 * ``forward``: the ``return_latent=True`` pass (latents of the mel positions,
   ``mel_latents[:, :-2]``) and the training pass, the text and mel heads'
   unmasked mean cross-entropies in fp32.
@@ -65,7 +66,7 @@ from detail_tts_tpu_torch.nn.common import (Dense, SeededDropout, TorchLayerNorm
                                             sequence_mask)
 from detail_tts_tpu_torch.nn.style_encoder import MelStyleEncoder
 from detail_tts_tpu_torch.ops import prng
-from detail_tts_tpu_torch.ops.sampling import sample_token
+from detail_tts_tpu_torch.ops.sampling import sample_step
 from detail_tts_tpu_torch.parallel.mesh import (Rows, Shard, all_reduce_max_host,
                                                 copy_to_model, gather_from_model,
                                                 reduce_from_model,
@@ -400,12 +401,14 @@ def generate_speech_tokens(model: UnifiedVoice, cond_mel, cond_lengths, text,
 
     Returns (codes (B, max_len) padded with stop tokens, lengths (B,)), where
     ``lengths`` counts generated tokens including the stop token.  Step s
-    draws its Gumbel noise under the s-th key of JAX's chain from ``key``
-    (``rng, key = split(rng)`` a step, written to a device buffer in one
-    launch before the loop).  On a data rank of a sharded engine the batch
-    is this rank's ``rows`` of the request, whose elements of each step's
-    draw it takes, and the early stop waits for every row of ``group`` (the
-    data group), so the decode ends as on one card.
+    is one ``sample_step`` (the warpers, the Gumbel draw under the s-th key
+    of JAX's chain from ``key``, the argmax and ``body_fn``'s bookkeeping,
+    in place): the chain ``rng, key = split(rng)`` a step is written to a
+    device buffer in one launch before the loop, and a step reads its row
+    there.  On a data rank of a sharded engine the batch is this rank's
+    ``rows`` of the request, whose elements of each step's draw it takes
+    (from their offset), and the early stop waits for every row of
+    ``group`` (the data group), so the decode ends as on one card.
     """
     c = model.cfg
     b = text.shape[0]
@@ -422,23 +425,16 @@ def generate_speech_tokens(model: UnifiedVoice, cond_mel, cond_lengths, text,
     codes = torch.full((b, n), c.stop_mel_token, dtype=torch.long, device=dev)
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     lengths = torch.zeros(b, dtype=torch.long, device=dev)
-    batch = torch.arange(b, device=dev)
     keys = prng.decode_keys(key, n, dev)
+    offset = prng.row_offset(rows, (b, c.number_mel_codes))
     for step in range(n):
         if not sampling.force_full_length and step and _all_finished(finished, group):
             break
-        tok = sample_token(logits, seen_mask=seen,
-                           temperature=sampling.temperature,
-                           top_p=sampling.top_p,
-                           repetition_penalty=sampling.repetition_penalty,
-                           typical_mass=sampling.typical_mass,
-                           key=keys[step], rows=rows)
-        tok = torch.where(finished, c.stop_mel_token, tok)
-        codes[:, step] = tok
-        seen[batch, tok] = True
-        lengths = torch.where(finished, lengths, lengths + 1)
-        if not sampling.force_full_length:
-            finished = finished | (tok == c.stop_mel_token)
+        tok = sample_step(logits, seen, codes, lengths, finished, step, keys[step],
+                          temperature=sampling.temperature, top_p=sampling.top_p,
+                          repetition_penalty=sampling.repetition_penalty,
+                          typical_mass=sampling.typical_mass, stop_token=c.stop_mel_token,
+                          force_full=sampling.force_full_length, offset=offset)
         if step + 1 < n:
             logits = model.decode_step(tok, torch.full_like(tok, step + 1), cache)
     return codes, lengths

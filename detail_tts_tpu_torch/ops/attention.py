@@ -61,7 +61,7 @@ TILE = 64  # rows of the kernels' tiles
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCE = CSRC / "bias_attention.cu"
 BWD_SOURCE = CSRC / "bias_attention_bwd.cu"
-HEADERS = (CSRC / "mma.cuh",)
+HEADERS = (CSRC / "mma.cuh", CSRC / "threefry.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -23,7 +23,7 @@ micro-batches), and for the GAN targets ``discriminator`` and
 Each prints each stage's wall time, device busy time and idle share
 (1 - busy / wall), the device launches, the kernels with the most device
 time, and the device time of each of the port's own kernels (bias attention,
-threefry).
+threefry, the sample step).
 The last line is one JSON object with the same numbers.
 Needs a CUDA device.
 """
@@ -44,9 +44,10 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-# name fragments of the port's hand-written kernels (csrc/: bias attention, threefry)
+# name fragments of the port's hand-written kernels (csrc/: bias attention,
+# threefry, the decode's sample step)
 OWN_KERNELS = ("_mma<", "dbias_sum", "bias_attention_simt", "draw_kernel", "chain_kernel",
-               "split_kernel")
+               "split_kernel", "sample_step_kernel")
 STAGES = ("prepare", "generate", "diff_cond", "latents", "diffuse", "vocode", "host")
 TRAIN_STAGES = ("latents", "forward", "discriminator", "gen_loss", "backward",
                 "optimizer")

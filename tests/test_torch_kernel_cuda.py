@@ -2,7 +2,8 @@
 bias-attention serving forward, and the training forward (with its row
 statistic) and the three backward kernels (delta, dq and the dbias partials;
 dk and dv; the partials' sum) behind ``BiasAttentionFunction``; the threefry
-draws and key buffers (``ops/prng.py``); and the paths that run them: the
+draws and key buffers (``ops/prng.py``); the decode step's sampler
+(``ops/sampling.py`` ``sample_step``); and the paths that run them: the
 samplers, the training steps, and a (1 x 2) sharded engine of two gloo ranks
 on the one card.
 
@@ -12,12 +13,13 @@ repository's conftest switched off:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernel_cuda.py
 """
+import itertools
 import math
 
 import pytest
 import torch
 
-from detail_tts_tpu_torch.ops import attention, prng
+from detail_tts_tpu_torch.ops import attention, prng, sampling
 
 pytestmark = pytest.mark.cuda
 
@@ -549,10 +551,11 @@ def test_threefry_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.parametrize("sampler", ["ancestral", "dpmpp_2m"])
 def test_serving_draws_run_the_threefry_kernel(cuda, sampler):
-    """Every draw of a request launches ``threefry_draw`` (a Gumbel a decode
-    step, the initial noise, a normal an ancestral step but the last, the
-    vocoder's) from its key buffers, and in fp32 an item's audio alone is
-    its audio batched with another text within JAX's 5e-4."""
+    """Every draw of a request launches ``threefry_draw`` (the initial
+    noise, a normal an ancestral step but the last, the vocoder's) from its
+    key buffers, a decode step is one ``sample_step`` launch that draws its
+    Gumbels itself, and in fp32 an item's audio alone is its audio batched
+    with another text within JAX's 5e-4."""
     import numpy as np
 
     from detail_tts_tpu_torch.config import small_test_config
@@ -565,13 +568,140 @@ def test_serving_draws_run_the_threefry_kernel(cuda, sampler):
         prompt_buckets=(24, 48), code_buckets=(8, 16), compute_dtype=torch.float32,
         cache_dtype=torch.float32))
     wav = np.random.default_rng(7).uniform(-0.3, 0.3, 9600).astype(np.float32)
-    before = dict(prng.LAUNCHES)
+    before, samples = dict(prng.LAUNCHES), sampling.LAUNCHES["sample_step"]
     solo = eng.synthesize_batch(["ni3 hao3"], [wav], seed=42, force_full=True)
     ancestral = sampler == "ancestral"
     steps = eng.schedule.num_timesteps - 1 if ancestral else 0
-    assert prng.LAUNCHES["threefry_draw"] - before["threefry_draw"] == 16 + 1 + steps + 1
+    # the decode draws inside sample_step, once a step: no threefry_draw there
+    assert prng.LAUNCHES["threefry_draw"] - before["threefry_draw"] == 1 + steps + 1
     assert prng.LAUNCHES["threefry_keys"] - before["threefry_keys"] == 1 + ancestral
+    assert sampling.LAUNCHES["sample_step"] - samples == 16
     pair = eng.synthesize_batch(["ni3 hao3", "wo3 men5 hao3"], [wav, wav], seed=42,
                                 force_full=True)
     assert solo[0].shape == pair[0].shape
     assert np.max(np.abs(solo[0] - pair[0])) <= 5e-4
+
+
+# (temperature, top_p, repetition_penalty, typical_mass): the engine's
+# defaults, typical beside them and alone, both filters off
+SAMPLE_SETTINGS = [(0.8, 0.8, 2.0, 1.0), (0.8, 0.8, 2.0, 0.9), (1.0, 1.0, 2.0, 0.9),
+                   (1.0, 1.0, 1.0, 1.0)]
+# the kernel's sums run in another order: a token may differ only in a row
+# whose plain boundary mass lies this close to its threshold
+SAMPLE_NEAR = 1e-5
+
+
+def _boundary_margin(x, seen, temperature, top_p, penalty, mass):
+    """(B,) distance of the plain version's cumulative masses from their
+    thresholds (typical's and top-p's)."""
+    x = sampling.apply_temperature(sampling.apply_repetition_penalty(x.float(), seen, penalty),
+                                   temperature)
+    margin = torch.full((x.shape[0],), math.inf, device=x.device)
+    if mass < 1.0:
+        logp = torch.log_softmax(x, dim=-1)
+        p = logp.exp()
+        h = -torch.where(p > 0, p * logp, 0.0).sum(dim=-1, keepdim=True)
+        cum = p.gather(-1, torch.sort((-logp - h).abs(), dim=-1, stable=True)[1]).cumsum(-1)
+        margin = torch.minimum(margin, (cum - mass).abs().amin(-1))
+        x = sampling.apply_typical(x, mass)
+    if top_p < 1.0:
+        cum = torch.softmax(torch.sort(x, dim=-1, stable=True)[0], dim=-1).cumsum(-1)
+        margin = torch.minimum(margin, (cum - (1.0 - top_p)).abs().amin(-1))
+    return margin
+
+
+def _sample_inputs(b, v, dtype, seed, case, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, v), generator=g, device=device) * 2.0
+    if case == "ties":
+        x = torch.round(x * 4.0) / 4.0
+    elif case == "zeros":
+        x[:, 3], x[:, 7] = -0.0, 0.0
+    elif case == "one-finite":
+        keep = torch.randint(0, v, (b,), generator=g, device=device)
+        x = torch.where(torch.arange(v, device=device) == keep[:, None], x, -math.inf)
+    seen = torch.rand((b, v), generator=g, device=device) < 0.01
+    codes = torch.randint(0, v, (b, 50), generator=g, device=device)
+    lengths = torch.randint(0, 6, (b,), generator=g, device=device)
+    finished = torch.rand((b,), generator=g, device=device) < 0.33
+    return x.to(dtype), seen, codes, lengths, finished
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "zeros", "one-finite"])
+@pytest.mark.parametrize("v", [8194, 8193, 1000])
+@pytest.mark.parametrize("b", [1, 2, 8, 16])
+def test_sample_step_kernel_matches_plain_version(cuda, b, v, case):
+    """Tokens equal (but in rows at the boundary), and codes, seen, lengths
+    and finished bit-identical where they are, in bf16 and fp32, under each
+    setting, with and without force_full and a data rank's offset."""
+    keys = prng.decode_keys(b * v, 8, cuda)
+    for i, (setting, dtype, (force_full, offset)) in enumerate(itertools.product(
+            SAMPLE_SETTINGS, (torch.bfloat16, torch.float32), ((False, 0), (True, 5 * v)))):
+        x, seen, codes, lengths, finished = _sample_inputs(b, v, dtype, i, case, cuda)
+        t, top_p, penalty, mass = setting
+        kw = dict(temperature=t, top_p=top_p, repetition_penalty=penalty, typical_mass=mass,
+                  stop_token=v - 1, force_full=force_full, offset=offset)
+        mine = [s.clone() for s in (seen, codes, lengths, finished)]
+        plain = [s.clone() for s in (seen, codes, lengths, finished)]
+        before = sampling.LAUNCHES["sample_step"]
+        tok = sampling.sample_step(x, *mine, 7, keys[i % 8], **kw)
+        ref = sampling.sample_step_reference(x, *plain, 7, keys[i % 8], **kw)
+        torch.cuda.synchronize()
+        assert sampling.LAUNCHES["sample_step"] == before + 1
+        assert tok.dtype == torch.int64 and tok.shape == (b,)
+        same = tok == ref
+        if not same.all():
+            margin = _boundary_margin(x, seen, t, top_p, penalty, mass)
+            assert (margin[~same] < SAMPLE_NEAR).all(), (setting, dtype, tok, ref)
+        for ours, theirs in zip(mine, plain):
+            assert torch.equal(ours[same], theirs[same])
+
+
+def test_sample_step_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x, seen, codes, lengths, finished = _sample_inputs(2, 100, torch.float32, 0, "random",
+                                                       cuda)
+    kw = dict(temperature=0.8, top_p=0.8, repetition_penalty=2.0, typical_mass=1.0,
+              stop_token=99, force_full=False)
+    key = prng.decode_keys(0, 1, cuda)[0]
+    with pytest.raises(ValueError):  # a key on the host
+        sampling.sample_step(x, seen, codes, lengths, finished, 0, key.cpu(), **kw)
+    with pytest.raises(TypeError):
+        sampling.sample_step(x.half(), seen, codes, lengths, finished, 0, key, **kw)
+    with pytest.raises(ValueError):
+        sampling.sample_step(x, seen, codes[:, ::2], lengths, finished, 0, key, **kw)
+
+
+@pytest.mark.parametrize("force_full", [True, False])
+def test_decode_launches_one_sample_step_a_step(cuda, force_full):
+    """``generate_speech_tokens`` on the card: one ``sample_step`` launch for
+    each step it executed, no ``threefry_draw``; in fp32 its codes are those
+    of the loop stepping through the plain version."""
+    import numpy as np
+
+    from detail_tts_tpu_torch.config import small_test_config
+    from detail_tts_tpu_torch.models import gpt as gpt_module
+    from detail_tts_tpu_torch.models.gpt import SamplingConfig, generate_speech_tokens
+    from detail_tts_tpu_torch.serving.pipeline import random_engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eng = random_engine(small_test_config(), device=cuda)
+    gpt = eng.model.gpt.float()
+    rng = np.random.default_rng(1)
+    cond = torch.as_tensor(rng.normal(size=(3, 24, 128)), dtype=torch.float32, device=cuda)
+    clen = torch.tensor([24, 17, 20], device=cuda)
+    text = torch.as_tensor(rng.integers(3, 200, size=(3, 9)), device=cuda)
+    sampling_cfg = SamplingConfig(max_generate_length=12, typical_mass=0.9,
+                                  force_full_length=force_full)
+    draws, samples = prng.LAUNCHES["threefry_draw"], sampling.LAUNCHES["sample_step"]
+    codes, lengths = generate_speech_tokens(gpt, cond, clen, text, sampling_cfg, key=3,
+                                            cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert prng.LAUNCHES["threefry_draw"] == draws
+    assert sampling.LAUNCHES["sample_step"] - samples == int(lengths.max())
+    orig, gpt_module.sample_step = gpt_module.sample_step, sampling.sample_step_reference
+    try:
+        plain, plain_lengths = generate_speech_tokens(gpt, cond, clen, text, sampling_cfg,
+                                                      key=3, cache_dtype=torch.float32)
+    finally:
+        gpt_module.sample_step = orig
+    assert torch.equal(codes, plain) and torch.equal(lengths, plain_lengths)
