@@ -1,9 +1,12 @@
 """Time the bf16 serving kernel ``bias_attention_fwd``, or with ``--train``
-the bf16 training forward ``bias_attention_train_fwd``, of several sources
+the bf16 training forward ``bias_attention_train_fwd``, or with
+``--sample`` the decode step's sampler ``sample_step``, of several sources
 in turns on one GPU.
 
     python3 ab_serving_kernel.py LABEL=path/to/bias_attention.cu [...] \\
         [--train] [--cold] [--shape B T H D ...] [--runs 50]
+    python3 ab_serving_kernel.py --sample LABEL=path/to/sample.cu [...] \\
+        [--shape B V ...] [--runs 50]
 
 Each source is built at once with the package's nvcc flags (it includes the
 ``mma.cuh`` beside it), loaded with ctypes, checked once against the plain
@@ -22,6 +25,15 @@ come from HBM rather than L2, as in a training step, and only the device
 time is taken (of the kernel alone).  Prints the
 card's name and power limit first, the ``ptxas -v`` lines of each source's
 d=48 and d=96 kernels, and one JSON object last.  Needs a CUDA device.
+
+With ``--sample`` each source is a ``sample.cu`` with ``threefry.cuh``
+beside it and the package's C entries ``sample_step`` and
+``sample_step_floor`` (this package's, or an earlier one from ``git show
+<commit>:detail_tts_tpu_torch/csrc/sample.cu`` under ``build/``).  At each
+(B, V) (default (1, 2, 8, 16) x 8194) and setting (top-p, top-p and
+typical, both off: ``chip_smoke.SAMPLE_SETTINGS``) on fp32 logits, each source's tokens are checked once against
+``sample_step_reference``, then its bare launches are timed in turns, and
+the floor (its empty kernel on its own grid, back to back).
 """
 from __future__ import annotations
 
@@ -36,13 +48,25 @@ from pathlib import Path
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from chip_smoke import (attention_inputs, cuda_ms, device_ms, smi,  # noqa: E402
-                        train_inputs)
-from detail_tts_tpu_torch.ops import attention  # noqa: E402
+from chip_smoke import (SAMPLE_SETTINGS, attention_inputs, cuda_ms,  # noqa: E402
+                        device_ms, sample_inputs, smi, train_inputs)
+from detail_tts_tpu_torch.ops import attention, sampling  # noqa: E402
 
 TRAIN_SHAPES = [(8, 496, 16, 48), (8, 124, 16, 48), (8, 124, 16, 96)]
+
+
+def ptxas_lines(log: str, keep) -> list:
+    """The ``ptxas -v`` resource lines of the kernels whose names ``keep``."""
+    lines, name = [], ""
+    for line in log.splitlines():
+        if "entry function" in line:
+            name = line.split("'")[1]
+        elif keep(name) and ("registers" in line or "spill" in line):
+            lines.append(f"{name[:80]}: {line.split(':', 1)[-1].strip()}")
+    return lines
 
 
 def load(source: Path, entry: str):
@@ -51,14 +75,88 @@ def load(source: Path, entry: str):
     fn = getattr(ctypes.CDLL(str(path)), entry)
     fn.argtypes = attention._SIGNATURES[attention.SOURCE][entry]
     fn.restype = ctypes.c_int
-    lines, name = [], ""
-    for line in log.splitlines():
-        if "entry function" in line:
-            name = line.split("'")[1]
-        elif ("Li48E" in name or "Li96E" in name) and ("registers" in line
-                                                       or "spill" in line):
-            lines.append(f"{name[:80]}: {line.split(':', 1)[-1].strip()}")
-    return fn, lines
+    return fn, ptxas_lines(log, lambda name: "Li48E" in name or "Li96E" in name)
+
+
+def load_sample(path: str):
+    """Build a ``sample.cu``: (launch(args), floor(b), ptxas lines)."""
+    lib_path, _, log = attention.build(Path(path))
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("sample_step", "sample_step_floor"):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = sampling._SIGNATURES[name], ctypes.c_int
+
+    def launch(args):
+        rc = lib.sample_step(*args)
+        if rc != 0:
+            raise RuntimeError(f"sample_step of {path} failed ({rc})")
+
+    def floor(b):
+        rc = lib.sample_step_floor(b, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"sample_step_floor of {path} failed ({rc})")
+
+    return launch, floor, ptxas_lines(log, lambda name: "sample_step_kernel" in name)
+
+
+def sample_case(b, v, setting):
+    """(the C entry's arguments, check(launch)) at one shape and setting:
+    fp32 logits, force_full, the step's state updated in place by every
+    timed launch as in a decode."""
+    x, seen, codes, lengths, finished, step, key = sample_inputs(b, v, torch.float32, 77)
+    t, top_p, pen, mass = setting
+    kw = dict(temperature=t, top_p=top_p, repetition_penalty=pen, typical_mass=mass,
+              stop_token=v - 1, force_full=True)
+    tok = torch.empty(b, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def args(state):
+        return [x.data_ptr(), 1, *(a.data_ptr() for a in state), tok.data_ptr(),
+                key.data_ptr(), b, v, codes.shape[1], step, int(pen != 1.0), pen,
+                int(t != 1.0), t, int(mass < 1.0), float(np.float32(mass)), int(top_p < 1.0),
+                float(np.float32(1.0 - top_p)), v - 1, 1, 0, stream]
+
+    def check(launch):
+        """Rows whose token differs from the plain version's."""
+        mine = [a.clone() for a in (seen, codes, lengths, finished)]
+        plain = [a.clone() for a in (seen, codes, lengths, finished)]
+        launch(args(mine))
+        ref = sampling.sample_step_reference(x, *plain, step, key, offset=0, **kw)
+        torch.cuda.synchronize()
+        return (tok != ref).nonzero().flatten().tolist()
+
+    return args((seen, codes, lengths, finished)), check
+
+
+def sample_main(args, labels, specs):
+    """``--sample``: the sampler sources in turns at each shape and setting."""
+    with ThreadPoolExecutor(max_workers=len(specs)) as pool:
+        built = dict(zip(labels, pool.map(load_sample, specs)))
+    for label in labels:
+        for line in built[label][2]:
+            print(f"  {label}: {line}", flush=True)
+    results = []
+    for b, v in args.shape or [(1, 8194), (2, 8194), (8, 8194), (16, 8194)]:
+        for setting_name in ("top-p", "top-p+typical", "off"):
+            call_args, check = sample_case(b, v, SAMPLE_SETTINGS[setting_name])
+            differ = {label: check(built[label][0]) for label in labels}
+            times = {label: [] for label in labels}
+            dev = {label: [] for label in labels}
+            floors = {label: [] for label in labels}
+            for label in labels + labels[::-1]:
+                launch, floor = built[label][:2]
+                times[label].append(cuda_ms(lambda: launch(call_args), runs=args.runs))
+                dev[label].append(device_ms(lambda: launch(call_args), runs=args.runs,
+                                            only="sample_step_kernel"))
+                floors[label].append(cuda_ms(lambda: [floor(b) for _ in range(200)],
+                                             runs=5) / 200)
+            for label in labels:
+                print(f"  ({b}, {v}) fp32 {setting_name}: {label} ms {times[label]} device_ms "
+                      f"{dev[label]} floor_ms {floors[label]} rows differing from the plain "
+                      f"version {differ[label]}", flush=True)
+            results.append(dict(shape=[b, v], setting=setting_name, ms=times, device_ms=dev,
+                                floor_ms=floors, differ=differ))
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "results": results}))
 
 
 def serving_case(b, t, h, d):
@@ -108,17 +206,25 @@ def train_case(b, t, h, d):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("sources", nargs="+", help="LABEL=path of a bias_attention.cu")
+    ap.add_argument("sources", nargs="+",
+                    help="LABEL=path of a bias_attention.cu (--sample: of a sample.cu)")
     ap.add_argument("--train", action="store_true",
                     help="time the training forward bias_attention_train_fwd")
+    ap.add_argument("--sample", action="store_true",
+                    help="time the decode step's sampler sample_step")
     ap.add_argument("--cold", action="store_true",
                     help="evict L2 (a 256 MB write) before every timed launch")
-    ap.add_argument("--shape", nargs=4, type=int, action="append", metavar=("B", "T", "H", "D"))
+    ap.add_argument("--shape", nargs="+", type=int, action="append",
+                    help="B T H D (--sample: B V)")
     ap.add_argument("--runs", type=int, default=50)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("ab_serving_kernel.py needs a CUDA device")
     print(smi("name,power.limit"), flush=True)
+    if args.sample:
+        sample_main(args, [s.split("=", 1)[0] for s in args.sources],
+                    [s.split("=", 1)[1] for s in args.sources])
+        return
     entry = "bias_attention_train_fwd" if args.train else "bias_attention_fwd"
     labels = [s.split("=", 1)[0] for s in args.sources]
     paths = [Path(s.split("=", 1)[1]) for s in args.sources]

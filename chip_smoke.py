@@ -31,19 +31,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    written) and the plain version's;
 3c. the sample step: ``sample_step`` (the decode step's penalty,
    temperature, typical and top-p filters, Gumbels, argmax and bookkeeping
-   in one kernel) against ``sample_step_reference`` at (B, V) = (1, 2, 8,
-   16) x 8194, (1, 8) x 8193 and (2, 16) x 1000, bf16 and fp32 logits,
+   in one kernel, a row over a cluster of 8 CTAs) against
+   ``sample_step_reference`` at (B, V) = (1, 2, 8, 16) x 8194, (1, 8) x
+   8193, (2, 16) x 1000 and the wide vocabularies (1, 8) x 16386, (2,
+   12289) and (1, 65536), bf16 and fp32 logits,
    under ``SAMPLE_SETTINGS`` (top-p, top-p and typical, typical, both off),
    with and without force_full and a data rank's offset, on random logits,
-   logits tied at the top-p boundary, a -0.0 / +0.0 pair and rows with one
-   finite logit: every token equal except in rows whose plain boundary
-   mass lies within ``SAMPLE_NEAR`` of its threshold, those rows under
-   ``SAMPLE_FLIPS`` of all, and codes, seen, lengths and finished
-   bit-identical where the tokens agree; CUDA-event and device times at
-   (1, 2, 8) x 8194 under top-p, top-p and typical, and both off, beside the
-   bound (bytes), the floor (an empty kernel's launch-to-launch time on the
-   same grid), the plain version's and the parent's decode step (stock
-   launches around a ``threefry_draw``), each with its device launches.
+   logits tied at the top-p boundary, a -0.0 / +0.0 pair, rows with one
+   finite logit and rows with none: every token equal except in rows
+   whose plain boundary mass lies within ``SAMPLE_NEAR`` of its threshold,
+   those rows under ``SAMPLE_FLIPS`` of all, codes, seen, lengths and
+   finished bit-identical where the tokens agree, and a repeated launch
+   bit-identical; CUDA-event and device times at (1, 2, 8, 16) x 8194
+   under top-p, top-p and typical, and both off, and at (2, 12289), (8,
+   16386) and (1, 65536) under top-p, with C and the threads a CTA,
+   beside the bound (bytes), the floor (an empty kernel on the same grid:
+   launch to launch, and its device time), the plain version's and the
+   parent's decode step (stock launches around a ``threefry_draw``), each
+   with its device launches.
    After phase 4, on real decode steps: every step of a b8 / 200-code bf16
    decode of phase 4's engine recorded and held the same way; an fp32
    engine's b2 decode through the kernel against the same decode stepping
@@ -186,6 +191,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import base64
+import ctypes
 import json
 import math
 import os
@@ -625,7 +631,7 @@ class DecodeSteps:
 SAMPLE_SETTINGS = {"top-p": (0.8, 0.8, 2.0, 1.0), "top-p+typical": (0.8, 0.8, 2.0, 0.9),
                    "typical": (1.0, 1.0, 2.0, 0.9), "off": (1.0, 1.0, 1.0, 1.0)}
 SAMPLE_SHAPES = [(1, 8194), (2, 8194), (8, 8194), (16, 8194), (1, 8193), (8, 8193),
-                 (2, 1000), (16, 1000)]
+                 (2, 1000), (16, 1000), (1, 16386), (8, 16386), (2, 12289), (1, 65536)]
 # A token may differ from the plain version's only in a row whose plain
 # boundary mass (its cumulative probability nearest 1 - top_p, or the
 # typical mass) lies within SAMPLE_NEAR of it: the kernel's sums run in
@@ -660,14 +666,17 @@ def check_sample_step(logits, seen, codes, lengths, finished, step, key, setting
     """The kernel against its plain version on copies of one step's inputs:
     returns (rows, rows whose tokens differ, those of them near the boundary,
     what failed or None, max |token - plain token|).  Where the tokens
-    agree, codes, seen, lengths and finished must be bit-identical."""
+    agree, codes, seen, lengths and finished must be bit-identical, and a
+    second launch must repeat the first bit for bit."""
     t, top_p, pen, mass = setting
     kw = dict(temperature=t, top_p=top_p, repetition_penalty=pen, typical_mass=mass,
               stop_token=stop, force_full=force_full, offset=offset)
     state = (seen, codes, lengths, finished)
     mine = [x.clone() for x in state]
+    again = [x.clone() for x in state]
     plain = [x.clone() for x in state]
     tok = sampling.sample_step(logits, *mine, step, key, **kw)
+    tok2 = sampling.sample_step(logits, *again, step, key, **kw)
     ref = sampling.sample_step_reference(logits, *plain, step, key, **kw)
     torch.cuda.synchronize()
     same = tok == ref
@@ -682,6 +691,8 @@ def check_sample_step(logits, seen, codes, lengths, finished, step, key, setting
     for name, a, b in zip(("seen", "codes", "lengths", "finished"), mine, plain):
         if not torch.equal(a[same], b[same]):
             problem = f"{name} differs where the tokens agree"
+    if not torch.equal(tok, tok2) or not all(map(torch.equal, mine, again)):
+        problem = "a repeated launch differs"
     if tok.dtype != torch.int64 or tok.shape != ref.shape:
         problem = f"tokens {tok.dtype} {tuple(tok.shape)}"
     return tok.shape[0], differ, near, problem, int((tok - ref).abs().max())
@@ -691,7 +702,8 @@ def sample_inputs(b, v, dtype, seed, case="random"):
     """One step's seeded inputs on the card: logits ~ 2 N(0, 1) in ``dtype``
     (``case``: "ties" rounds them to quarters, so values tie at the top-p
     boundary; "zeros" adds a -0.0 / +0.0 pair in every row; "one-finite"
-    sets all but one logit of each row to -inf), seen ~1%, a third of the
+    sets all but one logit of each row to -inf; "all-inf" every logit of
+    every other row), seen ~1%, a third of the
     rows finished, codes and lengths mid-request, step 5 of a 200-step key
     chain."""
     dev = torch.device("cuda")
@@ -704,6 +716,8 @@ def sample_inputs(b, v, dtype, seed, case="random"):
     elif case == "one-finite":
         keep = torch.randint(0, v, (b,), generator=g, device=dev)
         x = torch.where(torch.arange(v, device=dev) == keep[:, None], x, -math.inf)
+    elif case == "all-inf":
+        x[::2] = -math.inf
     seen = torch.rand((b, v), generator=g, device=dev) < 0.01
     codes = torch.randint(0, v, (b, 200), generator=g, device=dev)
     lengths = torch.randint(0, 6, (b,), generator=g, device=dev)
@@ -723,7 +737,8 @@ def sample_bound_ms(b, v, dtype):
 
 def time_sample_step(b, v, setting, label, against_plain):
     """CUDA-event and device times of the kernel and the floor (an empty
-    kernel on the same grid, launched back to back); with
+    kernel on the same grid: its launch-to-launch time back to back, and
+    its device time); with
     ``against_plain``, the times and device launches of its plain version
     and of the parent's decode step too."""
     dev = torch.device("cuda")
@@ -731,8 +746,10 @@ def time_sample_step(b, v, setting, label, against_plain):
     t, top_p, pen, mass = setting
     kw = dict(temperature=t, top_p=top_p, repetition_penalty=pen, typical_mass=mass,
               stop_token=v - 1, force_full=True)
+    cluster, threads = ctypes.c_int(), ctypes.c_int()
+    sampling._library().sample_step_shape(ctypes.byref(cluster), ctypes.byref(threads))
     row = dict(shape=[b, v], setting=label, bound_ms=sample_bound_ms(b, v, torch.float32),
-               bound_by="bytes", library_ms=None)
+               bound_by="bytes", library_ms=None, cluster=cluster.value, threads=threads.value)
     row["ms"] = cuda_ms(lambda: sampling.sample_step(x, seen, codes, lengths, finished, step,
                                                      key, **kw))
     row["device_ms"] = device_ms(lambda: sampling.sample_step(
@@ -754,14 +771,17 @@ def time_sample_step(b, v, setting, label, against_plain):
     end.record()
     end.synchronize()
     row["floor_ms"] = start.elapsed_time(end) / runs
+    row["floor_device_ms"] = device_ms(lambda: sampling._launch(
+        "sample_step_floor", b, stream), only="empty_kernel")
     plain = (f"; plain version ms {row['plain_ms']} device_ms {row['plain_device_ms']} "
              f"launches {row['plain_launches']}; the parent's step (stock launches and the "
              f"threefry_draw kernel) ms {row['chain_ms']} device_ms "
              f"{row['chain_device_ms']} launches {row['chain_launches']}"
              if against_plain else "")
-    print(f"  time sample_step {label} ({b}, {v}) fp32: kernel_ms {row['ms']} device_ms "
-          f"{row['device_ms']}{plain}; bound_ms {row['bound_ms']} (bytes); floor_ms "
-          f"{row['floor_ms']} (an empty kernel on the grid, back to back)", flush=True)
+    print(f"  time sample_step {label} ({b}, {v}) fp32, C {row['cluster']} x {row['threads']} "
+          f"threads: kernel_ms {row['ms']} device_ms {row['device_ms']}{plain}; bound_ms "
+          f"{row['bound_ms']} (bytes); floor_ms {row['floor_ms']} (an empty kernel on the "
+          f"grid, back to back; its device_ms {row['floor_device_ms']})", flush=True)
     return row
 
 
@@ -840,8 +860,9 @@ def phase_sample():
     tally = SampleTally()
     cases = [(b, v, dtype, "random") for b, v in SAMPLE_SHAPES
              for dtype in (torch.bfloat16, torch.float32)]
-    cases += [(8, 8194, torch.float32, c) for c in ("ties", "zeros", "one-finite")]
-    cases += [(16, 1000, torch.bfloat16, c) for c in ("ties", "zeros", "one-finite")]
+    cases += [(8, 8194, torch.float32, c) for c in ("ties", "zeros", "one-finite", "all-inf")]
+    cases += [(16, 1000, torch.bfloat16, c) for c in ("ties", "zeros", "one-finite",
+                                                      "all-inf")]
     seed = 0
     for b, v, dtype, case in cases:
         for label, setting in SAMPLE_SETTINGS.items():
@@ -854,7 +875,9 @@ def phase_sample():
                                             force_full=force_full, stop=v - 1))
     tally.gate("synthetic steps")
     times = [time_sample_step(b, 8194, SAMPLE_SETTINGS[label], label, against_plain=b == 8)
-             for label in ("top-p", "top-p+typical", "off") for b in (1, 2, 8)]
+             for label in ("top-p", "top-p+typical", "off") for b in (1, 2, 8, 16)]
+    times += [time_sample_step(b, v, SAMPLE_SETTINGS["top-p"], "top-p", against_plain=False)
+              for b, v in ((2, 12289), (8, 16386), (1, 65536))]
     return tally, times
 
 

@@ -7,72 +7,131 @@
 // bookkeeping (the stop token for finished rows, ``codes[:, step]``,
 // ``seen[r, tok]``, ``lengths``, ``finished``).
 //
-// One CTA of 1024 threads a row; thread t owns tokens t, t + 1024, ...
-// in every pass, so it reads back only what it wrote, and the threads meet
-// only in the block-wide reductions.  The row's logits are read once from
-// device memory (bf16 or fp32, cast exactly as ``.float()`` does) with its
-// ``seen`` row, penalised and tempered (IEEE division, as the plain version
-// divides), and kept in shared memory; every later pass reads them there:
+// A row is spread over a thread-block cluster of kCluster = 8 CTAs of
+// kThreads threads: CTA c holds the row's tokens [c chunk, (c + 1) chunk),
+// chunk = ceil(V / 8), in its shared memory, 16 B a token (the logit, its
+// key's value bits, its fixed-point mass), at most kCtaVocab tokens: V up to
+// kMaxVocab = 8 x kCtaVocab.  B rows are 8 B CTAs, one wave of an H100's 132
+// SMs up to B = 16; past that the grid wraps.  The CTAs meet through
+// distributed shared memory: each pushes its partials into every CTA's slots
+// and a ``cluster.sync()`` publishes them.  Each CTA arrives at a cluster
+// barrier on entry and waits on it after loading its tokens, before its
+// first push, so no CTA writes into one that has not started.  Thread t of a
+// CTA owns its tokens t, t + kThreads, ... in every pass but the sums.
 //
+// * penalty and temperature, each skipped at 1.0 as the plain version skips
+//   it (IEEE division, as the plain version divides);
 // * typical filtering, when ``mass < 1``: fp32 log-softmax and entropy;
-//   the plain version's stable sort of |-logp - H|, its scan of p in that
-//   order and the threshold at count(cum < mass) (see below); what lies
-//   above the threshold removed;
-// * top-p, when ``top_p < 1``: fp32 softmax; the plain version's stable
-//   ascending sort of the values, its scan and k = min(count(cum <= 1 -
-//   top_p), V - 1) (see below); HF's tie rule: kept where value > the
-//   boundary's, or equal to it at an index at or after the boundary's;
+//   the boundary of the plain version's stable sort of |-logp - H|, scan of
+//   p in that order and count(cum < mass); what lies above it removed;
+// * top-p, when ``top_p < 1``: fp32 softmax; the boundary of the plain
+//   version's stable ascending sort of the values, its scan and k =
+//   min(count(cum <= 1 - top_p), V - 1); HF's tie rule: kept where the
+//   (value, index) key is at or above the boundary's;
 // * a Gumbel for each kept token only, drawn in registers at flat index
 //   offset + r V + j under the step's device key (threefry.cuh: the bits and
 //   transform of ``threefry_draw``), and the argmax of gumbel + x over the
 //   kept tokens, the first index on ties; a removed token is -inf in the
 //   plain version and cannot win, so its draw changes nothing.
 //
-// Neither filter needs the sorted order itself, only the element at which
-// the ascending scan passes its threshold.  Each token gets a 46-bit key,
-// its value's bits made order-preserving (-0.0 made +0.0 first: the two
-// compare equal, and a stable sort orders them by index) above its 14-bit
-// index; every key is distinct, and key order is the stable sort's order.
-// With M(K) the mass of the keys at or below K (a block sum in a fixed
-// order, so monotone in K and the same from run to run), the boundary is
-// the least key K with M(K) past the threshold, found by bisection over the
-// key bits: 46 block sums over the row in shared memory, no sort, no scan.
-// The position of that key in the sorted order is the plain version's
-// count; where the total never passes, the largest key (the clamp to
-// V - 1).  Both filters off: no bisection.  The sums run in another order
-// than PyTorch's sort-then-cumsum, so the kept set can differ from the
-// plain version's only where its cumulative mass at the boundary lies
+// Neither filter needs the sorted order, only the element at which the
+// ascending scan passes its threshold.  A token's key is its value's bits
+// made order-preserving (-0.0 made +0.0 first: the two compare equal, and a
+// stable sort orders them by index), above its index bits for top-p; every
+// key is distinct and key order is the stable sort's order.  The boundary
+// is the least key whose mass at or below it passes the threshold, found by
+// radix select from the top of the key, kRadixBits a pass: a histogram of
+// the mass of the candidates that share the prefix chosen so far (each
+// warp's in shared memory, the warps' and then the CTAs' added in order),
+// a scan of its bins, and the first non-empty bin where the carried mass
+// below it plus the bins up to it passes; where none passes (rounding), the
+// last non-empty bin, which ends at the largest key (the clamp to V - 1).
+// A pass whose bin holds one candidate ends the select; the 32 value bits
+// take at most 4 passes, and top-p's index bits passes more only on a tie
+// at the boundary value.  Masses are summed in fixed point (2^-40 a unit, a
+// count of candidates above), so every sum is exact and the same in any
+// order: the kept set is the same from run to run.  The max, softmax and
+// entropy sums run in one fixed order (each CTA's tokens, then the CTAs in
+// order), so a row's token does not depend on its batch.  They differ in
+// order from PyTorch's sort-then-cumsum, so the kept set can differ from
+// the plain version's only where its cumulative mass at the boundary lies
 // within a few ulp of the threshold; penalty, temperature and the Gumbels
 // are bit-identical (one rounding an operation, no contraction).
 //
 // What bounds it on the H100: neither bytes nor operations.  A (8, 8194)
-// fp32 step reads 328 KB and writes 8 tokens, ~0.1 us at 3.35 TB/s; a
-// launch costs more.  One CTA a row leaves 124 of 132 SMs idle at batch 8,
-// and each of the 46 bisection steps ends in a block-wide sum: the kernel
-// is latency-bound within the CTA.  A row split over a cluster's CTAs
-// (distributed shared memory) would shorten each sum; the point of this
-// design is the launch count.
+// fp32 step reads 328 KB and writes 8 tokens, ~0.1 us at 3.35 TB/s.  It is
+// latency-bound: a filter is a few exchanges (max, sum, each select pass),
+// each a chain of CTA barriers, shared-memory round trips and one cluster
+// barrier.  Radix select cuts a filter's dependent rounds from 46 bisection
+// steps to at most 6 passes, and the cluster puts 8 SMs on a row, so each
+// thread holds a few tokens.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 
 #include "threefry.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kIndexBits = 14;  // a key: 32 value bits above the index
-constexpr int kKeyBits = 32 + kIndexBits;
-// the row's logits, masses and keys in shared memory: 16 B a token, 192 KB
-constexpr int kMaxVocab = 12288;
+constexpr int kRadixBits = 8;
+constexpr int kBins = 1 << kRadixBits;
+static_assert(kBins % 32 == 0 && kBins <= kThreads, "thread b owns bin b, in whole warps");
+constexpr int kCluster = 8;      // CTAs a row
+constexpr int kCtaVocab = 8192;  // tokens a CTA holds
+constexpr int kMaxVocab = kCluster * kCtaVocab;
+// a token's packed histogram entry: a count of one above its mass in fixed
+// point, 2^-40 a unit in the low kMassBits bits (a row's masses sum to < 2)
+constexpr int kMassBits = 41;
+constexpr unsigned long long kMassMask = (1ULL << kMassBits) - 1;
+constexpr unsigned long long kCountOne = 1ULL << kMassBits;
+constexpr float kMassScale = 1099511627776.0f;  // 2^40
+// float exchanges through the cluster: typical's max, sum and entropy,
+// top-p's max and sum
+constexpr int kExchanges = 5;
 
 struct Params {
-  int vocab, code_stride, step, stop;
+  int vocab, code_stride, step, stop, chunk, index_bits;
   bool penalty_on, temperature_on, typical_on, top_p_on, force_full;
-  float penalty, temperature, mass, top_p_thr;
+  float penalty, temperature;
+  // fixed-point thresholds: typical passes at cum >= typical_thr, top-p at
+  // cum > top_p_thr
+  unsigned long long typical_thr, top_p_thr;
   unsigned long long offset;
+};
+
+// Dynamic shared memory: the CTA's tokens, then the select's histograms.
+struct Tokens {
+  float* xs;                   // logits, then -inf where removed [chunk]
+  uint32_t* vkey;              // the filter's key value bits [chunk]
+  unsigned long long* q;       // the filter's packed mass entries [chunk]
+  unsigned long long* recv;    // [2][kCluster][kBins]: the CTAs' histograms, pushed
+  unsigned long long* whist;   // [kWarps][kBins]: each warp's histogram
+};
+
+__host__ __device__ inline int round_up4(int n) { return (n + 3) / 4 * 4; }
+
+__host__ __device__ inline size_t smem_bytes(int chunk, bool filters) {
+  const size_t tokens = 4 * static_cast<size_t>(round_up4(chunk));
+  if (!filters) return tokens;
+  return tokens * 4 + 8 * static_cast<size_t>(2 * kCluster * kBins + kWarps * kBins);
+}
+
+// The CTA's small exchange slots (static shared memory).
+struct Slots {
+  float red[kWarps];                        // block reductions
+  float xf[kExchanges][kCluster];           // the cluster's partials, pushed
+  unsigned long long wscan[kWarps];         // the warps' bin totals
+  unsigned long long bexcl[kBins], bh[kBins];  // each bin's exclusive prefix and sum
+  unsigned wfirst[kWarps], wlast[kWarps];   // each warp's first passing, last non-empty
+  float warp_val[kWarps], cta_val[kCluster];  // each warp's and each CTA's best
+  int warp_idx[kWarps], cta_idx[kCluster];
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -84,102 +143,159 @@ __device__ __forceinline__ uint32_t order_bits(float v) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__device__ __forceinline__ float from_order_bits(uint32_t k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+// A token's histogram entry: a count of one and its mass in fixed point
+// (0 for a mass that is not positive, or NaN).
+__device__ __forceinline__ unsigned long long mass_entry(float p) {
+  return kCountOne | (p > 0.0f ? __float2ull_rn(fminf(p, 1.0f) * kMassScale) : 0ULL);
 }
 
-__device__ __forceinline__ unsigned long long make_key(float v, int j) {
-  return (static_cast<unsigned long long>(order_bits(v)) << kIndexBits) |
-         static_cast<unsigned long long>(j);
-}
-
-__device__ __forceinline__ float key_value(unsigned long long k) {
-  return from_order_bits(static_cast<uint32_t>(k >> kIndexBits));
-}
-
-__device__ __forceinline__ int key_index(unsigned long long k) {
-  return static_cast<int>(k & ((1ULL << kIndexBits) - 1));
-}
-
-// Block reductions of 1024 threads: each warp by shuffles, then warp 0 over
-// the warps' results; every thread returns the result.  ``red`` holds
-// kWarps + 1 values.
-__device__ float block_sum(float v, float* red) {
+__device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = red[lane];
-    for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
-    if (lane == 0) red[kWarps] = v;
-  }
-  __syncthreads();
-  return red[kWarps];
+  return v;
 }
 
-__device__ float block_max(float v, float* red) {
+__device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+  return v;
+}
+
+// The row's max of ``v`` over every thread of the cluster.
+__device__ float row_max(float v, Slots& s, int slot, cg::cluster_group& cluster, int rank) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
+  v = warp_max(v);
+  __syncthreads();  // red is free
+  if (lane == 0) s.red[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = red[lane];
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
-    if (lane == 0) red[kWarps] = v;
+    const float m = warp_max(lane < kWarps ? s.red[lane] : -INFINITY);
+    if (lane < kCluster) *cluster.map_shared_rank(&s.xf[slot][rank], lane) = m;
   }
-  __syncthreads();
-  return red[kWarps];
+  cluster.sync();
+  float m = s.xf[slot][0];
+  for (int c = 1; c < kCluster; ++c) m = fmaxf(m, s.xf[slot][c]);
+  return m;
 }
 
-__device__ unsigned long long block_max_key(const unsigned long long* keys, int n,
-                                           unsigned long long* red) {
-  unsigned long long v = 0;
-  for (int j = threadIdx.x; j < n; j += kThreads) v = max(v, keys[j]);
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+// The row's sum of term(t) over the tokens t of every CTA, in one fixed
+// order: each CTA's (thread i its tokens i, i + kThreads, ..., the warp's
+// butterfly, the butterfly over the warps), then the CTAs in order.
+template <typename F>
+__device__ float row_sum(F term, int n, Slots& s, int slot, cg::cluster_group& cluster,
+                         int rank) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
+  float v = 0.0f;
+  for (int t = threadIdx.x; t < n; t += kThreads) v = __fadd_rn(v, term(t));
+  v = warp_sum(v);
+  __syncthreads();  // red is free
+  if (lane == 0) s.red[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = red[lane];
-    for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
-    if (lane == 0) red[kWarps] = v;
+    v = warp_sum(lane < kWarps ? s.red[lane] : 0.0f);
+    if (lane < kCluster) *cluster.map_shared_rank(&s.xf[slot][rank], lane) = v;
   }
-  __syncthreads();
-  return red[kWarps];
+  cluster.sync();
+  v = s.xf[slot][0];
+  for (int c = 1; c < kCluster; ++c) v = __fadd_rn(v, s.xf[slot][c]);
+  return v;
 }
 
-// M(K): the mass of the keys at or below K, each thread's tokens in index
-// order, then the block's tree; every thread returns it.
-__device__ float mass_at_or_below(const unsigned long long* keys, const float* mass, int n,
-                                  unsigned long long k, float* red) {
-  float s = 0.0f;
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    if (keys[j] <= k) s = __fadd_rn(s, mass[j]);
+// The boundary key of one filter by radix select: on return, the boundary
+// is the one key whose bits above ``shift`` equal ``prefix``.  Top-p's keys
+// are the value bits above ``index_bits`` of the token's index, and pass at
+// cum > thr; typical's are the value bits alone, and pass at cum >= thr.
+// Top-p's candidates are the tokens of positive mass: cum > thr first at
+// one of them, and the largest key (the clamp) is the row's max, of mass
+// 1 / sum.  A row with none (every logit -inf, masses NaN) keeps every
+// token, as the plain version's NaN scan does (prefix 0 above every key).
+template <bool kTopP>
+__device__ void radix_select(const Tokens& tk, int n, int j0, int index_bits,
+                             unsigned long long thr, Slots& s, cg::cluster_group& cluster,
+                             int rank, unsigned long long& prefix_out, int& shift_out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long prefix = 0, carried = 0;  // carried: the mass below the prefix
+  int shift = kTopP ? 32 + index_bits : 32, buf = 0;
+  while (shift > 0) {
+    const int bits = min(kRadixBits, shift);
+    shift -= bits;
+    const unsigned long long digit = (1ULL << bits) - 1;
+    // this warp's histogram of the candidates' masses (integer atomics:
+    // exact in any order)
+    unsigned long long* wh = tk.whist + warp * kBins;
+    for (int t = threadIdx.x; t < n; t += kThreads) {
+      unsigned long long key = tk.vkey[t];
+      if (kTopP) key = (key << index_bits) | static_cast<unsigned>(j0 + t);
+      const unsigned long long q = tk.q[t];
+      if ((key >> (shift + bits)) == prefix && (!kTopP || (q & kMassMask) != 0)) {
+        atomicAdd(wh + ((key >> shift) & digit), q);
+      }
+    }
+    __syncthreads();
+    // the CTA's histogram, the warps in order, pushed into every CTA's slot
+    // (thread b owns bin b)
+    unsigned long long* slot = tk.recv + buf * kCluster * kBins;
+    const int bin = threadIdx.x;
+    unsigned long long h = 0;
+    if (bin < kBins) {
+      unsigned long long part[kWarps];
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) part[w] = tk.whist[w * kBins + bin];
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) tk.whist[w * kBins + bin] = 0;
+      for (int w = 0; w < kWarps; ++w) h += part[w];
+      for (int c = 0; c < kCluster; ++c) *cluster.map_shared_rank(slot + rank * kBins + bin, c) = h;
+    }
+    cluster.sync();
+    // the cluster's histogram, the CTAs in order, and its inclusive scan
+    unsigned long long excl = 0;
+    if (bin < kBins) {
+      unsigned long long part[kCluster];
+#pragma unroll
+      for (int c = 0; c < kCluster; ++c) part[c] = slot[c * kBins + bin];
+      h = 0;
+      for (int c = 0; c < kCluster; ++c) h += part[c];
+      unsigned long long incl = h;
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned long long y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (lane == 31) s.wscan[warp] = incl;
+      excl = incl - h;
+    }
+    __syncthreads();
+    if (bin < kBins) {
+      for (int w = 0; w < warp; ++w) excl += s.wscan[w];
+      s.bexcl[bin] = excl;
+      s.bh[bin] = h;
+      const unsigned long long cum = carried + ((excl + h) & kMassMask);
+      const bool nonempty = (h >> kMassBits) != 0;
+      const unsigned first = nonempty && (kTopP ? cum > thr : cum >= thr) ? bin : kBins;
+      const unsigned last = nonempty ? bin + 1 : 0;  // one past the last non-empty bin
+      const unsigned wf = __reduce_min_sync(0xFFFFFFFFu, first);
+      const unsigned wl = __reduce_max_sync(0xFFFFFFFFu, last);
+      if (lane == 0) {
+        s.wfirst[warp] = wf;
+        s.wlast[warp] = wl;
+      }
+    }
+    __syncthreads();
+    unsigned first = kBins, last = 0;
+    for (int w = 0; w < kBins / 32; ++w) {
+      first = min(first, s.wfirst[w]);
+      last = max(last, s.wlast[w]);
+    }
+    if (last == 0) {  // no candidate: every token kept
+      prefix = 0;
+      shift += bits;
+      break;
+    }
+    const unsigned b = first < kBins ? first : last - 1;
+    carried += s.bexcl[b] & kMassMask;
+    prefix = (prefix << bits) | b;
+    buf ^= 1;
+    if ((s.bh[b] >> kMassBits) == 1) break;  // one candidate left: the boundary
   }
-  return block_sum(s, red);
-}
-
-// The key at which the ascending scan of ``mass`` in key order first
-// passes ``thr`` (cum >= thr when kAtLeast, else cum > thr): the least K
-// with M(K) past it, by bisection over the key bits.  Its position in key
-// order is count(cum < thr) (count(cum <= thr)); where M never passes, the
-// largest key.
-template <bool kAtLeast>
-__device__ unsigned long long boundary_key(const unsigned long long* keys, const float* mass,
-                                           int n, float thr, float* red,
-                                           unsigned long long* redk) {
-  auto passes = [&](float m) { return kAtLeast ? m >= thr : m > thr; };
-  const unsigned long long top = (1ULL << kKeyBits) - 1;
-  if (!passes(mass_at_or_below(keys, mass, n, top, red))) return block_max_key(keys, n, redk);
-  unsigned long long r = 0;  // the least key lies in [r, r + 2^(b + 1) - 1]
-  for (int b = kKeyBits - 1; b >= 0; --b) {
-    if (!passes(mass_at_or_below(keys, mass, n, r + ((1ULL << b) - 1), red))) r += 1ULL << b;
-  }
-  return r;
+  prefix_out = prefix;
+  shift_out = shift;
 }
 
 // log p of a logit x under the row's max m and log-sum log_s, as
@@ -194,80 +310,91 @@ __device__ __forceinline__ float typical_distance(float x, float m, float log_s,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 2)
     sample_step_kernel(const T* __restrict__ logits, uint8_t* __restrict__ seen,
                        long long* __restrict__ codes, long long* __restrict__ lengths,
                        uint8_t* __restrict__ finished, long long* __restrict__ tok_out,
                        const uint32_t* __restrict__ key, const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[kWarps + 1];
-  __shared__ unsigned long long redk[kWarps + 1];
-  __shared__ float best_val[kWarps];
-  __shared__ int best_idx[kWarps];
-  const int V = p.vocab, r = blockIdx.x;
-  const int row_bytes = ((4 * V + 15) / 16) * 16;
-  float* xs = reinterpret_cast<float*>(smem);  // the row's logits, then -inf where removed
-  float* mass = reinterpret_cast<float*>(smem + row_bytes);  // each token's probability
-  auto* keys = reinterpret_cast<unsigned long long*>(smem + 2 * row_bytes);
+  __shared__ Slots s;
+  // no CTA may write into another's shared memory before both have started:
+  // arrive here, wait once this CTA's tokens are loaded
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int V = p.vocab;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int r = blockIdx.x / kCluster;
+  const int j0 = rank * p.chunk;            // this CTA's first token
+  const int n = max(0, min(p.chunk, V - j0));  // and its count
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Tokens tk;
+  tk.xs = reinterpret_cast<float*>(smem);
+  tk.vkey = reinterpret_cast<uint32_t*>(tk.xs + round_up4(p.chunk));
+  tk.q = reinterpret_cast<unsigned long long*>(tk.vkey + round_up4(p.chunk));
+  tk.recv = tk.q + round_up4(p.chunk);
+  tk.whist = tk.recv + 2 * kCluster * kBins;
   const T* row = logits + static_cast<long long>(r) * V;
   uint8_t* seen_row = seen + static_cast<long long>(r) * V;
 
   // penalty and temperature, each skipped at 1.0 as the plain version skips it
-  for (int j = threadIdx.x; j < V; j += kThreads) {
+  for (int t = threadIdx.x; t < n; t += kThreads) {
+    const int j = j0 + t;
     float x = to_float(row[j]);
     if (p.penalty_on && seen_row[j]) {
       x = x > 0.0f ? __fdiv_rn(x, p.penalty) : __fmul_rn(x, p.penalty);
     }
     if (p.temperature_on) x = __fdiv_rn(x, p.temperature);
-    xs[j] = x;
+    tk.xs[t] = x;
   }
-  __syncthreads();
+  if (p.typical_on || p.top_p_on) {
+    for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) tk.whist[i] = 0;
+  }
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");  // every CTA has started
 
+  int slot = 0;
+  unsigned long long prefix;
+  int shift;
   if (p.typical_on) {
     float m = -INFINITY;
-    for (int j = threadIdx.x; j < V; j += kThreads) m = fmaxf(m, xs[j]);
-    m = block_max(m, red);
-    float s = 0.0f;
-    for (int j = threadIdx.x; j < V; j += kThreads) s = __fadd_rn(s, expf(__fsub_rn(xs[j], m)));
-    const float log_s = logf(block_sum(s, red));
-    float plogp = 0.0f;
-    for (int j = threadIdx.x; j < V; j += kThreads) {
-      const float lp = log_prob(xs[j], m, log_s), pj = expf(lp);
-      if (pj > 0.0f) plogp = __fadd_rn(plogp, __fmul_rn(pj, lp));
-      mass[j] = pj;
+    for (int t = threadIdx.x; t < n; t += kThreads) m = fmaxf(m, tk.xs[t]);
+    m = row_max(m, s, slot++, cluster, rank);
+    const float* xs = tk.xs;
+    const float log_s = logf(row_sum(
+        [&](int t) { return expf(__fsub_rn(xs[t], m)); }, n, s, slot++, cluster, rank));
+    const float h = -row_sum(  // the entropy
+        [&](int t) {
+          const float lp = log_prob(xs[t], m, log_s), pj = expf(lp);
+          return pj > 0.0f ? __fmul_rn(pj, lp) : 0.0f;
+        },
+        n, s, slot++, cluster, rank);
+    for (int t = threadIdx.x; t < n; t += kThreads) {
+      tk.q[t] = mass_entry(expf(log_prob(tk.xs[t], m, log_s)));
+      tk.vkey[t] = order_bits(typical_distance(tk.xs[t], m, log_s, h));
     }
-    const float h = -block_sum(plogp, red);  // the entropy
-    for (int j = threadIdx.x; j < V; j += kThreads) {
-      keys[j] = make_key(typical_distance(xs[j], m, log_s, h), j);
+    radix_select<false>(tk, n, j0, 0, p.typical_thr, s, cluster, rank, prefix, shift);
+    for (int t = threadIdx.x; t < n; t += kThreads) {
+      if ((tk.vkey[t] >> shift) > prefix) tk.xs[t] = -INFINITY;
     }
-    __syncthreads();
-    const float thresh = key_value(boundary_key<true>(keys, mass, V, p.mass, red, redk));
-    for (int j = threadIdx.x; j < V; j += kThreads) {
-      if (key_value(keys[j]) > thresh) xs[j] = -INFINITY;
-    }
-    __syncthreads();
   }
 
   if (p.top_p_on) {
     float m = -INFINITY;
-    for (int j = threadIdx.x; j < V; j += kThreads) m = fmaxf(m, xs[j]);
-    m = block_max(m, red);
-    float s = 0.0f;
-    for (int j = threadIdx.x; j < V; j += kThreads) s = __fadd_rn(s, expf(__fsub_rn(xs[j], m)));
-    s = block_sum(s, red);
-    for (int j = threadIdx.x; j < V; j += kThreads) {
-      mass[j] = __fdiv_rn(expf(__fsub_rn(xs[j], m)), s);
-      keys[j] = make_key(xs[j], j);
+    for (int t = threadIdx.x; t < n; t += kThreads) m = fmaxf(m, tk.xs[t]);
+    m = row_max(m, s, slot++, cluster, rank);
+    const float* xs = tk.xs;
+    const float sum = row_sum([&](int t) { return expf(__fsub_rn(xs[t], m)); }, n, s, slot++,
+                              cluster, rank);
+    for (int t = threadIdx.x; t < n; t += kThreads) {
+      tk.q[t] = mass_entry(__fdiv_rn(expf(__fsub_rn(tk.xs[t], m)), sum));
+      tk.vkey[t] = order_bits(tk.xs[t]);
     }
-    __syncthreads();
-    const unsigned long long k = boundary_key<false>(keys, mass, V, p.top_p_thr, red, redk);
-    const float bv = key_value(k);
-    const int bi = key_index(k);
-    for (int j = threadIdx.x; j < V; j += kThreads) {
-      const float x = xs[j];
-      if (x < bv || (x == bv && j < bi)) xs[j] = -INFINITY;
+    radix_select<true>(tk, n, j0, p.index_bits, p.top_p_thr, s, cluster, rank, prefix, shift);
+    for (int t = threadIdx.x; t < n; t += kThreads) {
+      const unsigned long long k =
+          (static_cast<unsigned long long>(tk.vkey[t]) << p.index_bits) |
+          static_cast<unsigned>(j0 + t);
+      if ((k >> shift) < prefix) tk.xs[t] = -INFINITY;
     }
-    __syncthreads();
   }
 
   // the Gumbels of the kept tokens and the argmax, the first index on ties
@@ -275,9 +402,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const unsigned long long base = p.offset + static_cast<unsigned long long>(r) * V;
   float best = -INFINITY;
   int arg = V;  // none yet
-  for (int j = threadIdx.x; j < V; j += kThreads) {
-    const float x = xs[j];
+  for (int t = threadIdx.x; t < n; t += kThreads) {
+    const float x = tk.xs[t];
     if (x == -INFINITY) continue;  // removed, or -inf: wins only if all are
+    const int j = j0 + t;
     const float v = __fadd_rn(threefry::gumbel(threefry::random_bits(k0, k1, base + j)), x);
     if (v > best || (v == best && j < arg)) {
       best = v;
@@ -292,17 +420,35 @@ __global__ void __launch_bounds__(kThreads, 1)
       arg = oi;
     }
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
-    best_val[warp] = best;
-    best_idx[warp] = arg;
+    s.warp_val[warp] = best;
+    s.warp_idx[warp] = arg;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kWarps; ++w) {
-      if (best_val[w] > best || (best_val[w] == best && best_idx[w] < arg)) {
-        best = best_val[w];
-        arg = best_idx[w];
+  if (warp == 0) {  // the warps' bests, pushed into CTA 0
+    best = lane < kWarps ? s.warp_val[lane] : -INFINITY;
+    arg = lane < kWarps ? s.warp_idx[lane] : V;
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xFFFFFFFFu, best, o);
+      const int oi = __shfl_xor_sync(0xFFFFFFFFu, arg, o);
+      if (ov > best || (ov == best && oi < arg)) {
+        best = ov;
+        arg = oi;
+      }
+    }
+    if (lane == 0) {
+      *cluster.map_shared_rank(&s.cta_val[rank], 0) = best;
+      *cluster.map_shared_rank(&s.cta_idx[rank], 0) = arg;
+    }
+  }
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {  // the CTAs in order
+    best = s.cta_val[0];
+    arg = s.cta_idx[0];
+    for (int c = 1; c < kCluster; ++c) {
+      if (s.cta_val[c] > best || (s.cta_val[c] == best && s.cta_idx[c] < arg)) {
+        best = s.cta_val[c];
+        arg = s.cta_idx[c];
       }
     }
     if (arg == V) arg = 0;  // every value -inf: torch.argmax's first index
@@ -319,35 +465,72 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 __global__ void empty_kernel() {}
 
+// A fixed-point threshold: cum >= thr (at_least) or cum > thr on sums of
+// mass_entry's masses, as the float comparison with ``thr`` decides them.
+unsigned long long fixed_threshold(float thr, bool at_least) {
+  if (!(thr > 0.0f)) return 0;  // at_least: every cum passes
+  const double x = std::fmin(static_cast<double>(thr) * 1099511627776.0, 4.0e15);
+  return static_cast<unsigned long long>(at_least ? std::ceil(x) : std::floor(x));
+}
+
+cudaLaunchConfig_t cluster_config(int batch, size_t bytes, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 template <typename T>
 int launch(const void* logits, const Params& p, int batch, void* seen, void* codes,
            void* lengths, void* finished, void* tok, const void* key, cudaStream_t stream) {
+  // once: the shared memory of the largest row, and a check that a cluster
+  // of that size can be scheduled (then so can every smaller one)
   static bool configured = false;
-  const int row_bytes = ((4 * p.vocab + 15) / 16) * 16;
-  const int bytes = p.typical_on || p.top_p_on ? 2 * row_bytes + 8 * p.vocab : row_bytes;
+  const auto kernel = sample_step_kernel<T>;
+  cudaLaunchAttribute attr;
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sample_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, 16 * kMaxVocab);
+    const size_t most = smem_bytes(kCtaVocab, true);
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(most));
     if (e != cudaSuccess) return static_cast<int>(e);
+    cudaLaunchConfig_t cfg = cluster_config(1, most, stream, &attr);
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
     configured = true;
   }
-  sample_step_kernel<T><<<batch, kThreads, bytes, stream>>>(
-      static_cast<const T*>(logits), static_cast<uint8_t*>(seen),
+  cudaLaunchConfig_t cfg = cluster_config(batch, smem_bytes(p.chunk, p.typical_on || p.top_p_on),
+                                          stream, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(logits), static_cast<uint8_t*>(seen),
       static_cast<long long*>(codes), static_cast<long long*>(lengths),
       static_cast<uint8_t*>(finished), static_cast<long long*>(tok),
       static_cast<const uint32_t*>(key), p);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // One decode step of ``batch`` rows of ``vocab`` logits (``dtype`` 0 bf16,
-// 1 fp32; every pointer to contiguous device memory): writes the (B,) int64
-// tokens to ``tok`` and updates ``seen`` (B, vocab) bool, ``codes`` (B,
-// code_stride) int64 at column ``step``, ``lengths`` (B,) int64 and
-// ``finished`` (B,) bool in place.  ``key`` is the step's int32 (2,) device
-// key; row r draws at flat indices offset + r * vocab + j.  ``top_p_thr`` is
-// float32(1 - top_p).  Returns a CUDA error code (0: launched).
+// 1 fp32; every pointer to contiguous device memory; vocab at most
+// kMaxVocab = 65536), each row over a cluster of 8 CTAs: writes the (B,)
+// int64 tokens to ``tok`` and updates ``seen`` (B, vocab) bool, ``codes``
+// (B, code_stride) int64 at column ``step``, ``lengths`` (B,) int64 and
+// ``finished`` (B,) bool in place.  ``key`` is the step's int32 (2,) device key; row r draws
+// at flat indices offset + r * vocab + j.  ``mass`` is float32(typical
+// mass), ``top_p_thr`` float32(1 - top_p).  Returns a CUDA error code (0:
+// launched); a cluster that cannot be scheduled is refused.
 extern "C" int sample_step(const void* logits, int dtype, void* seen, void* codes,
                            void* lengths, void* finished, void* tok, const void* key,
                            int batch, int vocab, int code_stride, int step, int penalty_on,
@@ -365,6 +548,8 @@ extern "C" int sample_step(const void* logits, int dtype, void* seen, void* code
   p.code_stride = code_stride;
   p.step = step;
   p.stop = stop;
+  p.chunk = (vocab + kCluster - 1) / kCluster;
+  p.index_bits = vocab > 1 ? 32 - __builtin_clz(static_cast<unsigned>(vocab - 1)) : 0;
   p.penalty_on = penalty_on != 0;
   p.temperature_on = temperature_on != 0;
   p.typical_on = typical_on != 0;
@@ -372,8 +557,8 @@ extern "C" int sample_step(const void* logits, int dtype, void* seen, void* code
   p.force_full = force_full != 0;
   p.penalty = penalty;
   p.temperature = temperature;
-  p.mass = mass;
-  p.top_p_thr = top_p_thr;
+  p.typical_thr = fixed_threshold(mass, true);
+  p.top_p_thr = fixed_threshold(top_p_thr, false);
   p.offset = offset;
   const auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -386,12 +571,21 @@ extern "C" int sample_step(const void* logits, int dtype, void* seen, void* code
   }
 }
 
-// An empty kernel on the sample step's grid (``batch`` CTAs of 1024
-// threads): its launch-to-launch time is the floor a launch of the step
-// meets.
+// The launch's shape: the CTAs a row and the threads a CTA.
+extern "C" int sample_step_shape(int* cluster, int* threads) {
+  *cluster = kCluster;
+  *threads = kThreads;
+  return 0;
+}
+
+// An empty kernel on the sample step's grid (``batch`` clusters of 8 CTAs of
+// kThreads threads): its launch-to-launch time is the floor a launch of the
+// step meets.
 extern "C" int sample_step_floor(int batch, void* stream) {
-  empty_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(batch, 0, static_cast<cudaStream_t>(stream), &attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, empty_kernel);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 extern "C" const char* sample_error_string(int code) {

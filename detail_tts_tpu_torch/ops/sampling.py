@@ -14,8 +14,10 @@ a CUDA device it is one launch of kernel ``sample_step``
 ``build/kernels/`` and loaded with ctypes, as the other kernels are), which
 draws the Gumbels of the kept tokens in registers from the step's device
 key, counted in :data:`LAUNCHES`; on the CPU it is the plain version
-:func:`sample_step_reference`.  There is no other route: a failed build or
-launch raises.
+:func:`sample_step_reference`.  The kernel spreads a row over a cluster of
+8 CTAs, so it takes any vocabulary up to :data:`MAX_VOCAB`.  There is no
+other route: a failed build or launch, or a cluster the card cannot
+schedule, raises.
 """
 from __future__ import annotations
 
@@ -28,9 +30,10 @@ import torch
 from detail_tts_tpu_torch.ops import attention, prng
 
 SOURCE = attention.CSRC / "sample.cu"
-# the kernel holds a row's logits, probabilities and 46-bit keys (14 index
-# bits) in shared memory, 16 bytes a token
-MAX_VOCAB = 12288
+# The kernel spreads a row over 8 CTAs of at most 8192 tokens each (16 bytes
+# a token in shared memory; ``kMaxVocab`` in csrc/sample.cu, which refuses
+# more).
+MAX_VOCAB = 65536
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 # kernel launches, by kernel (never the plain path)
@@ -172,6 +175,7 @@ _P, _I, _F, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint6
 _SIGNATURES = {"sample_step": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                _F, _I, _F, _I, _F, _I, _I, _U64, _P],
                "sample_step_floor": [_I, _P],
+               "sample_step_shape": [_P, _P],
                "sample_error_string": [_I]}
 _lib = None
 
@@ -207,8 +211,8 @@ def sample_step(logits: torch.Tensor, seen: torch.Tensor, codes: torch.Tensor,
     a data rank's ``prng.row_offset``), with the stop token where
     ``finished``.  In place: ``codes[:, step]``, ``seen[r, tok]``,
     ``lengths`` (+1 where not finished) and, unless ``force_full``,
-    ``finished`` (| tok == stop).  Kernel ``sample_step`` on CUDA, the plain
-    version on the CPU."""
+    ``finished`` (| tok == stop).  Kernel ``sample_step`` on CUDA, each row
+    over a cluster of 8 CTAs; the plain version on the CPU."""
     _check_step(logits, seen, codes, lengths, finished, step, key, stop_token)
     kw = dict(temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty,
               typical_mass=typical_mass, stop_token=stop_token, force_full=force_full,

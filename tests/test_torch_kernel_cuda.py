@@ -620,6 +620,8 @@ def _sample_inputs(b, v, dtype, seed, case, device):
     elif case == "one-finite":
         keep = torch.randint(0, v, (b,), generator=g, device=device)
         x = torch.where(torch.arange(v, device=device) == keep[:, None], x, -math.inf)
+    elif case == "all-inf":  # every other row
+        x[::2] = -math.inf
     seen = torch.rand((b, v), generator=g, device=device) < 0.01
     codes = torch.randint(0, v, (b, 50), generator=g, device=device)
     lengths = torch.randint(0, 6, (b,), generator=g, device=device)
@@ -655,6 +657,56 @@ def test_sample_step_kernel_matches_plain_version(cuda, b, v, case):
             assert (margin[~same] < SAMPLE_NEAR).all(), (setting, dtype, tok, ref)
         for ours, theirs in zip(mine, plain):
             assert torch.equal(ours[same], theirs[same])
+
+
+# past what one CTA held (12288 tokens) up to MAX_VOCAB, and batches that
+# fill one wave of an H100's 132 SMs with 8-CTA clusters (B = 16) and wrap it
+WIDE_SHAPES = [(1, 16386), (8, 16386), (2, 12289), (2, 65536), (16, 8194), (40, 8194)]
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "one-finite", "all-inf"])
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=lambda s: f"B{s[0]}-V{s[1]}")
+def test_sample_step_kernel_matches_plain_version_at_wide_shapes(cuda, shape, case):
+    """Tokens equal to the plain version's (but in rows at the boundary),
+    the state bit-identical where they are, and a repeated launch
+    bit-identical."""
+    b, v = shape
+    keys = prng.decode_keys(b + v, 8, cuda)
+    for i, (setting, dtype) in enumerate(itertools.product(
+            SAMPLE_SETTINGS, (torch.bfloat16, torch.float32))):
+        x, seen, codes, lengths, finished = _sample_inputs(b, v, dtype, 100 + i, case, cuda)
+        t, top_p, penalty, mass = setting
+        kw = dict(temperature=t, top_p=top_p, repetition_penalty=penalty, typical_mass=mass,
+                  stop_token=v - 1, force_full=False, offset=3 * v)
+        mine = [s.clone() for s in (seen, codes, lengths, finished)]
+        again = [s.clone() for s in (seen, codes, lengths, finished)]
+        plain = [s.clone() for s in (seen, codes, lengths, finished)]
+        tok = sampling.sample_step(x, *mine, 7, keys[i % 8], **kw)
+        tok2 = sampling.sample_step(x, *again, 7, keys[i % 8], **kw)
+        ref = sampling.sample_step_reference(x, *plain, 7, keys[i % 8], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(tok, tok2) and all(map(torch.equal, mine, again))
+        same = tok == ref
+        if not same.all():
+            margin = _boundary_margin(x, seen, t, top_p, penalty, mass)
+            assert (margin[~same] < SAMPLE_NEAR).all(), (setting, dtype, tok, ref)
+        for ours, theirs in zip(mine, plain):
+            assert torch.equal(ours[same], theirs[same])
+
+
+def test_sample_step_kernel_refuses_a_row_past_max_vocab(cuda, monkeypatch):
+    """A row the kernel's cluster cannot hold is refused by the kernel's own
+    entry, and the wrapper raises: nothing falls back."""
+    v = sampling.MAX_VOCAB + 1
+    x, seen, codes, lengths, finished = _sample_inputs(1, v, torch.float32, 0, "random", cuda)
+    monkeypatch.setattr(sampling, "MAX_VOCAB", 2 * v)  # past the wrapper's check
+    before = sampling.LAUNCHES["sample_step"]
+    with pytest.raises(RuntimeError, match="sample_step failed"):
+        sampling.sample_step(x, seen, codes, lengths, finished, 0,
+                             prng.decode_keys(0, 1, cuda)[0], temperature=0.8, top_p=0.8,
+                             repetition_penalty=2.0, typical_mass=1.0, stop_token=99,
+                             force_full=False)
+    assert sampling.LAUNCHES["sample_step"] == before
 
 
 def test_sample_step_wrapper_raises_on_what_the_kernel_does_not_take(cuda):

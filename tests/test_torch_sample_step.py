@@ -9,6 +9,7 @@ Tokens, codes, seen, lengths and finished are required equal.  The kernel
 (``csrc/sample.cu``) is held against this plain version on the card by
 ``tests/test_torch_kernel_cuda.py`` and ``chip_smoke.py`` phase 3c.
 """
+import dataclasses
 import itertools
 
 import jax
@@ -24,7 +25,7 @@ from detail_tts_tpu.ops import sampling as jsamp
 from detail_tts_tpu_torch.models.gpt import SamplingConfig, generate_speech_tokens
 from detail_tts_tpu_torch.ops import prng
 from detail_tts_tpu_torch.ops import sampling as tsamp
-from tests.torch_parity import synth_pair, t
+from tests.torch_parity import seeded_variables, synth_pair, t
 
 B, V, N, STEP = 4, 257, 12, 3
 STOP = V - 1
@@ -33,20 +34,20 @@ SETTINGS = list(itertools.product((1.0, 2.0), (1.0, 0.8), (1.0, 0.8), (1.0, 0.9)
 CASES = ("random", "finished", "force_full", "offset", "ties", "zeros")
 
 
-def _inputs(case, seed):
+def _inputs(case, seed, v=V):
     """Logits ~ 2 N(0, 1) (``ties``: rounded to integers, so the top-p
     boundary falls in a group of equal values; ``zeros``: a -0.0 / +0.0 pair
     in every row), seen ~10% plus the fake prefix, mid-request state."""
     rng = np.random.default_rng(seed)
-    x = (rng.normal(size=(B, V)) * 2.0).astype(np.float32)
+    x = (rng.normal(size=(B, v)) * 2.0).astype(np.float32)
     if case == "ties":
         x = np.round(x)
     elif case == "zeros":
         x[:, 3], x[:, 7] = -0.0, 0.0
-    seen = rng.random((B, V)) < 0.1
+    seen = rng.random((B, v)) < 0.1
     seen[:, 1] = True
-    codes = np.full((B, N), STOP, np.int64)
-    codes[:, :STEP] = rng.integers(0, STOP, size=(B, STEP))
+    codes = np.full((B, N), v - 1, np.int64)
+    codes[:, :STEP] = rng.integers(0, v - 1, size=(B, STEP))
     lengths = np.full(B, STEP, np.int64)
     finished = np.zeros(B, bool)
     if case == "finished":
@@ -55,7 +56,7 @@ def _inputs(case, seed):
     return x, seen, codes, lengths, finished
 
 
-def _jax_step(key, x, seen, codes, lengths, finished, setting, force_full):
+def _jax_step(key, x, seen, codes, lengths, finished, setting, force_full, stop=STOP):
     """``sample_token`` then ``body_fn``'s bookkeeping, as the JAX decode
     loop writes them."""
     penalty, temperature, top_p, mass = setting
@@ -63,11 +64,11 @@ def _jax_step(key, x, seen, codes, lengths, finished, setting, force_full):
                              temperature=temperature, top_p=top_p,
                              repetition_penalty=penalty, typical_mass=mass)
     finished = jnp.asarray(finished)
-    tok = jnp.where(finished, STOP, tok)
+    tok = jnp.where(finished, stop, tok)
     codes = jax.lax.dynamic_update_slice(jnp.asarray(codes, jnp.int32), tok[:, None],
                                          (0, STEP))
     seen = jnp.asarray(seen).at[jnp.arange(x.shape[0]), tok].set(True)
-    now_finished = finished if force_full else finished | (tok == STOP)
+    now_finished = finished if force_full else finished | (tok == stop)
     lengths = jnp.where(finished, lengths, lengths + 1)
     return [np.asarray(a) for a in (tok, codes, seen, lengths, now_finished)]
 
@@ -102,6 +103,50 @@ def test_plain_step_matches_jax_body(setting, case):
                                (tok, codes_t, seen_t, lengths_t, finished_t), want):
         assert ours.dtype in (torch.int64, torch.bool), name
         np.testing.assert_array_equal(ours.numpy(), ref[rows], err_msg=name)
+
+
+# vocabularies past what one CTA of the kernel held: one more than 12288, a
+# 16384-entry codebook's mel codes, and the most the kernel takes
+WIDE = (12289, 16386, 65536)
+
+
+@pytest.mark.parametrize("v", WIDE)
+@pytest.mark.parametrize("setting", SETTINGS, ids=lambda s: "p%g-t%g-top%g-typ%g" % s)
+def test_plain_step_matches_jax_body_at_wide_vocabularies(setting, v):
+    """``sample_step`` takes every vocabulary JAX's ``sample_token`` takes:
+    tokens and the step's state equal at V past 12288, up to ``MAX_VOCAB``."""
+    seed = 1000 + SETTINGS.index(setting) + v
+    x, seen, codes, lengths, finished = _inputs("finished", seed, v)
+    jkey, key = _keys(seed)
+    want = _jax_step(jkey, x, seen, codes, lengths, finished, setting, False, stop=v - 1)
+    state = [torch.from_numpy(a.copy()) for a in (seen, codes, lengths, finished)]
+    penalty, temperature, top_p, mass = setting
+    tok = tsamp.sample_step(torch.from_numpy(x), *state, STEP, key, temperature=temperature,
+                            top_p=top_p, repetition_penalty=penalty, typical_mass=mass,
+                            stop_token=v - 1, force_full=False)
+    seen_t, codes_t, lengths_t, finished_t = state
+    for name, ours, ref in zip(("tokens", "codes", "seen", "lengths", "finished"),
+                               (tok, codes_t, seen_t, lengths_t, finished_t), want):
+        np.testing.assert_array_equal(ours.numpy(), ref, err_msg=name)
+
+
+def test_sample_step_takes_every_vocabulary_up_to_max_vocab():
+    """``MAX_VOCAB`` (eight CTAs of 8192 tokens) is taken; one more is
+    refused, on every device."""
+    key = prng.decode_keys(2, 1)[0]
+    kw = dict(temperature=0.8, top_p=0.8, repetition_penalty=2.0, typical_mass=0.9,
+              force_full=False)
+    state = (torch.zeros((1, 2), dtype=torch.long), torch.zeros(1, dtype=torch.long),
+             torch.zeros(1, dtype=torch.bool))
+    assert tsamp.MAX_VOCAB == 65536
+    for v, ok in ((tsamp.MAX_VOCAB, True), (tsamp.MAX_VOCAB + 1, False)):
+        x = torch.zeros((1, v))
+        args = (x, torch.zeros_like(x, dtype=torch.bool), *state, 0, key)
+        if ok:
+            assert tsamp.sample_step(*args, stop_token=v - 1, **kw).shape == (1,)
+        else:
+            with pytest.raises(ValueError, match="outside"):
+                tsamp.sample_step(*args, stop_token=0, **kw)
 
 
 def test_plain_step_breaks_ties_at_the_top_p_boundary_by_index():
@@ -176,5 +221,49 @@ def test_decode_loop_matches_jax_with_every_filter_on(seed):
     codes, lengths = generate_speech_tokens(
         port.gpt, t(cond), t(clen, torch.long), t(text, torch.long), SamplingConfig(**kw),
         key=seed, cache_dtype=torch.float32)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    np.testing.assert_array_equal(lengths.numpy(), np.asarray(jlengths))
+
+
+def _wide_gpt_pair(vocab):
+    """(JAX GPT config, its seeded variables, the port's GPT) with ``vocab``
+    mel codes (start and stop the last two), on ``synth_pair``'s small
+    widths."""
+    from detail_tts_tpu.config import small_test_config as jax_small_config
+    from detail_tts_tpu.serving.pipeline import variables_template
+    from detail_tts_tpu_torch.config import small_test_config
+    from detail_tts_tpu_torch.io.weights import from_jax_variables
+    from detail_tts_tpu_torch.models.synthesizer import SynthesizerTrn
+
+    mel = dict(number_mel_codes=vocab, start_mel_token=vocab - 2, stop_mel_token=vocab - 1)
+    jcfg, pcfg = jax_small_config(), small_test_config()
+    jcfg = dataclasses.replace(jcfg, gpt=dataclasses.replace(jcfg.gpt, **mel))
+    pcfg = dataclasses.replace(pcfg, gpt=dataclasses.replace(pcfg.gpt, **mel))
+    np_vars = seeded_variables(variables_template(jcfg), 0)
+    port = SynthesizerTrn(pcfg)
+    state, _ = from_jax_variables(port, np_vars, jcfg.diffusion.num_layers)
+    port.load_state_dict(state)
+    port.eval().requires_grad_(False)
+    return jcfg.gpt, jax.tree_util.tree_map(jnp.asarray, np_vars["params"]["gpt"]), port.gpt
+
+
+def test_decode_loop_matches_jax_with_every_filter_on_at_vocabulary_16386():
+    """The decode loop's twin at a 16384-entry codebook's V = 16386 mel
+    codes: the port's codes and lengths equal JAX's ``generate_speech_tokens``."""
+    gcfg, params, gpt = _wide_gpt_pair(16386)
+    rng = np.random.default_rng(5)
+    cond = rng.normal(size=(2, 24, 128)).astype(np.float32)
+    clen = np.array([24, 17], np.int32)
+    text = rng.integers(3, 200, size=(2, 9)).astype(np.int32)
+    kw = dict(temperature=0.8, top_p=0.8, repetition_penalty=2.0, typical_mass=0.9,
+              max_generate_length=10)
+    jcodes, jlengths = jax_generate(
+        UnifiedVoice(gcfg), {"params": params}, jax.random.PRNGKey(5), jnp.asarray(cond),
+        jnp.asarray(clen), jnp.asarray(text), sampling=JaxSampling(**kw),
+        cache_dtype=jnp.float32)
+    codes, lengths = generate_speech_tokens(
+        gpt, t(cond), t(clen, torch.long), t(text, torch.long), SamplingConfig(**kw), key=5,
+        cache_dtype=torch.float32)
+    assert int(np.asarray(jcodes).max()) > 12288  # a code only the wide vocabulary has
     np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
     np.testing.assert_array_equal(lengths.numpy(), np.asarray(jlengths))
