@@ -33,8 +33,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    temperature, typical and top-p filters, Gumbels, argmax and bookkeeping
    in one kernel, a row over a cluster of 8 CTAs) against
    ``sample_step_reference`` at (B, V) = (1, 2, 8, 16) x 8194, (1, 8) x
-   8193, (2, 16) x 1000 and the wide vocabularies (1, 8) x 16386, (2,
-   12289) and (1, 65536), bf16 and fp32 logits,
+   8193, (2, 16) x 1000, the wide vocabularies (1, 8) x 16386, (2,
+   12289) and (1, 65536), and past the shared-memory path
+   (``WIDE_SAMPLE_SHAPES``: (1, 65537), (2, 131073), (1, 1048579) and
+   (1, 8388609), past the shared path's 23-bit count), bf16 and fp32 logits,
    under ``SAMPLE_SETTINGS`` (top-p, top-p and typical, typical, both off),
    with and without force_full and a data rank's offset, on random logits,
    logits tied at the top-p boundary, a -0.0 / +0.0 pair, rows with one
@@ -43,8 +45,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    those rows under ``SAMPLE_FLIPS`` of all, codes, seen, lengths and
    finished bit-identical where the tokens agree, and a repeated launch
    bit-identical; CUDA-event and device times at (1, 2, 8, 16) x 8194
-   under top-p, top-p and typical, and both off, and at (2, 12289), (8,
-   16386) and (1, 65536) under top-p, with C and the threads a CTA,
+   under top-p, top-p and typical, and both off, at (2, 12289), (8,
+   16386) and (1, 65536) under top-p, and at ``WIDE_SAMPLE_SHAPES`` under
+   the three (the plain version beside top-p), with C and the threads a CTA,
    beside the bound (bytes), the floor (an empty kernel on the same grid:
    launch to launch, and its device time), the plain version's and the
    parent's decode step (stock launches around a ``threefry_draw``), each
@@ -183,7 +186,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    early stop waits for every rank) and ``threefry_draw`` only in the
    tails; every decode on the
    engine's card (rank 0's on the server's dispatch thread); both
-   processes exit 0.
+   processes exit 0;
+11. the worked examples at the full width of ``Config()``, each a
+   subprocess on the card (``python3 chip_smoke.py --example SCRIPT
+   ARGS...`` runs one with its launches counted): three seeded recordings
+   of speech-like noise through ``examples/lifecycle_demo_torch.py``
+   (VAD, transcripts, a 2-step ``vqvae`` stage and a ``gpt`` stage grown
+   from its checkpoint at batch 2, the full diffusion path from the
+   ``gpt`` checkpoint at default buckets), ``prepare_demo_torch.py`` with
+   that checkpoint, and ``demo_torch.py`` with it and a prepared clip as
+   the prompt: every exit code 0 and phase line printed, both checkpoints
+   on disk, every wav finite and non-empty at 24 kHz, the ``.vq.npy``
+   codes in [0, ``vq_bins``), one ``sample_step`` launch a decode step
+   executed and ``steps x 13 + 9`` B1 launches a diffusion request; each
+   script's wall.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -632,6 +648,10 @@ SAMPLE_SETTINGS = {"top-p": (0.8, 0.8, 2.0, 1.0), "top-p+typical": (0.8, 0.8, 2.
                    "typical": (1.0, 1.0, 2.0, 0.9), "off": (1.0, 1.0, 1.0, 1.0)}
 SAMPLE_SHAPES = [(1, 8194), (2, 8194), (8, 8194), (16, 8194), (1, 8193), (8, 8193),
                  (2, 1000), (16, 1000), (1, 16386), (8, 16386), (2, 12289), (1, 65536)]
+# past the shared-memory path's 65536, on the wide path: one more, a
+# 131071-entry codebook's, past what a cluster's shared memory holds, and
+# past the 23-bit count of the shared path's packed histogram
+WIDE_SAMPLE_SHAPES = [(1, 65537), (2, 131073), (1, 1048579), (1, 8388609)]
 # A token may differ from the plain version's only in a row whose plain
 # boundary mass (its cumulative probability nearest 1 - top_p, or the
 # typical mass) lies within SAMPLE_NEAR of it: the kernel's sums run in
@@ -858,7 +878,7 @@ def phase_sample():
     rows."""
     print("== sample_step vs plain", flush=True)
     tally = SampleTally()
-    cases = [(b, v, dtype, "random") for b, v in SAMPLE_SHAPES
+    cases = [(b, v, dtype, "random") for b, v in SAMPLE_SHAPES + WIDE_SAMPLE_SHAPES
              for dtype in (torch.bfloat16, torch.float32)]
     cases += [(8, 8194, torch.float32, c) for c in ("ties", "zeros", "one-finite", "all-inf")]
     cases += [(16, 1000, torch.bfloat16, c) for c in ("ties", "zeros", "one-finite",
@@ -878,6 +898,9 @@ def phase_sample():
              for label in ("top-p", "top-p+typical", "off") for b in (1, 2, 8, 16)]
     times += [time_sample_step(b, v, SAMPLE_SETTINGS["top-p"], "top-p", against_plain=False)
               for b, v in ((2, 12289), (8, 16386), (1, 65536))]
+    times += [time_sample_step(b, v, SAMPLE_SETTINGS[label], label,
+                               against_plain=label == "top-p")
+              for b, v in WIDE_SAMPLE_SHAPES for label in ("top-p", "top-p+typical", "off")]
     return tally, times
 
 
@@ -2060,14 +2083,16 @@ def run_cli(args, timeout):
     return wall
 
 
-def check_wav(path):
+def check_wav(path, sr=None):
+    """A wav's seconds; it must be non-empty, finite and (given ``sr``) at
+    that rate."""
     from scipy.io import wavfile
     if not path.is_file():
         fail(f"{path.name} was not written")
-    sr, wav = wavfile.read(str(path))
-    if not (len(wav) and np.all(np.isfinite(wav.astype(np.float32)))):
-        fail(f"{path.name}: {len(wav)} samples, or not finite")
-    return len(wav) / sr
+    rate, wav = wavfile.read(str(path))
+    if not (len(wav) and np.all(np.isfinite(wav.astype(np.float32)))) or sr not in (None, rate):
+        fail(f"{path.name}: {len(wav)} samples at {rate} Hz, or not finite")
+    return len(wav) / rate
 
 
 class TimedIterator:
@@ -3402,6 +3427,178 @@ def phase_frontends(cfg_full, logs):
 _T0 = time.perf_counter()
 
 
+# ------------------------------------------------------- the worked examples
+
+# each script's phase lines, as its JAX twin prints them
+EXAMPLE_LINES = {
+    "lifecycle_demo_torch.py": ("[1/4] prepare:", "[2/4] train vqvae:",
+                                "[3/4] train gpt (grown from vqvae ckpt):", "[4/4] serve: wrote"),
+    "prepare_demo_torch.py": ("[1/4] vad:", "[2/4] jsonl:", "[3/4] vq: encoded", "[4/4] batch:"),
+    "demo_torch.py": ("demo_full.wav:", "demo_vq.wav:", "demo_long.wav:"),
+}
+EXAMPLE_COUNTS = "example launches: "
+
+
+class DiffusionRequests:
+    """While entered, counts the diffusion requests of every ``TTSEngine``
+    (one ``diffuse`` call each) and the B1 launches they make
+    (``b1_per_request`` of the engine's sampler)."""
+
+    def __enter__(self):
+        from detail_tts_tpu_torch.serving.pipeline import TTSEngine
+        self.requests, self.b1 = 0, 0
+        self._orig = orig = TTSEngine.diffuse
+
+        def counted(engine, *args, **kwargs):
+            self.requests += 1
+            self.b1 += b1_per_request(engine)
+            return orig(engine, *args, **kwargs)
+
+        TTSEngine.diffuse = counted
+        return self
+
+    def __exit__(self, *exc):
+        from detail_tts_tpu_torch.serving.pipeline import TTSEngine
+        TTSEngine.diffuse = self._orig
+
+
+def run_example_counted(script, args):
+    """``python3 chip_smoke.py --example SCRIPT ARGS...``: runs an example
+    script in this process as ``__main__`` with its arguments, counting the
+    decode steps it executed, its diffusion requests and the kernels'
+    launches, and prints them as one JSON line after its own output."""
+    import runpy
+    sys.path.insert(0, os.path.dirname(os.path.abspath(script)))
+    sys.argv = [script, *args]
+    attention.LAUNCHES = 0
+    zero_prng()
+    with DecodeSteps() as steps, DiffusionRequests() as diffusion:
+        runpy.run_path(script, run_name="__main__")
+    torch.cuda.synchronize()
+    print(EXAMPLE_COUNTS + json.dumps(dict(
+        b1=attention.LAUNCHES, b1_expected=diffusion.b1, diffusion_requests=diffusion.requests,
+        sample_step=sampling.LAUNCHES["sample_step"], decode_steps=steps.steps,
+        threefry_draw=prng.LAUNCHES["threefry_draw"],
+        threefry_keys=prng.LAUNCHES["threefry_keys"])), flush=True)
+
+
+def run_example(name, args, timeout):
+    """One example script in a subprocess on the card (through
+    ``run_example_counted``): its exit code must be 0 and every phase line
+    of ``EXAMPLE_LINES`` printed; its output is kept (printed here).  Returns
+    (its launch counts, its wall seconds)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--example",
+                           os.path.join(here, "examples", name), *args], cwd=here,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    out = proc.stdout.strip().splitlines()
+    print(f"  {name} exited {proc.returncode} in {wall:.1f} s; its stdout:\n    "
+          + "\n    ".join(out[-20:]), flush=True)
+    if proc.returncode != 0:
+        print("    stderr ends: " + "\n    ".join(proc.stderr.strip().splitlines()[-20:]),
+              flush=True)
+        fail(f"examples/{name} exited {proc.returncode}")
+    missing = [tag for tag in EXAMPLE_LINES[name] if not any(x.startswith(tag) for x in out)]
+    if missing:
+        fail(f"examples/{name} did not print {missing}")
+    counts = [x for x in out if x.startswith(EXAMPLE_COUNTS)]
+    if not counts:
+        fail(f"examples/{name}: no launch counts")
+    return json.loads(counts[-1][len(EXAMPLE_COUNTS):]), wall
+
+
+def check_example_serving(name, counts, min_requests):
+    """A serving script's gates: one ``sample_step`` launch a decode step
+    executed, at least ``min_requests`` diffusion requests, and ``steps x
+    13 + 9`` B1 launches each."""
+    print(f"  {name}: {counts}", flush=True)
+    if counts["sample_step"] != counts["decode_steps"] or counts["decode_steps"] == 0:
+        fail(f"examples/{name}: {counts['sample_step']} sample_step launches for "
+             f"{counts['decode_steps']} decode steps executed")
+    if counts["diffusion_requests"] < min_requests or counts["b1"] != counts["b1_expected"]:
+        fail(f"examples/{name}: {counts['b1']} B1 launches for {counts['diffusion_requests']} "
+             f"diffusion requests (expected at least {min_requests}, and "
+             f"{counts['b1_expected']} launches)")
+
+
+def phase_examples(cfg, root):
+    """Phase 11: the three worked examples, the user's whole path at the
+    full width of ``Config()``, each a subprocess on the card: three seeded
+    recordings of speech-like noise; ``lifecycle_demo_torch.py`` (prepare,
+    a 2-step ``vqvae`` stage, a ``gpt`` stage grown from it, batch 2, then
+    the full diffusion path from the ``gpt`` checkpoint with default
+    buckets); ``prepare_demo_torch.py`` with that checkpoint; ``demo_torch.py``
+    with that checkpoint and a prepared clip as the prompt.  Gates: exit
+    codes 0, every phase line, both checkpoints on disk, every wav finite
+    and non-empty at 24 kHz, the ``.vq.npy`` codes in [0, codebook size),
+    and in the serving parts one ``sample_step`` launch a decode step
+    executed and ``steps x 13 + 9`` B1 launches a diffusion request.
+    Returns the B1 and sample-step launches."""
+    import pathlib
+    from scipy.io import wavfile
+    print("== the worked examples", flush=True)
+    root = pathlib.Path(root)
+    raw = root / "raw"
+    raw.mkdir(parents=True)
+    sr = cfg.data.sampling_rate
+    rng = np.random.default_rng(11)
+    for k in range(3):  # bursts of noise between 0.8 s silences, as tests/test_prepare.py
+        sil = np.zeros(int(0.8 * sr), np.float32)
+        parts = [sil]
+        for _ in range(2):
+            parts += [rng.uniform(-0.5, 0.5, int(rng.uniform(1.5, 3.0) * sr)).astype(
+                np.float32), sil]
+        wavfile.write(str(raw / f"rec{k}.wav"), sr,
+                      (np.concatenate(parts) * 32767).astype(np.int16))
+    walls = {}
+
+    life = root / "lifecycle"
+    counts, walls["lifecycle"] = run_example(
+        "lifecycle_demo_torch.py", ["--in-dir", str(raw), "--work-dir", str(life),
+                                    "--steps", "2"], timeout=900)
+    check_example_serving("lifecycle_demo_torch.py", counts, 1)
+    b1, samples = counts["b1"], counts["sample_step"]
+    ckpts = {t: life / f"train_{t}" / "ckpt" for t in ("vqvae", "gpt")}
+    for target, ckpt in ckpts.items():
+        steps = sorted(int(d.name) for d in ckpt.iterdir()) if ckpt.is_dir() else []
+        if not steps or not (ckpt / str(steps[-1]) / "state.pt").is_file():
+            fail(f"the lifecycle's {target} checkpoint is not on disk")
+    secs = check_wav(life / "lifecycle.wav", sr)
+    print(f"  lifecycle: checkpoints {', '.join(str(c) for c in ckpts.values())}; "
+          f"lifecycle.wav {secs:.2f} s", flush=True)
+
+    prep = root / "prepare"
+    counts, walls["prepare"] = run_example(
+        "prepare_demo_torch.py", ["--in-dir", str(raw), "--work-dir", str(prep),
+                                  "--ckpt", str(ckpts["gpt"])], timeout=600)
+    if counts["b1"] or counts["sample_step"]:
+        fail(f"prepare_demo_torch.py launched serving kernels: {counts}")
+    codes = [np.load(f) for f in sorted((prep / "clips").glob("*.vq.npy"))]
+    if not codes or any(c.size == 0 or c.min() < 0 or c.max() >= cfg.vaegan.vq_bins
+                        for c in codes):
+        fail(f"prepare_demo_torch.py: {len(codes)} .vq.npy files, not all non-empty with "
+             f"codes in [0, {cfg.vaegan.vq_bins})")
+    print(f"  prepare: {len(codes)} .vq.npy files, {sum(c.size for c in codes)} codes in "
+          f"[0, {cfg.vaegan.vq_bins})", flush=True)
+
+    demo = root / "demo"
+    demo.mkdir()
+    prompt = sorted((life / "clips").glob("*.wav"))[0]
+    counts, walls["demo"] = run_example(
+        "demo_torch.py", ["--prompt", str(prompt), "--ckpt", str(ckpts["gpt"]),
+                          "--out-dir", str(demo)], timeout=900)
+    # the full path's, and long form's a batch of its chunks (the VQ path runs none)
+    check_example_serving("demo_torch.py", counts, 2)
+    b1, samples = b1 + counts["b1"], samples + counts["sample_step"]
+    secs = {n: check_wav(demo / n, sr)
+            for n in ("demo_full.wav", "demo_vq.wav", "demo_long.wav")}
+    print(f"  demo: {secs} (s); prompt {prompt.name}", flush=True)
+    print(f"  example walls (s): {walls}", flush=True)
+    return b1, samples
+
+
 def stamp():
     """The seconds since the script started, after each phase."""
     print(f"-- {time.perf_counter() - _T0:.1f} s", flush=True)
@@ -3467,6 +3664,8 @@ def main():
         stamp()
         frontends_b1 = phase_frontends(cfg, os.path.join(work, "phase10"))
         stamp()
+        examples_b1, examples_samples = phase_examples(cfg, os.path.join(work, "phase11"))
+        stamp()
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3474,12 +3673,12 @@ def main():
         name="bias_attention_fwd", route="cuda",
         source="detail_tts_tpu_torch/csrc/bias_attention.cu",
         replaces="detail_tts_tpu/ops/pallas/attention.py:404",
-        launches=launches + corpus_b1 + mesh_b1 + frontends_b1,
+        launches=launches + corpus_b1 + mesh_b1 + frontends_b1 + examples_b1,
         launches_per_request=per_request,
         launches_over="phases 4 and 4b, the request from the trained checkpoint "
                       "(phase 7), each rank's sharded requests (phase 9) and each "
                       "rank's batches under the server, HTTP and long form over the "
-                      "leader (phase 10)",
+                      "leader (phase 10), and the examples' requests (phase 11)",
         max_abs_err=worst, **times)]
     for i, (name, row, replaces, per) in enumerate((
             ("threefry_draw", prng_times, "detail_tts_tpu/models/diffusion.py:285",
@@ -3501,10 +3700,11 @@ def main():
         name="sample_step", route="cuda", source="detail_tts_tpu_torch/csrc/sample.cu",
         replaces="detail_tts_tpu/ops/sampling.py:86 sample_token and "
                  "detail_tts_tpu/models/gpt.py:364-371 body_fn's bookkeeping (no pallas_call)",
-        launches=prng_launches[2] + sample_launches + paths_prng[2],
+        launches=prng_launches[2] + sample_launches + paths_prng[2] + examples_samples,
         launches_per_request="one a decode step executed (max_len under force_full)",
-        launches_over="phases 4 and 4b (every request, server, long form and HTTP) and "
-                      "phase 3c's b8 decode; phases 9 and 10 gate each rank's",
+        launches_over="phases 4 and 4b (every request, server, long form and HTTP), "
+                      "phase 3c's b8 decode and the examples' decodes (phase 11); phases "
+                      "9 and 10 gate each rank's",
         max_abs_err=sample_tally.max_abs, rows_compared=sample_tally.rows,
         rows_differ=sample_tally.differ,
         library="none", **sample_row))
@@ -3535,4 +3735,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--example"]:
+        run_example_counted(sys.argv[2], sys.argv[3:])
+    else:
+        main()

@@ -8,13 +8,24 @@
 // ``seen[r, tok]``, ``lengths``, ``finished``).
 //
 // A row is spread over a thread-block cluster of kCluster = 8 CTAs of
-// kThreads threads: CTA c holds the row's tokens [c chunk, (c + 1) chunk),
-// chunk = ceil(V / 8), in its shared memory, 16 B a token (the logit, its
-// key's value bits, its fixed-point mass), at most kCtaVocab tokens: V up to
-// kMaxVocab = 8 x kCtaVocab.  B rows are 8 B CTAs, one wave of an H100's 132
-// SMs up to B = 16; past that the grid wraps.  The CTAs meet through
-// distributed shared memory: each pushes its partials into every CTA's slots
-// and a ``cluster.sync()`` publishes them.  Each CTA arrives at a cluster
+// kThreads threads: CTA c owns the row's tokens [c chunk, (c + 1) chunk),
+// chunk = ceil(V / 8).  B rows are 8 B CTAs, one wave of an H100's 132 SMs
+// up to B = 16; past that the grid wraps.  Two kernels, one a launch:
+//
+// * ``sample_step_kernel`` (V <= 8 x kCtaVocab = 65,536, the decode's
+//   8194 among them): a CTA holds its chunk in shared memory, 16 B a token
+//   (the logit, its key's value bits, its fixed-point mass);
+// * ``sample_step_kernel_wide`` (every larger V, up to the C entry's int
+//   2^31 - 1): a CTA keeps the first ``Params.cache`` tokens of its chunk
+//   (~32,000, what its shared memory holds beside the histograms) as
+//   penalized, tempered logits, 4 B a token, and re-reads the rest from
+//   global memory in each pass.  Every pass recomputes a token's value,
+//   key and mass from that logit with the same code for a cached and a
+//   re-read token, so it needs no workspace: a token the typical filter
+//   removed is recognised again by its key against the boundary.
+//
+// The CTAs meet through distributed shared memory: each pushes its partials
+// into every CTA's slots and a ``cluster.sync()`` publishes them.  Each CTA arrives at a cluster
 // barrier on entry and waits on it after loading its tokens, before its
 // first push, so no CTA writes into one that has not started.  Thread t of a
 // CTA owns its tokens t, t + kThreads, ... in every pass but the sums.
@@ -47,12 +58,18 @@
 // below it plus the bins up to it passes; where none passes (rounding), the
 // last non-empty bin, which ends at the largest key (the clamp to V - 1).
 // A pass whose bin holds one candidate ends the select; the 32 value bits
-// take at most 4 passes, and top-p's index bits passes more only on a tie
-// at the boundary value.  Masses are summed in fixed point (2^-40 a unit, a
-// count of candidates above), so every sum is exact and the same in any
-// order: the kept set is the same from run to run.  The max, softmax and
-// entropy sums run in one fixed order (each CTA's tokens, then the CTAs in
-// order), so a row's token does not depend on its batch.  They differ in
+// take at most 4 passes, and top-p's index bits (up to 31) passes more only
+// on a tie at the boundary value.  Masses are summed in fixed point, so
+// every sum is exact and the same in any order: the kept set is the same
+// from run to run.  A token's mass rounds to the nearest unit, so a row's
+// sum is within V / 2 units of the float masses' exact sum: the shared
+// path packs a count of candidates above 41 bits of mass at 2^-40 a unit
+// (the count fits in 23 bits, V <= 2^16: within 2^-25 = 3.0e-8); the wide
+// path keeps the count in a word of its own and the mass at 2^-60 a unit
+// (within 2^31 x 2^-61 = 9.3e-10 at the largest V), both far inside the
+// 1e-5 that chip_smoke.py's phase 3c excuses.  The max, softmax and entropy
+// sums run in one fixed order (each CTA's tokens, then the CTAs in order),
+// so a row's token does not depend on its batch.  They differ in
 // order from PyTorch's sort-then-cumsum, so the kept set can differ from
 // the plain version's only where its cumulative mass at the boundary lies
 // within a few ulp of the threshold; penalty, temperature and the Gumbels
@@ -64,7 +81,9 @@
 // each a chain of CTA barriers, shared-memory round trips and one cluster
 // barrier.  Radix select cuts a filter's dependent rounds from 46 bisection
 // steps to at most 6 passes, and the cluster puts 8 SMs on a row, so each
-// thread holds a few tokens.
+// thread holds a few tokens.  The wide path at V in the millions is bound
+// by the 8 SMs' reads of the row, once a pass: its bytes bound counts the
+// row once, and it is the repair of a refusal, not a path the decode runs.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,20 +103,22 @@ constexpr int kRadixBits = 8;
 constexpr int kBins = 1 << kRadixBits;
 static_assert(kBins % 32 == 0 && kBins <= kThreads, "thread b owns bin b, in whole warps");
 constexpr int kCluster = 8;      // CTAs a row
-constexpr int kCtaVocab = 8192;  // tokens a CTA holds
-constexpr int kMaxVocab = kCluster * kCtaVocab;
+constexpr int kCtaVocab = 8192;  // tokens a CTA holds on the shared path
 // a token's packed histogram entry: a count of one above its mass in fixed
 // point, 2^-40 a unit in the low kMassBits bits (a row's masses sum to < 2)
 constexpr int kMassBits = 41;
 constexpr unsigned long long kMassMask = (1ULL << kMassBits) - 1;
 constexpr unsigned long long kCountOne = 1ULL << kMassBits;
 constexpr float kMassScale = 1099511627776.0f;  // 2^40
+// the wide path's mass word: 2^-60 a unit (a row's masses sum to < 16)
+constexpr float kWideMassScale = 1152921504606846976.0f;  // 2^60
 // float exchanges through the cluster: typical's max, sum and entropy,
 // top-p's max and sum
 constexpr int kExchanges = 5;
 
 struct Params {
   int vocab, code_stride, step, stop, chunk, index_bits;
+  int cache;  // the wide path: tokens a CTA keeps in shared memory
   bool penalty_on, temperature_on, typical_on, top_p_on, force_full;
   float penalty, temperature;
   // fixed-point thresholds: typical passes at cum >= typical_thr, top-p at
@@ -123,6 +144,17 @@ __host__ __device__ inline size_t smem_bytes(int chunk, bool filters) {
   return tokens * 4 + 8 * static_cast<size_t>(2 * kCluster * kBins + kWarps * kBins);
 }
 
+// The wide path's dynamic shared memory: each warp's histogram and the CTAs'
+// pushed ones, a mass word and a count word a bin, then the cached tokens.
+struct WideHist {
+  unsigned long long* mass;       // [kWarps][kBins]
+  unsigned long long* recv_mass;  // [2][kCluster][kBins]
+  unsigned* count;                // [kWarps][kBins]
+  unsigned* recv_count;           // [2][kCluster][kBins]
+};
+constexpr size_t kWideHistBytes =
+    (8 + 4) * static_cast<size_t>(kWarps * kBins + 2 * kCluster * kBins);
+
 // The CTA's small exchange slots (static shared memory).
 struct Slots {
   float red[kWarps];                        // block reductions
@@ -147,6 +179,25 @@ __device__ __forceinline__ uint32_t order_bits(float v) {
 // (0 for a mass that is not positive, or NaN).
 __device__ __forceinline__ unsigned long long mass_entry(float p) {
   return kCountOne | (p > 0.0f ? __float2ull_rn(fminf(p, 1.0f) * kMassScale) : 0ULL);
+}
+
+// The wide path's mass word of a token, 2^-60 a unit (0 as above).
+__device__ __forceinline__ unsigned long long wide_mass(float p) {
+  return p > 0.0f ? __float2ull_rn(fminf(p, 1.0f) * kWideMassScale) : 0ULL;
+}
+
+// Token j of a row after the repetition penalty and the temperature, each
+// skipped at 1.0 as the plain version skips it (IEEE division, as the plain
+// version divides).
+template <typename T>
+__device__ __forceinline__ float scaled_logit(const T* row, const uint8_t* seen_row, int j,
+                                              const Params& p) {
+  float x = to_float(row[j]);
+  if (p.penalty_on && seen_row[j]) {
+    x = x > 0.0f ? __fdiv_rn(x, p.penalty) : __fmul_rn(x, p.penalty);
+  }
+  if (p.temperature_on) x = __fdiv_rn(x, p.temperature);
+  return x;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -298,6 +349,106 @@ __device__ void radix_select(const Tokens& tk, int n, int j0, int index_bits,
   shift_out = shift;
 }
 
+// radix_select on the wide path: the same passes, with a token's key and
+// mass from ``key_of(t)`` and ``mass_of(t)`` (computed again in each pass,
+// the mass only for a candidate), and a bin's mass and count in words of
+// their own.  ``total_bits``: the key's width (32, or 32 + index bits).
+template <bool kTopP, typename KeyFn, typename MassFn>
+__device__ void radix_select_wide(KeyFn key_of, MassFn mass_of, int n, int total_bits,
+                                  unsigned long long thr, const WideHist& w, Slots& s,
+                                  unsigned* bcount, cg::cluster_group& cluster, int rank,
+                                  unsigned long long& prefix_out, int& shift_out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long prefix = 0, carried = 0;  // carried: the mass below the prefix
+  int shift = total_bits, buf = 0;
+  while (shift > 0) {
+    const int bits = min(kRadixBits, shift);
+    shift -= bits;
+    const unsigned long long digit = (1ULL << bits) - 1;
+    unsigned long long* wm = w.mass + warp * kBins;
+    unsigned* wc = w.count + warp * kBins;
+    for (int t = threadIdx.x; t < n; t += kThreads) {
+      const unsigned long long key = key_of(t);
+      if ((key >> (shift + bits)) != prefix) continue;
+      const unsigned long long q = mass_of(t);
+      if (kTopP && q == 0) continue;
+      const int b = static_cast<int>((key >> shift) & digit);
+      atomicAdd(wm + b, q);
+      atomicAdd(wc + b, 1u);
+    }
+    __syncthreads();
+    // the CTA's histogram, the warps in order, pushed into every CTA's slot
+    unsigned long long* slot_m = w.recv_mass + buf * kCluster * kBins;
+    unsigned* slot_c = w.recv_count + buf * kCluster * kBins;
+    const int bin = threadIdx.x;
+    unsigned long long h = 0;
+    unsigned c = 0;
+    if (bin < kBins) {
+      for (int v = 0; v < kWarps; ++v) {
+        h += w.mass[v * kBins + bin];
+        c += w.count[v * kBins + bin];
+        w.mass[v * kBins + bin] = 0;
+        w.count[v * kBins + bin] = 0;
+      }
+      for (int k = 0; k < kCluster; ++k) {
+        *cluster.map_shared_rank(slot_m + rank * kBins + bin, k) = h;
+        *cluster.map_shared_rank(slot_c + rank * kBins + bin, k) = c;
+      }
+    }
+    cluster.sync();
+    // the cluster's histogram, the CTAs in order, and its inclusive scan
+    unsigned long long excl = 0;
+    if (bin < kBins) {
+      h = 0;
+      c = 0;
+      for (int k = 0; k < kCluster; ++k) {
+        h += slot_m[k * kBins + bin];
+        c += slot_c[k * kBins + bin];
+      }
+      unsigned long long incl = h;
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned long long y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (lane == 31) s.wscan[warp] = incl;
+      excl = incl - h;
+    }
+    __syncthreads();
+    if (bin < kBins) {
+      for (int v = 0; v < warp; ++v) excl += s.wscan[v];
+      s.bexcl[bin] = excl;
+      bcount[bin] = c;
+      const unsigned long long cum = carried + excl + h;
+      const unsigned first = c != 0 && (kTopP ? cum > thr : cum >= thr) ? bin : kBins;
+      const unsigned last = c != 0 ? bin + 1 : 0;  // one past the last non-empty bin
+      const unsigned wf = __reduce_min_sync(0xFFFFFFFFu, first);
+      const unsigned wl = __reduce_max_sync(0xFFFFFFFFu, last);
+      if (lane == 0) {
+        s.wfirst[warp] = wf;
+        s.wlast[warp] = wl;
+      }
+    }
+    __syncthreads();
+    unsigned first = kBins, last = 0;
+    for (int v = 0; v < kBins / 32; ++v) {
+      first = min(first, s.wfirst[v]);
+      last = max(last, s.wlast[v]);
+    }
+    if (last == 0) {  // no candidate: every token kept
+      prefix = 0;
+      shift += bits;
+      break;
+    }
+    const unsigned b = first < kBins ? first : last - 1;
+    carried += s.bexcl[b];
+    prefix = (prefix << bits) | b;
+    buf ^= 1;
+    if (bcount[b] == 1) break;  // one candidate left: the boundary
+  }
+  prefix_out = prefix;
+  shift_out = shift;
+}
+
 // log p of a logit x under the row's max m and log-sum log_s, as
 // ``torch.log_softmax``'s epilogue: (x - m) - log_s.
 __device__ __forceinline__ float log_prob(float x, float m, float log_s) {
@@ -309,101 +460,23 @@ __device__ __forceinline__ float typical_distance(float x, float m, float log_s,
   return fabsf(__fsub_rn(-log_prob(x, m, log_s), h));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-    sample_step_kernel(const T* __restrict__ logits, uint8_t* __restrict__ seen,
-                       long long* __restrict__ codes, long long* __restrict__ lengths,
-                       uint8_t* __restrict__ finished, long long* __restrict__ tok_out,
-                       const uint32_t* __restrict__ key, const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Slots s;
-  // no CTA may write into another's shared memory before both have started:
-  // arrive here, wait once this CTA's tokens are loaded
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-  cg::cluster_group cluster = cg::this_cluster();
+// The Gumbels of the kept tokens and the argmax over the row, the first
+// index on ties (``x_final(t)``: token t's value after both filters, -inf
+// where removed), then the step's bookkeeping on CTA 0.
+template <typename F>
+__device__ __forceinline__ void sample_row(F x_final, int n, int j0, int r, const Params& p,
+                                           Slots& s, cg::cluster_group& cluster, int rank,
+                                           uint8_t* seen_row, long long* codes,
+                                           long long* lengths, uint8_t* finished,
+                                           long long* tok_out, const uint32_t* key) {
   const int V = p.vocab;
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int r = blockIdx.x / kCluster;
-  const int j0 = rank * p.chunk;            // this CTA's first token
-  const int n = max(0, min(p.chunk, V - j0));  // and its count
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  Tokens tk;
-  tk.xs = reinterpret_cast<float*>(smem);
-  tk.vkey = reinterpret_cast<uint32_t*>(tk.xs + round_up4(p.chunk));
-  tk.q = reinterpret_cast<unsigned long long*>(tk.vkey + round_up4(p.chunk));
-  tk.recv = tk.q + round_up4(p.chunk);
-  tk.whist = tk.recv + 2 * kCluster * kBins;
-  const T* row = logits + static_cast<long long>(r) * V;
-  uint8_t* seen_row = seen + static_cast<long long>(r) * V;
-
-  // penalty and temperature, each skipped at 1.0 as the plain version skips it
-  for (int t = threadIdx.x; t < n; t += kThreads) {
-    const int j = j0 + t;
-    float x = to_float(row[j]);
-    if (p.penalty_on && seen_row[j]) {
-      x = x > 0.0f ? __fdiv_rn(x, p.penalty) : __fmul_rn(x, p.penalty);
-    }
-    if (p.temperature_on) x = __fdiv_rn(x, p.temperature);
-    tk.xs[t] = x;
-  }
-  if (p.typical_on || p.top_p_on) {
-    for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) tk.whist[i] = 0;
-  }
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");  // every CTA has started
-
-  int slot = 0;
-  unsigned long long prefix;
-  int shift;
-  if (p.typical_on) {
-    float m = -INFINITY;
-    for (int t = threadIdx.x; t < n; t += kThreads) m = fmaxf(m, tk.xs[t]);
-    m = row_max(m, s, slot++, cluster, rank);
-    const float* xs = tk.xs;
-    const float log_s = logf(row_sum(
-        [&](int t) { return expf(__fsub_rn(xs[t], m)); }, n, s, slot++, cluster, rank));
-    const float h = -row_sum(  // the entropy
-        [&](int t) {
-          const float lp = log_prob(xs[t], m, log_s), pj = expf(lp);
-          return pj > 0.0f ? __fmul_rn(pj, lp) : 0.0f;
-        },
-        n, s, slot++, cluster, rank);
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      tk.q[t] = mass_entry(expf(log_prob(tk.xs[t], m, log_s)));
-      tk.vkey[t] = order_bits(typical_distance(tk.xs[t], m, log_s, h));
-    }
-    radix_select<false>(tk, n, j0, 0, p.typical_thr, s, cluster, rank, prefix, shift);
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      if ((tk.vkey[t] >> shift) > prefix) tk.xs[t] = -INFINITY;
-    }
-  }
-
-  if (p.top_p_on) {
-    float m = -INFINITY;
-    for (int t = threadIdx.x; t < n; t += kThreads) m = fmaxf(m, tk.xs[t]);
-    m = row_max(m, s, slot++, cluster, rank);
-    const float* xs = tk.xs;
-    const float sum = row_sum([&](int t) { return expf(__fsub_rn(xs[t], m)); }, n, s, slot++,
-                              cluster, rank);
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      tk.q[t] = mass_entry(__fdiv_rn(expf(__fsub_rn(tk.xs[t], m)), sum));
-      tk.vkey[t] = order_bits(tk.xs[t]);
-    }
-    radix_select<true>(tk, n, j0, p.index_bits, p.top_p_thr, s, cluster, rank, prefix, shift);
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      const unsigned long long k =
-          (static_cast<unsigned long long>(tk.vkey[t]) << p.index_bits) |
-          static_cast<unsigned>(j0 + t);
-      if ((k >> shift) < prefix) tk.xs[t] = -INFINITY;
-    }
-  }
-
-  // the Gumbels of the kept tokens and the argmax, the first index on ties
   const uint32_t k0 = key[0], k1 = key[1];
   const unsigned long long base = p.offset + static_cast<unsigned long long>(r) * V;
   float best = -INFINITY;
   int arg = V;  // none yet
   for (int t = threadIdx.x; t < n; t += kThreads) {
-    const float x = tk.xs[t];
+    const float x = x_final(t);
     if (x == -INFINITY) continue;  // removed, or -inf: wins only if all are
     const int j = j0 + t;
     const float v = __fadd_rn(threefry::gumbel(threefry::random_bits(k0, k1, base + j)), x);
@@ -463,13 +536,200 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    sample_step_kernel(const T* __restrict__ logits, uint8_t* __restrict__ seen,
+                       long long* __restrict__ codes, long long* __restrict__ lengths,
+                       uint8_t* __restrict__ finished, long long* __restrict__ tok_out,
+                       const uint32_t* __restrict__ key, const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Slots s;
+  // no CTA may write into another's shared memory before both have started:
+  // arrive here, wait once this CTA's tokens are loaded
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int V = p.vocab;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int r = blockIdx.x / kCluster;
+  const int j0 = rank * p.chunk;            // this CTA's first token
+  const int n = max(0, min(p.chunk, V - j0));  // and its count
+  Tokens tk;
+  tk.xs = reinterpret_cast<float*>(smem);
+  tk.vkey = reinterpret_cast<uint32_t*>(tk.xs + round_up4(p.chunk));
+  tk.q = reinterpret_cast<unsigned long long*>(tk.vkey + round_up4(p.chunk));
+  tk.recv = tk.q + round_up4(p.chunk);
+  tk.whist = tk.recv + 2 * kCluster * kBins;
+  const T* row = logits + static_cast<long long>(r) * V;
+  uint8_t* seen_row = seen + static_cast<long long>(r) * V;
+
+  // penalty and temperature
+  for (int t = threadIdx.x; t < n; t += kThreads) {
+    tk.xs[t] = scaled_logit(row, seen_row, j0 + t, p);
+  }
+  if (p.typical_on || p.top_p_on) {
+    for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) tk.whist[i] = 0;
+  }
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");  // every CTA has started
+
+  int slot = 0;
+  unsigned long long prefix;
+  int shift;
+  if (p.typical_on) {
+    float m = -INFINITY;
+    for (int t = threadIdx.x; t < n; t += kThreads) m = fmaxf(m, tk.xs[t]);
+    m = row_max(m, s, slot++, cluster, rank);
+    const float* xs = tk.xs;
+    const float log_s = logf(row_sum(
+        [&](int t) { return expf(__fsub_rn(xs[t], m)); }, n, s, slot++, cluster, rank));
+    const float h = -row_sum(  // the entropy
+        [&](int t) {
+          const float lp = log_prob(xs[t], m, log_s), pj = expf(lp);
+          return pj > 0.0f ? __fmul_rn(pj, lp) : 0.0f;
+        },
+        n, s, slot++, cluster, rank);
+    for (int t = threadIdx.x; t < n; t += kThreads) {
+      tk.q[t] = mass_entry(expf(log_prob(tk.xs[t], m, log_s)));
+      tk.vkey[t] = order_bits(typical_distance(tk.xs[t], m, log_s, h));
+    }
+    radix_select<false>(tk, n, j0, 0, p.typical_thr, s, cluster, rank, prefix, shift);
+    for (int t = threadIdx.x; t < n; t += kThreads) {
+      if ((tk.vkey[t] >> shift) > prefix) tk.xs[t] = -INFINITY;
+    }
+  }
+
+  if (p.top_p_on) {
+    float m = -INFINITY;
+    for (int t = threadIdx.x; t < n; t += kThreads) m = fmaxf(m, tk.xs[t]);
+    m = row_max(m, s, slot++, cluster, rank);
+    const float* xs = tk.xs;
+    const float sum = row_sum([&](int t) { return expf(__fsub_rn(xs[t], m)); }, n, s, slot++,
+                              cluster, rank);
+    for (int t = threadIdx.x; t < n; t += kThreads) {
+      tk.q[t] = mass_entry(__fdiv_rn(expf(__fsub_rn(tk.xs[t], m)), sum));
+      tk.vkey[t] = order_bits(tk.xs[t]);
+    }
+    radix_select<true>(tk, n, j0, p.index_bits, p.top_p_thr, s, cluster, rank, prefix, shift);
+    for (int t = threadIdx.x; t < n; t += kThreads) {
+      const unsigned long long k =
+          (static_cast<unsigned long long>(tk.vkey[t]) << p.index_bits) |
+          static_cast<unsigned>(j0 + t);
+      if ((k >> shift) < prefix) tk.xs[t] = -INFINITY;
+    }
+  }
+
+  sample_row([&](int t) { return tk.xs[t]; }, n, j0, r, p, s, cluster, rank, seen_row, codes,
+             lengths, finished, tok_out, key);
+}
+
+// The wide path (V > 8 x kCtaVocab): the same filters and draw as
+// sample_step_kernel, each pass over a CTA's chunk computing a token's value
+// from the first ``p.cache`` tokens kept in shared memory, or else from the
+// logit and seen bit in global memory, by one function of the two.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    sample_step_kernel_wide(const T* __restrict__ logits, uint8_t* __restrict__ seen,
+                            long long* __restrict__ codes, long long* __restrict__ lengths,
+                            uint8_t* __restrict__ finished, long long* __restrict__ tok_out,
+                            const uint32_t* __restrict__ key, const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Slots s;
+  __shared__ unsigned bcount[kBins];
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int V = p.vocab;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int r = blockIdx.x / kCluster;
+  const int j0 = rank * p.chunk;
+  const int n = max(0, min(p.chunk, V - j0));
+  const int nc = min(n, p.cache);  // the tokens kept in shared memory
+  WideHist w;
+  w.mass = reinterpret_cast<unsigned long long*>(smem);
+  w.recv_mass = w.mass + kWarps * kBins;
+  w.count = reinterpret_cast<unsigned*>(w.recv_mass + 2 * kCluster * kBins);
+  w.recv_count = w.count + kWarps * kBins;
+  float* xs = reinterpret_cast<float*>(w.recv_count + 2 * kCluster * kBins);
+  const T* row = logits + static_cast<long long>(r) * V;
+  uint8_t* seen_row = seen + static_cast<long long>(r) * V;
+
+  for (int t = threadIdx.x; t < nc; t += kThreads) xs[t] = scaled_logit(row, seen_row, j0 + t, p);
+  if (p.typical_on || p.top_p_on) {
+    for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) {
+      w.mass[i] = 0;
+      w.count[i] = 0;
+    }
+  }
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");  // every CTA has started
+  const auto x_of = [&](int t) {
+    return t < nc ? xs[t] : scaled_logit(row, seen_row, j0 + t, p);
+  };
+
+  int slot = 0;
+  // typical: removed where the key of |-log p - H| lies above the boundary
+  float tm = 0.0f, tls = 0.0f, th = 0.0f;
+  unsigned long long tprefix = 0;
+  int tshift = 0;
+  if (p.typical_on) {
+    float m = -INFINITY;
+    for (int t = threadIdx.x; t < n; t += kThreads) m = fmaxf(m, x_of(t));
+    tm = row_max(m, s, slot++, cluster, rank);
+    tls = logf(row_sum([&](int t) { return expf(__fsub_rn(x_of(t), tm)); }, n, s, slot++,
+                       cluster, rank));
+    th = -row_sum(
+        [&](int t) {
+          const float lp = log_prob(x_of(t), tm, tls), pj = expf(lp);
+          return pj > 0.0f ? __fmul_rn(pj, lp) : 0.0f;
+        },
+        n, s, slot++, cluster, rank);
+    radix_select_wide<false>(
+        [&](int t) {
+          return static_cast<unsigned long long>(
+              order_bits(typical_distance(x_of(t), tm, tls, th)));
+        },
+        [&](int t) { return wide_mass(expf(log_prob(x_of(t), tm, tls))); }, n, 32,
+        p.typical_thr, w, s, bcount, cluster, rank, tprefix, tshift);
+  }
+  const auto x_typical = [&](int t) {
+    const float x = x_of(t);
+    if (!p.typical_on) return x;
+    const unsigned long long k = order_bits(typical_distance(x, tm, tls, th));
+    return (k >> tshift) > tprefix ? -INFINITY : x;
+  };
+
+  // top-p: removed where the (value, index) key lies below the boundary
+  const auto top_p_key = [&](float x, int t) {
+    return (static_cast<unsigned long long>(order_bits(x)) << p.index_bits) |
+           static_cast<unsigned>(j0 + t);
+  };
+  unsigned long long pprefix = 0;  // nothing removed unless top-p is on
+  int pshift = 0;
+  if (p.top_p_on) {
+    float m = -INFINITY;
+    for (int t = threadIdx.x; t < n; t += kThreads) m = fmaxf(m, x_typical(t));
+    m = row_max(m, s, slot++, cluster, rank);
+    const float sum = row_sum([&](int t) { return expf(__fsub_rn(x_typical(t), m)); }, n, s,
+                              slot++, cluster, rank);
+    radix_select_wide<true>(
+        [&](int t) { return top_p_key(x_typical(t), t); },
+        [&](int t) { return wide_mass(__fdiv_rn(expf(__fsub_rn(x_typical(t), m)), sum)); },
+        n, 32 + p.index_bits, p.top_p_thr, w, s, bcount, cluster, rank, pprefix, pshift);
+  }
+
+  sample_row(
+      [&](int t) {
+        const float x = x_typical(t);
+        return (top_p_key(x, t) >> pshift) < pprefix ? -INFINITY : x;
+      },
+      n, j0, r, p, s, cluster, rank, seen_row, codes, lengths, finished, tok_out, key);
+}
+
 __global__ void empty_kernel() {}
 
 // A fixed-point threshold: cum >= thr (at_least) or cum > thr on sums of
-// mass_entry's masses, as the float comparison with ``thr`` decides them.
-unsigned long long fixed_threshold(float thr, bool at_least) {
+// masses at ``scale`` units to 1 (mass_entry's, or wide_mass's), as the
+// float comparison with ``thr`` decides them.  No row's masses sum to 8.
+unsigned long long fixed_threshold(float thr, bool at_least, double scale) {
   if (!(thr > 0.0f)) return 0;  // at_least: every cum passes
-  const double x = std::fmin(static_cast<double>(thr) * 1099511627776.0, 4.0e15);
+  const double x = std::fmin(static_cast<double>(thr) * scale, 8.0 * scale);
   return static_cast<unsigned long long>(at_least ? std::ceil(x) : std::floor(x));
 }
 
@@ -489,18 +749,71 @@ cudaLaunchConfig_t cluster_config(int batch, size_t bytes, cudaStream_t stream,
   return cfg;
 }
 
+// The wide path's tokens kept in shared memory a CTA, found once: what the
+// block's opt-in shared memory holds beside its static slots and the
+// histograms; and a check that a cluster of CTAs that size can be scheduled.
+template <typename T>
+int wide_cache_tokens(cudaStream_t stream, int* tokens) {
+  static int cache = -1;
+  if (cache < 0) {
+    const auto kernel = sample_step_kernel_wide<T>;
+    int dev = 0, optin = 0;
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) {
+      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    }
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long room =
+        optin - static_cast<long long>(fa.sharedSizeBytes) - static_cast<long long>(kWideHistBytes);
+    if (room < 16) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    const int n = static_cast<int>(room / 16 * 4);
+    const size_t most = kWideHistBytes + 4 * static_cast<size_t>(n);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(most));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = cluster_config(1, most, stream, &attr);
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    cache = n;
+  }
+  *tokens = cache;
+  return 0;
+}
+
 template <typename T>
 int launch(const void* logits, const Params& p, int batch, void* seen, void* codes,
            void* lengths, void* finished, void* tok, const void* key, cudaStream_t stream) {
+  const bool filters = p.typical_on || p.top_p_on;
+  cudaLaunchAttribute attr;
+  cudaError_t e;
+  if (p.chunk > kCtaVocab) {  // the wide path
+    int cache = 0;
+    const int rc = wide_cache_tokens<T>(stream, &cache);
+    if (rc != 0) return rc;
+    Params q = p;
+    q.cache = filters ? (p.chunk < cache ? p.chunk : cache) : 0;
+    const size_t bytes = filters ? kWideHistBytes + 4 * static_cast<size_t>(q.cache) : 0;
+    cudaLaunchConfig_t cfg = cluster_config(batch, bytes, stream, &attr);
+    e = cudaLaunchKernelEx(&cfg, sample_step_kernel_wide<T>, static_cast<const T*>(logits),
+                           static_cast<uint8_t*>(seen), static_cast<long long*>(codes),
+                           static_cast<long long*>(lengths), static_cast<uint8_t*>(finished),
+                           static_cast<long long*>(tok), static_cast<const uint32_t*>(key), q);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+  }
   // once: the shared memory of the largest row, and a check that a cluster
   // of that size can be scheduled (then so can every smaller one)
   static bool configured = false;
   const auto kernel = sample_step_kernel<T>;
-  cudaLaunchAttribute attr;
   if (!configured) {
     const size_t most = smem_bytes(kCtaVocab, true);
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(most));
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(most));
     if (e != cudaSuccess) return static_cast<int>(e);
     cudaLaunchConfig_t cfg = cluster_config(1, most, stream, &attr);
     int clusters = 0;
@@ -509,9 +822,8 @@ int launch(const void* logits, const Params& p, int batch, void* seen, void* cod
     if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
     configured = true;
   }
-  cudaLaunchConfig_t cfg = cluster_config(batch, smem_bytes(p.chunk, p.typical_on || p.top_p_on),
-                                          stream, &attr);
-  const cudaError_t e = cudaLaunchKernelEx(
+  cudaLaunchConfig_t cfg = cluster_config(batch, smem_bytes(p.chunk, filters), stream, &attr);
+  e = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(logits), static_cast<uint8_t*>(seen),
       static_cast<long long*>(codes), static_cast<long long*>(lengths),
       static_cast<uint8_t*>(finished), static_cast<long long*>(tok),
@@ -523,8 +835,8 @@ int launch(const void* logits, const Params& p, int batch, void* seen, void* cod
 }  // namespace
 
 // One decode step of ``batch`` rows of ``vocab`` logits (``dtype`` 0 bf16,
-// 1 fp32; every pointer to contiguous device memory; vocab at most
-// kMaxVocab = 65536), each row over a cluster of 8 CTAs: writes the (B,)
+// 1 fp32; every pointer to contiguous device memory; any vocab >= 1, on
+// the wide path past 65536), each row over a cluster of 8 CTAs: writes the (B,)
 // int64 tokens to ``tok`` and updates ``seen`` (B, vocab) bool, ``codes``
 // (B, code_stride) int64 at column ``step``, ``lengths`` (B,) int64 and
 // ``finished`` (B,) bool in place.  ``key`` is the step's int32 (2,) device key; row r draws
@@ -539,8 +851,7 @@ extern "C" int sample_step(const void* logits, int dtype, void* seen, void* code
                            int stop, int force_full, unsigned long long offset,
                            void* stream) {
   if (batch <= 0) return 0;
-  if (vocab < 1 || vocab > kMaxVocab || step < 0 || step >= code_stride || stop < 0 ||
-      stop >= vocab) {
+  if (vocab < 1 || step < 0 || step >= code_stride || stop < 0 || stop >= vocab) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -550,6 +861,7 @@ extern "C" int sample_step(const void* logits, int dtype, void* seen, void* code
   p.stop = stop;
   p.chunk = (vocab + kCluster - 1) / kCluster;
   p.index_bits = vocab > 1 ? 32 - __builtin_clz(static_cast<unsigned>(vocab - 1)) : 0;
+  p.cache = 0;
   p.penalty_on = penalty_on != 0;
   p.temperature_on = temperature_on != 0;
   p.typical_on = typical_on != 0;
@@ -557,8 +869,10 @@ extern "C" int sample_step(const void* logits, int dtype, void* seen, void* code
   p.force_full = force_full != 0;
   p.penalty = penalty;
   p.temperature = temperature;
-  p.typical_thr = fixed_threshold(mass, true);
-  p.top_p_thr = fixed_threshold(top_p_thr, false);
+  // the masses' unit: 2^-40 on the shared path, 2^-60 on the wide one
+  const double scale = p.chunk <= kCtaVocab ? 1099511627776.0 : 1152921504606846976.0;
+  p.typical_thr = fixed_threshold(mass, true, scale);
+  p.top_p_thr = fixed_threshold(top_p_thr, false, scale);
   p.offset = offset;
   const auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

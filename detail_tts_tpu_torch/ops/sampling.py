@@ -15,7 +15,9 @@ a CUDA device it is one launch of kernel ``sample_step``
 draws the Gumbels of the kept tokens in registers from the step's device
 key, counted in :data:`LAUNCHES`; on the CPU it is the plain version
 :func:`sample_step_reference`.  The kernel spreads a row over a cluster of
-8 CTAs, so it takes any vocabulary up to :data:`MAX_VOCAB`.  There is no
+8 CTAs and takes any vocabulary: up to 65,536 a CTA holds its share of
+the row in shared memory, past that (to the C entry's int, 2**31 - 1) a
+sibling kernel re-reads what its shared memory does not hold.  There is no
 other route: a failed build or launch, or a cluster the card cannot
 schedule, raises.
 """
@@ -30,10 +32,8 @@ import torch
 from detail_tts_tpu_torch.ops import attention, prng
 
 SOURCE = attention.CSRC / "sample.cu"
-# The kernel spreads a row over 8 CTAs of at most 8192 tokens each (16 bytes
-# a token in shared memory; ``kMaxVocab`` in csrc/sample.cu, which refuses
-# more).
-MAX_VOCAB = 65536
+# the kernel's C entry takes the vocabulary as an int
+_INT_MAX = 2 ** 31 - 1
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 # kernel launches, by kernel (never the plain path)
@@ -137,16 +137,16 @@ def sample_step_reference(logits: torch.Tensor, seen: torch.Tensor, codes: torch
 
 
 def _check_step(logits, seen, codes, lengths, finished, step, key, stop_token) -> None:
-    """What the kernel takes: (B, V) bf16/fp32 logits with V <= MAX_VOCAB,
-    bool ``seen`` (B, V), int64 ``codes`` (B, n) with 0 <= step < n, int64
+    """What the kernel takes: (B, V) bf16/fp32 logits with V >= 1, bool
+    ``seen`` (B, V), int64 ``codes`` (B, n) with 0 <= step < n, int64
     ``lengths`` and bool ``finished`` (B,), an int32 (2,) key, all
     contiguous on one device, and a stop token inside the vocabulary."""
     if logits.dim() != 2 or logits.dtype not in _DTYPE_CODE:
         raise TypeError(f"logits must be (B, V) bfloat16 or float32, got {logits.dtype} "
                         f"{tuple(logits.shape)}")
     b, v = logits.shape
-    if not 1 <= v <= MAX_VOCAB:
-        raise ValueError(f"vocabulary {v} is outside [1, {MAX_VOCAB}]")
+    if v < 1:
+        raise ValueError(f"vocabulary {v} is empty")
     want = {"seen": ((b, v), torch.bool), "lengths": ((b,), torch.int64),
             "finished": ((b,), torch.bool), "key": ((2,), torch.int32)}
     given = {"seen": seen, "lengths": lengths, "finished": finished, "key": key}
@@ -220,6 +220,8 @@ def sample_step(logits: torch.Tensor, seen: torch.Tensor, codes: torch.Tensor,
     if logits.device.type == "cpu":
         return sample_step_reference(logits, seen, codes, lengths, finished, step, key, **kw)
     b, v = logits.shape
+    if v > _INT_MAX:
+        raise ValueError(f"vocabulary {v} is past the kernel's int ({_INT_MAX})")
     tok = torch.empty(b, dtype=torch.int64, device=logits.device)
     _launch("sample_step", logits.data_ptr(), _DTYPE_CODE[logits.dtype], seen.data_ptr(),
             codes.data_ptr(), lengths.data_ptr(), finished.data_ptr(), tok.data_ptr(),

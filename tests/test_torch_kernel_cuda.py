@@ -659,9 +659,13 @@ def test_sample_step_kernel_matches_plain_version(cuda, b, v, case):
             assert torch.equal(ours[same], theirs[same])
 
 
-# past what one CTA held (12288 tokens) up to MAX_VOCAB, and batches that
-# fill one wave of an H100's 132 SMs with 8-CTA clusters (B = 16) and wrap it
-WIDE_SHAPES = [(1, 16386), (8, 16386), (2, 12289), (2, 65536), (16, 8194), (40, 8194)]
+# past what one CTA held (12288 tokens) up to the shared-memory path's 65536,
+# past it on the wide path (one more; a 131071-entry codebook's; past the
+# shared memory a cluster has; past the 23-bit count of the shared path's
+# packed histogram), and batches that fill one wave of an H100's 132 SMs
+# with 8-CTA clusters (B = 16) and wrap it
+WIDE_SHAPES = [(1, 16386), (8, 16386), (2, 12289), (2, 65536), (16, 8194), (40, 8194),
+               (1, 65537), (2, 131073), (1, 1048579), (1, 8388609)]
 
 
 @pytest.mark.parametrize("case", ["random", "ties", "one-finite", "all-inf"])
@@ -695,16 +699,18 @@ def test_sample_step_kernel_matches_plain_version_at_wide_shapes(cuda, shape, ca
 
 
 def test_sample_step_kernel_refuses_a_row_past_max_vocab(cuda, monkeypatch):
-    """A row the kernel's cluster cannot hold is refused by the kernel's own
-    entry, and the wrapper raises: nothing falls back."""
-    v = sampling.MAX_VOCAB + 1
+    """No row is past a vocabulary cap any more (65536 was one); a launch the
+    kernel's own entry refuses (here a stop token outside the vocabulary,
+    past the wrapper's check) raises, and counts no launch: nothing falls
+    back."""
+    v = 65537
     x, seen, codes, lengths, finished = _sample_inputs(1, v, torch.float32, 0, "random", cuda)
-    monkeypatch.setattr(sampling, "MAX_VOCAB", 2 * v)  # past the wrapper's check
+    monkeypatch.setattr(sampling, "_check_step", lambda *args: None)
     before = sampling.LAUNCHES["sample_step"]
     with pytest.raises(RuntimeError, match="sample_step failed"):
         sampling.sample_step(x, seen, codes, lengths, finished, 0,
                              prng.decode_keys(0, 1, cuda)[0], temperature=0.8, top_p=0.8,
-                             repetition_penalty=2.0, typical_mass=1.0, stop_token=99,
+                             repetition_penalty=2.0, typical_mass=1.0, stop_token=v,
                              force_full=False)
     assert sampling.LAUNCHES["sample_step"] == before
 

@@ -106,15 +106,16 @@ def test_plain_step_matches_jax_body(setting, case):
 
 
 # vocabularies past what one CTA of the kernel held: one more than 12288, a
-# 16384-entry codebook's mel codes, and the most the kernel takes
-WIDE = (12289, 16386, 65536)
+# 16384-entry codebook's mel codes, the most the kernel's shared-memory path
+# takes, and past it (the wide path: one more, and a 131071-entry codebook's)
+WIDE = (12289, 16386, 65536, 65537, 131073)
 
 
 @pytest.mark.parametrize("v", WIDE)
 @pytest.mark.parametrize("setting", SETTINGS, ids=lambda s: "p%g-t%g-top%g-typ%g" % s)
 def test_plain_step_matches_jax_body_at_wide_vocabularies(setting, v):
     """``sample_step`` takes every vocabulary JAX's ``sample_token`` takes:
-    tokens and the step's state equal at V past 12288, up to ``MAX_VOCAB``."""
+    tokens and the step's state equal at V past 12288 and past 65536."""
     seed = 1000 + SETTINGS.index(setting) + v
     x, seen, codes, lengths, finished = _inputs("finished", seed, v)
     jkey, key = _keys(seed)
@@ -131,22 +132,19 @@ def test_plain_step_matches_jax_body_at_wide_vocabularies(setting, v):
 
 
 def test_sample_step_takes_every_vocabulary_up_to_max_vocab():
-    """``MAX_VOCAB`` (eight CTAs of 8192 tokens) is taken; one more is
-    refused, on every device."""
+    """No vocabulary cap is left (the kernel's was 65536, eight CTAs of 8192
+    tokens): V one past it and a 131071-entry codebook's are taken."""
     key = prng.decode_keys(2, 1)[0]
     kw = dict(temperature=0.8, top_p=0.8, repetition_penalty=2.0, typical_mass=0.9,
               force_full=False)
     state = (torch.zeros((1, 2), dtype=torch.long), torch.zeros(1, dtype=torch.long),
              torch.zeros(1, dtype=torch.bool))
-    assert tsamp.MAX_VOCAB == 65536
-    for v, ok in ((tsamp.MAX_VOCAB, True), (tsamp.MAX_VOCAB + 1, False)):
+    assert not hasattr(tsamp, "MAX_VOCAB")
+    for v in (65537, 131073):
         x = torch.zeros((1, v))
-        args = (x, torch.zeros_like(x, dtype=torch.bool), *state, 0, key)
-        if ok:
-            assert tsamp.sample_step(*args, stop_token=v - 1, **kw).shape == (1,)
-        else:
-            with pytest.raises(ValueError, match="outside"):
-                tsamp.sample_step(*args, stop_token=0, **kw)
+        seen = torch.zeros_like(x, dtype=torch.bool)
+        tok = tsamp.sample_step(x, seen, *state, 0, key, stop_token=v - 1, **kw)
+        assert tok.shape == (1,) and 0 <= int(tok) < v and bool(seen[0, tok])
 
 
 def test_plain_step_breaks_ties_at_the_top_p_boundary_by_index():
@@ -178,10 +176,10 @@ def test_sample_step_raises_on_what_the_kernel_does_not_take():
         tsamp.sample_step(x, seen.long(), codes, lengths, finished, 0, key, **kw)
     with pytest.raises(ValueError):
         tsamp.sample_step(x, seen, codes, lengths, finished, 0, key, **dict(kw, stop_token=V))
-    wide = torch.zeros((1, tsamp.MAX_VOCAB + 1))
-    with pytest.raises(ValueError):
-        tsamp.sample_step(wide, torch.zeros_like(wide, dtype=torch.bool), codes[:1],
-                          lengths[:1], finished[:1], 0, key, **kw)
+    empty = torch.zeros((1, 0))
+    with pytest.raises(ValueError, match="vocabulary 0"):
+        tsamp.sample_step(empty, torch.zeros_like(empty, dtype=torch.bool), codes[:1],
+                          lengths[:1], finished[:1], 0, key, **dict(kw, stop_token=0))
 
 
 def test_sample_step_on_the_cpu_is_the_plain_version_in_place():
