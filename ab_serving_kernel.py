@@ -30,10 +30,23 @@ With ``--sample`` each source is a ``sample.cu`` with ``threefry.cuh``
 beside it and the package's C entries ``sample_step`` and
 ``sample_step_floor`` (this package's, or an earlier one from ``git show
 <commit>:detail_tts_tpu_torch/csrc/sample.cu`` under ``build/``).  At each
-(B, V) (default (1, 2, 8, 16) x 8194) and setting (top-p, top-p and
-typical, both off: ``chip_smoke.SAMPLE_SETTINGS``) on fp32 logits, each source's tokens are checked once against
-``sample_step_reference``, then its bare launches are timed in turns, and
-the floor (its empty kernel on its own grid, back to back).
+(B, V) (default ``SAMPLE_AB_SHAPES``: (1, 2, 8, 16) x 8194 on the shared
+path, then the wide path's (1, 65537), (2, 131073), (1, 1048579) and (1,
+8388609)) and setting (top-p, top-p and typical, both off:
+``chip_smoke.SAMPLE_SETTINGS``) on fp32 logits, each source's tokens are
+checked once against ``sample_step_reference``, then its bare launches are
+timed in turns, and the floor (its empty kernel on its cluster grid, back
+to back); a source with ``sample_step_wide_shape`` also reports each wide
+launch's G, groups in flight and cached tokens a CTA.
+
+With ``--sample --trace`` each source (a ``sample.cu`` of this package's
+wide kernel) is copied under ``build/trace/LABEL/`` with ``SAMPLE_TRACE``
+defined, which turns on its ``clock64`` stamps of CTA 0's thread 0 at the
+wide kernel's phases (the first read, each arrival at and release from a
+group barrier, the end of each radix sweep, the draw), built, launched at
+each wide (B, V) and setting after three warm-up launches, and each
+phase's SM cycles printed: where one step's time goes, which no profiler
+here reaches.
 """
 from __future__ import annotations
 
@@ -42,6 +55,7 @@ import ctypes
 import json
 import math
 import os
+import shutil
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -56,6 +70,11 @@ from chip_smoke import (SAMPLE_SETTINGS, attention_inputs, cuda_ms,  # noqa: E40
 from detail_tts_tpu_torch.ops import attention, sampling  # noqa: E402
 
 TRAIN_SHAPES = [(8, 496, 16, 48), (8, 124, 16, 48), (8, 124, 16, 96)]
+# --sample's default shapes: the decode's V on the shared path, then the wide
+# path's (one token past it, 2^17 + 1, and V in the millions, which no
+# configuration of the repo sends)
+SAMPLE_AB_SHAPES = [(1, 8194), (2, 8194), (8, 8194), (16, 8194), (1, 65537), (2, 131073),
+                    (1, 1048579), (1, 8388609)]
 
 
 def ptxas_lines(log: str, keep) -> list:
@@ -79,12 +98,18 @@ def load(source: Path, entry: str):
 
 
 def load_sample(path: str):
-    """Build a ``sample.cu``: (launch(args), floor(b), ptxas lines)."""
+    """Build a ``sample.cu``: (launch(args), floor(b), ptxas lines, the wide
+    launch's (G, groups, cached tokens a CTA) at (b, v), or None where the
+    source has no ``sample_step_wide_shape``)."""
     lib_path, _, log = attention.build(Path(path))
     lib = ctypes.CDLL(str(lib_path))
     for name in ("sample_step", "sample_step_floor"):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = sampling._SIGNATURES[name], ctypes.c_int
+    shape_fn = getattr(lib, "sample_step_wide_shape", None)
+    if shape_fn is not None:
+        shape_fn.argtypes = sampling._SIGNATURES["sample_step_wide_shape"]
+        shape_fn.restype = ctypes.c_int
 
     def launch(args):
         rc = lib.sample_step(*args)
@@ -96,7 +121,16 @@ def load_sample(path: str):
         if rc != 0:
             raise RuntimeError(f"sample_step_floor of {path} failed ({rc})")
 
-    return launch, floor, ptxas_lines(log, lambda name: "sample_step_kernel" in name)
+    def wide_shape(b, v):
+        if shape_fn is None or v <= 65536:
+            return None
+        out = [ctypes.c_int() for _ in range(3)]
+        rc = shape_fn(v, b, 1, *(ctypes.byref(o) for o in out))
+        if rc != 0:
+            raise RuntimeError(f"sample_step_wide_shape of {path} failed ({rc})")
+        return tuple(o.value for o in out)
+
+    return launch, floor, ptxas_lines(log, lambda name: "sample_step_kernel" in name), wide_shape
 
 
 def sample_case(b, v, setting):
@@ -128,6 +162,50 @@ def sample_case(b, v, setting):
     return args((seen, codes, lengths, finished)), check
 
 
+# the wide kernel's phase tags under SAMPLE_TRACE (csrc/sample.cu)
+_TRACE_TAGS = {1: "start", 2: "first read", 3: "arrive", 4: "released", 5: "radix sweep",
+               6: "draw", 7: "end"}
+
+
+def traced_source(path: Path, label: str) -> Path:
+    """A copy of a ``sample.cu`` under ``build/trace/LABEL/`` that defines
+    ``SAMPLE_TRACE`` first, so its wide kernel stamps its phases and it has a
+    C entry ``sample_trace_read(out, n)``."""
+    text = path.read_text()
+    if "SAMPLE_TRACE" not in text:
+        raise SystemExit(f"--trace: {path} has no SAMPLE_TRACE stamps")
+    out = Path("build") / "trace" / label / "sample.cu"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text("#define SAMPLE_TRACE 1\n" + text)
+    shutil.copy(path.parent / "threefry.cuh", out.parent / "threefry.cuh")
+    return out
+
+
+def trace_main(args, labels, specs):
+    """``--sample --trace``: each source's wide kernel, phase by phase."""
+    for label, spec in zip(labels, specs):
+        lib = ctypes.CDLL(str(attention.build(traced_source(Path(spec), label))[0]))
+        lib.sample_step.argtypes, lib.sample_step.restype = sampling._SIGNATURES[
+            "sample_step"], ctypes.c_int
+        lib.sample_trace_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        for b, v in args.shape or [s for s in SAMPLE_AB_SHAPES if s[1] > 65536]:
+            for setting_name in ("top-p", "top-p+typical", "off"):
+                call_args, _ = sample_case(b, v, SAMPLE_SETTINGS[setting_name])
+                for _ in range(4):  # three warm-ups, then the one read
+                    if lib.sample_step(*call_args) != 0:
+                        raise RuntimeError(f"sample_step of {spec} failed")
+                torch.cuda.synchronize()
+                buf, n = (ctypes.c_ulonglong * 1024)(), ctypes.c_uint()
+                if lib.sample_trace_read(buf, ctypes.byref(n)) != 0:
+                    raise RuntimeError("sample_trace_read failed")
+                stamps = [(buf[2 * i], buf[2 * i + 1]) for i in range(n.value)]
+                phases = [f"{_TRACE_TAGS[tag]} +{t - prev}" for (tag, t), (_, prev) in
+                          zip(stamps[1:], stamps)]
+                print(f"  trace {label} ({b}, {v}) fp32 {setting_name}: "
+                      f"{stamps[-1][1] - stamps[0][1]} SM cycles: " + ", ".join(phases),
+                      flush=True)
+
+
 def sample_main(args, labels, specs):
     """``--sample``: the sampler sources in turns at each shape and setting."""
     with ThreadPoolExecutor(max_workers=len(specs)) as pool:
@@ -136,7 +214,7 @@ def sample_main(args, labels, specs):
         for line in built[label][2]:
             print(f"  {label}: {line}", flush=True)
     results = []
-    for b, v in args.shape or [(1, 8194), (2, 8194), (8, 8194), (16, 8194)]:
+    for b, v in args.shape or SAMPLE_AB_SHAPES:
         for setting_name in ("top-p", "top-p+typical", "off"):
             call_args, check = sample_case(b, v, SAMPLE_SETTINGS[setting_name])
             differ = {label: check(built[label][0]) for label in labels}
@@ -150,12 +228,15 @@ def sample_main(args, labels, specs):
                                             only="sample_step_kernel"))
                 floors[label].append(cuda_ms(lambda: [floor(b) for _ in range(200)],
                                              runs=5) / 200)
+            wide = {label: built[label][3](b, v) for label in labels}
             for label in labels:
                 print(f"  ({b}, {v}) fp32 {setting_name}: {label} ms {times[label]} device_ms "
                       f"{dev[label]} floor_ms {floors[label]} rows differing from the plain "
-                      f"version {differ[label]}", flush=True)
+                      f"version {differ[label]}"
+                      + (f"; wide G {wide[label][0]}, groups {wide[label][1]}, cached tokens a "
+                         f"CTA {wide[label][2]}" if wide[label] else ""), flush=True)
             results.append(dict(shape=[b, v], setting=setting_name, ms=times, device_ms=dev,
-                                floor_ms=floors, differ=differ))
+                                floor_ms=floors, differ=differ, wide=wide))
     print(json.dumps({"device": torch.cuda.get_device_name(0), "results": results}))
 
 
@@ -212,6 +293,8 @@ def main():
                     help="time the training forward bias_attention_train_fwd")
     ap.add_argument("--sample", action="store_true",
                     help="time the decode step's sampler sample_step")
+    ap.add_argument("--trace", action="store_true",
+                    help="with --sample: the wide kernel's phases in SM cycles")
     ap.add_argument("--cold", action="store_true",
                     help="evict L2 (a 256 MB write) before every timed launch")
     ap.add_argument("--shape", nargs="+", type=int, action="append",
@@ -222,8 +305,9 @@ def main():
         sys.exit("ab_serving_kernel.py needs a CUDA device")
     print(smi("name,power.limit"), flush=True)
     if args.sample:
-        sample_main(args, [s.split("=", 1)[0] for s in args.sources],
-                    [s.split("=", 1)[1] for s in args.sources])
+        run = trace_main if args.trace else sample_main
+        run(args, [s.split("=", 1)[0] for s in args.sources],
+            [s.split("=", 1)[1] for s in args.sources])
         return
     entry = "bias_attention_train_fwd" if args.train else "bias_attention_fwd"
     labels = [s.split("=", 1)[0] for s in args.sources]

@@ -31,12 +31,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    written) and the plain version's;
 3c. the sample step: ``sample_step`` (the decode step's penalty,
    temperature, typical and top-p filters, Gumbels, argmax and bookkeeping
-   in one kernel, a row over a cluster of 8 CTAs) against
+   in one kernel: a row over a cluster of 8 CTAs up to V = 65,536, past it
+   over a group of G CTAs, up to every SM) against
    ``sample_step_reference`` at (B, V) = (1, 2, 8, 16) x 8194, (1, 8) x
    8193, (2, 16) x 1000, the wide vocabularies (1, 8) x 16386, (2,
    12289) and (1, 65536), and past the shared-memory path
-   (``WIDE_SAMPLE_SHAPES``: (1, 65537), (2, 131073), (1, 1048579) and
-   (1, 8388609), past the shared path's 23-bit count), bf16 and fp32 logits,
+   (``WIDE_SAMPLE_SHAPES``: (1, 65537), (3, 65539) with rows off every
+   16-byte boundary, (2, 131073), (8, 131073) in two groups of four rows,
+   (1, 1048579), (1, 4194305), (1, 8388609) and (1, 16777217), past what
+   the card's shared memory caches), bf16 and fp32 logits,
    under ``SAMPLE_SETTINGS`` (top-p, top-p and typical, typical, both off),
    with and without force_full and a data rank's offset, on random logits,
    logits tied at the top-p boundary, a -0.0 / +0.0 pair, rows with one
@@ -44,11 +47,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    whose plain boundary mass lies within ``SAMPLE_NEAR`` of its threshold,
    those rows under ``SAMPLE_FLIPS`` of all, codes, seen, lengths and
    finished bit-identical where the tokens agree, and a repeated launch
-   bit-identical; CUDA-event and device times at (1, 2, 8, 16) x 8194
+   bit-identical; at ``WIDE_ALONE_SHAPES`` ((3, 65539), (8, 131073), (3,
+   1048579), (3, 8388609)) each row launched alone bit-identical to the same
+   row in the batch; CUDA-event and device times at (1, 2, 8, 16) x 8194
    under top-p, top-p and typical, and both off, at (2, 12289), (8,
    16386) and (1, 65536) under top-p, and at ``WIDE_SAMPLE_SHAPES`` under
-   the three (the plain version beside top-p), with C and the threads a CTA,
-   beside the bound (bytes), the floor (an empty kernel on the same grid:
+   the three (the plain version beside top-p), with C and the threads a CTA
+   (on the wide path G, the groups in flight, the cached tokens a CTA and
+   the device time's share of the bound),
+   beside the bound (bytes), the floor (an empty kernel on the cluster grid:
    launch to launch, and its device time), the plain version's and the
    parent's decode step (stock launches around a ``threefry_draw``), each
    with its device launches.
@@ -648,10 +655,18 @@ SAMPLE_SETTINGS = {"top-p": (0.8, 0.8, 2.0, 1.0), "top-p+typical": (0.8, 0.8, 2.
                    "typical": (1.0, 1.0, 2.0, 0.9), "off": (1.0, 1.0, 1.0, 1.0)}
 SAMPLE_SHAPES = [(1, 8194), (2, 8194), (8, 8194), (16, 8194), (1, 8193), (8, 8193),
                  (2, 1000), (16, 1000), (1, 16386), (8, 16386), (2, 12289), (1, 65536)]
-# past the shared-memory path's 65536, on the wide path: one more, a
-# 131071-entry codebook's, past what a cluster's shared memory holds, and
-# past the 23-bit count of the shared path's packed histogram
-WIDE_SAMPLE_SHAPES = [(1, 65537), (2, 131073), (1, 1048579), (1, 8388609)]
+# past the shared-memory path's 65536, on the wide path: one more; an odd V
+# whose rows 1 and 2 start off every 16-byte boundary; V = 2^17 + 1, in two
+# rows and in eight (two groups of G = 65 CTAs taking four rows each in
+# turn); V in the millions (past the shared path's 23-bit count); and past
+# the ~5.9 M tokens that the card's shared memory caches, where every pass
+# re-reads the rest.  No configuration of the repo sends a V past 65,536:
+# these are cases the kernel is held correct at.
+WIDE_SAMPLE_SHAPES = [(1, 65537), (3, 65539), (2, 131073), (8, 131073), (1, 1048579),
+                      (1, 4194305), (1, 8388609), (1, 16777217)]
+# a wide row alone against the same row inside its batch (bit-identical):
+# aligned and not, groups taking several rows, all cached and past the cache
+WIDE_ALONE_SHAPES = [(3, 65539), (8, 131073), (3, 1048579), (3, 8388609)]
 # A token may differ from the plain version's only in a row whose plain
 # boundary mass (its cumulative probability nearest 1 - top_p, or the
 # typical mass) lies within SAMPLE_NEAR of it: the kernel's sums run in
@@ -755,12 +770,44 @@ def sample_bound_ms(b, v, dtype):
     return nbytes / PEAK_BYTES_PER_S * 1e3
 
 
+def wide_shape(b, v):
+    """The wide launch at (b, v) fp32: (G, the CTAs a row; the groups, rows
+    in flight; the tokens a CTA caches in shared memory)."""
+    out = [ctypes.c_int() for _ in range(3)]
+    sampling._launch("sample_step_wide_shape", v, b, 1, *(ctypes.byref(o) for o in out))
+    return tuple(o.value for o in out)
+
+
+def check_wide_alone(b, v, dtype, seed, setting):
+    """Each row of a (b, v) step launched alone, from its own offset, against
+    the same row inside the batch: token and state bit-identical.  Returns
+    what failed or None."""
+    x, seen, codes, lengths, finished, step, key = sample_inputs(b, v, dtype, seed)
+    t, top_p, pen, mass = setting
+    kw = dict(temperature=t, top_p=top_p, repetition_penalty=pen, typical_mass=mass,
+              stop_token=v - 1, force_full=False)
+    batch = [a.clone() for a in (seen, codes, lengths, finished)]
+    tok = sampling.sample_step(x, *batch, step, key, offset=0, **kw)
+    for r in range(b):
+        alone = [a[r:r + 1].clone() for a in (seen, codes, lengths, finished)]
+        one = sampling.sample_step(x[r:r + 1].clone(), *alone, step, key, offset=r * v, **kw)
+        torch.cuda.synchronize()
+        if int(one) != int(tok[r]):
+            return f"row {r}: token {int(one)} alone, {int(tok[r])} in the batch"
+        for name, mine, theirs in zip(("seen", "codes", "lengths", "finished"), alone, batch):
+            if not torch.equal(mine, theirs[r:r + 1]):
+                return f"row {r}: {name} differs alone"
+    return None
+
+
 def time_sample_step(b, v, setting, label, against_plain):
     """CUDA-event and device times of the kernel and the floor (an empty
     kernel on the same grid: its launch-to-launch time back to back, and
     its device time); with
     ``against_plain``, the times and device launches of its plain version
-    and of the parent's decode step too."""
+    and of the parent's decode step too.  On the wide path (V > 65,536)
+    also its G, groups and cached tokens a CTA, and the share of the bytes
+    bound its device time reaches."""
     dev = torch.device("cuda")
     x, seen, codes, lengths, finished, step, key = sample_inputs(b, v, torch.float32, 77)
     t, top_p, pen, mass = setting
@@ -798,10 +845,18 @@ def time_sample_step(b, v, setting, label, against_plain):
              f"threefry_draw kernel) ms {row['chain_ms']} device_ms "
              f"{row['chain_device_ms']} launches {row['chain_launches']}"
              if against_plain else "")
-    print(f"  time sample_step {label} ({b}, {v}) fp32, C {row['cluster']} x {row['threads']} "
-          f"threads: kernel_ms {row['ms']} device_ms {row['device_ms']}{plain}; bound_ms "
+    grid = f"C {row['cluster']} x {row['threads']} threads"
+    if v > 65536:
+        row["wide_ctas"], row["wide_groups"], row["wide_cache"] = wide_shape(b, v)
+        row["bound_share"] = (row["bound_ms"] / row["device_ms"] if row["device_ms"]
+                              else None)
+        grid = (f"wide: G {row['wide_ctas']} CTAs x {row['threads']} threads a row, "
+                f"{row['wide_groups']} group(s), {row['wide_cache']} cached tokens a CTA; "
+                f"device time at {row['bound_share']} of the bytes bound")
+    print(f"  time sample_step {label} ({b}, {v}) fp32, {grid}: kernel_ms {row['ms']} "
+          f"device_ms {row['device_ms']}{plain}; bound_ms "
           f"{row['bound_ms']} (bytes); floor_ms {row['floor_ms']} (an empty kernel on the "
-          f"grid, back to back; its device_ms {row['floor_device_ms']})", flush=True)
+          f"cluster grid, back to back; its device_ms {row['floor_device_ms']})", flush=True)
     return row
 
 
@@ -894,6 +949,16 @@ def phase_sample():
                           check_sample_step(*inputs, setting, offset=offset,
                                             force_full=force_full, stop=v - 1))
     tally.gate("synthetic steps")
+    for b, v in WIDE_ALONE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for label, setting in SAMPLE_SETTINGS.items():
+                seed += 1
+                problem = check_wide_alone(b, v, dtype, seed, setting)
+                if problem:
+                    fail(f"sample_step ({b}, {v}) {str(dtype)[6:]} {label}: a wide row alone "
+                         f"differs from the same row in the batch: {problem}")
+        print(f"  ({b}, {v}): each row alone bit-identical to the row in the batch (bf16 and "
+              f"fp32, {len(SAMPLE_SETTINGS)} settings)", flush=True)
     times = [time_sample_step(b, 8194, SAMPLE_SETTINGS[label], label, against_plain=b == 8)
              for label in ("top-p", "top-p+typical", "off") for b in (1, 2, 8, 16)]
     times += [time_sample_step(b, v, SAMPLE_SETTINGS["top-p"], "top-p", against_plain=False)
@@ -3707,6 +3772,9 @@ def main():
                       "9 and 10 gate each rank's",
         max_abs_err=sample_tally.max_abs, rows_compared=sample_tally.rows,
         rows_differ=sample_tally.differ,
+        wide=[{k: t[k] for k in ("shape", "setting", "ms", "device_ms", "bound_ms",
+                                 "bound_share", "wide_ctas", "wide_groups", "wide_cache")}
+              for t in sample_times if t["shape"][1] > 65536],
         library="none", **sample_row))
     sources = {"bias_attention_train_fwd": ("bias_attention.cu", 259),
                "bias_attention_bwd_dq_dbias": ("bias_attention_bwd.cu", 286),

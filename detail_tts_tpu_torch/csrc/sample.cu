@@ -7,28 +7,61 @@
 // bookkeeping (the stop token for finished rows, ``codes[:, step]``,
 // ``seen[r, tok]``, ``lengths``, ``finished``).
 //
-// A row is spread over a thread-block cluster of kCluster = 8 CTAs of
-// kThreads threads: CTA c owns the row's tokens [c chunk, (c + 1) chunk),
-// chunk = ceil(V / 8).  B rows are 8 B CTAs, one wave of an H100's 132 SMs
-// up to B = 16; past that the grid wraps.  Two kernels, one a launch:
+// Two kernels, one a launch:
 //
 // * ``sample_step_kernel`` (V <= 8 x kCtaVocab = 65,536, the decode's
-//   8194 among them): a CTA holds its chunk in shared memory, 16 B a token
-//   (the logit, its key's value bits, its fixed-point mass);
+//   8194 among them): a row over a thread-block cluster of kCluster = 8
+//   CTAs of kThreads threads, CTA c owning the row's tokens [c chunk, (c +
+//   1) chunk), chunk = ceil(V / 8), held in shared memory, 16 B a token
+//   (the logit, its key's value bits, its fixed-point mass).  B rows are 8
+//   B CTAs, one wave of an H100's 132 SMs up to B = 16; past that the grid
+//   wraps.  The CTAs meet through distributed shared memory: each pushes its
+//   partials into every CTA's slots and a ``cluster.sync()`` publishes them.
+//   Each CTA arrives at a cluster barrier on entry and waits on it after
+//   loading its tokens, before its first push, so no CTA writes into one
+//   that has not started.  Thread t of a CTA owns its tokens t, t +
+//   kThreads, ... in every pass.
 // * ``sample_step_kernel_wide`` (every larger V, up to the C entry's int
-//   2^31 - 1): a CTA keeps the first ``Params.cache`` tokens of its chunk
-//   (~32,000, what its shared memory holds beside the histograms) as
-//   penalized, tempered logits, 4 B a token, and re-reads the rest from
-//   global memory in each pass.  Every pass recomputes a token's value,
-//   key and mass from that logit with the same code for a cached and a
-//   re-read token, so it needs no workspace: a token the typical filter
-//   removed is recognised again by its key against the boundary.
+//   2^31 - 1): a row over a group of G CTAs, G = min(SMs, ceil(V /
+//   kWideMinChunk)), a function of V and of the card only, never of B (the
+//   float sums run in a fixed order over the CTAs, so a row's token must
+//   not depend on its batch mates).  The grid is a cooperative launch of
+//   as many groups as the card holds at once, up to B; a group takes rows
+//   g, g + groups, ... in turn (a persistent grid).  A grid that cannot be
+//   co-resident (the occupancy call finds fewer than G CTAs' room) is
+//   refused.  The first pass reads the CTA's chunk of the row from global
+//   memory once, applies the penalty and the temperature, and keeps up to
+//   ``Wide.cache`` of the tokens in shared memory (44,672 a CTA on an H100,
+//   4 B a token: 132 CTAs hold ~5.9 M); every later pass reads them there
+//   and re-reads only the rest (V past ~5.9 M), one token a thread at a
+//   time, which is likely in L2.  The first read takes the body of the
+//   CTA's chunk in 16-token units, each 16-byte loads of its logits and seen
+//   bytes; row r starts at element r V, so the body starts at the first
+//   token whose seen byte lies on a 16-byte boundary, and a head and a tail
+//   are read one token at a time.  That read only caches and takes the max,
+//   which is exact in any order; every later pass gives thread i the same
+//   tokens (its cached ones i, i + kThreads, ..., then the rest likewise),
+//   whatever the row's alignment or batch, so its float sums run in one
+//   order.  Every pass recomputes a token's value, key and mass from its
+//   penalized, tempered logit by the same code for a cached and a re-read
+//   token, so a token the typical filter removed is recognised again by its
+//   key against the boundary.
 //
-// The CTAs meet through distributed shared memory: each pushes its partials
-// into every CTA's slots and a ``cluster.sync()`` publishes them.  Each CTA arrives at a cluster
-// barrier on entry and waits on it after loading its tokens, before its
-// first push, so no CTA writes into one that has not started.  Thread t of a
-// CTA owns its tokens t, t + kThreads, ... in every pass but the sums.
+//   The group's CTAs meet through a workspace in global memory, one block
+//   a group: a barrier (a counter that each CTA adds one to and waits on
+//   until it reaches the next multiple of G; the launch is cooperative, so
+//   all G are resident and the spin ends), each CTA's float partials in a
+//   slot of its own, read back and combined in CTA order, and three
+//   256-bin histograms (mass and count) used in turn, into which each CTA
+//   adds its non-empty bins with integer atomics (exact in any order).
+//   The workspace belongs to the library: one per (device, stream) pair,
+//   allocated and cleared at the pair's first wide launch (launches on one
+//   stream run in order, so two launches never share one at once), sized
+//   for as many groups as the card holds at once, and left as it was found
+//   at the end of each launch (the last CTA of a group to leave clears its
+//   barrier and histograms).  A stream must not be destroyed while a wide
+//   launch on it may run: a new stream given its handle would share the
+//   workspace.
 //
 // * penalty and temperature, each skipped at 1.0 as the plain version skips
 //   it (IEEE division, as the plain version divides);
@@ -53,7 +86,9 @@
 // is the least key whose mass at or below it passes the threshold, found by
 // radix select from the top of the key, kRadixBits a pass: a histogram of
 // the mass of the candidates that share the prefix chosen so far (each
-// warp's in shared memory, the warps' and then the CTAs' added in order),
+// warp's in shared memory, on the wide path as 32-bit words: shared memory
+// adds those natively, and a 64-bit atomic there is a compare-and-swap loop;
+// the warps' and then the CTAs' added),
 // a scan of its bins, and the first non-empty bin where the carried mass
 // below it plus the bins up to it passes; where none passes (rounding), the
 // last non-empty bin, which ends at the largest key (the clamp to V - 1).
@@ -81,15 +116,24 @@
 // each a chain of CTA barriers, shared-memory round trips and one cluster
 // barrier.  Radix select cuts a filter's dependent rounds from 46 bisection
 // steps to at most 6 passes, and the cluster puts 8 SMs on a row, so each
-// thread holds a few tokens.  The wide path at V in the millions is bound
-// by the 8 SMs' reads of the row, once a pass: its bytes bound counts the
-// row once, and it is the repair of a refusal, not a path the decode runs.
+// thread holds a few tokens.  The wide path reads the row from HBM once,
+// with up to every SM of the card on it; its later passes walk shared
+// memory, and each exchange is a barrier in global memory (about a
+// microsecond), so at a V of a few hundred thousand the barriers set its
+// time and at V in the millions the first read and the passes over ~50,000
+// tokens a CTA do.  It is not a path the decode runs at ``Config()``, and no
+// configuration of this repository sends a V past 65,536: V in the millions
+// are cases it is held correct at, not shapes it is tuned for.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <mutex>
+#include <utility>
+#include <vector>
 
 #include "threefry.cuh"
 
@@ -118,7 +162,6 @@ constexpr int kExchanges = 5;
 
 struct Params {
   int vocab, code_stride, step, stop, chunk, index_bits;
-  int cache;  // the wide path: tokens a CTA keeps in shared memory
   bool penalty_on, temperature_on, typical_on, top_p_on, force_full;
   float penalty, temperature;
   // fixed-point thresholds: typical passes at cum >= typical_thr, top-p at
@@ -144,16 +187,6 @@ __host__ __device__ inline size_t smem_bytes(int chunk, bool filters) {
   return tokens * 4 + 8 * static_cast<size_t>(2 * kCluster * kBins + kWarps * kBins);
 }
 
-// The wide path's dynamic shared memory: each warp's histogram and the CTAs'
-// pushed ones, a mass word and a count word a bin, then the cached tokens.
-struct WideHist {
-  unsigned long long* mass;       // [kWarps][kBins]
-  unsigned long long* recv_mass;  // [2][kCluster][kBins]
-  unsigned* count;                // [kWarps][kBins]
-  unsigned* recv_count;           // [2][kCluster][kBins]
-};
-constexpr size_t kWideHistBytes =
-    (8 + 4) * static_cast<size_t>(kWarps * kBins + 2 * kCluster * kBins);
 
 // The CTA's small exchange slots (static shared memory).
 struct Slots {
@@ -349,106 +382,6 @@ __device__ void radix_select(const Tokens& tk, int n, int j0, int index_bits,
   shift_out = shift;
 }
 
-// radix_select on the wide path: the same passes, with a token's key and
-// mass from ``key_of(t)`` and ``mass_of(t)`` (computed again in each pass,
-// the mass only for a candidate), and a bin's mass and count in words of
-// their own.  ``total_bits``: the key's width (32, or 32 + index bits).
-template <bool kTopP, typename KeyFn, typename MassFn>
-__device__ void radix_select_wide(KeyFn key_of, MassFn mass_of, int n, int total_bits,
-                                  unsigned long long thr, const WideHist& w, Slots& s,
-                                  unsigned* bcount, cg::cluster_group& cluster, int rank,
-                                  unsigned long long& prefix_out, int& shift_out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned long long prefix = 0, carried = 0;  // carried: the mass below the prefix
-  int shift = total_bits, buf = 0;
-  while (shift > 0) {
-    const int bits = min(kRadixBits, shift);
-    shift -= bits;
-    const unsigned long long digit = (1ULL << bits) - 1;
-    unsigned long long* wm = w.mass + warp * kBins;
-    unsigned* wc = w.count + warp * kBins;
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      const unsigned long long key = key_of(t);
-      if ((key >> (shift + bits)) != prefix) continue;
-      const unsigned long long q = mass_of(t);
-      if (kTopP && q == 0) continue;
-      const int b = static_cast<int>((key >> shift) & digit);
-      atomicAdd(wm + b, q);
-      atomicAdd(wc + b, 1u);
-    }
-    __syncthreads();
-    // the CTA's histogram, the warps in order, pushed into every CTA's slot
-    unsigned long long* slot_m = w.recv_mass + buf * kCluster * kBins;
-    unsigned* slot_c = w.recv_count + buf * kCluster * kBins;
-    const int bin = threadIdx.x;
-    unsigned long long h = 0;
-    unsigned c = 0;
-    if (bin < kBins) {
-      for (int v = 0; v < kWarps; ++v) {
-        h += w.mass[v * kBins + bin];
-        c += w.count[v * kBins + bin];
-        w.mass[v * kBins + bin] = 0;
-        w.count[v * kBins + bin] = 0;
-      }
-      for (int k = 0; k < kCluster; ++k) {
-        *cluster.map_shared_rank(slot_m + rank * kBins + bin, k) = h;
-        *cluster.map_shared_rank(slot_c + rank * kBins + bin, k) = c;
-      }
-    }
-    cluster.sync();
-    // the cluster's histogram, the CTAs in order, and its inclusive scan
-    unsigned long long excl = 0;
-    if (bin < kBins) {
-      h = 0;
-      c = 0;
-      for (int k = 0; k < kCluster; ++k) {
-        h += slot_m[k * kBins + bin];
-        c += slot_c[k * kBins + bin];
-      }
-      unsigned long long incl = h;
-      for (int o = 1; o < 32; o <<= 1) {
-        const unsigned long long y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-        if (lane >= o) incl += y;
-      }
-      if (lane == 31) s.wscan[warp] = incl;
-      excl = incl - h;
-    }
-    __syncthreads();
-    if (bin < kBins) {
-      for (int v = 0; v < warp; ++v) excl += s.wscan[v];
-      s.bexcl[bin] = excl;
-      bcount[bin] = c;
-      const unsigned long long cum = carried + excl + h;
-      const unsigned first = c != 0 && (kTopP ? cum > thr : cum >= thr) ? bin : kBins;
-      const unsigned last = c != 0 ? bin + 1 : 0;  // one past the last non-empty bin
-      const unsigned wf = __reduce_min_sync(0xFFFFFFFFu, first);
-      const unsigned wl = __reduce_max_sync(0xFFFFFFFFu, last);
-      if (lane == 0) {
-        s.wfirst[warp] = wf;
-        s.wlast[warp] = wl;
-      }
-    }
-    __syncthreads();
-    unsigned first = kBins, last = 0;
-    for (int v = 0; v < kBins / 32; ++v) {
-      first = min(first, s.wfirst[v]);
-      last = max(last, s.wlast[v]);
-    }
-    if (last == 0) {  // no candidate: every token kept
-      prefix = 0;
-      shift += bits;
-      break;
-    }
-    const unsigned b = first < kBins ? first : last - 1;
-    carried += s.bexcl[b];
-    prefix = (prefix << bits) | b;
-    buf ^= 1;
-    if (bcount[b] == 1) break;  // one candidate left: the boundary
-  }
-  prefix_out = prefix;
-  shift_out = shift;
-}
-
 // log p of a logit x under the row's max m and log-sum log_s, as
 // ``torch.log_softmax``'s epilogue: (x - m) - log_s.
 __device__ __forceinline__ float log_prob(float x, float m, float log_s) {
@@ -621,105 +554,624 @@ __global__ void __launch_bounds__(kThreads, 2)
              lengths, finished, tok_out, key);
 }
 
-// The wide path (V > 8 x kCtaVocab): the same filters and draw as
-// sample_step_kernel, each pass over a CTA's chunk computing a token's value
-// from the first ``p.cache`` tokens kept in shared memory, or else from the
-// logit and seen bit in global memory, by one function of the two.
+// ---------------------------------------------------------------- the wide path
+
+// A wide row's CTAs: one for every kWideMinChunk tokens, up to every SM.  At
+// the least wide V (65,537), where the barriers set the time, fewer and
+// larger chunks were slower on an H100: top-p took 1.5x as long at 4096 and
+// 2.2x at 8192 (PERF.md).
+constexpr int kWideMinChunk = 2048;
+constexpr int kWideMaxCtas = 256;  // a group's slots in the workspace
+constexpr int kUnit = 16;     // tokens of one 16-byte load of seen flags
+constexpr int kWideBufs = 3;  // the group's histograms in global memory, used in turn
+// each warp's histogram in shared memory: two mass words and a count word a bin
+constexpr size_t kWideHistBytes = 3 * 4 * static_cast<size_t>(kWarps * kBins);
+
+// A group's block of the workspace: the barrier's count at 0 and the count
+// of CTAs that have left at 128 (each on a line of its own), the histograms'
+// masses [kWideBufs][kBins] and counts [kWideBufs][kBins], the float
+// partials [kExchanges][kWideMaxCtas], and the argmax's values and indices
+// [2][kWideMaxCtas] (by the parity of the group's row).
+constexpr size_t kWsMass = 256;
+constexpr size_t kWsCount = kWsMass + 8 * kWideBufs * kBins;
+constexpr size_t kWsPartial = kWsCount + 4 * kWideBufs * kBins;
+constexpr size_t kWsBestVal = kWsPartial + 4 * kExchanges * kWideMaxCtas;
+constexpr size_t kWsBestIdx = kWsBestVal + 4 * 2 * kWideMaxCtas;
+constexpr size_t kWsGroupBytes = (kWsBestIdx + 4 * 2 * kWideMaxCtas + 127) / 128 * 128;
+
+// The wide launch's shape and workspace (``groups`` blocks of kWsGroupBytes).
+struct Wide {
+  unsigned char* ws;
+  int ctas, groups, batch;  // G CTAs a row; rows in flight; rows
+  int chunk;                // tokens a CTA: ceil(V / G)
+  int cache;                // tokens a CTA keeps in shared memory: its chunk, or a multiple of 32
+};
+
+struct GroupWs {
+  unsigned* barrier;
+  unsigned* left;
+  unsigned long long* mass;
+  unsigned* count;
+  float* partial;
+  float* best_val;
+  int* best_idx;
+};
+
+__device__ __forceinline__ GroupWs group_ws(unsigned char* b) {
+  return GroupWs{reinterpret_cast<unsigned*>(b), reinterpret_cast<unsigned*>(b + 128),
+                 reinterpret_cast<unsigned long long*>(b + kWsMass),
+                 reinterpret_cast<unsigned*>(b + kWsCount), reinterpret_cast<float*>(b + kWsPartial),
+                 reinterpret_cast<float*>(b + kWsBestVal), reinterpret_cast<int*>(b + kWsBestIdx)};
+}
+
+// The CTA's small slots on the wide path (static shared memory).
+struct WideSlots {
+  float red[kWarps];                  // block reductions
+  float parts[kWideMaxCtas];          // the group's partials, read back
+  float value;                        // a combined value, broadcast
+  unsigned long long wscan[kWarps];   // the warps' bin totals
+  unsigned long long bexcl[kBins];    // each bin's exclusive prefix
+  unsigned bcount[kBins];             // and count
+  unsigned wfirst[kWarps], wlast[kWarps];
+  float warp_val[kWarps];
+  int warp_idx[kWarps];
+  int last;
+};
+
+// One CTA's share of one row.
+template <typename T>
+struct WideRow {
+  const T* logits;      // the CTA's first logit
+  const uint8_t* seen;  // and seen flag
+  unsigned xs;          // the cached tokens, penalized and tempered (at swizzle(t)): a shared address
+  int n, nc;            // the CTA's tokens and how many of them are cached
+};
+
+#ifdef SAMPLE_TRACE
+// Built with SAMPLE_TRACE defined (ab_serving_kernel.py --sample --trace):
+// clock64 stamps of CTA 0's thread 0 at the wide kernel's phases, tagged 1
+// start, 2 first read, 3 arrival at a group barrier, 4 release from it, 5
+// end of a radix sweep, 6 draw, 7 end; read back with sample_trace_read.
+__device__ unsigned long long g_trace[1024];
+__device__ unsigned g_trace_n;
+#define TRACE(tag)                                                              \
+  do {                                                                          \
+    if (blockIdx.x == 0 && threadIdx.x == 0 && g_trace_n < 512) {               \
+      g_trace[2 * g_trace_n] = (tag);                                           \
+      g_trace[2 * g_trace_n + 1] = clock64();                                   \
+      ++g_trace_n;                                                              \
+    }                                                                           \
+  } while (0)
+#else
+#define TRACE(tag) \
+  do {             \
+  } while (0)
+#endif
+
+// Shared memory by its 32-bit address, taken once: a generic pointer into
+// it makes each access recompute the CTA's window (S2R SR_CgaCtaId on sm_90).
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float load_shared(unsigned a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_shared(unsigned a, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void store_shared4(unsigned a, float x, float y, float z, float w) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(a), "f"(x), "f"(y), "f"(z),
+               "f"(w)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Every CTA of the group arrives and waits for the rest.  Thread 0 adds one
+// to the count with release semantics (after the CTA's barrier, so the
+// CTA's writes go before it) and waits with acquiring loads until it
+// reaches G times the barriers so far (``passed``, thread 0's): the count
+// starts at 0 in each launch and every barrier takes exactly G arrivals.
+// The launch is cooperative, so all G CTAs are resident and the wait ends.
+__device__ __forceinline__ void group_sync(unsigned* count, int ctas, unsigned& passed) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    TRACE(3);
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count) : "memory");
+    passed += ctas;
+    while (load_acquire(count) < passed) {
+    }
+    TRACE(4);
+  }
+  __syncthreads();
+}
+
+// Where cached token t lives: 4-token blocks permuted inside each 32-token
+// group, so that a warp's reads of tokens t, t + 1, ..., t + 31 and its
+// 16-byte stores of units of 16 tokens meet no bank conflict.
+__device__ __forceinline__ int swizzle(int t) {
+  const int q = t >> 2;
+  return ((q ^ ((q >> 3) & 7)) << 2) | (t & 3);
+}
+
+// A logit after the repetition penalty and the temperature, as scaled_logit.
+__device__ __forceinline__ float penalize(float x, uint32_t seen_flag, const Params& p) {
+  if (p.penalty_on && seen_flag) x = x > 0.0f ? __fdiv_rn(x, p.penalty) : __fmul_rn(x, p.penalty);
+  if (p.temperature_on) x = __fdiv_rn(x, p.temperature);
+  return x;
+}
+
+// 16 logits from 16-byte loads of 16-byte aligned memory.
+__device__ __forceinline__ void load_unit(const float* a, float (&x)[kUnit]) {
+  const float4* v = reinterpret_cast<const float4*>(a);
+#pragma unroll
+  for (int i = 0; i < kUnit / 4; ++i) {
+    const float4 f = __ldg(v + i);
+    x[4 * i] = f.x;
+    x[4 * i + 1] = f.y;
+    x[4 * i + 2] = f.z;
+    x[4 * i + 3] = f.w;
+  }
+}
+
+__device__ __forceinline__ void load_unit(const __nv_bfloat16* a, float (&x)[kUnit]) {
+  const uint4* v = reinterpret_cast<const uint4*>(a);
+#pragma unroll
+  for (int i = 0; i < kUnit / 8; ++i) {
+    const uint4 q = __ldg(v + i);
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      x[8 * i + 2 * k] = __uint_as_float(w[k] << 16);
+      x[8 * i + 2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
+    }
+  }
+}
+
+// The one read of the CTA's tokens from global memory: each penalized and
+// tempered, the first nc kept in the cache, and their max returned.  The body
+// goes in units of 16 tokens, each 16-byte loads of its logits and of its seen
+// flags; it starts at the first token whose seen flag lies on a 16-byte
+// boundary (row r starts at element r V, so a head of up to 15 tokens goes
+// before it), and the head and the tail are read one token at a time.  The
+// max is exact in any order, so the row's alignment changes nothing.
+template <typename T>
+__device__ float first_read(const WideRow<T>& rw, const Params& p) {
+  float m = -INFINITY;
+  const auto keep = [&](int t, float x) {
+    if (t < rw.nc) store_shared(rw.xs + 4 * swizzle(t), x);
+    m = fmaxf(m, x);
+  };
+  int head = static_cast<int>((0 - reinterpret_cast<uintptr_t>(rw.seen)) & 15);
+  if (head > rw.n || (reinterpret_cast<uintptr_t>(rw.logits + head) & 15) != 0) {
+    head = rw.n;  // the logits and the flags are not aligned alike: all one by one
+  }
+  const int units = (rw.n - head) / kUnit, tail = head + units * kUnit;
+  for (int t = threadIdx.x; t < head; t += kThreads) keep(t, scaled_logit(rw.logits, rw.seen, t, p));
+  for (int t = tail + threadIdx.x; t < rw.n; t += kThreads) {
+    keep(t, scaled_logit(rw.logits, rw.seen, t, p));
+  }
+  for (int u = threadIdx.x; u < units; u += kThreads) {
+    const int t0 = head + u * kUnit;
+    float x[kUnit];
+    load_unit(rw.logits + t0, x);
+    uint4 f = make_uint4(0u, 0u, 0u, 0u);
+    if (p.penalty_on) f = __ldg(reinterpret_cast<const uint4*>(rw.seen + t0));
+    const uint32_t fw[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+    for (int k = 0; k < kUnit; ++k) x[k] = penalize(x[k], (fw[k >> 2] >> (8 * (k & 3))) & 0xFFu, p);
+    if ((t0 & 3) == 0 && t0 + kUnit <= rw.nc) {
+#pragma unroll
+      for (int i = 0; i < kUnit / 4; ++i) {
+        store_shared4(rw.xs + 4 * swizzle(t0 + 4 * i), x[4 * i], x[4 * i + 1], x[4 * i + 2],
+                      x[4 * i + 3]);
+      }
+#pragma unroll
+      for (int k = 0; k < kUnit; ++k) m = fmaxf(m, x[k]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kUnit; ++k) keep(t0 + k, x[k]);
+    }
+  }
+  return m;
+}
+
+// f(t, x) for each of the CTA's tokens t, x its penalized, tempered logit:
+// thread i takes its cached tokens i, i + kThreads, ... from shared memory,
+// then the rest, nc + i, nc + i + kThreads, ..., from global memory.  The
+// order is the same in every pass and whatever the row's alignment or batch,
+// so a thread's float sums run in one order.
+template <typename T, typename F>
+__device__ __forceinline__ void each_token(const WideRow<T>& rw, const Params& p, F f) {
+  for (int t = threadIdx.x; t < rw.nc; t += kThreads) f(t, load_shared(rw.xs + 4 * swizzle(t)));
+  for (int t = rw.nc + threadIdx.x; t < rw.n; t += kThreads) {
+    f(t, scaled_logit(rw.logits, rw.seen, t, p));
+  }
+}
+
+// Adds a candidate's mass word (< 2^61) and a count of one to its bin of the
+// warp's histogram (``h``, the shared address of its low words, then its high
+// words and its counts, kBins each) with 32-bit atomics, which shared memory
+// does natively (a 64-bit one is a compare-and-swap loop): the low word, its
+// carry (seen in the old value returned) with the high word, and the count.
+// The sums are exact in any order: a bin's mass is high 2^32 + low.
+__device__ __forceinline__ void hist_add(unsigned bin, unsigned long long q, unsigned h) {
+  const unsigned a = h + 4 * bin, l = static_cast<unsigned>(q);
+  unsigned old;
+  asm volatile("atom.shared.add.u32 %0, [%1], %2;" : "=r"(old) : "r"(a), "r"(l) : "memory");
+  const unsigned hi = static_cast<unsigned>(q >> 32) + (old + l < old ? 1u : 0u);
+  asm volatile("red.shared.add.u32 [%0], %1;" ::"r"(a + 4 * kBins), "r"(hi) : "memory");
+  asm volatile("red.shared.add.u32 [%0], 1;" ::"r"(a + 8 * kBins) : "memory");
+}
+
+// The CTA's sum (max) of v: each warp's butterfly, then over the warps, as
+// row_sum (row_max); the same value in every thread.
+__device__ __forceinline__ float cta_sum(float v, WideSlots& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();  // red is free
+  if (lane == 0) s.red[warp] = v;
+  __syncthreads();
+  return warp_sum(lane < kWarps ? s.red[lane] : 0.0f);
+}
+
+__device__ __forceinline__ float cta_max(float v, WideSlots& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_max(v);
+  __syncthreads();  // red is free
+  if (lane == 0) s.red[warp] = v;
+  __syncthreads();
+  return warp_max(lane < kWarps ? s.red[lane] : -INFINITY);
+}
+
+// One float a CTA combined over the group: CTA c's ``v`` into slot c, then
+// each CTA reads the G slots and folds them with ``op`` in CTA order.
+template <typename Op>
+__device__ float group_combine(float v, float* slots, const GroupWs& g, int c, int ctas,
+                               unsigned& passed, WideSlots& s, Op op) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) __stcg(slots + c, v);
+  group_sync(g.barrier, ctas, passed);
+  if (warp == 0) {
+    for (int k = lane; k < ctas; k += 32) s.parts[k] = __ldcg(slots + k);
+    __syncwarp();
+    if (lane == 0) {
+      float acc = s.parts[0];
+#pragma unroll 8
+      for (int k = 1; k < ctas; ++k) acc = op(acc, s.parts[k]);
+      s.value = acc;
+    }
+  }
+  __syncthreads();
+  return s.value;
+}
+
+// The boundary key of one filter by radix select over the group's tokens,
+// the passes of radix_select: in each, every thread adds its candidates
+// into its warp's histogram (hist_add), the CTA adds its non-empty
+// bins into the group's histogram in global memory (buffer ``pass`` %
+// kWideBufs, exact in any order), and after the group's barrier every CTA
+// scans it.  CTA 0 then clears the buffer that the pass after next adds
+// into: every CTA read it before this pass's barrier.  ``key_of(t, x)`` and
+// ``mass_of(t, x)`` give a token's key and mass word (the latter only for a
+// token whose key matches the prefix); ``total_bits``: the key's width.
+template <bool kTopP, typename T, typename KeyFn, typename MassFn>
+__device__ void radix_select_group(const WideRow<T>& rw, const Params& p, KeyFn key_of,
+                                   MassFn mass_of, int total_bits, unsigned long long thr,
+                                   unsigned* hist, const GroupWs& g, int c, int ctas,
+                                   unsigned& passed, int& pass, WideSlots& s,
+                                   unsigned long long& prefix_out, int& shift_out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // this warp's histogram: the masses' low and high words, the counts
+  const unsigned wh = shared_addr(hist + warp * 3 * kBins);
+  unsigned long long prefix = 0, carried = 0;  // carried: the mass below the prefix
+  int shift = total_bits;
+  while (shift > 0) {
+    const int bits = min(kRadixBits, shift);
+    shift -= bits;
+    const unsigned long long digit = (1ULL << bits) - 1;
+    each_token(rw, p, [&](int t, float x) {
+      const unsigned long long key = key_of(t, x);
+      if ((key >> (shift + bits)) != prefix) return;
+      const unsigned long long q = mass_of(t, x);
+      if (kTopP && q == 0) return;
+      hist_add(static_cast<unsigned>((key >> shift) & digit), q, wh);
+    });
+    TRACE(5);
+    __syncthreads();
+    // the CTA's histogram, the warps' added, into the group's
+    unsigned long long* gm = g.mass + (pass % kWideBufs) * kBins;
+    unsigned* gc = g.count + (pass % kWideBufs) * kBins;
+    const int bin = threadIdx.x;
+    if (bin < kBins) {
+      unsigned long long h = 0;
+      unsigned n = 0;
+#pragma unroll
+      for (int k = 0; k < kWarps; ++k) {
+        unsigned* w = hist + k * 3 * kBins + bin;
+        h += (static_cast<unsigned long long>(w[kBins]) << 32) + w[0];
+        n += w[2 * kBins];
+        w[0] = 0;
+        w[kBins] = 0;
+        w[2 * kBins] = 0;
+      }
+      if (n != 0) {
+        atomicAdd(gm + bin, h);
+        atomicAdd(gc + bin, n);
+      }
+    }
+    group_sync(g.barrier, ctas, passed);
+    // the group's histogram and its inclusive scan
+    unsigned long long h = 0, excl = 0;
+    unsigned n = 0;
+    if (bin < kBins) {
+      h = __ldcg(gm + bin);
+      n = __ldcg(gc + bin);
+      if (c == 0) {
+        const int clear = (pass + 2) % kWideBufs;
+        g.mass[clear * kBins + bin] = 0;
+        g.count[clear * kBins + bin] = 0;
+      }
+      unsigned long long incl = h;
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned long long y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (lane == 31) s.wscan[warp] = incl;
+      excl = incl - h;
+    }
+    ++pass;
+    __syncthreads();
+    if (bin < kBins) {
+      for (int v = 0; v < warp; ++v) excl += s.wscan[v];
+      s.bexcl[bin] = excl;
+      s.bcount[bin] = n;
+      const unsigned long long cum = carried + excl + h;
+      const unsigned first = n != 0 && (kTopP ? cum > thr : cum >= thr) ? bin : kBins;
+      const unsigned last = n != 0 ? bin + 1 : 0;  // one past the last non-empty bin
+      const unsigned wf = __reduce_min_sync(0xFFFFFFFFu, first);
+      const unsigned wl = __reduce_max_sync(0xFFFFFFFFu, last);
+      if (lane == 0) {
+        s.wfirst[warp] = wf;
+        s.wlast[warp] = wl;
+      }
+    }
+    __syncthreads();
+    unsigned first = kBins, last = 0;
+    for (int v = 0; v < kBins / 32; ++v) {
+      first = min(first, s.wfirst[v]);
+      last = max(last, s.wlast[v]);
+    }
+    if (last == 0) {  // no candidate: every token kept
+      prefix = 0;
+      shift += bits;
+      break;
+    }
+    const unsigned b = first < kBins ? first : last - 1;
+    carried += s.bexcl[b];
+    prefix = (prefix << bits) | b;
+    if (s.bcount[b] == 1) break;  // one candidate left: the boundary
+  }
+  prefix_out = prefix;
+  shift_out = shift;
+}
+
+// The wide path (V > 8 x kCtaVocab): the filters and the draw of
+// sample_step_kernel, a row over the G CTAs of a group (see the header).
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     sample_step_kernel_wide(const T* __restrict__ logits, uint8_t* __restrict__ seen,
                             long long* __restrict__ codes, long long* __restrict__ lengths,
                             uint8_t* __restrict__ finished, long long* __restrict__ tok_out,
-                            const uint32_t* __restrict__ key, const Params p) {
+                            const uint32_t* __restrict__ key, const Params p, const Wide w) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Slots s;
-  __shared__ unsigned bcount[kBins];
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-  cg::cluster_group cluster = cg::this_cluster();
-  const int V = p.vocab;
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int r = blockIdx.x / kCluster;
-  const int j0 = rank * p.chunk;
-  const int n = max(0, min(p.chunk, V - j0));
-  const int nc = min(n, p.cache);  // the tokens kept in shared memory
-  WideHist w;
-  w.mass = reinterpret_cast<unsigned long long*>(smem);
-  w.recv_mass = w.mass + kWarps * kBins;
-  w.count = reinterpret_cast<unsigned*>(w.recv_mass + 2 * kCluster * kBins);
-  w.recv_count = w.count + kWarps * kBins;
-  float* xs = reinterpret_cast<float*>(w.recv_count + 2 * kCluster * kBins);
-  const T* row = logits + static_cast<long long>(r) * V;
-  uint8_t* seen_row = seen + static_cast<long long>(r) * V;
+  __shared__ WideSlots s;
+#ifdef SAMPLE_TRACE
+  if (blockIdx.x == 0 && threadIdx.x == 0) g_trace_n = 0;
+#endif
+  TRACE(1);
+  const int V = p.vocab, G = w.ctas;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = static_cast<int>(blockIdx.x) % G, group = static_cast<int>(blockIdx.x) / G;
+  const GroupWs g = group_ws(w.ws + static_cast<long long>(group) * kWsGroupBytes);
+  unsigned* hist = reinterpret_cast<unsigned*>(smem);  // [kWarps][3][kBins]: hist_add's words
+  float* xs = reinterpret_cast<float*>(hist + kWarps * 3 * kBins);
+  for (int i = threadIdx.x; i < kWarps * 3 * kBins; i += kThreads) hist[i] = 0;
+  const uint32_t k0 = __ldg(key), k1 = __ldg(key + 1);
+  const int j0 = c * w.chunk;                  // this CTA's first token
+  const int n = max(0, min(w.chunk, V - j0));  // its count
+  unsigned passed = 0;                         // thread 0: the group's arrivals awaited so far
+  int pass = 0;                                // the group's histogram passes so far
+  for (int r = group, it = 0; r < w.batch; r += w.groups, ++it) {
+    const long long row = static_cast<long long>(r) * V + j0;
+    const WideRow<T> rw{logits + row, seen + row, shared_addr(xs), n, min(n, w.cache)};
 
-  for (int t = threadIdx.x; t < nc; t += kThreads) xs[t] = scaled_logit(row, seen_row, j0 + t, p);
-  if (p.typical_on || p.top_p_on) {
-    for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) {
-      w.mass[i] = 0;
-      w.count[i] = 0;
+    // the one read from global memory: penalty and temperature, the cache,
+    // the row max
+    const float m = first_read(rw, p);
+    __syncthreads();  // the cache is written
+    TRACE(2);
+
+    const bool filters = p.typical_on || p.top_p_on;
+    int slot = 0;
+    const auto sum_op = [](float a, float b) { return __fadd_rn(a, b); };
+    const auto max_op = [](float a, float b) { return fmaxf(a, b); };
+    float m0 = 0.0f;
+    if (filters) {
+      m0 = group_combine(cta_max(m, s), g.partial + kWideMaxCtas * slot++, g, c, G, passed, s,
+                         max_op);
+    }
+
+    // typical: removed where the key of |-log p - H| lies above the boundary
+    float tls = 0.0f, th = 0.0f;
+    unsigned long long tprefix = 0;
+    int tshift = 0;
+    if (p.typical_on) {
+      float v = 0.0f;
+      each_token(rw, p, [&](int, float x) { v = __fadd_rn(v, expf(__fsub_rn(x, m0))); });
+      tls = logf(group_combine(cta_sum(v, s), g.partial + kWideMaxCtas * slot++, g, c, G, passed,
+                               s, sum_op));
+      v = 0.0f;
+      each_token(rw, p, [&](int, float x) {  // the entropy
+        const float lp = log_prob(x, m0, tls), pj = expf(lp);
+        v = __fadd_rn(v, pj > 0.0f ? __fmul_rn(pj, lp) : 0.0f);
+      });
+      th = -group_combine(cta_sum(v, s), g.partial + kWideMaxCtas * slot++, g, c, G, passed, s,
+                          sum_op);
+      radix_select_group<false>(
+          rw, p,
+          [&](int, float x) {
+            return static_cast<unsigned long long>(order_bits(typical_distance(x, m0, tls, th)));
+          },
+          [&](int, float x) { return wide_mass(expf(log_prob(x, m0, tls))); }, 32,
+          p.typical_thr, hist, g, c, G, passed, pass, s, tprefix, tshift);
+    }
+    const auto x_typical = [&](float x) {
+      if (!p.typical_on) return x;
+      const unsigned long long k = order_bits(typical_distance(x, m0, tls, th));
+      return (k >> tshift) > tprefix ? -INFINITY : x;
+    };
+
+    // top-p: removed where the (value, index) key lies below the boundary
+    const auto top_p_key = [&](float x, int t) {
+      return (static_cast<unsigned long long>(order_bits(x)) << p.index_bits) |
+             (static_cast<unsigned>(j0) + static_cast<unsigned>(t));
+    };
+    unsigned long long pprefix = 0;
+    int pshift = 0;
+    if (p.top_p_on) {
+      float pm = m0;  // the max after typical filtering
+      if (p.typical_on) {
+        float v = -INFINITY;
+        each_token(rw, p, [&](int, float x) { v = fmaxf(v, x_typical(x)); });
+        pm = group_combine(cta_max(v, s), g.partial + kWideMaxCtas * slot++, g, c, G, passed, s,
+                           max_op);
+      }
+      float v = 0.0f;
+      each_token(rw, p, [&](int, float x) { v = __fadd_rn(v, expf(__fsub_rn(x_typical(x), pm))); });
+      const float sum = group_combine(cta_sum(v, s), g.partial + kWideMaxCtas * slot++, g, c, G,
+                                      passed, s, sum_op);
+      radix_select_group<true>(
+          rw, p, [&](int t, float x) { return top_p_key(x_typical(x), t); },
+          [&](int, float x) {
+            return wide_mass(__fdiv_rn(expf(__fsub_rn(x_typical(x), pm)), sum));
+          },
+          32 + p.index_bits, p.top_p_thr, hist, g, c, G, passed, pass, s, pprefix,
+          pshift);
+    }
+
+    // the Gumbels of the kept tokens and the argmax, the first index on ties;
+    // -inf is drawn only where every token is (then token 0 wins below)
+    const unsigned long long base = p.offset + static_cast<unsigned long long>(r) * V;
+    float best = -INFINITY;
+    int arg = V;  // none yet
+    each_token(rw, p, [&](int t, float x) {
+      x = x_typical(x);
+      if (x == -INFINITY || (p.top_p_on && (top_p_key(x, t) >> pshift) < pprefix)) return;
+      const int j = j0 + t;
+      const float v = __fadd_rn(threefry::gumbel(threefry::random_bits(k0, k1, base + j)), x);
+      if (v > best || (v == best && j < arg)) {
+        best = v;
+        arg = j;
+      }
+    });
+    TRACE(6);
+
+    // the CTA's best, then the group's on CTA 0, and the step's bookkeeping
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xFFFFFFFFu, best, o);
+      const int oi = __shfl_xor_sync(0xFFFFFFFFu, arg, o);
+      if (ov > best || (ov == best && oi < arg)) {
+        best = ov;
+        arg = oi;
+      }
+    }
+    if (lane == 0) {
+      s.warp_val[warp] = best;
+      s.warp_idx[warp] = arg;
+    }
+    __syncthreads();
+    float* best_val = g.best_val + (it & 1) * kWideMaxCtas;
+    int* best_idx = g.best_idx + (it & 1) * kWideMaxCtas;
+    if (warp == 0) {
+      best = lane < kWarps ? s.warp_val[lane] : -INFINITY;
+      arg = lane < kWarps ? s.warp_idx[lane] : V;
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xFFFFFFFFu, best, o);
+        const int oi = __shfl_xor_sync(0xFFFFFFFFu, arg, o);
+        if (ov > best || (ov == best && oi < arg)) {
+          best = ov;
+          arg = oi;
+        }
+      }
+      if (lane == 0) {
+        __stcg(best_val + c, best);
+        __stcg(best_idx + c, arg);
+      }
+    }
+    group_sync(g.barrier, G, passed);
+    if (c == 0 && warp == 0) {
+      best = -INFINITY;
+      arg = V;
+      for (int k = lane; k < G; k += 32) {
+        const float v = __ldcg(best_val + k);
+        const int i = __ldcg(best_idx + k);
+        if (v > best || (v == best && i < arg)) {
+          best = v;
+          arg = i;
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xFFFFFFFFu, best, o);
+        const int oi = __shfl_xor_sync(0xFFFFFFFFu, arg, o);
+        if (ov > best || (ov == best && oi < arg)) {
+          best = ov;
+          arg = oi;
+        }
+      }
+      if (lane == 0) {
+        if (arg == V) arg = 0;  // every value -inf: torch.argmax's first index
+        // the step's bookkeeping (body_fn): finished rows emit the stop token
+        const bool done = finished[r] != 0;
+        const long long tok = done ? p.stop : arg;
+        codes[static_cast<long long>(r) * p.code_stride + p.step] = tok;
+        seen[static_cast<long long>(r) * V + tok] = 1;
+        if (!done) lengths[r] += 1;
+        if (!p.force_full && tok == p.stop) finished[r] = 1;
+        tok_out[r] = tok;
+      }
     }
   }
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");  // every CTA has started
-  const auto x_of = [&](int t) {
-    return t < nc ? xs[t] : scaled_logit(row, seen_row, j0 + t, p);
-  };
 
-  int slot = 0;
-  // typical: removed where the key of |-log p - H| lies above the boundary
-  float tm = 0.0f, tls = 0.0f, th = 0.0f;
-  unsigned long long tprefix = 0;
-  int tshift = 0;
-  if (p.typical_on) {
-    float m = -INFINITY;
-    for (int t = threadIdx.x; t < n; t += kThreads) m = fmaxf(m, x_of(t));
-    tm = row_max(m, s, slot++, cluster, rank);
-    tls = logf(row_sum([&](int t) { return expf(__fsub_rn(x_of(t), tm)); }, n, s, slot++,
-                       cluster, rank));
-    th = -row_sum(
-        [&](int t) {
-          const float lp = log_prob(x_of(t), tm, tls), pj = expf(lp);
-          return pj > 0.0f ? __fmul_rn(pj, lp) : 0.0f;
-        },
-        n, s, slot++, cluster, rank);
-    radix_select_wide<false>(
-        [&](int t) {
-          return static_cast<unsigned long long>(
-              order_bits(typical_distance(x_of(t), tm, tls, th)));
-        },
-        [&](int t) { return wide_mass(expf(log_prob(x_of(t), tm, tls))); }, n, 32,
-        p.typical_thr, w, s, bcount, cluster, rank, tprefix, tshift);
+  // leave the workspace as it was found: the last CTA of the group to leave
+  // (every other one is past its last barrier) clears its barrier and histograms
+  TRACE(7);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    s.last = atomicAdd(g.left, 1u) == static_cast<unsigned>(G - 1);
   }
-  const auto x_typical = [&](int t) {
-    const float x = x_of(t);
-    if (!p.typical_on) return x;
-    const unsigned long long k = order_bits(typical_distance(x, tm, tls, th));
-    return (k >> tshift) > tprefix ? -INFINITY : x;
-  };
-
-  // top-p: removed where the (value, index) key lies below the boundary
-  const auto top_p_key = [&](float x, int t) {
-    return (static_cast<unsigned long long>(order_bits(x)) << p.index_bits) |
-           static_cast<unsigned>(j0 + t);
-  };
-  unsigned long long pprefix = 0;  // nothing removed unless top-p is on
-  int pshift = 0;
-  if (p.top_p_on) {
-    float m = -INFINITY;
-    for (int t = threadIdx.x; t < n; t += kThreads) m = fmaxf(m, x_typical(t));
-    m = row_max(m, s, slot++, cluster, rank);
-    const float sum = row_sum([&](int t) { return expf(__fsub_rn(x_typical(t), m)); }, n, s,
-                              slot++, cluster, rank);
-    radix_select_wide<true>(
-        [&](int t) { return top_p_key(x_typical(t), t); },
-        [&](int t) { return wide_mass(__fdiv_rn(expf(__fsub_rn(x_typical(t), m)), sum)); },
-        n, 32 + p.index_bits, p.top_p_thr, w, s, bcount, cluster, rank, pprefix, pshift);
+  __syncthreads();
+  if (s.last) {
+    __threadfence();
+    for (int i = threadIdx.x; i < kWideBufs * kBins; i += kThreads) {
+      g.mass[i] = 0;
+      g.count[i] = 0;
+    }
+    if (threadIdx.x == 0) {
+      *g.barrier = 0;
+      *g.left = 0;
+    }
   }
-
-  sample_row(
-      [&](int t) {
-        const float x = x_typical(t);
-        return (top_p_key(x, t) >> pshift) < pprefix ? -INFINITY : x;
-      },
-      n, j0, r, p, s, cluster, rank, seen_row, codes, lengths, finished, tok_out, key);
 }
 
 __global__ void empty_kernel() {}
@@ -749,40 +1201,122 @@ cudaLaunchConfig_t cluster_config(int batch, size_t bytes, cudaStream_t stream,
   return cfg;
 }
 
-// The wide path's tokens kept in shared memory a CTA, found once: what the
-// block's opt-in shared memory holds beside its static slots and the
-// histograms; and a check that a cluster of CTAs that size can be scheduled.
+// G, the CTAs of a wide row: a function of V and of the card only.
+int wide_ctas(int vocab, int sms) {
+  const long long g = (static_cast<long long>(vocab) + kWideMinChunk - 1) / kWideMinChunk;
+  return static_cast<int>(std::min<long long>(g, std::min(sms, kWideMaxCtas)));
+}
+
+// What the wide kernel needs of a device, found at its first wide launch
+// there: the SMs, the most tokens a CTA caches (what the opt-in shared memory
+// holds beside the static slots and the histograms), the CTAs an SM holds at
+// that shared memory (the occupancy call; a smaller launch fits as many or
+// more), the groups a workspace holds (as many as fit at the least G, V =
+// 65,537), and a workspace for each stream that launched there.
+struct WideDevice {
+  int sms = 0;  // 0 until found
+  int cache = 0, per_sm = 0, groups = 0;
+  std::vector<std::pair<cudaStream_t, unsigned char*>> ws;
+};
+
+// The wide launch at (batch, vocab): G, the chunk and the cache, the dynamic
+// shared memory, the groups (as many as the card holds at once, up to the
+// batch) and, with ``workspace``, the stream's workspace, allocated and
+// cleared at its first wide launch.  Launches on one stream run one after
+// another, so no two of them use one workspace at once.  A card that cannot
+// hold G CTAs at once refuses: the barriers would wait for a CTA that never
+// runs.
 template <typename T>
-int wide_cache_tokens(cudaStream_t stream, int* tokens) {
-  static int cache = -1;
-  if (cache < 0) {
-    const auto kernel = sample_step_kernel_wide<T>;
-    int dev = 0, optin = 0;
+int wide_plan(int vocab, int batch, bool workspace, cudaStream_t stream, Wide* w, size_t* smem) {
+  const auto kernel = sample_step_kernel_wide<T>;
+  static std::mutex mu;
+  static WideDevice known[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  std::lock_guard<std::mutex> lock(mu);
+  WideDevice& d = known[dev];
+  if (d.sms == 0) {
+    int sms = 0, optin = 0, coop = 0, per_sm = 0;
     cudaFuncAttributes fa;
-    cudaError_t e = cudaGetDevice(&dev);
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess) {
       e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     }
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const long long room =
-        optin - static_cast<long long>(fa.sharedSizeBytes) - static_cast<long long>(kWideHistBytes);
-    if (room < 16) return static_cast<int>(cudaErrorLaunchOutOfResources);
-    const int n = static_cast<int>(room / 16 * 4);
-    const size_t most = kWideHistBytes + 4 * static_cast<size_t>(n);
+    if (!coop) return static_cast<int>(cudaErrorNotSupported);
+    const long long room = optin - static_cast<long long>(fa.sharedSizeBytes) -
+                           static_cast<long long>(kWideHistBytes);
+    if (room < 4 * 32) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    const int cache = static_cast<int>(room / 4 / 32 * 32);
+    const size_t most = kWideHistBytes + 4 * static_cast<size_t>(cache);
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(most));
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, most);
+    }
     if (e != cudaSuccess) return static_cast<int>(e);
-    cudaLaunchAttribute attr;
-    cudaLaunchConfig_t cfg = cluster_config(1, most, stream, &attr);
-    int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-    cache = n;
+    d.cache = cache;
+    d.per_sm = per_sm;
+    d.groups = per_sm * sms / wide_ctas(kCluster * kCtaVocab + 1, sms);
+    d.sms = sms;
   }
-  *tokens = cache;
+  w->ctas = wide_ctas(vocab, d.sms);
+  const int room = d.per_sm * d.sms;
+  if (room < w->ctas) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  w->chunk = static_cast<int>((static_cast<long long>(vocab) + w->ctas - 1) / w->ctas);
+  w->cache = std::min(w->chunk, d.cache);
+  *smem = kWideHistBytes + 4 * static_cast<size_t>((w->cache + 31) / 32 * 32);
+  w->groups = std::min(std::min(batch, room / w->ctas), d.groups);
+  w->batch = batch;
+  w->ws = nullptr;
+  if (!workspace) return 0;
+  for (const auto& entry : d.ws) {
+    if (entry.first == stream) {
+      w->ws = entry.second;
+      return 0;
+    }
+  }
+  const size_t bytes = static_cast<size_t>(d.groups) * kWsGroupBytes;
+  void* ptr = nullptr;
+  e = cudaMalloc(&ptr, bytes);
+  if (e == cudaSuccess) e = cudaMemsetAsync(ptr, 0, bytes, stream);
+  if (e != cudaSuccess) {
+    cudaFree(ptr);
+    return static_cast<int>(e);
+  }
+  w->ws = static_cast<unsigned char*>(ptr);
+  d.ws.emplace_back(stream, w->ws);
   return 0;
+}
+
+template <typename T>
+int launch_wide(const void* logits, const Params& p, int batch, void* seen, void* codes,
+                void* lengths, void* finished, void* tok, const void* key, cudaStream_t stream) {
+  Wide w;
+  size_t smem = 0;
+  const int rc = wide_plan<T>(p.vocab, batch, true, stream, &w, &smem);
+  if (rc != 0) return rc;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(w.groups * w.ctas);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, sample_step_kernel_wide<T>, static_cast<const T*>(logits),
+      static_cast<uint8_t*>(seen), static_cast<long long*>(codes),
+      static_cast<long long*>(lengths), static_cast<uint8_t*>(finished),
+      static_cast<long long*>(tok), static_cast<const uint32_t*>(key), p, w);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -792,19 +1326,7 @@ int launch(const void* logits, const Params& p, int batch, void* seen, void* cod
   cudaLaunchAttribute attr;
   cudaError_t e;
   if (p.chunk > kCtaVocab) {  // the wide path
-    int cache = 0;
-    const int rc = wide_cache_tokens<T>(stream, &cache);
-    if (rc != 0) return rc;
-    Params q = p;
-    q.cache = filters ? (p.chunk < cache ? p.chunk : cache) : 0;
-    const size_t bytes = filters ? kWideHistBytes + 4 * static_cast<size_t>(q.cache) : 0;
-    cudaLaunchConfig_t cfg = cluster_config(batch, bytes, stream, &attr);
-    e = cudaLaunchKernelEx(&cfg, sample_step_kernel_wide<T>, static_cast<const T*>(logits),
-                           static_cast<uint8_t*>(seen), static_cast<long long*>(codes),
-                           static_cast<long long*>(lengths), static_cast<uint8_t*>(finished),
-                           static_cast<long long*>(tok), static_cast<const uint32_t*>(key), q);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(cudaGetLastError());
+    return launch_wide<T>(logits, p, batch, seen, codes, lengths, finished, tok, key, stream);
   }
   // once: the shared memory of the largest row, and a check that a cluster
   // of that size can be scheduled (then so can every smaller one)
@@ -835,14 +1357,16 @@ int launch(const void* logits, const Params& p, int batch, void* seen, void* cod
 }  // namespace
 
 // One decode step of ``batch`` rows of ``vocab`` logits (``dtype`` 0 bf16,
-// 1 fp32; every pointer to contiguous device memory; any vocab >= 1, on
-// the wide path past 65536), each row over a cluster of 8 CTAs: writes the (B,)
-// int64 tokens to ``tok`` and updates ``seen`` (B, vocab) bool, ``codes``
-// (B, code_stride) int64 at column ``step``, ``lengths`` (B,) int64 and
-// ``finished`` (B,) bool in place.  ``key`` is the step's int32 (2,) device key; row r draws
-// at flat indices offset + r * vocab + j.  ``mass`` is float32(typical
-// mass), ``top_p_thr`` float32(1 - top_p).  Returns a CUDA error code (0:
-// launched); a cluster that cannot be scheduled is refused.
+// 1 fp32; every pointer to contiguous device memory; any vocab >= 1), each
+// row over a cluster of 8 CTAs up to 65536, past it over a group of G CTAs
+// (the wide path): writes the (B,) int64 tokens to ``tok`` and updates
+// ``seen`` (B, vocab) bool, ``codes`` (B, code_stride) int64 at column
+// ``step``, ``lengths`` (B,) int64 and ``finished`` (B,) bool in place.
+// ``key`` is the step's int32 (2,) device key; row r draws at flat indices
+// offset + r * vocab + j.  ``mass`` is float32(typical mass), ``top_p_thr``
+// float32(1 - top_p).  Returns a CUDA error code (0: launched); a cluster
+// that cannot be scheduled, or a wide grid that cannot be resident at once,
+// is refused.
 extern "C" int sample_step(const void* logits, int dtype, void* seen, void* codes,
                            void* lengths, void* finished, void* tok, const void* key,
                            int batch, int vocab, int code_stride, int step, int penalty_on,
@@ -859,9 +1383,8 @@ extern "C" int sample_step(const void* logits, int dtype, void* seen, void* code
   p.code_stride = code_stride;
   p.step = step;
   p.stop = stop;
-  p.chunk = (vocab + kCluster - 1) / kCluster;
+  p.chunk = static_cast<int>((static_cast<long long>(vocab) + kCluster - 1) / kCluster);
   p.index_bits = vocab > 1 ? 32 - __builtin_clz(static_cast<unsigned>(vocab - 1)) : 0;
-  p.cache = 0;
   p.penalty_on = penalty_on != 0;
   p.temperature_on = temperature_on != 0;
   p.typical_on = typical_on != 0;
@@ -892,6 +1415,28 @@ extern "C" int sample_step_shape(int* cluster, int* threads) {
   return 0;
 }
 
+// The wide path's launch at (``batch``, ``vocab``), without launching:
+// ``ctas`` (G, the CTAs a row), ``groups`` (the rows in flight) and
+// ``cache`` (the tokens a CTA keeps in shared memory).  ``dtype`` as
+// sample_step's.
+extern "C" int sample_step_wide_shape(int vocab, int batch, int dtype, int* ctas, int* groups,
+                                      int* cache) {
+  if (vocab <= kCluster * kCtaVocab || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Wide w;
+  size_t smem = 0;
+  int rc;
+  switch (dtype) {
+    case 0: rc = wide_plan<__nv_bfloat16>(vocab, batch, false, nullptr, &w, &smem); break;
+    case 1: rc = wide_plan<float>(vocab, batch, false, nullptr, &w, &smem); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rc != 0) return rc;
+  *ctas = w.ctas;
+  *groups = w.groups;
+  *cache = w.cache;
+  return 0;
+}
+
 // An empty kernel on the sample step's grid (``batch`` clusters of 8 CTAs of
 // kThreads threads): its launch-to-launch time is the floor a launch of the
 // step meets.
@@ -905,3 +1450,13 @@ extern "C" int sample_step_floor(int batch, void* stream) {
 extern "C" const char* sample_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef SAMPLE_TRACE
+// The wide kernel's phase stamps of its last launch: ``out`` gets (tag,
+// clock64) pairs, ``n`` their count.
+extern "C" int sample_trace_read(unsigned long long* out, unsigned* n) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_trace, sizeof(g_trace));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(n, g_trace_n, sizeof(unsigned));
+  return static_cast<int>(e);
+}
+#endif

@@ -14,12 +14,15 @@ a CUDA device it is one launch of kernel ``sample_step``
 ``build/kernels/`` and loaded with ctypes, as the other kernels are), which
 draws the Gumbels of the kept tokens in registers from the step's device
 key, counted in :data:`LAUNCHES`; on the CPU it is the plain version
-:func:`sample_step_reference`.  The kernel spreads a row over a cluster of
-8 CTAs and takes any vocabulary: up to 65,536 a CTA holds its share of
-the row in shared memory, past that (to the C entry's int, 2**31 - 1) a
-sibling kernel re-reads what its shared memory does not hold.  There is no
-other route: a failed build or launch, or a cluster the card cannot
-schedule, raises.
+:func:`sample_step_reference`.  The kernel takes any vocabulary: up to
+65,536 it spreads a row over a cluster of 8 CTAs, each holding its share
+of the row in shared memory; past that (to the C entry's int, 2**31 - 1)
+a sibling kernel spreads it over a group of G CTAs, up to every SM (G a
+function of V and of the card, never of the batch), in one cooperative
+launch whose groups take the batch's rows in turn, reads the row from
+global memory once into shared memory and re-reads only what that does not
+hold.  There is no other route: a failed build or launch, a cluster the
+card cannot schedule, or a wide grid it cannot hold at once, raises.
 """
 from __future__ import annotations
 
@@ -176,6 +179,7 @@ _SIGNATURES = {"sample_step": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _
                                _F, _I, _F, _I, _F, _I, _I, _U64, _P],
                "sample_step_floor": [_I, _P],
                "sample_step_shape": [_P, _P],
+               "sample_step_wide_shape": [_I, _I, _I, _P, _P, _P],
                "sample_error_string": [_I]}
 _lib = None
 
@@ -212,7 +216,8 @@ def sample_step(logits: torch.Tensor, seen: torch.Tensor, codes: torch.Tensor,
     ``finished``.  In place: ``codes[:, step]``, ``seen[r, tok]``,
     ``lengths`` (+1 where not finished) and, unless ``force_full``,
     ``finished`` (| tok == stop).  Kernel ``sample_step`` on CUDA, each row
-    over a cluster of 8 CTAs; the plain version on the CPU."""
+    over a cluster of 8 CTAs, or past V = 65,536 over a group of up to
+    every SM; the plain version on the CPU."""
     _check_step(logits, seen, codes, lengths, finished, step, key, stop_token)
     kw = dict(temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty,
               typical_mass=typical_mass, stop_token=stop_token, force_full=force_full,

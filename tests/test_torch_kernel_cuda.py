@@ -660,12 +660,16 @@ def test_sample_step_kernel_matches_plain_version(cuda, b, v, case):
 
 
 # past what one CTA held (12288 tokens) up to the shared-memory path's 65536,
-# past it on the wide path (one more; a 131071-entry codebook's; past the
-# shared memory a cluster has; past the 23-bit count of the shared path's
-# packed histogram), and batches that fill one wave of an H100's 132 SMs
-# with 8-CTA clusters (B = 16) and wrap it
+# past it on the wide path (one more; an odd V whose rows 1 and 2 start off
+# every 16-byte boundary; V = 2^17 + 1; eight rows of it, which on an H100
+# run as two groups of G = 65 CTAs taking four rows each in turn; four rows
+# of a V whose group of G = 132 CTAs fills an H100, so one group takes them
+# in turn; past the 23-bit count of the shared path's packed histogram), and
+# batches that fill one wave of an H100's 132 SMs with 8-CTA clusters (B =
+# 16) and wrap it
 WIDE_SHAPES = [(1, 16386), (8, 16386), (2, 12289), (2, 65536), (16, 8194), (40, 8194),
-               (1, 65537), (2, 131073), (1, 1048579), (1, 8388609)]
+               (1, 65537), (3, 65539), (2, 131073), (8, 131073), (1, 1048579), (4, 1048579),
+               (1, 8388609)]
 
 
 @pytest.mark.parametrize("case", ["random", "ties", "one-finite", "all-inf"])
@@ -696,6 +700,55 @@ def test_sample_step_kernel_matches_plain_version_at_wide_shapes(cuda, shape, ca
             assert (margin[~same] < SAMPLE_NEAR).all(), (setting, dtype, tok, ref)
         for ours, theirs in zip(mine, plain):
             assert torch.equal(ours[same], theirs[same])
+
+
+@pytest.mark.parametrize("shape", [(3, 65539), (8, 131073), (3, 1048579)],
+                         ids=lambda s: f"B{s[0]}-V{s[1]}")
+def test_sample_step_wide_row_alone_equals_the_row_in_a_batch(cuda, shape):
+    """On the wide path a row's token and state do not depend on its batch:
+    each row of a batch (rows off every 16-byte boundary at an odd V; at (8,
+    131073) two groups that take four rows each), stepped alone from its own
+    offset, is bit-identical to the same row stepped inside the batch, in
+    bf16 and fp32 under each setting."""
+    b, v = shape
+    keys = prng.decode_keys(v, 8, cuda)
+    for i, (setting, dtype) in enumerate(itertools.product(
+            SAMPLE_SETTINGS, (torch.bfloat16, torch.float32))):
+        x, seen, codes, lengths, finished = _sample_inputs(b, v, dtype, 300 + i, "random", cuda)
+        t, top_p, penalty, mass = setting
+        kw = dict(temperature=t, top_p=top_p, repetition_penalty=penalty, typical_mass=mass,
+                  stop_token=v - 1, force_full=False)
+        batch = [s.clone() for s in (seen, codes, lengths, finished)]
+        tok = sampling.sample_step(x, *batch, 7, keys[i % 8], offset=0, **kw)
+        for r in range(b):
+            alone = [s[r:r + 1].clone() for s in (seen, codes, lengths, finished)]
+            one = sampling.sample_step(x[r:r + 1].clone(), *alone, 7, keys[i % 8],
+                                       offset=r * v, **kw)
+            torch.cuda.synchronize()
+            assert int(one) == int(tok[r]), (setting, dtype, r)
+            for mine, theirs in zip(alone, batch):
+                assert torch.equal(mine, theirs[r:r + 1]), (setting, dtype, r)
+
+
+def test_sample_step_wide_ctas_do_not_depend_on_the_batch(cuda):
+    """The wide launch's G (CTAs a row) and cached tokens a CTA are functions
+    of V and the card: the same at every batch; the groups in flight grow
+    with the batch up to what the card holds at once."""
+    import ctypes
+
+    def shape(b, v):
+        out = [ctypes.c_int() for _ in range(3)]
+        sampling._launch("sample_step_wide_shape", v, b, 1, *(ctypes.byref(o) for o in out))
+        return tuple(o.value for o in out)
+
+    for v in (65537, 131073, 1048579, 8388609, 16777217):
+        shapes = [shape(b, v) for b in (1, 2, 3, 8, 64)]
+        assert len({(g, cache) for g, _, cache in shapes}) == 1, (v, shapes)
+        groups = [r for _, r, _ in shapes]
+        assert groups[0] == 1 and groups == sorted(groups), (v, shapes)
+        g, _, cache = shapes[0]
+        assert 1 <= g <= torch.cuda.get_device_properties(0).multi_processor_count
+        assert 0 < cache <= -(-v // g)
 
 
 def test_sample_step_kernel_refuses_a_row_past_max_vocab(cuda, monkeypatch):

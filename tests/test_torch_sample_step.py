@@ -34,22 +34,22 @@ SETTINGS = list(itertools.product((1.0, 2.0), (1.0, 0.8), (1.0, 0.8), (1.0, 0.9)
 CASES = ("random", "finished", "force_full", "offset", "ties", "zeros")
 
 
-def _inputs(case, seed, v=V):
+def _inputs(case, seed, v=V, b=B):
     """Logits ~ 2 N(0, 1) (``ties``: rounded to integers, so the top-p
     boundary falls in a group of equal values; ``zeros``: a -0.0 / +0.0 pair
     in every row), seen ~10% plus the fake prefix, mid-request state."""
     rng = np.random.default_rng(seed)
-    x = (rng.normal(size=(B, v)) * 2.0).astype(np.float32)
+    x = (rng.normal(size=(b, v)) * 2.0).astype(np.float32)
     if case == "ties":
         x = np.round(x)
     elif case == "zeros":
         x[:, 3], x[:, 7] = -0.0, 0.0
-    seen = rng.random((B, v)) < 0.1
+    seen = rng.random((b, v)) < 0.1
     seen[:, 1] = True
-    codes = np.full((B, N), v - 1, np.int64)
-    codes[:, :STEP] = rng.integers(0, v - 1, size=(B, STEP))
-    lengths = np.full(B, STEP, np.int64)
-    finished = np.zeros(B, bool)
+    codes = np.full((b, N), v - 1, np.int64)
+    codes[:, :STEP] = rng.integers(0, v - 1, size=(b, STEP))
+    lengths = np.full(b, STEP, np.int64)
+    finished = np.zeros(b, bool)
     if case == "finished":
         finished[[0, 2]] = True
         lengths[[0, 2]] = 1
@@ -107,8 +107,10 @@ def test_plain_step_matches_jax_body(setting, case):
 
 # vocabularies past what one CTA of the kernel held: one more than 12288, a
 # 16384-entry codebook's mel codes, the most the kernel's shared-memory path
-# takes, and past it (the wide path: one more, and a 131071-entry codebook's)
-WIDE = (12289, 16386, 65536, 65537, 131073)
+# takes, and past it (the wide path: one more; an odd V in three rows, whose
+# rows 1 and 2 start off every 16-byte boundary; a 131071-entry codebook's)
+WIDE = (12289, 16386, 65536, 65537, 65539, 131073)
+WIDE_ROWS = {65539: 3}  # rows of the batch where not B
 
 
 @pytest.mark.parametrize("v", WIDE)
@@ -117,7 +119,7 @@ def test_plain_step_matches_jax_body_at_wide_vocabularies(setting, v):
     """``sample_step`` takes every vocabulary JAX's ``sample_token`` takes:
     tokens and the step's state equal at V past 12288 and past 65536."""
     seed = 1000 + SETTINGS.index(setting) + v
-    x, seen, codes, lengths, finished = _inputs("finished", seed, v)
+    x, seen, codes, lengths, finished = _inputs("finished", seed, v, WIDE_ROWS.get(v, B))
     jkey, key = _keys(seed)
     want = _jax_step(jkey, x, seen, codes, lengths, finished, setting, False, stop=v - 1)
     state = [torch.from_numpy(a.copy()) for a in (seen, codes, lengths, finished)]
