@@ -5,6 +5,8 @@ in turns on one GPU.
 
     python3 ab_serving_kernel.py LABEL=path/to/bias_attention.cu [...] \\
         [--train] [--cold] [--shape B T H D ...] [--runs 50]
+    python3 ab_serving_kernel.py --host LABEL=path/to/checkout [...] \\
+        [--shape B T H D ...] [--runs 50]
     python3 ab_serving_kernel.py --sample LABEL=path/to/sample.cu [...] \\
         [--shape B V ...] [--runs 50]
 
@@ -14,7 +16,9 @@ PyTorch version, and timed in turns (the labels in the order given, then in
 reverse: A B B A for two) as bare launches on buffers allocated beforehand,
 both with CUDA events around each launch (median of ``--runs``) and by the
 profiler's device time (mean of ``--runs``; no host time).  Default shapes:
-the diffusion trunk at batch 8 and 400 codes, B=16, T=1600, H=16, d=48;
+the diffusion trunk at batch 8 and 400 codes, B=16, T=1600, H=16, d=48, the
+integrator there (B=9) and the trunk at batch 2 and 200 codes, (4, 800, 16,
+48);
 with ``--train`` the training step's three, (8, 496, 16, 48), (8, 124, 16,
 48) and (8, 124, 16, 96).  With ``--train`` ``out`` is checked against the
 plain version's and ``lse`` against ``bias_attention_train_reference``'s,
@@ -25,6 +29,16 @@ come from HBM rather than L2, as in a training step, and only the device
 time is taken (of the kernel alone).  Prints the
 card's name and power limit first, the ``ptxas -v`` lines of each source's
 d=48 and d=96 kernels, and one JSON object last.  Needs a CUDA device.
+
+With ``--host`` each source is the root of a checkout of the repo (this
+one, or an earlier commit's ``git archive`` unpacked under ``build/``),
+and the host's share of a serving call is timed: in turns (A B B A), a
+process that imports that checkout's ``detail_tts_tpu_torch`` makes
+``--runs`` calls back to back, without a synchronisation between them
+(the card's queue takes them all), of the package's wrapper
+``attention.bias_attention`` and of its bare C entry ``bias_attention_fwd``
+through ctypes, at each shape; each prints the median of 7 such loops in
+host microseconds a call.
 
 With ``--sample`` each source is a ``sample.cu`` with ``threefry.cuh``
 beside it and the package's C entries ``sample_step`` and
@@ -56,6 +70,7 @@ import json
 import math
 import os
 import shutil
+import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -70,6 +85,7 @@ from chip_smoke import (SAMPLE_SETTINGS, attention_inputs, cuda_ms,  # noqa: E40
 from detail_tts_tpu_torch.ops import attention, sampling  # noqa: E402
 
 TRAIN_SHAPES = [(8, 496, 16, 48), (8, 124, 16, 48), (8, 124, 16, 96)]
+SERVE_SHAPES = [(16, 1600, 16, 48), (9, 1600, 16, 48), (4, 800, 16, 48)]
 # --sample's default shapes: the decode's V on the shared path, then the wide
 # path's (one token past it, 2^17 + 1, and V in the millions, which no
 # configuration of the repo sends)
@@ -95,6 +111,75 @@ def load(source: Path, entry: str):
     fn.argtypes = attention._SIGNATURES[attention.SOURCE][entry]
     fn.restype = ctypes.c_int
     return fn, ptxas_lines(log, lambda name: "Li48E" in name or "Li96E" in name)
+
+
+# --host: one checkout's host microseconds a serving call, in a process of
+# its own (argv: checkout root, shapes as JSON, calls a loop)
+HOST_CHILD = r"""
+import json, math, statistics, sys, time
+root, shapes, runs = sys.argv[1], json.loads(sys.argv[2]), int(sys.argv[3])
+sys.path.insert(0, root)
+import torch
+from detail_tts_tpu_torch.ops import attention
+rows = []
+for b, t, h, d in shapes:
+    g = torch.Generator(device="cuda").manual_seed(7)
+    qkv = torch.randn((b, t, 3 * h * d), device="cuda", generator=g).to(torch.bfloat16)
+    bias = torch.randn((h, t, t), device="cuda", generator=g).to(torch.bfloat16)
+    out = torch.empty((b, t, h * d), dtype=torch.bfloat16, device="cuda")
+    lib = attention._library(attention.SOURCE)
+    args = (qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), b, t, h, d,
+            attention.LOG2E / math.sqrt(d), 0, torch.cuda.current_stream().cuda_stream)
+
+    def wrapper():
+        attention.bias_attention(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
+
+    def entry():
+        if lib.bias_attention_fwd(*args) != 0:
+            raise RuntimeError("bias_attention_fwd failed")
+
+    row = dict(shape=[b, t, h, d], source=attention.__file__)
+    for name, fn in (("wrapper_us", wrapper), ("entry_us", entry)):
+        fn()
+        torch.cuda.synchronize()
+        loops = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                fn()
+            loops.append((time.perf_counter() - t0) / runs * 1e6)
+            torch.cuda.synchronize()
+        row[name] = statistics.median(loops)
+    rows.append(row)
+print("HOST " + json.dumps(rows))
+"""
+
+
+def host_main(args, labels, roots):
+    """--host: the host microseconds a serving call of each checkout, in turns."""
+    shapes = args.shape or SERVE_SHAPES
+    got = {label: [] for label in labels}
+    for label, root in list(zip(labels, roots)) + list(zip(labels, roots))[::-1]:
+        root = os.path.abspath(root)
+        proc = subprocess.run([sys.executable, "-c", HOST_CHILD, root, json.dumps(shapes),
+                               str(args.runs)], cwd=root, capture_output=True, text=True)
+        line = next((x for x in proc.stdout.splitlines() if x.startswith("HOST ")), None)
+        if proc.returncode != 0 or line is None:
+            sys.exit(f"--host {label}: the timing process failed ({proc.returncode}):\n"
+                     f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        got[label].append(json.loads(line[5:]))
+    results = []
+    for i, (b, t, h, d) in enumerate(shapes):
+        row = dict(shape=[b, t, h, d], calls_a_loop=args.runs)
+        for label in labels:
+            row[label] = {k: [turn[i][k] for turn in got[label]]
+                          for k in ("wrapper_us", "entry_us")}
+            print(f"  B={b} T={t} H={h} d={d}: {label} host us a call: wrapper "
+                  + ", ".join(f"{x:.2f}" for x in row[label]["wrapper_us"]) + "; C entry "
+                  + ", ".join(f"{x:.2f}" for x in row[label]["entry_us"])
+                  + f" ({got[label][0][i]['source']})", flush=True)
+        results.append(row)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "host": results}))
 
 
 def load_sample(path: str):
@@ -288,13 +373,16 @@ def train_case(b, t, h, d):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("sources", nargs="+",
-                    help="LABEL=path of a bias_attention.cu (--sample: of a sample.cu)")
+                    help="LABEL=path of a bias_attention.cu (--sample: of a sample.cu, "
+                         "--host: of a checkout's root)")
     ap.add_argument("--train", action="store_true",
                     help="time the training forward bias_attention_train_fwd")
     ap.add_argument("--sample", action="store_true",
                     help="time the decode step's sampler sample_step")
     ap.add_argument("--trace", action="store_true",
                     help="with --sample: the wide kernel's phases in SM cycles")
+    ap.add_argument("--host", action="store_true",
+                    help="the host us a serving call of each checkout (LABEL=root)")
     ap.add_argument("--cold", action="store_true",
                     help="evict L2 (a 256 MB write) before every timed launch")
     ap.add_argument("--shape", nargs="+", type=int, action="append",
@@ -309,6 +397,10 @@ def main():
         run(args, [s.split("=", 1)[0] for s in args.sources],
             [s.split("=", 1)[1] for s in args.sources])
         return
+    if args.host:
+        host_main(args, [s.split("=", 1)[0] for s in args.sources],
+                  [s.split("=", 1)[1] for s in args.sources])
+        return
     entry = "bias_attention_train_fwd" if args.train else "bias_attention_fwd"
     labels = [s.split("=", 1)[0] for s in args.sources]
     paths = [Path(s.split("=", 1)[1]) for s in args.sources]
@@ -318,7 +410,8 @@ def main():
         for line in built[label][1]:
             print(f"  {label}: {line}", flush=True)
 
-    default = TRAIN_SHAPES if args.train else [(16, 1600, 16, 48)]
+    default = TRAIN_SHAPES if args.train else SERVE_SHAPES
+    only = "train_fwd" if args.train else "serve_fwd"  # the kernels, not the L2 flush
     results = []
     for b, t, h, d in args.shape or default:
         run, errors, wrapper = (train_case if args.train else serving_case)(b, t, h, d)
@@ -333,10 +426,11 @@ def main():
         for label in labels + labels[::-1]:
             if flush is None:
                 times[label].append(cuda_ms(lambda: run(built[label][0]), runs=args.runs))
-                dev[label].append(device_ms(lambda: run(built[label][0]), runs=args.runs))
-            else:  # the kernels' own names all end in _mma (the flush's does not)
+                dev[label].append(device_ms(lambda: run(built[label][0]), runs=args.runs,
+                                            only=only))
+            else:
                 dev[label].append(device_ms(lambda: (flush.zero_(), run(built[label][0])),
-                                            runs=args.runs, only="_mma"))
+                                            runs=args.runs, only=only))
         for label in labels:
             print(f"  B={b} T={t} H={h} d={d}: {label} ms {times[label]} device_ms "
                   f"{dev[label]} max_abs_err "

@@ -48,12 +48,22 @@
 //   flight (two above d = 64), behind one barrier a tile.  With its copies
 //   alone the kernel takes ~0.52 ms (~4.6 TB/s from L2), with its arithmetic
 //   alone ~0.50 ms; together ~0.7 ms, 255 registers a thread and no spills,
-//   two CTAs (8 warps) an SM.  Fewer bytes from L2 (one bias tile for two
-//   batch rows, or a cluster multicast of it) is what would move it next.
-//   Q stays in its own shared tile after the ring and its fragments are read
-//   for each key tile.  Above d = 64 the registers of a 32-row warp do not
-//   fit (at d = 128 the output accumulator alone takes 128), so a warp takes
-//   16 rows and a CTA 64; only the contextual embedder (d = 96) runs there.
+//   two CTAs (8 warps) an SM.  Q stays in its own shared tile after the
+//   ring and its fragments are read for each key tile.  Above d = 64 the
+//   registers of a 32-row warp do not fit (at d = 128 the output accumulator
+//   alone takes 128), so a warp takes 16 rows and a CTA 64.  It takes the
+//   bf16 calls that serve_fwd_wgmma does not: d = 96 (the contextual
+//   embedder) and T % 8 != 0.
+// * ``serve_fwd_wgmma`` below (bf16, d <= 64, T % 8 == 0: the trunk, the
+//   integrator, the latent conditioner at code buckets that are multiples of
+//   8): the same 128 query rows a CTA, K, V, Q and the bias tile copied by
+//   TMA from one producer warp through an mbarrier ring, both products on
+//   wgmma from two consumer warpgroups, no spills, two CTAs an SM; 31%
+//   faster than serve_fwd_mma at the trunk's shape in turns
+//   (ab_serving_kernel.py, PERF.md).  Clusters of 2 or 4 batch rows that
+//   multicast each bias tile (1/2 and 1/4 of the bias bytes from L2) ran
+//   slower and were removed: the kernel is bound by latency (each
+//   warpgroup's Q K^T, softmax and P V in turn) and the exp2 work, not by L2.
 //
 // What bounds the training forward (kernel 4), at the training step's
 // largest call (B = 8, T = 496, H = 16, d = 48): bytes.  It must read q, k,
@@ -95,7 +105,10 @@
 // MASKED_LSE, so the backward's exp2(z - lse) gives it exactly zero
 // gradients.  Ragged T is masked in the kernel: keys past T get -inf and
 // zero K/V rows, query rows past T are computed on zeros and not written.
-// No TMA or wgmma yet.
+// The training kernels stay on mma.sync and cp.async.
+#include <stdio.h>
+
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -401,6 +414,280 @@ serve_fwd_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
         *reinterpret_cast<uint32_t*>(out + ((long)b * t_len + qr1) * C + col) =
             pack_bf16(o[mt][n][2] * inv1, o[mt][n][3] * inv1);
       }
+    }
+  }
+}
+
+// ------------------------------------------------- bf16 serving: wgmma
+
+// serve_fwd_wgmma takes bf16 at d <= 64 and T % 8 == 0 (a bias row of
+// T * 2 bytes is then a legal TMA stride); serve_fwd_mma takes the other
+// bf16 calls.  A CTA holds 128 query rows of one (b, h) in two consumer
+// warpgroups of 64 rows and one producer warp: 288 threads, two CTAs an SM,
+// which caps a thread at 96 registers (95 used, no spills at d = 48).
+// Shared memory, from a 1024-byte aligned base: STAGES stages of [bias tile
+// | K | V], then Q, then the barriers.  K, V and Q are TMA boxes of 16
+// channels by 64 rows (32-byte rows, 32-byte swizzle): a box is one k-step
+// of Q K^T and one 16-channel atom of V in P V.  The bias tile is [128
+// queries x 64 keys] in 128-byte rows with the 128-byte swizzle, so the x4
+// ldmatrix that hands a thread its accumulator-layout pairs hits distinct
+// banks.  Keys past T read 0 from TMA and are set to -inf in the logits;
+// query rows past T read 0 and are not written.
+//
+// A consumer warpgroup runs tile j's Q K^T, softmax and P V in turn, each
+// product waited for before the next step, so no product is in flight while
+// another's registers are live (with tile j - 1's P V still running under
+// tile j's Q K^T, ptxas serialised every wgmma for want of registers, and
+// the kernel was slower); the softmax of one warpgroup overlaps the
+// products of the three others on its SM.  Designs tried on the H100 and
+// dropped, each slower than this one in turns: the softmax of tile j
+// overlapping P V within a warpgroup (a second S or P in registers, which
+// at 96 spills or serialises the wgmmas); a
+// whole producer warpgroup, so that setmaxnreg can move registers to the
+// consumers (the launch cap falls to 80 a thread and the consumers spill;
+// setmaxnreg on a lone producer warp never returns, as it is a warpgroup's
+// instruction); one CTA an SM with 240-register consumers (half the warps
+// to hide each other's latency); clusters of 2 or 4 consecutive batch rows,
+// each CTA multicasting its share of the common bias tile (the pairs'
+// lockstep cost more than the L2 bytes saved).
+constexpr int kWgConsumerWarps = 8;                    // two warpgroups
+constexpr int kWgThreads = 32 * kWgConsumerWarps + 32;  // and the producer warp
+
+template <int D>
+struct Wg {
+  static constexpr int BQ = 128;                      // query rows a CTA
+  static constexpr int KS = D / 16;                   // 16-channel boxes of a row
+  static constexpr int BOX = BK * 32;                 // a box: 64 rows of 32 bytes
+  static constexpr int KV = KS * BOX;                 // a K or V tile
+  static constexpr int BIAS = BQ * BK * 2;            // the bias tile
+  static constexpr int STAGE = BIAS + 2 * KV;
+  static constexpr int STAGES = D <= 48 ? 3 : 2;      // as two CTAs an SM allow
+  static constexpr int QB = 2 * KV;                   // Q: two boxes a channel group
+  static constexpr uint32_t STAGE_TX = 2 * KV + BIAS;  // bytes that fill a stage
+  static constexpr size_t bytes =
+      1024 + STAGES * STAGE + QB + (2 * STAGES + 1) * sizeof(uint64_t);
+  static_assert(STAGE % 1024 == 0 && QB % 1024 == 0, "1024-byte aligned tiles");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 2)
+serve_fwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
+                const __grid_constant__ CUtensorMap bias_map, bf16* __restrict__ out,
+                int t_len, int heads, float scale) {
+  using namespace hopper;
+  using L = Wg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* q_smem = smem + L::STAGES * L::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(q_smem + L::QB);  // a stage's bytes landed
+  uint64_t* empty = full + L::STAGES;                             // every consumer is done with it
+  uint64_t* q_full = empty + L::STAGES;
+
+  const int b = blockIdx.x;  // batch fastest: the CTAs sharing a bias tile run together
+  const int q0 = blockIdx.y * L::BQ;
+  const int h = blockIdx.z;
+  const int n_tiles = (t_len + BK - 1) / BK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgConsumerWarps);
+    }
+    mbar_init(q_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kWgConsumerWarps) {
+    // ---------------------------------------------------------- producer
+    if (lane == 0) {
+      tma_prefetch(&qkv_map);
+      tma_prefetch(&bias_map);
+      const int col = h * 3 * D;  // channel of this head's q in a qkv row
+      mbar_expect_tx(q_full, L::QB);
+#pragma unroll
+      for (int c = 0; c < L::KS; ++c) {
+        tma_load_3d(q_smem + c * 2 * L::BOX, &qkv_map, q_full, col + 16 * c, q0, b);
+        tma_load_3d(q_smem + c * 2 * L::BOX + L::BOX, &qkv_map, q_full, col + 16 * c,
+                    q0 + BK, b);
+      }
+      const int bias_row = h * t_len + q0;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % L::STAGES;
+        if (j >= L::STAGES) mbar_wait(&empty[s], (j / L::STAGES - 1) & 1);
+        unsigned char* st = smem + s * L::STAGE;
+        mbar_expect_tx(&full[s], L::STAGE_TX);
+#pragma unroll
+        for (int c = 0; c < L::KS; ++c) {
+          tma_load_3d(st + L::BIAS + c * L::BOX, &qkv_map, &full[s], col + D + 16 * c,
+                      j * BK, b);
+          tma_load_3d(st + L::BIAS + L::KV + c * L::BOX, &qkv_map, &full[s],
+                      col + 2 * D + 16 * c, j * BK, b);
+        }
+        tma_load_2d(st, &bias_map, &full[s], j * BK, bias_row);
+      }
+    }
+    return;
+  }
+
+  // ----------------------------------------------------------- consumers
+  const int wg = warp / 4;  // rows 64 wg .. 64 wg + 63 of the CTA's block
+  const int g = lane / 4;   // this thread's rows: g and g + 8 of its warp's 16
+  const int t4 = lane % 4;  // and columns 2 t4, 2 t4 + 1 of each 8-block
+  const int row0 = wg * 64 + (warp % 4) * 16;
+  // this lane's row of an x4 ldmatrix of the bias (rows 0-7, 8-15 of the
+  // warp at a 16-key block's first 8 keys, then at its second 8) and the
+  // 128-byte swizzle of that row
+  const uint32_t bias_lane = (row0 + (lane / 8) % 2 * 8 + lane % 8) * (BK * 2);
+  const int bias_half = lane / 16;
+  const int bias_swz = lane % 8;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = FLOOR, m1 = FLOOR;  // running max of rows g, g + 8
+  float l0 = 0.f, l1 = 0.f;      // and this thread's share of their sums
+  float s[32];                   // S of a 64 x 64 tile: key block n in s[4n .. 4n + 3]
+  uint32_t p[BK / 16][4];        // P as bf16 A fragments, one a 16-key k-step
+  uint64_t qd[L::KS];            // Q's descriptors: this warpgroup's rows, k-step c
+#pragma unroll
+  for (int c = 0; c < L::KS; ++c) {
+    qd[c] = desc_sw32(smem_addr(q_smem) + c * 2 * L::BOX + wg * L::BOX, 16, 256);
+  }
+
+  // log2-domain logits of key tile j, the online softmax in fp32 (O
+  // rescaled), and P rounded to bf16
+  auto softmax = [&](const unsigned char* st, int j) {
+    const uint32_t bt = smem_addr(st) + bias_lane;
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      uint32_t bb[4];  // rows g, g + 8 of key block 2 jp, then of block 2 jp + 1
+      ldmatrix_x4_at(bb, bt + (((2 * jp + bias_half) ^ bias_swz) << 4));
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float* x = s + 4 * (2 * jp + e);
+        const float2 b0 = bf16x2_to_float2(bb[2 * e]);
+        const float2 b1 = bf16x2_to_float2(bb[2 * e + 1]);
+        x[0] = fmaf(x[0], scale, b0.x);
+        x[1] = fmaf(x[1], scale, b0.y);
+        x[2] = fmaf(x[2], scale, b1.x);
+        x[3] = fmaf(x[3], scale, b1.y);
+      }
+    }
+    if (j == n_tiles - 1 && t_len % BK != 0) {  // keys past T: TMA read 0, make them -inf
+      const int keys = t_len - j * BK;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (n * 8 + 2 * t4 + e >= keys) s[4 * n + e] = s[4 * n + 2 + e] = -INFINITY;
+        }
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {  // the 4 threads of a row
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = exp2_ftz(m0 - mn0), a1 = exp2_ftz(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      s[4 * n] = exp2_ftz(s[4 * n] - mn0);
+      s[4 * n + 1] = exp2_ftz(s[4 * n + 1] - mn0);
+      s[4 * n + 2] = exp2_ftz(s[4 * n + 2] - mn1);
+      s[4 * n + 3] = exp2_ftz(s[4 * n + 3] - mn1);
+      r0 += s[4 * n] + s[4 * n + 1];
+      r1 += s[4 * n + 2] + s[4 * n + 3];
+    }
+    l0 = l0 * a0 + r0;
+    l1 = l1 * a1 + r1;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= (i % 4 < 2 ? a0 : a1);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {  // key blocks 2 kk, 2 kk + 1: k-step kk
+      p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+  auto release = [&](int stage) {  // every read of the stage is done
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+  };
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int sj = j % L::STAGES;
+    const unsigned char* st = smem + sj * L::STAGE;
+    // K's and V's descriptors in this stage, made before the products so
+    // that no other instruction writes a wgmma's input between them
+    uint64_t kd[L::KS], vd[BK / 16];
+#pragma unroll
+    for (int c = 0; c < L::KS; ++c) {
+      kd[c] = desc_sw32(smem_addr(st + L::BIAS) + c * L::BOX, 16, 256);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      vd[kk] = desc_sw32(smem_addr(st + L::BIAS + L::KV) + kk * 16 * 32, L::BOX, 256);
+    }
+    fence_regs(kd);
+    fence_regs(vd);
+    mbar_wait(&full[sj], (j / L::STAGES) & 1);
+    __syncwarp();
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < L::KS; ++c) wgmma_m64n64k16_ss(s, qd[c], kd[c], c);  // S = Q K^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(o);
+    softmax(st, j);
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(p[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D>(o, p[kk], vd[kk]);  // O += P V
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    release(sj);
+  }
+
+  // out = O / l, or 0 where the row sum is 0 (a fully masked row)
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  const int qr0 = q0 + row0 + g, qr1 = qr0 + 8;
+  const int C = heads * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = h * D + n * 8 + 2 * t4;
+    if (qr0 < t_len) {
+      *reinterpret_cast<uint32_t*>(out + ((long)b * t_len + qr0) * C + col) =
+          pack_bf16(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+    }
+    if (qr1 < t_len) {
+      *reinterpret_cast<uint32_t*>(out + ((long)b * t_len + qr1) * C + col) =
+          pack_bf16(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
     }
   }
 }
@@ -888,19 +1175,118 @@ cudaError_t prepare(Kernel kernel, size_t bytes) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-// Serving: dtype 0 bf16 on serve_fwd_mma, dtype 1 fp32 on the scalar kernel.
+// Message of the last failure that has no CUDA error code of its own (a
+// tensor map the driver refused, or no cuTensorMapEncodeTiled).
+char g_error[256] = "";
+constexpr int kOwnError = 20000;  // the error code that points at g_error
+
+// cuTensorMapEncodeTiled of the driver, found through the runtime so that
+// the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// The two tensor maps of a launch: qkv as (3 H D channels, T, B) in boxes of
+// 16 channels x 64 rows x 1 with the 32-byte swizzle (rows past T read 0,
+// never the next batch row's), the bias as (T keys, H T rows) in boxes of 64
+// keys x ``bias_rows`` rows with the 128-byte swizzle (keys past T read 0).
+int encode_maps(const Args& a, int head_dim, int bias_rows, CUtensorMap* qkv_map,
+                CUtensorMap* bias_map) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) {
+    snprintf(g_error, sizeof g_error, "cuTensorMapEncodeTiled not found in the driver");
+    return kOwnError;
+  }
+  const cuuint64_t c3 = 3ull * a.heads * head_dim;
+  const cuuint64_t qkv_dims[3] = {c3, (cuuint64_t)a.t_len, (cuuint64_t)a.batch};
+  const cuuint64_t qkv_strides[2] = {c3 * sizeof(bf16), c3 * sizeof(bf16) * a.t_len};
+  const cuuint32_t qkv_box[3] = {16, BK, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  CUresult r = encode(qkv_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(a.qkv),
+                      qkv_dims, qkv_strides, qkv_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r == CUDA_SUCCESS) {
+    const cuuint64_t bias_dims[2] = {(cuuint64_t)a.t_len, (cuuint64_t)a.heads * a.t_len};
+    const cuuint64_t bias_strides[1] = {(cuuint64_t)a.t_len * sizeof(bf16)};
+    const cuuint32_t bias_box[2] = {BK, (cuuint32_t)bias_rows};
+    r = encode(bias_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(a.bias),
+               bias_dims, bias_strides, bias_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+  if (r != CUDA_SUCCESS) {
+    snprintf(g_error, sizeof g_error,
+             "cuTensorMapEncodeTiled refused a map (CUresult %d) at B=%d T=%d H=%d d=%d",
+             (int)r, a.batch, a.t_len, a.heads, head_dim);
+    return kOwnError;
+  }
+  return 0;
+}
+
+// bf16 serving on serve_fwd_wgmma<D>: grid (B, T / 128, H).  The shared
+// memory is opted in at every launch, as the attribute belongs to the
+// current device's context.
 template <int D>
-cudaError_t launch_serve(int dtype, const Args& a) {
-  if (dtype != 0) return launch_simt<D, false>(a);
+int launch_wgmma(const Args& a) {
+  using L = Wg<D>;
+  int err = (int)prepare(serve_fwd_wgmma<D>, L::bytes);
+  if (err != 0) return err;
+  CUtensorMap qkv_map, bias_map;
+  err = encode_maps(a, D, L::BQ, &qkv_map, &bias_map);
+  if (err != 0) return err;
+  const dim3 grid(a.batch, (a.t_len + L::BQ - 1) / L::BQ, a.heads);
+  serve_fwd_wgmma<D><<<grid, kWgThreads, L::bytes, a.stream>>>(
+      qkv_map, bias_map, static_cast<bf16*>(a.out), a.t_len, a.heads, a.scale);
+  return (int)cudaGetLastError();
+}
+
+// The kernel each serving shape takes (bias_attention_fwd_route).
+enum ServeRoute { kRouteWgmma = 0, kRouteMma = 1, kRouteSimt = 2 };
+
+int serve_route(int t_len, int head_dim, int dtype) {
+  if (dtype != 0) return kRouteSimt;
+  return head_dim <= 64 && t_len % 8 == 0 ? kRouteWgmma : kRouteMma;
+}
+
+// Serving: dtype 0 bf16 on serve_fwd_wgmma (d <= 64, T % 8 == 0) or
+// serve_fwd_mma, dtype 1 fp32 on the scalar kernel.
+template <int D>
+int launch_serve(int dtype, const Args& a) {
+  const int route = serve_route(a.t_len, D, dtype);
+  if (route == kRouteSimt) return (int)launch_simt<D, false>(a);
+  if constexpr (D <= 64) {
+    if (route == kRouteWgmma) return launch_wgmma<D>(a);
+  }
   using L = Serve<D>;
   const int width = a.t_len % 8 == 0 ? 8 : a.t_len % 4 == 0 ? 4 : 1;
   cudaError_t err = prepare(serve_fwd_mma<D>, L::bytes);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.batch, (a.t_len + L::BQ - 1) / L::BQ, a.heads);
   serve_fwd_mma<D><<<grid, NTHREADS, L::bytes, a.stream>>>(
       static_cast<const bf16*>(a.qkv), static_cast<const bf16*>(a.bias),
       static_cast<bf16*>(a.out), a.t_len, a.heads, a.scale, width);
-  return cudaGetLastError();
+  return (int)cudaGetLastError();
 }
 
 template <int D, int MT>
@@ -955,9 +1341,40 @@ cudaError_t blocks_per_sm(Kernel kernel, size_t bytes, int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, NTHREADS, bytes);
 }
 
+// The serving kernel a T % 8 == 0 call takes at d = D.
 template <int D>
 cudaError_t serve_blocks_per_sm(int* blocks) {
-  return blocks_per_sm(serve_fwd_mma<D>, Serve<D>::bytes, blocks);
+  if constexpr (D <= 64) {
+    using L = Wg<D>;
+    const auto kernel = serve_fwd_wgmma<D>;
+    const cudaError_t err = prepare(kernel, L::bytes);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kWgThreads, L::bytes);
+  } else {
+    return blocks_per_sm(serve_fwd_mma<D>, Serve<D>::bytes, blocks);
+  }
+}
+
+// Registers a thread and dynamic shared memory of a route's kernel at d = D
+// (bf16).
+template <int D>
+cudaError_t route_info(int route, int* regs, int* smem) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (route == kRouteWgmma) {
+    if constexpr (D <= 64) {
+      err = cudaFuncGetAttributes(&fa, serve_fwd_wgmma<D>);
+      *smem = (int)Wg<D>::bytes;
+    }
+  } else if (route == kRouteMma) {
+    err = cudaFuncGetAttributes(&fa, serve_fwd_mma<D>);
+    *smem = (int)Serve<D>::bytes;
+  } else if (route == kRouteSimt) {
+    err = cudaFuncGetAttributes(&fa, bias_attention_simt<D, false>);
+    *smem = (int)SimtLayout<D>::bytes;
+  }
+  if (err == cudaSuccess) *regs = fa.numRegs;
+  return err;
 }
 
 // The tiling of a grid that fills the card: 128 rows up to d = 64.
@@ -1015,8 +1432,9 @@ extern "C" int bias_attention_train_fwd(const void* qkv, const void* bias, void*
   return dispatch<Op::kTrain>(head_dim, dtype, a);
 }
 
-// CTAs of the bf16 serving kernel at ``head_dim`` that fit on one SM of the
-// current device, or minus the CUDA error code.
+// CTAs of the bf16 serving kernel that a call at ``head_dim`` with T % 8 ==
+// 0 takes (serve_fwd_wgmma up to d = 64) that fit on one SM of the current
+// device, or minus the CUDA error code.
 extern "C" int bias_attention_fwd_blocks_per_sm(int head_dim) {
   int blocks = 0;
   const Args a{};
@@ -1033,6 +1451,34 @@ extern "C" int bias_attention_train_fwd_blocks_per_sm(int head_dim) {
   return err != 0 ? -err : blocks;
 }
 
+// The kernel a serving call of this T, head_dim and dtype (0 bf16, 1 fp32)
+// takes: 0 serve_fwd_wgmma, 1 serve_fwd_mma, 2 the scalar kernel; -1 for a
+// head_dim or dtype the entry refuses.
+extern "C" int bias_attention_fwd_route(int t_len, int head_dim, int dtype) {
+  if (head_dim % 16 != 0 || head_dim < 16 || head_dim > 128 || (dtype != 0 && dtype != 1)) {
+    return -1;
+  }
+  return serve_route(t_len, head_dim, dtype);
+}
+
+// Registers a thread and dynamic shared memory of ``route``'s kernel at
+// ``head_dim``; returns the CUDA error code (0 on success).
+extern "C" int bias_attention_fwd_route_info(int route, int head_dim, int* regs,
+                                             int* smem_bytes) {
+  switch (head_dim) {
+    case 16: return (int)route_info<16>(route, regs, smem_bytes);
+    case 32: return (int)route_info<32>(route, regs, smem_bytes);
+    case 48: return (int)route_info<48>(route, regs, smem_bytes);
+    case 64: return (int)route_info<64>(route, regs, smem_bytes);
+    case 80: return (int)route_info<80>(route, regs, smem_bytes);
+    case 96: return (int)route_info<96>(route, regs, smem_bytes);
+    case 112: return (int)route_info<112>(route, regs, smem_bytes);
+    case 128: return (int)route_info<128>(route, regs, smem_bytes);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 extern "C" const char* bias_attention_error_string(int code) {
+  if (code == kOwnError) return g_error;
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

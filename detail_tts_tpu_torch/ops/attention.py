@@ -9,11 +9,17 @@ scale and a log2-domain bias go straight into ``exp2``.  A row whose every
 bias is <= -1e9 gives 0, and zero gradients.
 
 * :func:`bias_attention` - serving forward (no gradient): kernel
-  ``bias_attention_fwd`` (``csrc/bias_attention.cu``; in bf16 128 query rows
-  a CTA with the bias tile in the ``cp.async`` ring), replacing the Pallas
+  ``bias_attention_fwd`` (``csrc/bias_attention.cu``), replacing the Pallas
   serving kernels ``attention_packed_pairs``, ``attention_packed`` and
-  ``row_block_attention`` of the JAX package.  It raises when grad mode is
-  on and an input requires grad.  The C entry
+  ``row_block_attention`` of the JAX package.  In bf16 at d <= 64 and
+  T % 8 == 0 it runs ``serve_fwd_wgmma`` (TMA tiles from one producer warp
+  through an mbarrier ring, wgmma products in two consumer warpgroups);
+  the other bf16 calls run ``serve_fwd_mma`` (128 query rows a CTA with the
+  bias tile in the ``cp.async`` ring), fp32 a scalar kernel.
+  :data:`LAUNCHES_BY_ROUTE` counts the launches of each, by the route that
+  the C entry ``bias_attention_fwd_route`` names for the call;
+  :func:`bias_attention_fwd_route` mirrors that entry on the host.  It
+  raises when grad mode is on and an input requires grad.  The C entry
   ``bias_attention_fwd_blocks_per_sm`` reports its CTAs per SM.
 * :func:`bias_attention_train` - the trainable version, a
   :class:`BiasAttentionFunction` over an fp32 natural-domain bias.  Its
@@ -39,6 +45,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -61,12 +68,16 @@ TILE = 64  # rows of the kernels' tiles
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCE = CSRC / "bias_attention.cu"
 BWD_SOURCE = CSRC / "bias_attention_bwd.cu"
-HEADERS = (CSRC / "mma.cuh", CSRC / "threefry.cuh")
+HEADERS = (CSRC / "hopper.cuh", CSRC / "mma.cuh", CSRC / "threefry.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = 0  # kernel launches through bias_attention (never the plain path)
+# the serving kernels, in the C entry's route codes (bias_attention_fwd_route)
+SERVE_ROUTES = ("serve_fwd_wgmma", "serve_fwd_mma", "bias_attention_simt")
+# the launches of LAUNCHES by the kernel that ran them
+LAUNCHES_BY_ROUTE: Dict[str, int] = {name: 0 for name in SERVE_ROUTES}
 # kernel launches of the trainable function, by kernel (never the plain path)
 TRAIN_LAUNCHES: Dict[str, int] = {"bias_attention_train_fwd": 0,
                                   "bias_attention_bwd_dq_dbias": 0,
@@ -260,6 +271,8 @@ def build_all() -> List[Tuple[Path, float, str]]:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     SOURCE: {"bias_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+             "bias_attention_fwd_route": [_I, _I, _I],
+             "bias_attention_fwd_route_info": [_I, _I, _P, _P],
              "bias_attention_train_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F,
                                           _F, _I, _P],
              "bias_attention_fwd_blocks_per_sm": [_I],
@@ -322,6 +335,22 @@ def _check(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     return d
 
 
+def bias_attention_fwd_route(t: int, d: int, dtype: torch.dtype) -> str:
+    """The kernel a serving call at sequence length ``t``, head dim ``d``
+    and ``dtype`` takes on the card: ``serve_fwd_wgmma`` (bf16, d <= 64,
+    T % 8 == 0: a bias row is then a legal TMA stride), ``serve_fwd_mma``
+    (the other bf16 calls) or ``bias_attention_simt`` (fp32).  It mirrors
+    the C entry of the same name, which decides the launch and names the
+    route :data:`LAUNCHES_BY_ROUTE` counts; the CPU tests and the expected
+    counts read this copy, and the card tests hold the two equal over every
+    T % 8 and head dim."""
+    if dtype == torch.float32:
+        return "bias_attention_simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the serving kernels take bfloat16 or float32, not {dtype}")
+    return "serve_fwd_wgmma" if d <= 64 and t % 8 == 0 else "serve_fwd_mma"
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -351,12 +380,20 @@ def bias_attention(qkv: torch.Tensor, bias: torch.Tensor, *, heads: int,
         return bias_attention_reference(qkv, bias, heads=heads,
                                         sm_scale=sm_scale, bias_log2=True)
     b, t, _ = qkv.shape
+    code = _DTYPE_CODE[qkv.dtype]
     out = torch.empty((b, t, heads * d), dtype=qkv.dtype, device=qkv.device)
     _launch(SOURCE, "bias_attention_fwd", qkv.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, t, heads, d, sm_scale * LOG2E,
-            _DTYPE_CODE[qkv.dtype], _stream(qkv))
+            out.data_ptr(), b, t, heads, d, sm_scale * LOG2E, code, _stream(qkv))
     LAUNCHES += 1
+    LAUNCHES_BY_ROUTE[_launched_route(t, d, code)] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _launched_route(t: int, d: int, code: int) -> str:
+    """The route the C entry ``bias_attention_fwd_route`` names for a launch
+    (asked once a shape)."""
+    return SERVE_ROUTES[_library(SOURCE).bias_attention_fwd_route(t, d, code)]
 
 
 def bias_attention_train_fwd(qkv: torch.Tensor, bias: torch.Tensor, *,

@@ -46,7 +46,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 # name fragments of the port's hand-written kernels (csrc/: bias attention,
 # threefry, the decode's sample step)
-OWN_KERNELS = ("_mma<", "dbias_sum", "bias_attention_simt", "draw_kernel", "chain_kernel",
+OWN_KERNELS = ("_mma<", "_wgmma<", "dbias_sum", "bias_attention_simt", "draw_kernel", "chain_kernel",
                "split_kernel", "sample_step_kernel")
 STAGES = ("prepare", "generate", "diff_cond", "latents", "diffuse", "vocode", "host")
 TRAIN_STAGES = ("latents", "forward", "discriminator", "gen_loss", "backward",

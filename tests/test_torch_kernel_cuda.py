@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: the
-bias-attention serving forward, and the training forward (with its row
+bias-attention serving forward (both its kernels: ``serve_fwd_wgmma`` and
+``serve_fwd_mma``), and the training forward (with its row
 statistic) and the three backward kernels (delta, dq and the dbias partials;
 dk and dv; the partials' sum) behind ``BiasAttentionFunction``; the threefry
 draws and key buffers (``ops/prng.py``); the decode step's sampler
@@ -76,6 +77,81 @@ def test_fully_masked_rows_are_zero(cuda, dtype, t):
     assert torch.count_nonzero(out[:, 5, d:2 * d]).item() == 0
     assert torch.count_nonzero(out[:, t - 1, 3 * d:4 * d]).item() == 0
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64])
+# serve_fwd_wgmma's shapes: T % 8 == 0, from one ragged key tile (8) to the
+# largest code bucket's trunk (2400); odd B (the integrator's B + 1 rows),
+# T off the 64-key and 128-row tiles (200, 96)
+@pytest.mark.parametrize("b,t", [(1, 8), (3, 64), (9, 1600), (16, 1600), (2, 2400),
+                                 (5, 96), (3, 200), (1, 136)])
+def test_wgmma_kernel_matches_plain_version(cuda, d, b, t):
+    h = 16 if t >= 1600 else 4
+    qkv, bias = _inputs(b, t, h, d, torch.bfloat16, seed=d * t + b, device=cuda)
+    assert attention.bias_attention_fwd_route(t, d, torch.bfloat16) == "serve_fwd_wgmma"
+    before = attention.LAUNCHES_BY_ROUTE["serve_fwd_wgmma"]
+    out = attention.bias_attention(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
+    again = attention.bias_attention(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
+    ref = attention.bias_attention_reference(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_BY_ROUTE["serve_fwd_wgmma"] == before + 2
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+    assert torch.equal(out, again)  # a repeat launch is bit-identical
+
+
+@pytest.mark.parametrize("d", [16, 48, 64])
+def test_wgmma_kernel_fully_masked_rows_are_zero(cuda, d):
+    b, t, h = 3, 96, 4
+    qkv, bias = _inputs(b, t, h, d, torch.bfloat16, seed=d, device=cuda)
+    bias[1, 5, :] = -1e9
+    bias[3, t - 1, :] = -1e9
+    bias[0, 70:, :] = -1e9  # rows of the second 64-row warpgroup
+    assert attention.bias_attention_fwd_route(t, d, torch.bfloat16) == "serve_fwd_wgmma"
+    out = attention.bias_attention(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
+    ref = attention.bias_attention_reference(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
+    assert torch.count_nonzero(out[:, 5, d:2 * d]).item() == 0
+    assert torch.count_nonzero(out[:, t - 1, 3 * d:4 * d]).item() == 0
+    assert torch.count_nonzero(out[:, 70:, :d]).item() == 0
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+
+
+def test_wgmma_kernel_runs_on_every_device(cuda):
+    """Each card of the process opts the kernel in to its own shared memory:
+    a launch on the second card after one on the first runs and agrees."""
+    b, t, h, d = 3, 200, 4, 48
+    for index in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", index)
+        with torch.cuda.device(dev):
+            qkv, bias = _inputs(b, t, h, d, torch.bfloat16, seed=index, device=dev)
+            out = attention.bias_attention(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
+            ref = attention.bias_attention_reference(qkv, bias, heads=h,
+                                                     sm_scale=1 / math.sqrt(d))
+            assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+
+
+def test_route_entry_matches_the_python_mirror(cuda):
+    """The C entry that decides a launch and names the route counted, against
+    ``attention.bias_attention_fwd_route`` over every T % 8 and head dim."""
+    lib = attention._library(attention.SOURCE)
+    for t, d, dtype in itertools.product(list(range(1, 65)) + [100, 1597, 1600, 2400],
+                                         range(16, 129, 16),
+                                         (torch.bfloat16, torch.float32)):
+        code = lib.bias_attention_fwd_route(t, d, attention._DTYPE_CODE[dtype])
+        assert code >= 0
+        assert attention.SERVE_ROUTES[code] == attention.bias_attention_fwd_route(t, d, dtype)
+
+
+def test_wgmma_kernel_has_no_spills(cuda, monkeypatch, tmp_path):
+    """ptxas -v of every serve_fwd_wgmma instantiation: no spill stores or loads."""
+    monkeypatch.setattr(attention, "BUILD_DIR", tmp_path)
+    _, _, log = attention.build(attention.SOURCE)
+    entry, lines = "", []
+    for line in log.splitlines():
+        if "entry function" in line:
+            entry = line.split("'")[1]
+        elif "serve_fwd_wgmma" in entry and "spill" in line:
+            lines.append(line)
+    assert lines and all(" 0 bytes spill stores, 0 bytes spill loads" in x for x in lines)
 
 
 def test_serving_kernel_fits_on_an_sm(cuda):
