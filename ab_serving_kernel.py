@@ -1,12 +1,14 @@
 """Time the bf16 serving kernel ``bias_attention_fwd``, or with ``--train``
-the bf16 training forward ``bias_attention_train_fwd``, or with
-``--sample`` the decode step's sampler ``sample_step``, of several sources
-in turns on one GPU.
+the bf16 training forward ``bias_attention_train_fwd`` or the training
+backward, or with ``--sample`` the decode step's sampler ``sample_step``,
+of several sources in turns on one GPU.
 
     python3 ab_serving_kernel.py LABEL=path/to/bias_attention.cu [...] \\
         [--train] [--cold] [--shape B T H D ...] [--runs 50]
+    python3 ab_serving_kernel.py --train LABEL=path/to/bias_attention_bwd.cu [...] \\
+        [--variants] [--cold] [--shape B T H D ...] [--runs 50]
     python3 ab_serving_kernel.py --host LABEL=path/to/checkout [...] \\
-        [--shape B T H D ...] [--runs 50]
+        [--train] [--shape B T H D ...] [--runs 50]
     python3 ab_serving_kernel.py --sample LABEL=path/to/sample.cu [...] \\
         [--shape B V ...] [--runs 50]
 
@@ -38,7 +40,31 @@ process that imports that checkout's ``detail_tts_tpu_torch`` makes
 (the card's queue takes them all), of the package's wrapper
 ``attention.bias_attention`` and of its bare C entry ``bias_attention_fwd``
 through ctypes, at each shape; each prints the median of 7 such loops in
-host microseconds a call.
+host microseconds a call.  With ``--host --train`` the call is the
+training backward: the wrapper ``attention.bias_attention_bwd`` and its
+three bare C entries, at the step's shapes.
+
+With ``--train`` and sources named ``bias_attention_bwd*.cu`` (this
+package's, or an earlier one from ``git show
+<commit>:detail_tts_tpu_torch/csrc/bias_attention_bwd.cu`` with its
+``mma.cuh`` and ``hopper.cuh`` beside it under ``build/``) the backward is
+timed instead: at each shape (default ``BWD_SHAPES``: the step's three and
+the raw bucket (8, 1024, 16, 48)) each source's C entries
+``bias_attention_bwd_dq`` (delta, dq, the dbias partials), ``_dkv`` and
+``_dbias_sum`` are launched on buffers allocated beforehand, the d(qkv)
+and dbias they give held against ``bias_attention_bwd_reference`` once,
+and each entry and the three together (``all``) timed in turns by the
+profiler's device time (and CUDA events when warm), the package's own
+wrapper ``bias_attention_bwd`` beside them; the route the package's C
+entry ``bias_attention_bwd_route`` names for each shape is printed.  With
+``--variants [LABEL ...]`` each backward source (or those named) also gives two copies under
+``build/variants/LABEL/`` that are timed in turns with it and not checked:
+``LABEL-noproducts``, whose products (mma.sync or wgmma) are a single
+dependent add (the copies, exp2 and stores stay), ``LABEL-nocopies``,
+whose tile copies into shared memory (cp.async, TMA, bulk) and dbias
+partial stores are gone (the products and exp2 stay, on whatever shared
+memory holds), and ``LABEL-nostores``, whose partial stores alone are
+gone: what holds the kernel, the arithmetic or the bytes.
 
 With ``--sample`` each source is a ``sample.cu`` with ``threefry.cuh``
 beside it and the package's C entries ``sample_step`` and
@@ -81,11 +107,19 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from chip_smoke import (SAMPLE_SETTINGS, attention_inputs, cuda_ms,  # noqa: E402
-                        device_ms, sample_inputs, smi, train_inputs)
+                        device_ms, sample_inputs, scaled_err, smi, train_inputs)
 from detail_tts_tpu_torch.ops import attention, sampling  # noqa: E402
 
 TRAIN_SHAPES = [(8, 496, 16, 48), (8, 124, 16, 48), (8, 124, 16, 96)]
 SERVE_SHAPES = [(16, 1600, 16, 48), (9, 1600, 16, 48), (4, 800, 16, 48)]
+# the backward's: the training step's three and the corpus's raw bucket 1024
+BWD_SHAPES = TRAIN_SHAPES + [(8, 1024, 16, 48)]
+BWD_ENTRIES = ("bias_attention_bwd_dq", "bias_attention_bwd_dkv", "bias_attention_bwd_dbias_sum")
+# what each timed row launches: an entry, or the three in turn
+BWD_RUNS = {**{entry: (entry,) for entry in BWD_ENTRIES}, "all": BWD_ENTRIES}
+# the device-time filter of each backward entry's kernels
+BWD_KERNEL_NAMES = {"bias_attention_bwd_dq": ("bwd_dq",), "bias_attention_bwd_dkv": ("bwd_dkv",),
+                    "bias_attention_bwd_dbias_sum": ("dbias_sum",)}
 # --sample's default shapes: the decode's V on the shared path, then the wide
 # path's (one token past it, 2^17 + 1, and V in the millions, which no
 # configuration of the repo sends)
@@ -113,16 +147,137 @@ def load(source: Path, entry: str):
     return fn, ptxas_lines(log, lambda name: "Li48E" in name or "Li96E" in name)
 
 
+def load_bwd(source: Path):
+    """Build a backward source: ({entry: C function}, ptxas lines)."""
+    path, _, log = attention.build(source)
+    lib = ctypes.CDLL(str(path))
+    fns = {}
+    for entry in BWD_ENTRIES:
+        fn = getattr(lib, entry)
+        fn.argtypes = attention._SIGNATURES[attention.BWD_SOURCE][entry]
+        fn.restype = ctypes.c_int
+        fns[entry] = fn
+    return fns, ptxas_lines(log, lambda name: "Li48E" in name or "Li96E" in name)
+
+
+# --variants: (label suffix, [(text, replacement)], declarations added after
+# the includes).  Each replacement applies where its text occurs (the
+# mma.sync kernels' texts in a parent's source, the wgmma kernels' too in
+# this package's); a variant that applies none is skipped.
+_FAKES = """
+#include "hopper.cuh"
+// (timing variants) a product as one dependent add of its operands; copies
+// and stores that move nothing (a stage's barrier completes at once)
+__device__ __forceinline__ void fake_mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  d[0] += __uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^ b1) & 0x3f800000u);
+}
+__device__ __forceinline__ void fake_ss(float (&d)[32], uint64_t a, uint64_t b, int) {
+  d[0] += __uint_as_float((uint32_t)(a ^ b) & 0x3f800000u);
+}
+template <int N>
+__device__ __forceinline__ void fake_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  d[0] += __uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3] ^ (uint32_t)b) & 0x3f800000u);
+}
+template <int D, int ROWS = 64>
+__device__ __forceinline__ void fake_copy_tile(attn::bf16*, const attn::bf16*, int, int, long) {}
+template <int LDB>
+__device__ __forceinline__ void fake_copy_bias_tile(float*, const float*, int, int, int, bool) {}
+__device__ __forceinline__ void fake_cp4(void*, const void*, bool) {}
+__device__ __forceinline__ void fake_tma_load_3d(void*, const CUtensorMap*, uint64_t*, int, int,
+                                                 int) {}
+__device__ __forceinline__ void fake_bulk_load(void*, const void*, uint32_t, uint64_t*) {}
+__device__ __forceinline__ void fake_expect_tx(uint64_t* bar, uint32_t) {
+  hopper::mbar_arrive(bar);
+}
+"""
+_STORES = [("*reinterpret_cast<float2*>(prow0 + col) = make_float2(s[n][0], s[n][1]);", ""),
+           ("*reinterpret_cast<float2*>(prow1 + col) = make_float2(s[n][2], s[n][3]);", ""),
+           ("tma_store_3d(&part_map, st, j * BK, q0, b * heads + h);", ""),
+           ("tma_store_3d(&part_map, st + kBiasBox * 4, j * BK + 32, q0, b * heads + h);", "")]
+VARIANTS = (
+    ("noproducts", [("mma_bf16(", "fake_mma_bf16("), ("wgmma_m64n64k16_ss(", "fake_ss("),
+                    ("wgmma_rs<D>(", "fake_rs<D>(")]),
+    ("nocopies", [("copy_tile<", "fake_copy_tile<"), ("copy_bias_tile<", "fake_copy_bias_tile<"),
+                  ("cp_async_4(Ls", "fake_cp4(Ls"), ("cp_async_4(Dl", "fake_cp4(Dl"),
+                  ("tma_load_3d(", "fake_tma_load_3d("), ("bulk_load(", "fake_bulk_load("),
+                  ("mbar_expect_tx(", "fake_expect_tx(")] + _STORES),
+    ("nostores", _STORES),
+)
+
+
+def variant_sources(label: str, path: Path):
+    """Step 0's variants of a backward source: [(label, path)] under
+    ``build/variants/LABEL/``, the source's headers copied beside each."""
+    text = path.read_text()
+    include = '#include "mma.cuh"\n'
+    out = []
+    for suffix, edits in VARIANTS:
+        body = text
+        for old, new in edits:
+            body = body.replace(old, new)
+        if body == text:
+            print(f"  --variants: {path} has none of {suffix}'s texts: no {label}-{suffix}")
+            continue
+        body = body.replace(include, include + _FAKES, 1)
+        folder = Path("build") / "variants" / f"{label}-{suffix}"
+        folder.mkdir(parents=True, exist_ok=True)
+        for header in ("mma.cuh", "hopper.cuh"):
+            if (path.parent / header).is_file():
+                shutil.copy(path.parent / header, folder / header)
+        (folder / path.name).write_text(body)
+        out.append((f"{label}-{suffix}", folder / path.name))
+    return out
+
+
 # --host: one checkout's host microseconds a serving call, in a process of
 # its own (argv: checkout root, shapes as JSON, calls a loop)
 HOST_CHILD = r"""
 import json, math, statistics, sys, time
 root, shapes, runs = sys.argv[1], json.loads(sys.argv[2]), int(sys.argv[3])
+train = len(sys.argv) > 4 and sys.argv[4] == "train"
 sys.path.insert(0, root)
 import torch
 from detail_tts_tpu_torch.ops import attention
-rows = []
-for b, t, h, d in shapes:
+
+
+def train_row(b, t, h, d):
+    # the training backward: the package's wrapper, and its three bare C
+    # entries on buffers allocated beforehand
+    g = torch.Generator(device="cuda").manual_seed(7)
+    qkv = torch.randn((b, t, 3 * h * d), device="cuda", generator=g).to(torch.bfloat16)
+    bias = torch.randn((h, t, t), device="cuda", generator=g)
+    dout = torch.randn((b, t, h * d), device="cuda", generator=g).to(torch.bfloat16)
+    sm = 1 / math.sqrt(d)
+    out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
+    tp = attention.padded_len(t)
+    delta = torch.empty((b, h, t), device="cuda")
+    part = torch.empty((b, h, tp, tp), device="cuda")
+    dqkv, dbias = torch.empty_like(qkv), torch.empty((h, t, t), device="cuda")
+    lib = attention._library(attention.BWD_SOURCE)
+    stream = torch.cuda.current_stream().cuda_stream
+    scales = (sm * attention.LOG2E, attention.LOG2E, sm, 0, stream)
+
+    def wrapper():
+        attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h, sm_scale=sm)
+
+    def entry():
+        rc = (lib.bias_attention_bwd_dq(qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(),
+                                        out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                        dqkv.data_ptr(), part.data_ptr(), b, t, h, d, *scales)
+              or lib.bias_attention_bwd_dkv(qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(),
+                                            lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+                                            b, t, h, d, *scales)
+              or lib.bias_attention_bwd_dbias_sum(part.data_ptr(), dbias.data_ptr(), b, t,
+                                                  h, stream))
+        if rc != 0:
+            raise RuntimeError("a backward entry failed")
+
+    return wrapper, entry
+
+
+def serve_row(b, t, h, d):
+    # a serving call: the package's wrapper, and its bare C entry
     g = torch.Generator(device="cuda").manual_seed(7)
     qkv = torch.randn((b, t, 3 * h * d), device="cuda", generator=g).to(torch.bfloat16)
     bias = torch.randn((h, t, t), device="cuda", generator=g).to(torch.bfloat16)
@@ -138,6 +293,12 @@ for b, t, h, d in shapes:
         if lib.bias_attention_fwd(*args) != 0:
             raise RuntimeError("bias_attention_fwd failed")
 
+    return wrapper, entry
+
+
+rows = []
+for b, t, h, d in shapes:
+    wrapper, entry = (train_row if train else serve_row)(b, t, h, d)
     row = dict(shape=[b, t, h, d], source=attention.__file__)
     for name, fn in (("wrapper_us", wrapper), ("entry_us", entry)):
         fn()
@@ -156,13 +317,15 @@ print("HOST " + json.dumps(rows))
 
 
 def host_main(args, labels, roots):
-    """--host: the host microseconds a serving call of each checkout, in turns."""
-    shapes = args.shape or SERVE_SHAPES
+    """--host: the host microseconds a serving call (with --train a training
+    backward call) of each checkout, in turns."""
+    shapes = args.shape or (TRAIN_SHAPES if args.train else SERVE_SHAPES)
     got = {label: [] for label in labels}
     for label, root in list(zip(labels, roots)) + list(zip(labels, roots))[::-1]:
         root = os.path.abspath(root)
         proc = subprocess.run([sys.executable, "-c", HOST_CHILD, root, json.dumps(shapes),
-                               str(args.runs)], cwd=root, capture_output=True, text=True)
+                               str(args.runs), "train" if args.train else "serve"],
+                              cwd=root, capture_output=True, text=True)
         line = next((x for x in proc.stdout.splitlines() if x.startswith("HOST ")), None)
         if proc.returncode != 0 or line is None:
             sys.exit(f"--host {label}: the timing process failed ({proc.returncode}):\n"
@@ -370,6 +533,102 @@ def train_case(b, t, h, d):
     return run, errors, wrapper
 
 
+def bwd_case(b, t, h, d):
+    """(launch(fns, which), errors(fns), wrapper) of the backward at one
+    shape: ``which`` a key of ``BWD_RUNS``."""
+    qkv, bias, dout = train_inputs(b, t, h, d, torch.bfloat16, seed=7)
+    sm = 1.0 / math.sqrt(d)
+    out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
+    ref_dqkv, ref_dbias = attention.bias_attention_bwd_reference(
+        qkv, bias, out, lse, dout, heads=h, sm_scale=sm)
+    tp = attention.padded_len(t)
+    delta = torch.empty((b, h, t), device="cuda")
+    part = torch.empty((b, h, tp, tp), device="cuda")
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty((h, t, t), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    scales = (sm * attention.LOG2E, attention.LOG2E, sm, 0, stream)
+    args = {
+        "bias_attention_bwd_dq": (qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(),
+                                  out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                  dqkv.data_ptr(), part.data_ptr(), b, t, h, d, *scales),
+        "bias_attention_bwd_dkv": (qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(),
+                                   lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, t, h,
+                                   d, *scales),
+        "bias_attention_bwd_dbias_sum": (part.data_ptr(), dbias.data_ptr(), b, t, h, stream),
+    }
+
+    def run(fns, which):
+        for entry in BWD_RUNS[which]:
+            rc = fns[entry](*args[entry])
+            if rc != 0:
+                raise RuntimeError(f"{entry} failed ({rc})")
+
+    def errors(fns):
+        """The scaled errors of d(qkv) and dbias against the plain version."""
+        run(fns, "all")
+        torch.cuda.synchronize()
+        return {"dqkv": scaled_err(dqkv, ref_dqkv),
+                "dbias": scaled_err(dbias, ref_dbias, floor=1e-30)}
+
+    def wrapper():
+        attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h, sm_scale=sm)
+
+    return run, errors, wrapper
+
+
+def bwd_main(args, labels, paths):
+    """``--train`` with backward sources: each entry and the whole backward
+    of every source (and with ``--variants`` step 0's copies) in turns."""
+    if args.variants is not None:
+        for label, path in list(zip(labels, paths)):
+            if args.variants and label not in args.variants:
+                continue
+            for vlabel, vpath in variant_sources(label, path):
+                labels.append(vlabel)
+                paths.append(vpath)
+    with ThreadPoolExecutor(max_workers=len(paths)) as pool:
+        built = dict(zip(labels, pool.map(load_bwd, paths)))
+    for label in labels:
+        for line in built[label][1]:
+            print(f"  {label}: {line}", flush=True)
+    checked = [label for label in labels if "-no" not in label]
+    lib = attention._library(attention.BWD_SOURCE)
+    results = []
+    for b, t, h, d in args.shape or BWD_SHAPES:
+        route = attention.BWD_ROUTES[lib.bias_attention_bwd_route(b, t, d, 0)]
+        run, errors, wrapper = bwd_case(b, t, h, d)
+        errs = {label: errors(built[label][0]) for label in checked}
+        flush = torch.empty(64 << 20, device="cuda") if args.cold else None
+        row = dict(shape=[b, t, h, d], package_route=route, max_scaled_err=errs)
+        for which, entries in BWD_RUNS.items():
+            only = tuple(name for entry in entries for name in BWD_KERNEL_NAMES[entry])
+            times = {label: [] for label in labels}
+            dev = {label: [] for label in labels}
+            for label in labels + labels[::-1]:
+                fns = built[label][0]
+                if flush is None:
+                    times[label].append(cuda_ms(lambda: run(fns, which), runs=args.runs))
+                    dev[label].append(device_ms(lambda: run(fns, which), runs=args.runs,
+                                                only=only))
+                else:  # the kernels' names, not the L2 flush's
+                    dev[label].append(device_ms(lambda: (flush.zero_(), run(fns, which)),
+                                                runs=args.runs, only=only))
+            for label in labels:
+                print(f"  B={b} T={t} H={h} d={d} {which}: {label} ms {times[label]} "
+                      f"device_ms {dev[label]}", flush=True)
+            row[which] = dict(ms=times, device_ms=dev)
+        for label in checked:
+            print(f"  B={b} T={t} H={h} d={d}: {label} errors {errs[label]}; the package "
+                  f"routes this shape to {route}", flush=True)
+        row["wrapper_ms"] = cuda_ms(wrapper, runs=args.runs)
+        print(f"  B={b} T={t} H={h} d={d}: the package's wrapper bias_attention_bwd ms "
+              f"{row['wrapper_ms']}", flush=True)
+        results.append(row)
+        torch.cuda.empty_cache()
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "results": results}))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("sources", nargs="+",
@@ -383,6 +642,9 @@ def main():
                     help="with --sample: the wide kernel's phases in SM cycles")
     ap.add_argument("--host", action="store_true",
                     help="the host us a serving call of each checkout (LABEL=root)")
+    ap.add_argument("--variants", nargs="*", metavar="LABEL",
+                    help="with --train on backward sources: also time step 0's variants "
+                         "(products out, copies out) of these sources (of all without LABEL)")
     ap.add_argument("--cold", action="store_true",
                     help="evict L2 (a 256 MB write) before every timed launch")
     ap.add_argument("--shape", nargs="+", type=int, action="append",
@@ -404,6 +666,9 @@ def main():
     entry = "bias_attention_train_fwd" if args.train else "bias_attention_fwd"
     labels = [s.split("=", 1)[0] for s in args.sources]
     paths = [Path(s.split("=", 1)[1]) for s in args.sources]
+    if args.train and all(p.stem.startswith("bias_attention_bwd") for p in paths):
+        bwd_main(args, labels, paths)
+        return
     with ThreadPoolExecutor(max_workers=len(paths)) as pool:
         built = dict(zip(labels, pool.map(lambda p: load(p, entry), paths)))
     for label in labels:

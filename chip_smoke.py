@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    one process each, at once; prints
    each kernel's ``ptxas -v`` registers and spills, and the CTAs per SM of
    the serving forward, the training forward and the backward kernels at
-   d=48 and d=96;
+   d=48 and d=96 (the backward's wgmma kernels at d=48, with their waves
+   over the SMs at the step's trunk);
 3. kernel: ``bias_attention`` against its plain PyTorch version at the
    serving shapes and at T on the serving kernels' tile and bias-copy edges
    (bf16, plus fp32 and a fully masked row), each call's route
@@ -91,17 +92,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    and the backward (delta, dq and the dbias partials; dk and dv; the
    partials' sum in batch order) against their plain versions at the
    training step's attention shapes (bf16 and fp32, ragged T, a fully
-   masked row; batch 8 and a world-2 rank's batch 4), the sum pass alone
-   against its plain version, the backward
-   twice for bit-identical dbias, and CUDA-event times of bare launches on
-   buffers allocated beforehand (the training forward also through its
-   wrapper) beside the bound, the plain versions and SDPA with a bias mask
-   that requires grad; then the four training kernels at the data loader's
-   raw buckets T = 512, 1024 and 2824 (batch 8, bf16), timed again at 1024;
+   masked row; batch 8 and a world-2 rank's batch 4), each call's backward
+   route (``bwd_wgmma``: bf16, d <= 64, T % 4 == 0; ``bwd_mma``; ``bwd_simt``)
+   printed, the C entry's against ``attention.bias_attention_bwd_route``'s
+   and counted once, the sum pass alone against its plain version, the
+   backward twice for bit-identical dbias, and CUDA-event times of bare
+   launches on buffers allocated beforehand (the training forward also
+   through its wrapper) beside the bound, the plain versions and SDPA with
+   a bias mask that requires grad, on the wgmma route at (8, 496, 16, 48)
+   and on the mma.sync route at (8, 124, 16, 96); then the four training
+   kernels at the data loader's raw buckets T = 512, 1024 and 2824 (batch
+   8, bf16), timed again at 1024;
 6. training: ``Trainer`` over ``Config()`` at full width, target ``diff``,
    micro-batch 8 x 496 frames x accum 16 of seeded synthetic batches: a
    warm-up step and three timed steps, each checked for finite loss and grad
-   norm and for one launch of each training kernel per AttentionBlock call;
+   norm and for one launch of each training kernel per AttentionBlock call,
+   each backward call on the route its shape takes (``expected_bwd_routes``;
+   phases 6b and 7 gate the same);
    moved trainable and bit-identical frozen weights; a repeated step's
    bit-identical loss and grad norm; on one micro-batch that keeps every
    layer, a gradient for every trainable tensor and the kernel route
@@ -310,10 +317,12 @@ def device_ms(fn, runs: int = 20, warmup: int = 3, only: str = ""):
     ``runs`` calls launch (those whose name holds ``only``), from the
     profiler's CUDA trace, over ``runs``.  Unlike a CUDA-event pair around
     one call, it holds none of the host time that a launch of a few
-    microseconds can wait for.  None if the trace held no such kernel in
+    microseconds can wait for.  ``only`` may be a tuple: kernels whose name
+    holds any of its strings.  None if the trace held no such kernel in
     three tries (the profiler's CUDA trace has come back empty)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    names = (only,) if isinstance(only, str) else only
     for _ in range(warmup):
         fn()
     for _ in range(3):
@@ -324,7 +333,7 @@ def device_ms(fn, runs: int = 20, warmup: int = 3, only: str = ""):
             torch.cuda.synchronize()
         spans = [e.time_range.end - e.time_range.start for e in prof.events()
                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                 and only in e.name]
+                 and any(o in e.name for o in names)]
         if spans:
             return sum(spans) / runs / 1e3
     return None
@@ -384,12 +393,23 @@ def phase_build():
     for d in (48, 96):
         serve = fwd.bias_attention_fwd_blocks_per_sm(d)
         train = fwd.bias_attention_train_fwd_blocks_per_sm(d)
-        occ = [lib.bias_attention_bwd_blocks_per_sm(k, d) for k in (0, 1)]
+        # the backward's mma.sync kernels, and at d <= 64 its wgmma ones
+        occ = [lib.bias_attention_bwd_blocks_per_sm(k, d)
+               for k in ((0, 1, 2, 3) if d <= 64 else (0, 1))]
         if min(occ + [serve, train]) <= 0:
             fail(f"kernels at d={d} fit no CTA on an SM (serving {serve}, training "
                  f"forward {train}, backward {occ})")
         print(f"  CTAs per SM at d={d}: serving forward {serve}, training forward {train}, "
-              f"backward dq {occ[0]}, dk/dv {occ[1]}", flush=True)
+              f"backward bwd_dq_mma {occ[0]}, bwd_dkv_mma {occ[1]}"
+              + (f", bwd_dq_wgmma {occ[2]}, bwd_dkv_wgmma {occ[3]}" if d <= 64 else ""),
+              flush=True)
+    # the wgmma backward's grid at the step's trunk: CTAs, and waves over the SMs
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas = 8 * -(-496 // 64) * 16
+    for which, name in ((2, "bwd_dq_wgmma"), (3, "bwd_dkv_wgmma")):
+        per_sm = lib.bias_attention_bwd_blocks_per_sm(which, 48)
+        print(f"  {name}<48> at (8, 496, 16, 48): {ctas} CTAs, {per_sm} an SM, "
+              f"{ctas / (per_sm * sms):.2f} waves over {sms} SMs", flush=True)
 
 
 ROUTE_CODES = {0: "serve_fwd_wgmma", 1: "serve_fwd_mma", 2: "bias_attention_simt"}
@@ -1147,6 +1167,8 @@ LSE_TOL = DBIAS_TOL = 1e-4
 RAW_BUCKETS_CHECKED = (512, 1024, 2824)
 TRAIN_KERNELS = ("bias_attention_train_fwd", "bias_attention_bwd_dq_dbias",
                  "bias_attention_bwd_dkv", "bias_attention_bwd_dbias_sum")
+# the bf16 backward's kernels by route (the entries above launch them)
+BWD_KERNELS = ("bwd_dq_wgmma", "bwd_dkv_wgmma", "bwd_dq_mma", "bwd_dkv_mma")
 
 
 def scaled_err(x, ref, floor=1.0):
@@ -1194,14 +1216,27 @@ def train_bound_ms(b, t, h, d, sfu_per_s):
     return out
 
 
+def check_bwd_route(b, t, d, dtype):
+    """The C entry's backward route against ``attention.bias_attention_bwd_route``."""
+    code = attention._library(attention.BWD_SOURCE).bias_attention_bwd_route(
+        b, t, d, attention._DTYPE_CODE[dtype])
+    route = attention.bias_attention_bwd_route(b, t, d, dtype)
+    if code < 0 or attention.BWD_ROUTES[code] != route:
+        fail(f"the C entry routes the backward at B={b} T={t} d={d} {dtype} to {code}, "
+             f"the wrapper to {route}")
+    return route
+
+
 def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
     """Each training kernel against its plain version at one shape, and the
     dbias gate against a known-wrong dbias; returns {kernel: (max abs err,
-    scaled err)}."""
+    scaled err)}: the backward's under its route's kernels' names too."""
     qkv, bias, dout = train_inputs(b, t, h, d, dtype, seed)
     if mask_row:
         bias[h - 1, t // 3, :] = -1e9
     sm = 1.0 / math.sqrt(d)
+    route = check_bwd_route(b, t, d, dtype)
+    before = attention.BWD_LAUNCHES_BY_ROUTE[route]
     out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
     ref_out, ref_lse = attention.bias_attention_train_reference(qkv, bias, heads=h,
                                                                 sm_scale=sm)
@@ -1228,9 +1263,11 @@ def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
     _, last = attention.bias_attention_bwd_reference(
         qkv[-1:], bias, out[-1:], lse[-1:], dout[-1:], heads=h, sm_scale=sm)
     wrong = (last.abs().max() / ref_dbias.abs().max()).item()
-    print(f"  B={b} T={t} H={h} d={d} {str(dtype)[6:]}{' masked row' if mask_row else ''}: "
-          + " ".join(f"{k} {e[0]:.2e}/{e[1]:.2e}" for k, e in errs.items())
+    print(f"  B={b} T={t} H={h} d={d} {str(dtype)[6:]}{' masked row' if mask_row else ''} "
+          f"({route}): " + " ".join(f"{k} {e[0]:.2e}/{e[1]:.2e}" for k, e in errs.items())
           + f" {'ok' if ok else 'MISMATCH'}; dbias with a row lost {wrong:.2e}", flush=True)
+    if attention.BWD_LAUNCHES_BY_ROUTE[route] != before + 1:
+        fail(f"the backward at {(b, t, h, d, dtype)} was not counted once on {route}")
     if not ok:
         fail(f"training kernels disagree with the plain versions at {(b, t, h, d, dtype)}")
     if not wrong > DBIAS_TOL:
@@ -1241,10 +1278,12 @@ def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
         if any(torch.count_nonzero(z).item() for z in zero) or not all(
                 torch.isfinite(x).all() for x in (out, lse, dqkv, dbias)):
             fail("a fully masked row is not exactly 0 in out, dq and dbias")
+    dq_kernel, dkv_kernel = attention.BWD_ROUTE_KERNELS[route]
     return {"bias_attention_train_fwd": errs["out"],
             "bias_attention_bwd_dq_dbias": max(errs["dq"], errs["dbias"]),
             "bias_attention_bwd_dkv": errs["dkv"],
-            "bias_attention_bwd_dbias_sum": check_dbias_sum(b, t, h, seed)}
+            "bias_attention_bwd_dbias_sum": check_dbias_sum(b, t, h, seed),
+            dq_kernel: max(errs["dq"], errs["dbias"]), dkv_kernel: errs["dkv"]}
 
 
 def check_dbias_sum(b, t, h, seed):
@@ -1284,6 +1323,7 @@ def time_train_kernels(b, t, h, d, sfu_per_s):
     backward through torch.autograd.grad) at one shape."""
     qkv, bias, dout = train_inputs(b, t, h, d, torch.bfloat16, seed=7)
     sm = 1.0 / math.sqrt(d)
+    route = check_bwd_route(b, t, d, torch.bfloat16)
     out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
     out_t, lse_t = torch.empty_like(out), torch.empty_like(lse)
     tp = attention.padded_len(t)
@@ -1349,7 +1389,13 @@ def time_train_kernels(b, t, h, d, sfu_per_s):
                           shape=[b, t, h, d])
         share = ("" if dev[name] is None
                  else f" ({bounds[name][0] / dev[name]:.1%} of its device time)")
-        print(f"  time B={b} T={t} H={h} d={d} bf16 {name}: ms {ms[name]} "
+        if name in ("bias_attention_bwd_dq_dbias", "bias_attention_bwd_dkv"):
+            kernel = attention.BWD_ROUTE_KERNELS[route][name.endswith("dkv")]
+            rows[kernel] = dict(rows[name], bwd_route=route)
+            name_shown = f"{name} ({kernel})"
+        else:
+            name_shown = name
+        print(f"  time B={b} T={t} H={h} d={d} bf16 {name_shown}: ms {ms[name]} "
               f"(device time {dev[name]}) bound_ms {bounds[name][0]} ({bounds[name][1]}) "
               f"-> {bounds[name][0] / ms[name]:.1%} of bound{share}", flush=True)
     rows["bias_attention_train_fwd"]["wrapper_ms"] = wrapper_ms
@@ -1359,8 +1405,8 @@ def time_train_kernels(b, t, h, d, sfu_per_s):
     print(f"  time sum pass: plain (batch-order adds) {plain_sum} ms, "
           f"torch.sum over the batch {lib_sum} ms", flush=True)
     bound_bwd = bounds["backward"]
-    print(f"  time whole backward (bias_attention_bwd: delta, dq/partials, dk/dv, sum) "
-          f"{bwd_ms} ms, bound_ms {bound_bwd[0]} ({bound_bwd[1]}) -> "
+    print(f"  time whole backward (bias_attention_bwd on {route}: delta, dq/partials, dk/dv, "
+          f"sum) {bwd_ms} ms, bound_ms {bound_bwd[0]} ({bound_bwd[1]}) -> "
           f"{bound_bwd[0] / bwd_ms:.1%} of bound; SDPA ({backend}) backward {lib_bwd} ms "
           f"({lib_bwd / bwd_ms:.2f}x ours); kernel 4 + backward "
           f"{ms['bias_attention_train_fwd'] + bwd_ms} ms; plain forward {plain_fwd} ms + "
@@ -1371,7 +1417,7 @@ def time_train_kernels(b, t, h, d, sfu_per_s):
 def phase_train_kernels(sfu_per_s):
     """Training kernels vs plain versions; returns (worst errors, time rows)."""
     print("== train kernels vs plain", flush=True)
-    worst = {name: (0.0, 0.0) for name in TRAIN_KERNELS}
+    worst = {name: (0.0, 0.0) for name in TRAIN_KERNELS + BWD_KERNELS}
     # B = 4: a rank's micro-batch of 8 over a world of 2 (phase 8)
     cases = [(8, 496, 16, 48, torch.bfloat16), (8, 124, 16, 48, torch.bfloat16),
              (8, 124, 16, 96, torch.bfloat16), (4, 496, 16, 48, torch.bfloat16),
@@ -1382,16 +1428,16 @@ def phase_train_kernels(sfu_per_s):
     for i, (b, t, h, d, dtype) in enumerate(cases):
         errs = check_train_kernels(b, t, h, d, dtype, seed=100 + i)
         if dtype == torch.bfloat16:
-            worst = {k: max(worst[k], errs[k]) for k in worst}
-    for dtype in (torch.bfloat16, torch.float32):
-        errs = check_train_kernels(3, 495, 16, 48, dtype, seed=99, mask_row=True)
+            worst = {k: max(worst[k], errs.get(k, (0.0, 0.0))) for k in worst}
+    for dtype, t in ((torch.bfloat16, 495), (torch.bfloat16, 496), (torch.float32, 495)):
+        errs = check_train_kernels(3, t, 16, 48, dtype, seed=99, mask_row=True)
         if dtype == torch.bfloat16:
-            worst = {k: max(worst[k], errs[k]) for k in worst}
+            worst = {k: max(worst[k], errs.get(k, (0.0, 0.0))) for k in worst}
     # the data loader's raw buckets, where the diffusion trunk runs on a
     # corpus: the smallest, phase 7's and the largest (not a multiple of 64)
     for i, t in enumerate(RAW_BUCKETS_CHECKED):
         errs = check_train_kernels(8, t, 16, 48, torch.bfloat16, seed=200 + i)
-        worst = {k: max(worst[k], errs[k]) for k in worst}
+        worst = {k: max(worst[k], errs.get(k, (0.0, 0.0))) for k in worst}
         torch.cuda.empty_cache()
 
     qkv, bias, dout = train_inputs(8, 496, 16, 48, torch.bfloat16, seed=5)
@@ -1403,10 +1449,14 @@ def phase_train_kernels(sfu_per_s):
           f"dbias bit-identical {same[1]}", flush=True)
     if not all(same):
         fail("the backward is not bit-identical from run to run")
+    # the wgmma route at the step's trunk and the raw bucket 1024; the
+    # mma.sync route at the contextual embedder's shape (d = 96)
     rows, backend = time_train_kernels(8, 496, 16, 48, sfu_per_s)
     rows_1024, _ = time_train_kernels(8, 1024, 16, 48, sfu_per_s)
-    for name in TRAIN_KERNELS:
+    rows_96, _ = time_train_kernels(8, 124, 16, 96, sfu_per_s)
+    for name in TRAIN_KERNELS + ("bwd_dq_wgmma", "bwd_dkv_wgmma"):
         rows[name]["at_raw_bucket_1024"] = rows_1024[name]
+    rows.update({name: rows_96[name] for name in ("bwd_dq_mma", "bwd_dkv_mma")})
     torch.cuda.empty_cache()
     return worst, rows, backend
 
@@ -1817,6 +1867,70 @@ def expected_train_launches(cfg, layers_kept):
     return sum(5 + 4 + 3 + sum(keep[:n]) for keep in layers_kept)
 
 
+def train_attention_shapes(cfg, batch, raw_frames, prompt_frames):
+    """[(calls a micro-batch, (B, T, H, d))] of the diffusion's AttentionBlocks
+    in a training micro-batch: the 3 integrator blocks and the trunk layers
+    kept at the raw mel's frames (calls None: layer drop decides), the 4
+    latent-conditioner blocks at the code length (a quarter of the raw
+    frames), the 5 contextual-embedder blocks, twice as wide, at the prompt
+    mel's frames after two stride-2 convolutions."""
+    c = cfg.diffusion
+    d = c.model_channels // c.num_heads
+    ctx = -(-(-(-prompt_frames // 2)) // 2)
+    return [(None, (batch, raw_frames, c.num_heads, d)),
+            (4, (batch, raw_frames // 4, c.num_heads, d)),
+            (5, (batch, ctx, c.num_heads, 2 * d))]
+
+
+def expected_bwd_routes(cfg, layers_kept, batch, raw_frames, prompt_frames):
+    """Backward calls of each route (``attention.BWD_ROUTES``) in one step of
+    bf16 micro-batches, as ``attention.bias_attention_bwd_route`` routes
+    each AttentionBlock's shape."""
+    n = cfg.diffusion.num_layers
+    out = {route: 0 for route in attention.BWD_ROUTES}
+    for keep in layers_kept:
+        for calls, (b, t, _, d) in train_attention_shapes(cfg, batch, raw_frames,
+                                                          prompt_frames):
+            route = attention.bias_attention_bwd_route(b, t, d, torch.bfloat16)
+            out[route] += 3 + sum(keep[:n]) if calls is None else calls
+    return out
+
+
+# the backward calls of each route in phases 6, 6b and 7, each phase's
+# counts set to 0 before it and added here after it (kernels line)
+BWD_ROUTE_LAUNCHES = {route: 0 for route in attention.BWD_ROUTES}
+
+
+def zero_train_counts():
+    """Every training kernel's count and the backward's by route to 0."""
+    for name in TRAIN_KERNELS:
+        attention.TRAIN_LAUNCHES[name] = 0
+    for route in attention.BWD_ROUTES:
+        attention.BWD_LAUNCHES_BY_ROUTE[route] = 0
+
+
+def train_counts():
+    """The training kernels' launch counts and the backward's by route."""
+    return {**attention.TRAIN_LAUNCHES, **attention.BWD_LAUNCHES_BY_ROUTE}
+
+
+def add_bwd_routes():
+    """This phase's backward calls by route into ``BWD_ROUTE_LAUNCHES``."""
+    for route, n in attention.BWD_LAUNCHES_BY_ROUTE.items():
+        BWD_ROUTE_LAUNCHES[route] += n
+
+
+def check_step_routes(cfg, layers_kept, before, shape, what):
+    """One bf16 step's backward calls by route against
+    ``expected_bwd_routes`` at ``shape`` = (micro-batch, raw frames, prompt
+    frames); returns them."""
+    want = expected_bwd_routes(cfg, layers_kept, *shape)
+    got = {r: attention.BWD_LAUNCHES_BY_ROUTE[r] - before[r] for r in attention.BWD_ROUTES}
+    if got != want:
+        fail(f"{what}: backward calls by route {got}, expected {want}")
+    return got
+
+
 def micro_metrics(state, cfg, mb, draws):
     """Loss, trainable grad norm and T5-table grad norm of one micro-batch
     under autocast, and the trainable parameters left with no gradient (None
@@ -1891,27 +2005,29 @@ def phase_training(cfg_full, logs):
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     torch.cuda.reset_peak_memory_stats()
     attention.LAUNCHES = 0
-    for name in TRAIN_KERNELS:
-        attention.TRAIN_LAUNCHES[name] = 0
-    expected, walls = 0, []
+    zero_train_counts()
+    walls = []
     for _ in range(3):
-        counts = dict(attention.TRAIN_LAUNCHES)
+        counts = train_counts()
         t0 = time.perf_counter()
         logged = trainer.train(max_steps=state.step + 1, log_every=1)
         walls.append(time.perf_counter() - t0)
         m = trainer.last_metrics
         want = expected_train_launches(cfg, m["layers_kept"])
         got = {k: attention.TRAIN_LAUNCHES[k] - counts[k] for k in TRAIN_KERNELS}
-        expected += want
+        routes = check_step_routes(cfg, m["layers_kept"], counts, (micro, frames, frames),
+                                   f"step {state.step}")
         frames_s = accum * micro * frames / walls[-1]
         print(f"  step {state.step}: loss {logged['loss']:.6f} grad_norm "
               f"{logged['grad_norm']:.6f} wall {walls[-1]:.3f} s, {frames_s:.1f} mel "
-              f"frames/s; launches {got} (expected {want} each)", flush=True)
+              f"frames/s; launches {got} (expected {want} each); backward calls by route "
+              f"{routes}", flush=True)
         if not (math.isfinite(logged["loss"]) and math.isfinite(logged["grad_norm"])):
             fail("the loss or grad norm is not finite")
         if any(v != want for v in got.values()):
             fail(f"training kernel launches {got}, expected {want} each")
     launches = dict(attention.TRAIN_LAUNCHES)
+    add_bwd_routes()
     if attention.LAUNCHES != 0:
         fail(f"the training step launched the serving kernel {attention.LAUNCHES} times")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2059,22 +2175,24 @@ def train_target(cfg_full, target, logs):
     before = {k: v.cpu() for k, v in tensors().items()}  # off the card: peak is the step's
     torch.cuda.reset_peak_memory_stats()
     attention.LAUNCHES = 0
-    for name in TRAIN_KERNELS:
-        attention.TRAIN_LAUNCHES[name] = 0
+    zero_train_counts()
     walls = []
     for _ in range(2):
-        counts = dict(attention.TRAIN_LAUNCHES)
+        counts = train_counts()
         t0 = time.perf_counter()
         logged = trainer.train(max_steps=state.step + 1, log_every=1)
         walls.append(time.perf_counter() - t0)
         m = trainer.last_metrics
         want = expected_train_launches(cfg, m["layers_kept"]) if target == "all" else 0
         got = {k: attention.TRAIN_LAUNCHES[k] - counts[k] for k in TRAIN_KERNELS}
+        routes = check_step_routes(cfg, m["layers_kept"] if target == "all" else [], counts,
+                                   (micro, frames, frames), f"{target} step {state.step}")
         scalars = {k: v for k, v in logged.items() if k != "steps_per_sec"}
         print(f"  {target} step {state.step}: wall {walls[-1]:.3f} s, "
               f"{accum * micro * frames / walls[-1]:.1f} mel frames/s; "
               + ", ".join(f"{k} {v:.6g}" for k, v in scalars.items())
-              + f"; training-kernel launches {got} (expected {want} each)", flush=True)
+              + f"; training-kernel launches {got} (expected {want} each), backward calls "
+              f"by route {routes}", flush=True)
         if not all(math.isfinite(v) for v in scalars.values()):
             fail(f"{target}: a loss or grad norm is not finite: {scalars}")
         if any(v != want for v in got.values()):
@@ -2082,6 +2200,7 @@ def train_target(cfg_full, target, logs):
     if attention.LAUNCHES != 0:
         fail(f"{target}: the step launched the serving kernel {attention.LAUNCHES} times")
     launches = dict(attention.TRAIN_LAUNCHES)
+    add_bwd_routes()
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_s = statistics.median(walls)
     print(f"  {target}: median step {step_s:.3f} s, {accum * micro * frames / step_s:.1f} "
@@ -2337,11 +2456,18 @@ def moments_equal(a, b):
     return count, differ
 
 
-def diff_step_launched(cfg, metrics, counts, what):
+def diff_step_launched(cfg, metrics, counts, what, batch):
+    """One ``diff`` step's launches of each training kernel, and its backward
+    calls by route at ``batch``'s shapes, against the expected; returns the
+    former."""
     want = expected_train_launches(cfg, metrics["layers_kept"])
     got = {k: attention.TRAIN_LAUNCHES[k] - counts[k] for k in TRAIN_KERNELS}
     if any(v != want for v in got.values()):
         fail(f"{what}: training kernel launches {got}, expected {want} each")
+    shape = (batch["raw_mel"].shape[1], batch["raw_mel"].shape[2], batch["mel"].shape[2])
+    routes = check_step_routes(cfg, metrics["layers_kept"], counts, shape, what)
+    print(f"  {what}: backward calls by route {routes} at (micro-batch, raw, prompt frames) "
+          f"{shape}", flush=True)
     return want
 
 
@@ -2371,14 +2497,14 @@ def resume_in_process(cfg, cfg_path, jsonl, root):
     padded = x["raw_mel"].shape[0] * x["raw_mel"].shape[1] * t_raw
     gen_state = a.generator.get_state()
     torch.cuda.reset_peak_memory_stats()
-    counts = dict(attention.TRAIN_LAUNCHES)
+    counts = train_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = a.step_fn(a.state, x, a.generator)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    per_step = diff_step_launched(cfg, want, counts, "A step 3")
+    per_step = diff_step_launched(cfg, want, counts, "A step 3", x)
     print(f"  batch X: raw bucket T = {t_raw} (crop T = {x['mel'].shape[2]}), "
           f"{x['raw_mel'].shape[0]} x {x['raw_mel'].shape[1]} clips, {true_frames} true of "
           f"{padded} padded frames; A step 3: wall {wall:.3f} s, {padded / wall:.1f} padded / "
@@ -2394,9 +2520,9 @@ def resume_in_process(cfg, cfg_path, jsonl, root):
     if r.state.step != 2:
         fail(f"trainer R restored step {r.state.step}, expected 2")
     r.generator.set_state(gen_state)
-    counts = dict(attention.TRAIN_LAUNCHES)
+    counts = train_counts()
     got = r.step_fn(r.state, x, r.generator)
-    diff_step_launched(cfg, got, counts, "R step 3")
+    diff_step_launched(cfg, got, counts, "R step 3", x)
     same = {k: torch.equal(got[k], want[k]) for k in ("loss", "grad_norm")}
     pa = dict(a.state.model.named_parameters())
     differ = [n for n, p in r.state.model.named_parameters()
@@ -2552,10 +2678,10 @@ def phase_corpus(cfg_full, root):
           f"sample-1.wav {secs[0]:.2f} s and gt-1.wav {secs[1]:.2f} s finite", flush=True)
 
     attention.LAUNCHES = 0
-    for name in TRAIN_KERNELS:
-        attention.TRAIN_LAUNCHES[name] = 0
+    zero_train_counts()
     resume_in_process(cfg, cfg_path, jsonl, root)
     train_launches = dict(attention.TRAIN_LAUNCHES)
+    add_bwd_routes()
     if attention.LAUNCHES != 0:
         fail(f"training from the corpus launched the serving kernel {attention.LAUNCHES} times")
     check_extract_vq(cfg, cfg_path, jsonl, cli / "ckpt")
@@ -3920,10 +4046,8 @@ def main():
               for t in sample_times if t["shape"][1] > 65536],
         library="none", **sample_row))
     sources = {"bias_attention_train_fwd": ("bias_attention.cu", 259),
-               "bias_attention_bwd_dq_dbias": ("bias_attention_bwd.cu", 286),
-               "bias_attention_bwd_dkv": ("bias_attention_bwd.cu", 308),
                "bias_attention_bwd_dbias_sum": ("bias_attention_bwd.cu", 286)}
-    for name in TRAIN_KERNELS:
+    for name in ("bias_attention_train_fwd", "bias_attention_bwd_dbias_sum"):
         src, line = sources[name]
         kernels.append(dict(
             name=name, route="cuda", source=f"detail_tts_tpu_torch/csrc/{src}",
@@ -3939,6 +4063,25 @@ def main():
             library=("torch.sum over the batch" if name.endswith("sum") else
                      "scaled_dot_product_attention (" + backend + ")"),
             **train_times[name]))
+    # the backward's two kernels of each bf16 route, launched once each a call
+    for route, what in (("bwd_wgmma", "bf16 at d <= 64 and T % 4 == 0: the trunk, the "
+                                      "integrator and the latent conditioner"),
+                        ("bwd_mma", "the other bf16 calls: the contextual embedder (d = 96), "
+                                    "the latent conditioner at T % 4 != 0 (706 codes)")):
+        if BWD_ROUTE_LAUNCHES[route] == 0:
+            fail(f"the backward's route {route} was launched no time on the main path")
+        for kernel, line in zip(attention.BWD_ROUTE_KERNELS[route], (286, 308)):
+            kernels.append(dict(
+                name=kernel, route="cuda",
+                source="detail_tts_tpu_torch/csrc/bias_attention_bwd.cu",
+                replaces=f"detail_tts_tpu/ops/pallas/attention.py:{line}",
+                entry="bias_attention_bwd_dq" if line == 286 else "bias_attention_bwd_dkv",
+                takes=what, launches=BWD_ROUTE_LAUNCHES[route],
+                launches_over="3 diff steps (phase 6), 2 all steps (phase 6b), 6 diff steps "
+                              "from the corpus in this process (phase 7)",
+                max_abs_err=train_worst[kernel][0], max_scaled_err=train_worst[kernel][1],
+                library="scaled_dot_product_attention (" + backend + ") backward",
+                **train_times[kernel]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,11 @@
 //     dP = dout v^T,  dX = P * (dP - delta)   (the natural-domain logits' grad)
 //     dq = sm_scale dX k,  dk = sm_scale dX^T q,  dv = P^T dout,
 //     dbias[h] = sum over b of dX
-// Three launches, in this order:
+// Three launches, in this order, on the kernels of the route
+// bias_attention_bwd_route names for the call:
 // * ``bias_attention_bwd_dq``: delta (written for the next kernel), dq, and
 //   each batch row's dX written once into a partial dbias_part (B, H, Tp, Tp)
-//   (Tp = T rounded up to 64; the padding holds zeros);
+//   (Tp = T rounded up to 64; the sum pass reads no padding);
 // * ``bias_attention_bwd_dkv``: dk and dv;
 // * ``bias_attention_bwd_dbias_sum``: dbias = dbias_part[0] + ... +
 //   dbias_part[B-1], added in batch order, so dbias is the same bits on
@@ -39,9 +40,10 @@
 // Each kernel recomputes P from (q, k, bias, lse), so the (B, H, T, T)
 // probabilities never reach memory.
 //
-// bf16, FlashAttention-2 style on mma.sync (m16n8k16, fp32 accumulate), 4
-// warps of 16 rows per CTA, each warp walking its 64-wide tile in two
-// halves of 32 columns so that S and dP take 32 registers, not 64:
+// bf16 at d = 96 and T % 4 != 0, FlashAttention-2 style on mma.sync
+// (m16n8k16, fp32 accumulate), 4 warps of 16 rows per CTA, each warp
+// walking its 64-wide tile in two halves of 32 columns so that S and dP
+// take 32 registers, not 64 (bwd_dq_mma, bwd_dkv_mma):
 // * dq: one CTA per (batch row, 64 queries, head), the batch row fastest so
 //   the B CTAs of a (tile, head) share each bias tile through L2 (1024 CTAs
 //   at the step's shape).  It first computes delta for its rows from the dO
@@ -64,11 +66,32 @@
 // outside the cp.async ring (0.267-0.268 ms); and delta in PyTorch (~0.1
 // ms, ~5 launches): 0.876 ms for the backward, against SDPA's 0.436 ms.
 //
-// Both round P and dX to bf16 for the products, as the forward rounds P.
+// bf16 at d <= 64 and T % 4 == 0 (every d = 48 call of the training step
+// and of the raw buckets but the latent conditioner at 706 codes) takes the
+// two redesigned for Hopper, bwd_dq_wgmma and bwd_dkv_wgmma (the section
+// below says how): the same grids and arithmetic, every product on wgmma,
+// the tiles copied by TMA from one producer warp through an mbarrier ring,
+// dX stored into its partial by TMA: at the step's trunk 17% (dq) and 44%
+// (dk/dv) under the mma.sync kernels in turns on an H100 (PERF.md).  What
+// the redesign found (ab_serving_kernel.py --variants): taken apart, PR 3's dq
+// kernel was held by its copies and partial stores (without both 45%
+// faster, without the stores alone 20%), not by its products (6%); its
+// dk/dv kernel by neither alone (24%, 10%).  Summing dbias in the dq
+// kernel instead, in a cluster of the B batch rows of a (query tile, head)
+// through distributed shared memory (two cluster barriers a key tile, no
+// partials, no sum pass), gave dbias the same bits but took longer than
+// the partials and the sum pass together (0.160-0.166 against 0.144 ms at
+// the step's trunk): the barriers' lockstep and the remote reads each cost
+// about what the partials' bytes did.  It was removed.
+//
+// All round P and dX to bf16 for the products, as the forward rounds P.
 // float32 (a test route) takes plain scalar kernels on 32-row tiles.
 // Ragged T is masked in place: rows past T are zero-filled and not written,
 // keys past T get P = 0.  A fully masked row (lse = MASKED_LSE) has P = 0
 // everywhere, so all its gradients are exactly 0.
+#include <stdio.h>
+
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -478,6 +501,505 @@ bwd_dkv_mma(const bf16* __restrict__ qkv, const float* __restrict__ bias,
   }
 }
 
+// ----------------------------------------------- bf16: wgmma, TMA (d <= 64)
+
+// bwd_dq_wgmma and bwd_dkv_wgmma take bf16 at d <= 64 and T % 4 == 0 (an fp32
+// bias row of T * 4 bytes is then a legal TMA stride); the mma.sync kernels
+// above take the other bf16 calls.  A CTA is one consumer warpgroup of 64
+// rows (queries for dq, keys for dk/dv) and one producer warp that keeps
+// TMA copies in flight through an mbarrier ring: 160 threads.  Tiles, from
+// a 1024-byte aligned base:
+// * bf16 tiles (Q, K, V, dO) are boxes of 16 channels x 64 rows (32-byte
+//   rows, 32-byte swizzle), one box a k-step of a K-major operand (S = Q K^T,
+//   dP = dO V^T, S^T = K Q^T, dP^T = V dO^T, both operands in shared memory)
+//   and one 16-channel atom of an MN-major one (dq += dX K, dk += dX^T Q, dv
+//   += P^T dO, A from registers: LBO one box, SBO 256 bytes);
+// * the fp32 bias tile [64 queries x 64 keys] is two boxes of 32 keys (128-
+//   byte rows, 128-byte swizzle), read in the accumulator layout: dk/dv's
+//   single values down a column (its tile is S^T), which the swizzle puts
+//   on 32 distinct banks, and dq's float2 pairs along a row (2-way).
+// TMA reads elements past T as 0: keys past T get P = 0 in dq's last tile,
+// and queries past T in dk/dv's last tile get lse = MASKED_LSE and delta 0,
+// so they add nothing.
+constexpr int kBwdConsumerWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdConsumerWarps + 32;
+constexpr int kBiasBox = TILE * 32;  // floats of a [64 rows x 32 keys] bias box
+
+template <int D>
+struct BwdWg {
+  static constexpr int KS = D / 16;                  // 16-channel boxes of a row
+  static constexpr int BOX = TILE * 32;              // bytes of a bf16 box
+  static constexpr int TILE_BYTES = KS * BOX;        // a 64-row bf16 tile
+  static constexpr int BIAS = 2 * kBiasBox * 4;      // the fp32 bias tile
+  static constexpr int STAGE = BIAS + 2 * TILE_BYTES;  // bias and two bf16 tiles
+  static_assert(STAGE % 1024 == 0 && BIAS % 1024 == 0, "1024-byte aligned boxes");
+  // dq: STAGES x [bias | K | V], then Q and dO, then the barriers; three
+  // CTAs an SM up to d = 48 (their registers then cap a thread at 136)
+  static constexpr int kDqBlocks = D <= 48 ? 3 : 2;
+  static constexpr int kDqStages = 2;
+  static constexpr size_t dq_bytes =
+      1024 + kDqStages * STAGE + 2 * TILE_BYTES + (2 * kDqStages + 1) * sizeof(uint64_t);
+  // dk/dv: STAGES x [bias | Q | dO], then K and V, each stage's lse and
+  // delta (64 floats each), then the barriers; two CTAs an SM
+  static constexpr int kDkvBlocks = 2;
+  static constexpr int kDkvStages = D <= 48 ? 3 : 2;
+  static constexpr size_t dkv_bytes = 1024 + kDkvStages * STAGE + 2 * TILE_BYTES +
+                                      kDkvStages * 2 * TILE * sizeof(float) +
+                                      (2 * kDkvStages + 1) * sizeof(uint64_t);
+};
+
+// Float offset of (row, key) in a [64 rows x 32 keys] fp32 box written by
+// TMA with the 128-byte swizzle: 16-byte chunk c of row r lives at c ^ (r & 7).
+__device__ __forceinline__ int swz128(int row, int key) {
+  return row * 32 + (((key >> 2) ^ (row & 7)) << 2) + (key & 3);
+}
+
+// a * b summed over the 8 bf16 pairs of two 16-byte words, in channel order
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b, float acc) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = bf16x2_to_float2(x[i]), v = bf16x2_to_float2(y[i]);
+    acc = fmaf(u.x, v.x, acc);
+    acc = fmaf(u.y, v.y, acc);
+  }
+  return acc;
+}
+
+// delta, dq and this batch row's dX for 64 queries of one (b, h), walking
+// the key tiles.  A tile's dX overwrites its bias tile in shared memory in
+// place (each thread writes the elements it read) and goes to the partial
+// in one TMA store of two boxes, under the tile's dq += dX K; the stage is
+// released once the store has read it.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, BwdWg<D>::kDqBlocks)
+bwd_dq_wgmma(const __grid_constant__ CUtensorMap qkv_map,
+             const __grid_constant__ CUtensorMap dout_map,
+             const __grid_constant__ CUtensorMap bias_map,
+             const __grid_constant__ CUtensorMap part_map, const bf16* __restrict__ dout,
+             const bf16* __restrict__ out, const float* __restrict__ lse,
+             float* __restrict__ delta, bf16* __restrict__ dqkv, int t_len, int heads,
+             float scale, float bias_scale, float sm_scale) {
+  using namespace hopper;
+  using L = BwdWg<D>;
+  constexpr int KS = L::KS;
+  constexpr int STAGES = L::kDqStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* q_smem = smem + STAGES * L::STAGE;
+  unsigned char* do_smem = q_smem + L::TILE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(do_smem + L::TILE_BYTES);  // a stage landed
+  uint64_t* empty = full + STAGES;  // every consumer warp, and the store, are done with it
+  uint64_t* q_full = empty + STAGES;
+
+  const int b = blockIdx.x;  // batch fastest: the CTAs sharing a bias tile run together
+  const int q0 = blockIdx.y * BQ;
+  const int h = blockIdx.z;
+  const int n_tiles = (t_len + BK - 1) / BK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kBwdConsumerWarps);
+    }
+    mbar_init(q_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kBwdConsumerWarps) {
+    // ---------------------------------------------------------- producer
+    if (lane == 0) {
+      tma_prefetch(&qkv_map);
+      tma_prefetch(&dout_map);
+      tma_prefetch(&bias_map);
+      const int col = h * 3 * D;  // channel of this head's q in a qkv row
+      mbar_expect_tx(q_full, 2 * L::TILE_BYTES);
+#pragma unroll
+      for (int c = 0; c < KS; ++c) {
+        tma_load_3d(q_smem + c * L::BOX, &qkv_map, q_full, col + 16 * c, q0, b);
+        tma_load_3d(do_smem + c * L::BOX, &dout_map, q_full, h * D + 16 * c, q0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(&empty[s], (j / STAGES - 1) & 1);
+        unsigned char* st = smem + s * L::STAGE;
+        mbar_expect_tx(&full[s], L::STAGE);
+        tma_load_3d(st, &bias_map, &full[s], j * BK, q0, h);
+        tma_load_3d(st + kBiasBox * 4, &bias_map, &full[s], j * BK + 32, q0, h);
+#pragma unroll
+        for (int c = 0; c < KS; ++c) {
+          tma_load_3d(st + L::BIAS + c * L::BOX, &qkv_map, &full[s], col + D + 16 * c, j * BK,
+                      b);
+          tma_load_3d(st + L::BIAS + L::TILE_BYTES + c * L::BOX, &qkv_map, &full[s],
+                      col + 2 * D + 16 * c, j * BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ----------------------------------------------------------- consumers
+  const int g = lane / 4;   // this thread's rows: g and g + 8 of its warp's 16
+  const int t4 = lane % 4;  // and keys 2 t4, 2 t4 + 1 of each 8-key block
+  const int r0 = warp * 16 + g;
+  const int qr0 = q0 + r0, qr1 = qr0 + 8;
+  const int C = heads * D;
+
+  // delta of row threadIdx.x / 2 (each of two threads sums half its
+  // channels, in channel order), written once; then each thread takes its
+  // two rows' from the lanes that hold them
+  float dl;
+  {
+    const int r = threadIdx.x / 2, half = threadIdx.x % 2;
+    float acc = 0.f;
+    if (q0 + r < t_len) {
+      const long off = ((long)b * t_len + q0 + r) * C + h * D + half * (D / 2);
+      const uint4* x = reinterpret_cast<const uint4*>(dout + off);
+      const uint4* y = reinterpret_cast<const uint4*>(out + off);
+#pragma unroll
+      for (int v = 0; v < D / 16; ++v) acc = dot8(x[v], y[v], acc);
+    }
+    dl = acc + __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0 && q0 + r < t_len) delta[((long)b * heads + h) * t_len + q0 + r] = dl;
+  }
+  const float dl0 = __shfl_sync(0xffffffffu, dl, 2 * g);
+  const float dl1 = __shfl_sync(0xffffffffu, dl, 2 * g + 16);
+  // rows past T: lse = MASKED_LSE, so P = 0 there
+  const float* lrow = lse + ((long)b * heads + h) * t_len;
+  const float lse0 = qr0 < t_len ? lrow[qr0] : MASKED_LSE;
+  const float lse1 = qr1 < t_len ? lrow[qr1] : MASKED_LSE;
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  float s[32], dp[32];   // S and dP of the 64 x 64 tile: key block n in [4n .. 4n + 3]
+  uint32_t xa[BK / 16][4];  // dX as bf16 A fragments, one a 16-key k-step
+  uint64_t qd[KS], dod[KS];
+#pragma unroll
+  for (int c = 0; c < KS; ++c) {
+    qd[c] = desc_sw32(smem_addr(q_smem) + c * L::BOX, 16, 256);
+    dod[c] = desc_sw32(smem_addr(do_smem) + c * L::BOX, 16, 256);
+  }
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+  };
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int sj = j % STAGES;
+    unsigned char* st = smem + sj * L::STAGE;
+    uint64_t kd[KS], vd[KS], kb[BK / 16];
+#pragma unroll
+    for (int c = 0; c < KS; ++c) {
+      kd[c] = desc_sw32(smem_addr(st + L::BIAS) + c * L::BOX, 16, 256);
+      vd[c] = desc_sw32(smem_addr(st + L::BIAS + L::TILE_BYTES) + c * L::BOX, 16, 256);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      kb[kk] = desc_sw32(smem_addr(st + L::BIAS) + kk * 16 * 32, L::BOX, 256);
+    }
+    fence_regs(kd);
+    fence_regs(vd);
+    fence_regs(kb);
+    mbar_wait(&full[sj], (j / STAGES) & 1);
+    __syncwarp();
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < KS; ++c) wgmma_m64n64k16_ss(s, qd[c], kd[c], c);  // S = Q K^T
+#pragma unroll
+    for (int c = 0; c < KS; ++c) wgmma_m64n64k16_ss(dp, dod[c], vd[c], c);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dX = P (dP - delta) in place of S and of the bias tile; keys past T give 0
+    float* bt = reinterpret_cast<float*>(st);
+    const int keys = t_len - j * BK;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      const int kc = n * 8 + 2 * t4;  // key in the tile
+      float* box = bt + (n / 4) * kBiasBox;
+      float2* p0 = reinterpret_cast<float2*>(box + swz128(r0, kc % 32));
+      float2* p1 = reinterpret_cast<float2*>(box + swz128(r0 + 8, kc % 32));
+      const float2 b0 = *p0, b1 = *p1;
+      const bool v0 = kc < keys, v1 = kc + 1 < keys;
+      float* x = s + 4 * n;
+      const float* y = dp + 4 * n;
+      const float e0 = v0 ? exp2f(fmaf(x[0], scale, b0.x * bias_scale) - lse0) : 0.f;
+      const float e1 = v1 ? exp2f(fmaf(x[1], scale, b0.y * bias_scale) - lse0) : 0.f;
+      const float e2 = v0 ? exp2f(fmaf(x[2], scale, b1.x * bias_scale) - lse1) : 0.f;
+      const float e3 = v1 ? exp2f(fmaf(x[3], scale, b1.y * bias_scale) - lse1) : 0.f;
+      x[0] = e0 * (y[0] - dl0);
+      x[1] = e1 * (y[1] - dl0);
+      x[2] = e2 * (y[2] - dl1);
+      x[3] = e3 * (y[3] - dl1);
+      *p0 = make_float2(x[0], x[1]);
+      *p1 = make_float2(x[2], x[3]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {  // key blocks 2 kk, 2 kk + 1: k-step kk
+      xa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      xa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      xa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      xa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    // the dX tile into this batch row's partial (rows and keys past T clipped)
+    fence_proxy_async();
+    named_barrier(1, 32 * kBwdConsumerWarps);
+    if (threadIdx.x == 0) {
+      tma_store_3d(&part_map, st, j * BK, q0, b * heads + h);
+      tma_store_3d(&part_map, st + kBiasBox * 4, j * BK + 32, q0, b * heads + h);
+      bulk_commit();
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(xa[kk]);
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D>(dq, xa[kk], kb[kk]);  // dq += dX K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    if (threadIdx.x == 0) bulk_wait_read<0>();
+    release(sj);
+  }
+  if (threadIdx.x == 0) bulk_wait<0>();
+
+  bf16* drow_q = dqkv + (long)b * t_len * 3 * C + (long)h * 3 * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + 2 * t4;
+    if (qr0 < t_len) {
+      *reinterpret_cast<uint32_t*>(drow_q + (long)qr0 * 3 * C + col) =
+          pack_bf16(dq[4 * n] * sm_scale, dq[4 * n + 1] * sm_scale);
+    }
+    if (qr1 < t_len) {
+      *reinterpret_cast<uint32_t*>(drow_q + (long)qr1 * 3 * C + col) =
+          pack_bf16(dq[4 * n + 2] * sm_scale, dq[4 * n + 3] * sm_scale);
+    }
+  }
+}
+
+// dk and dv for 64 keys of one (b, h), walking the query tiles.  The tile
+// is computed transposed (rows are keys), so P^T and dX^T leave the S^T and
+// dP^T accumulators as the A operands of dv += P^T dO and dk += dX^T Q.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, BwdWg<D>::kDkvBlocks)
+bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qkv_map,
+              const __grid_constant__ CUtensorMap dout_map,
+              const __grid_constant__ CUtensorMap bias_map, const float* __restrict__ lse,
+              const float* __restrict__ delta, bf16* __restrict__ dqkv, int t_len, int heads,
+              float scale, float bias_scale, float sm_scale) {
+  using namespace hopper;
+  using L = BwdWg<D>;
+  constexpr int KS = L::KS;
+  constexpr int STAGES = L::kDkvStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* k_smem = smem + STAGES * L::STAGE;
+  unsigned char* v_smem = k_smem + L::TILE_BYTES;
+  float* ls = reinterpret_cast<float*>(v_smem + L::TILE_BYTES);  // STAGES x 64 lse
+  float* ds = ls + STAGES * TILE;                                 // STAGES x 64 delta
+  uint64_t* full = reinterpret_cast<uint64_t*>(ds + STAGES * TILE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kv_full = empty + STAGES;
+
+  const int b = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
+  const int h = blockIdx.z;
+  const int n_tiles = (t_len + BQ - 1) / BQ;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long row = (long)b * heads + h;  // this (b, h)'s row of lse and delta
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kBwdConsumerWarps);
+    }
+    mbar_init(kv_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kBwdConsumerWarps) {
+    // ---------------------------------------------------------- producer
+    if (lane == 0) {
+      tma_prefetch(&qkv_map);
+      tma_prefetch(&dout_map);
+      tma_prefetch(&bias_map);
+      const int col = h * 3 * D;
+      mbar_expect_tx(kv_full, 2 * L::TILE_BYTES);
+#pragma unroll
+      for (int c = 0; c < KS; ++c) {
+        tma_load_3d(k_smem + c * L::BOX, &qkv_map, kv_full, col + D + 16 * c, k0, b);
+        tma_load_3d(v_smem + c * L::BOX, &qkv_map, kv_full, col + 2 * D + 16 * c, k0, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+        const int q0 = i * BQ;
+        const uint32_t row_bytes = (uint32_t)min(BQ, t_len - q0) * sizeof(float);
+        unsigned char* st = smem + s * L::STAGE;
+        mbar_expect_tx(&full[s], L::STAGE + 2 * row_bytes);
+        tma_load_3d(st, &bias_map, &full[s], k0, q0, h);
+        tma_load_3d(st + kBiasBox * 4, &bias_map, &full[s], k0 + 32, q0, h);
+#pragma unroll
+        for (int c = 0; c < KS; ++c) {
+          tma_load_3d(st + L::BIAS + c * L::BOX, &qkv_map, &full[s], col + 16 * c, q0, b);
+          tma_load_3d(st + L::BIAS + L::TILE_BYTES + c * L::BOX, &dout_map, &full[s],
+                      h * D + 16 * c, q0, b);
+        }
+        bulk_load(ls + s * TILE, lse + row * t_len + q0, row_bytes, &full[s]);
+        bulk_load(ds + s * TILE, delta + row * t_len + q0, row_bytes, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // ----------------------------------------------------------- consumers
+  const int g = lane / 4;   // this thread's keys: g and g + 8 of its warp's 16
+  const int t4 = lane % 4;  // and queries 2 t4, 2 t4 + 1 of each 8-query block
+  const int r0 = warp * 16 + g;
+  // the bias box and column of this thread's keys (warps 0-1: keys 0-31)
+  const int box = (warp / 2) * kBiasBox;
+  const int kin0 = r0 % 32, kin1 = kin0 + 8;
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  float s[32], dp[32];       // S^T and dP^T: query block n in [4n .. 4n + 3]
+  uint32_t pa[BQ / 16][4], xa[BQ / 16][4];  // P^T and dX^T, one a 16-query k-step
+  uint64_t kd[KS], vd[KS];
+#pragma unroll
+  for (int c = 0; c < KS; ++c) {
+    kd[c] = desc_sw32(smem_addr(k_smem) + c * L::BOX, 16, 256);
+    vd[c] = desc_sw32(smem_addr(v_smem) + c * L::BOX, 16, 256);
+  }
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+  };
+
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int si = i % STAGES;
+    const unsigned char* st = smem + si * L::STAGE;
+    const uint32_t q_addr = smem_addr(st + L::BIAS), do_addr = q_addr + L::TILE_BYTES;
+    uint64_t qd[KS], dod[KS], qm[BQ / 16], dom[BQ / 16];
+#pragma unroll
+    for (int c = 0; c < KS; ++c) {
+      qd[c] = desc_sw32(q_addr + c * L::BOX, 16, 256);
+      dod[c] = desc_sw32(do_addr + c * L::BOX, 16, 256);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      qm[kk] = desc_sw32(q_addr + kk * 16 * 32, L::BOX, 256);
+      dom[kk] = desc_sw32(do_addr + kk * 16 * 32, L::BOX, 256);
+    }
+    fence_regs(qd);
+    fence_regs(dod);
+    fence_regs(qm);
+    fence_regs(dom);
+    mbar_wait(&full[si], (i / STAGES) & 1);
+    __syncwarp();
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < KS; ++c) wgmma_m64n64k16_ss(s, kd[c], qd[c], c);  // S^T = K Q^T
+#pragma unroll
+    for (int c = 0; c < KS; ++c) wgmma_m64n64k16_ss(dp, vd[c], dod[c], c);  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T into s, dX^T into dp; queries past T (stale lse and delta in the
+    // ring) take lse = MASKED_LSE and delta 0, so P = dX = 0
+    const float* bt = reinterpret_cast<const float*>(st) + box;
+    const float* lt = ls + si * TILE;
+    const float* dt = ds + si * TILE;
+    const int queries = t_len - i * BQ;
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+      const int qc = n * 8 + 2 * t4;  // this thread's queries: qc, qc + 1
+      float2 lq = *reinterpret_cast<const float2*>(lt + qc);
+      float2 dq2 = *reinterpret_cast<const float2*>(dt + qc);
+      if (qc >= queries) lq.x = MASKED_LSE, dq2.x = 0.f;
+      if (qc + 1 >= queries) lq.y = MASKED_LSE, dq2.y = 0.f;
+      float* x = s + 4 * n;
+      float* y = dp + 4 * n;
+      const float p0 = exp2f(fmaf(x[0], scale, bt[swz128(qc, kin0)] * bias_scale) - lq.x);
+      const float p1 = exp2f(fmaf(x[1], scale, bt[swz128(qc + 1, kin0)] * bias_scale) - lq.y);
+      const float p2 = exp2f(fmaf(x[2], scale, bt[swz128(qc, kin1)] * bias_scale) - lq.x);
+      const float p3 = exp2f(fmaf(x[3], scale, bt[swz128(qc + 1, kin1)] * bias_scale) - lq.y);
+      x[0] = p0;
+      x[1] = p1;
+      x[2] = p2;
+      x[3] = p3;
+      y[0] = p0 * (y[0] - dq2.x);
+      y[1] = p1 * (y[1] - dq2.y);
+      y[2] = p2 * (y[2] - dq2.x);
+      y[3] = p3 * (y[3] - dq2.y);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {  // query blocks 2 kk, 2 kk + 1: k-step kk
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      xa[kk][0] = pack_bf16(dp[8 * kk], dp[8 * kk + 1]);
+      xa[kk][1] = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
+      xa[kk][2] = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
+      xa[kk][3] = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      fence_regs(pa[kk]);
+      fence_regs(xa[kk]);
+    }
+    fence_regs(dk);
+    fence_regs(dv);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(dv, pa[kk], dom[kk]);  // dv += P^T dO
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(dk, xa[kk], qm[kk]);  // dk += dX^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    release(si);
+  }
+
+  const int C = heads * D;
+  bf16* drow = dqkv + (long)b * t_len * 3 * C + (long)h * 3 * D;
+  const int kr0 = k0 + r0, kr1 = kr0 + 8;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + 2 * t4;
+    if (kr0 < t_len) {
+      bf16* r = drow + (long)kr0 * 3 * C + col;
+      *reinterpret_cast<uint32_t*>(r + D) = pack_bf16(dk[4 * n] * sm_scale, dk[4 * n + 1] * sm_scale);
+      *reinterpret_cast<uint32_t*>(r + 2 * D) = pack_bf16(dv[4 * n], dv[4 * n + 1]);
+    }
+    if (kr1 < t_len) {
+      bf16* r = drow + (long)kr1 * 3 * C + col;
+      *reinterpret_cast<uint32_t*>(r + D) =
+          pack_bf16(dk[4 * n + 2] * sm_scale, dk[4 * n + 3] * sm_scale);
+      *reinterpret_cast<uint32_t*>(r + 2 * D) = pack_bf16(dv[4 * n + 2], dv[4 * n + 3]);
+    }
+  }
+}
+
 // ------------------------------------------- dbias: fixed-order sum of rows
 
 constexpr int SUM_THREADS = 256;
@@ -721,13 +1243,117 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
+// The kernels each backward call takes (bias_attention_bwd_route): bf16 at
+// d <= 64 and T % 4 == 0 on the wgmma kernels, the other bf16 calls on
+// mma.sync, fp32 on the scalar kernels.
+enum BwdRoute { kRouteWgmma = 0, kRouteMma = 1, kRouteSimt = 2 };
+
+int bwd_route(int t_len, int head_dim, int dtype) {
+  if (dtype != 0) return kRouteSimt;
+  return head_dim <= 64 && t_len % 4 == 0 ? kRouteWgmma : kRouteMma;
+}
+
+// Message of the last failure that has no CUDA error code of its own (a
+// tensor map the driver refused, or no cuTensorMapEncodeTiled).
+char g_error[256] = "";
+constexpr int kOwnError = 20000;  // the error code that points at g_error
+
+// One tensor map of a launch: ``dims`` (innermost first) with byte strides
+// ``strides`` of the outer two, boxes ``box``.  Elements out of the tensor
+// read 0 and are not written.
+int encode(CUtensorMap* map, CUtensorMapDataType type, void* base, const cuuint64_t (&dims)[3],
+           const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3],
+           CUtensorMapSwizzle swizzle, const Args& a, const char* what) {
+  const hopper::EncodeTiled fn = hopper::tensor_map_encoder();
+  if (fn == nullptr) {
+    snprintf(g_error, sizeof g_error, "cuTensorMapEncodeTiled not found in the driver");
+    return kOwnError;
+  }
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, 3, base, dims, strides, box, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        swizzle == CU_TENSOR_MAP_SWIZZLE_128B ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
+                                                              : CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) {
+    snprintf(g_error, sizeof g_error,
+             "cuTensorMapEncodeTiled refused the %s map (CUresult %d) at B=%d T=%d H=%d", what,
+             (int)r, a.batch, a.t_len, a.heads);
+    return kOwnError;
+  }
+  return 0;
+}
+
+// The maps of the wgmma kernels: qkv (3 H D channels, T, B) and dout (H D
+// channels, T, B) in bf16 boxes of 16 channels x 64 rows with the 32-byte
+// swizzle; the bias (T keys, T queries, H) in fp32 boxes of 32 keys x 64
+// queries with the 128-byte swizzle; and, for dq, the partials (T keys, T
+// queries, B H) of row stride Tp in the same boxes.
+int encode_maps(const Args& a, int head_dim, CUtensorMap* qkv_map, CUtensorMap* dout_map,
+                CUtensorMap* bias_map, CUtensorMap* part_map) {
+  const cuuint64_t t = a.t_len, c = (cuuint64_t)a.heads * head_dim, tp = padded(a.t_len);
+  const cuuint32_t tile_box[3] = {16, TILE, 1}, bias_box[3] = {32, TILE, 1};
+  int err = encode(qkv_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, const_cast<void*>(a.qkv),
+                   {3 * c, t, (cuuint64_t)a.batch}, {3 * c * 2, 3 * c * 2 * t}, tile_box,
+                   CU_TENSOR_MAP_SWIZZLE_32B, a, "qkv");
+  if (err == 0) {
+    err = encode(dout_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, const_cast<void*>(a.dout),
+                 {c, t, (cuuint64_t)a.batch}, {c * 2, c * 2 * t}, tile_box,
+                 CU_TENSOR_MAP_SWIZZLE_32B, a, "dout");
+  }
+  if (err == 0) {
+    err = encode(bias_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, const_cast<float*>(a.bias),
+                 {t, t, (cuuint64_t)a.heads}, {t * 4, t * t * 4}, bias_box,
+                 CU_TENSOR_MAP_SWIZZLE_128B, a, "bias");
+  }
+  if (err == 0 && part_map != nullptr) {
+    err = encode(part_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.dbias_part,
+                 {t, t, (cuuint64_t)a.batch * a.heads}, {tp * 4, tp * tp * 4}, bias_box,
+                 CU_TENSOR_MAP_SWIZZLE_128B, a, "dbias partials");
+  }
+  return err;
+}
+
 template <int D>
-cudaError_t launch_dq(int dtype, const Args& a) {
+int launch_dq_wgmma(const Args& a) {
+  using L = BwdWg<D>;
+  int err = (int)prepare(bwd_dq_wgmma<D>, L::dq_bytes);
+  if (err != 0) return err;
+  CUtensorMap qkv_map, dout_map, bias_map, part_map;
+  if ((err = encode_maps(a, D, &qkv_map, &dout_map, &bias_map, &part_map)) != 0) return err;
+  const dim3 grid(a.batch, (a.t_len + BQ - 1) / BQ, a.heads);
+  bwd_dq_wgmma<D><<<grid, kBwdThreads, L::dq_bytes, a.stream>>>(
+      qkv_map, dout_map, bias_map, part_map, static_cast<const bf16*>(a.dout),
+      static_cast<const bf16*>(a.out), a.lse, a.delta, static_cast<bf16*>(a.dqkv), a.t_len,
+      a.heads, a.scale, a.bias_scale, a.sm_scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_wgmma(const Args& a) {
+  using L = BwdWg<D>;
+  int err = (int)prepare(bwd_dkv_wgmma<D>, L::dkv_bytes);
+  if (err != 0) return err;
+  CUtensorMap qkv_map, dout_map, bias_map;
+  if ((err = encode_maps(a, D, &qkv_map, &dout_map, &bias_map, nullptr)) != 0) return err;
+  const dim3 grid(a.batch, (a.t_len + BK - 1) / BK, a.heads);
+  bwd_dkv_wgmma<D><<<grid, kBwdThreads, L::dkv_bytes, a.stream>>>(
+      qkv_map, dout_map, bias_map, a.lse, a.delta, static_cast<bf16*>(a.dqkv), a.t_len,
+      a.heads, a.scale, a.bias_scale, a.sm_scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq(int dtype, const Args& a) {
+  const int route = bwd_route(a.t_len, D, dtype);
+  if constexpr (D <= 64) {
+    if (route == kRouteWgmma) return launch_dq_wgmma<D>(a);
+  }
   cudaError_t err;
-  if (dtype == 0) {
+  if (route == kRouteMma) {
     const dim3 grid(a.batch, (a.t_len + BQ - 1) / BQ, a.heads);
     const size_t smem = dq_smem_bytes<D>();
-    if ((err = prepare(bwd_dq_mma<D>, smem)) != cudaSuccess) return err;
+    if ((err = prepare(bwd_dq_mma<D>, smem)) != cudaSuccess) return (int)err;
     bwd_dq_mma<D><<<grid, NTHREADS, smem, a.stream>>>(
         static_cast<const bf16*>(a.qkv), a.bias, static_cast<const bf16*>(a.dout),
         static_cast<const bf16*>(a.out), a.lse, a.delta, static_cast<bf16*>(a.dqkv),
@@ -735,22 +1361,26 @@ cudaError_t launch_dq(int dtype, const Args& a) {
   } else {
     const dim3 grid(a.batch, (a.t_len + RF - 1) / RF, a.heads);
     const size_t smem = SimtBwd<D>::dq_bytes;
-    if ((err = prepare(bwd_dq_simt<D>, smem)) != cudaSuccess) return err;
+    if ((err = prepare(bwd_dq_simt<D>, smem)) != cudaSuccess) return (int)err;
     bwd_dq_simt<D><<<grid, NTHREADS, smem, a.stream>>>(
         static_cast<const float*>(a.qkv), a.bias, static_cast<const float*>(a.dout),
         static_cast<const float*>(a.out), a.lse, a.delta, static_cast<float*>(a.dqkv),
         a.dbias_part, a.t_len, a.heads, a.scale, a.bias_scale, a.sm_scale);
   }
-  return cudaGetLastError();
+  return (int)cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkv(int dtype, const Args& a) {
+int launch_dkv(int dtype, const Args& a) {
+  const int route = bwd_route(a.t_len, D, dtype);
+  if constexpr (D <= 64) {
+    if (route == kRouteWgmma) return launch_dkv_wgmma<D>(a);
+  }
   cudaError_t err;
-  if (dtype == 0) {
+  if (route == kRouteMma) {
     const dim3 grid(a.batch, (a.t_len + BK - 1) / BK, a.heads);
     const size_t smem = dkv_smem_bytes<D>();
-    if ((err = prepare(bwd_dkv_mma<D>, smem)) != cudaSuccess) return err;
+    if ((err = prepare(bwd_dkv_mma<D>, smem)) != cudaSuccess) return (int)err;
     bwd_dkv_mma<D><<<grid, NTHREADS, smem, a.stream>>>(
         static_cast<const bf16*>(a.qkv), a.bias, static_cast<const bf16*>(a.dout), a.lse,
         a.delta, static_cast<bf16*>(a.dqkv), a.t_len, a.heads, a.scale, a.bias_scale,
@@ -758,19 +1388,34 @@ cudaError_t launch_dkv(int dtype, const Args& a) {
   } else {
     const dim3 grid(a.batch, (a.t_len + RF - 1) / RF, a.heads);
     const size_t smem = SimtBwd<D>::dkv_bytes;
-    if ((err = prepare(bwd_dkv_simt<D>, smem)) != cudaSuccess) return err;
+    if ((err = prepare(bwd_dkv_simt<D>, smem)) != cudaSuccess) return (int)err;
     bwd_dkv_simt<D><<<grid, NTHREADS, smem, a.stream>>>(
         static_cast<const float*>(a.qkv), a.bias, static_cast<const float*>(a.dout), a.lse,
         a.delta, static_cast<float*>(a.dqkv), a.t_len, a.heads, a.scale, a.bias_scale,
         a.sm_scale);
   }
-  return cudaGetLastError();
+  return (int)cudaGetLastError();
 }
 
-// CTAs of the bf16 dq (which 0) or dk/dv (which 1) kernel that fit on an SM.
+// CTAs of a bf16 kernel that fit on an SM: ``which`` 0 dq, 1 dk/dv of the
+// mma.sync route, 2 dq, 3 dk/dv of the wgmma route (d <= 64).
 template <int D>
 cudaError_t blocks_per_sm(int which, int* blocks) {
   cudaError_t err;
+  if (which >= 2) {
+    if constexpr (D <= 64) {
+      using L = BwdWg<D>;
+      if (which == 2) {
+        if ((err = prepare(bwd_dq_wgmma<D>, L::dq_bytes)) != cudaSuccess) return err;
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, bwd_dq_wgmma<D>,
+                                                             kBwdThreads, L::dq_bytes);
+      }
+      if ((err = prepare(bwd_dkv_wgmma<D>, L::dkv_bytes)) != cudaSuccess) return err;
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, bwd_dkv_wgmma<D>,
+                                                           kBwdThreads, L::dkv_bytes);
+    }
+    return cudaErrorInvalidValue;
+  }
   if (which == 0) {
     if ((err = prepare(bwd_dq_mma<D>, dq_smem_bytes<D>())) != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, bwd_dq_mma<D>, NTHREADS,
@@ -793,7 +1438,7 @@ int dispatch(int head_dim, int dtype, const Args& a, int* blocks = nullptr) {
   case DIM:                                                                     \
     return (int)(kOp == Op::kDq    ? launch_dq<DIM>(dtype, a)                   \
                  : kOp == Op::kDkv ? launch_dkv<DIM>(dtype, a)                  \
-                                   : blocks_per_sm<DIM>(dtype, blocks));
+                                   : (int)blocks_per_sm<DIM>(dtype, blocks));
   switch (head_dim) {
     DTTS_CASE(16) DTTS_CASE(32) DTTS_CASE(48) DTTS_CASE(64)
     DTTS_CASE(80) DTTS_CASE(96) DTTS_CASE(112) DTTS_CASE(128)
@@ -809,7 +1454,8 @@ int dispatch(int head_dim, int dtype, const Args& a, int* blocks = nullptr) {
 // lse and delta (B, H, T), dbias_part (B, H, Tp, Tp) with Tp = T rounded up
 // to a multiple of 64, and dbias (H, T, T) are float32.  All contiguous and
 // 16-byte aligned.  scale = sm_scale * log2(e), bias_scale = log2(e).
-// Each returns the CUDA error code of its launch (0 on success).
+// Each returns the CUDA error code of its launch (0 on success).  Both
+// entries take the route bias_attention_bwd_route names.
 
 // delta and dq, and each batch row's dX into dbias_part.
 extern "C" int bias_attention_bwd_dq(const void* qkv, const void* bias, const void* dout,
@@ -849,8 +1495,23 @@ extern "C" int bias_attention_bwd_dbias_sum(const void* dbias_part, void* dbias,
   return (int)cudaGetLastError();
 }
 
-// CTAs of the bf16 kernel ``which`` (0 dq, 1 dk/dv) at ``head_dim`` that fit
-// on one SM of the current device, or minus the CUDA error code.
+// The kernels a backward call of this B, T, head_dim and dtype (0 bf16, 1
+// fp32) takes: 0 bwd_dq_wgmma and bwd_dkv_wgmma (bf16, d <= 64, T % 4 ==
+// 0), 1 bwd_dq_mma and bwd_dkv_mma (the other bf16 calls), 2 the scalar
+// kernels, each route with the sum pass; -1 for a shape or dtype the
+// entries refuse.
+extern "C" int bias_attention_bwd_route(int batch, int t_len, int head_dim, int dtype) {
+  if (batch <= 0 || t_len <= 0 || head_dim % 16 != 0 || head_dim < 16 || head_dim > 128 ||
+      (dtype != 0 && dtype != 1)) {
+    return -1;
+  }
+  return bwd_route(t_len, head_dim, dtype);
+}
+
+// CTAs of the bf16 kernel ``which`` (0 bwd_dq_mma, 1 bwd_dkv_mma, 2
+// bwd_dq_wgmma, 3 bwd_dkv_wgmma; 2-3 at d <= 64) at
+// ``head_dim`` that fit on one SM of the current device, or minus the CUDA
+// error code.
 extern "C" int bias_attention_bwd_blocks_per_sm(int which, int head_dim) {
   int blocks = 0;
   const Args a{};
@@ -859,5 +1520,6 @@ extern "C" int bias_attention_bwd_blocks_per_sm(int which, int head_dim) {
 }
 
 extern "C" const char* bias_attention_bwd_error_string(int code) {
+  if (code == kOwnError) return g_error;
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -32,7 +32,15 @@ bias is <= -1e9 gives 0, and zero gradients.
   and one dbias partial per batch row), ``bias_attention_bwd_dkv`` and
   ``bias_attention_bwd_dbias_sum`` (the partials added in batch order)
   (``csrc/bias_attention_bwd.cu``), which write one d(qkv) tensor and a
-  dbias summed over the batch.  They replace the Pallas ``attention_train``
+  dbias summed over the batch.  In bf16 at d <= 64 and T % 4 == 0 the
+  first two run ``bwd_dq_wgmma`` and ``bwd_dkv_wgmma`` (TMA tiles from one
+  producer warp through an mbarrier ring, every product on wgmma, dX stored
+  into its partial by TMA); the other bf16 calls ``bwd_dq_mma`` and
+  ``bwd_dkv_mma``, fp32 scalar kernels.  :data:`BWD_LAUNCHES_BY_ROUTE`
+  counts the backward calls of each route (one launch of each of its two
+  kernels and of the sum pass a call), by the route the C entry
+  ``bias_attention_bwd_route`` names; :func:`bias_attention_bwd_route`
+  mirrors that entry on the host.  They replace the Pallas ``attention_train``
   custom VJP (``_attn_train_fwd`` and the two kernels of ``_attn_train_bwd``).
 
 On a CUDA tensor a wrapper launches its kernel (each source is built with
@@ -83,6 +91,15 @@ TRAIN_LAUNCHES: Dict[str, int] = {"bias_attention_train_fwd": 0,
                                   "bias_attention_bwd_dq_dbias": 0,
                                   "bias_attention_bwd_dkv": 0,
                                   "bias_attention_bwd_dbias_sum": 0}
+# the backward's routes, in the C entry's codes (bias_attention_bwd_route):
+# each launches its dq and its dk/dv kernel once a call
+BWD_ROUTES = ("bwd_wgmma", "bwd_mma", "bwd_simt")
+BWD_ROUTE_KERNELS = {"bwd_wgmma": ("bwd_dq_wgmma", "bwd_dkv_wgmma"),
+                     "bwd_mma": ("bwd_dq_mma", "bwd_dkv_mma"),
+                     "bwd_simt": ("bwd_dq_simt", "bwd_dkv_simt")}
+# the backward calls (each one dq and one dk/dv launch) of TRAIN_LAUNCHES by
+# the route that ran them
+BWD_LAUNCHES_BY_ROUTE: Dict[str, int] = {name: 0 for name in BWD_ROUTES}
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _libs: Dict[Path, ctypes.CDLL] = {}
@@ -283,6 +300,7 @@ _SIGNATURES = {
                  "bias_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                             _I, _F, _F, _F, _I, _P],
                  "bias_attention_bwd_dbias_sum": [_P, _P, _I, _I, _I, _P],
+                 "bias_attention_bwd_route": [_I, _I, _I, _I],
                  "bias_attention_bwd_blocks_per_sm": [_I, _I],
                  "bias_attention_bwd_error_string": [_I]},
 }
@@ -349,6 +367,24 @@ def bias_attention_fwd_route(t: int, d: int, dtype: torch.dtype) -> str:
     if dtype != torch.bfloat16:
         raise TypeError(f"the serving kernels take bfloat16 or float32, not {dtype}")
     return "serve_fwd_wgmma" if d <= 64 and t % 8 == 0 else "serve_fwd_mma"
+
+
+def bias_attention_bwd_route(b: int, t: int, d: int, dtype: torch.dtype) -> str:
+    """The kernels a backward call of batch ``b``, length ``t``, head dim
+    ``d`` and ``dtype`` takes on the card: ``bwd_wgmma`` (bf16, d <= 64,
+    T % 4 == 0: an fp32 bias row is then a legal TMA stride), ``bwd_mma``
+    (the other bf16 calls) or ``bwd_simt`` (fp32); every route runs the sum
+    pass after them.  It mirrors the C entry
+    of the same name, which decides the launches and names the route
+    :data:`BWD_LAUNCHES_BY_ROUTE` counts; the CPU tests and the expected
+    counts read this copy, and the card tests hold the two equal."""
+    if b < 1 or t < 1:
+        raise ValueError(f"batch {b} and length {t} must be positive")
+    if dtype == torch.float32:
+        return "bwd_simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the backward kernels take bfloat16 or float32, not {dtype}")
+    return "bwd_wgmma" if d <= 64 and t % 4 == 0 else "bwd_mma"
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -421,7 +457,8 @@ def bias_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, out: torch.Tensor,
                        sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training backward: -> (dqkv (B, T, 3C), dbias (H, T, T) fp32 summed
     over the batch).  Three kernels on CUDA (delta, dq and the dbias
-    partials; dk and dv; the partials' sum), plain on the CPU."""
+    partials; dk and dv; the partials' sum), the first two on the route
+    :func:`bias_attention_bwd_route` names; plain on the CPU."""
     _device_ok(qkv, "bias_attention_bwd")
     d = _check(qkv, bias, heads, bias_dtype=torch.float32)
     b, t, c3 = qkv.shape
@@ -435,7 +472,9 @@ def bias_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, out: torch.Tensor,
     if qkv.device.type == "cpu":
         return bias_attention_bwd_reference(qkv, bias, out, lse, dout,
                                             heads=heads, sm_scale=sm_scale)
-    out, lse = out.contiguous(), lse.contiguous()
+    # the TMA maps and bulk copies of the wgmma route need 16-byte aligned bases
+    out, lse = _aligned(out.contiguous()), _aligned(lse.contiguous())
+    dout = _aligned(dout)
     t_pad = padded_len(t)
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((b, heads, t), dtype=torch.float32, device=qkv.device)
@@ -451,7 +490,20 @@ def bias_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, out: torch.Tensor,
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, t,
             heads, d, *scales)
     TRAIN_LAUNCHES["bias_attention_bwd_dkv"] += 1
+    BWD_LAUNCHES_BY_ROUTE[_launched_bwd_route(b, t, d, code)] += 1
     return dqkv, bias_attention_dbias_sum(part, t)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (contiguous), copied where its data is not 16-byte aligned."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def _launched_bwd_route(b: int, t: int, d: int, code: int) -> str:
+    """The route the C entry ``bias_attention_bwd_route`` names for a
+    backward call (asked once a shape)."""
+    return BWD_ROUTES[_library(BWD_SOURCE).bias_attention_bwd_route(b, t, d, code)]
 
 
 def bias_attention_dbias_sum(part: torch.Tensor, t: int) -> torch.Tensor:

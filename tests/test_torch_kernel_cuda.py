@@ -207,8 +207,12 @@ def dbias_err(x, ref):
 
 
 def _check_train(qkv, bias, dout, h, d, dtype):
+    """The training kernels against their plain versions at one shape: one
+    launch of each, the backward on the route the mirror names."""
     sm = 1 / math.sqrt(d)
     before = dict(attention.TRAIN_LAUNCHES)
+    routes = dict(attention.BWD_LAUNCHES_BY_ROUTE)
+    route = attention.bias_attention_bwd_route(qkv.shape[0], qkv.shape[1], d, dtype)
     out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
     ref_out, ref_lse = attention.bias_attention_train_reference(qkv, bias, heads=h,
                                                                 sm_scale=sm)
@@ -220,6 +224,8 @@ def _check_train(qkv, bias, dout, h, d, dtype):
     assert {k: v - before[k] for k, v in attention.TRAIN_LAUNCHES.items()} == {
         "bias_attention_train_fwd": 1, "bias_attention_bwd_dq_dbias": 1,
         "bias_attention_bwd_dkv": 1, "bias_attention_bwd_dbias_sum": 1}
+    assert {k: v - routes[k] for k, v in attention.BWD_LAUNCHES_BY_ROUTE.items()} == {
+        k: int(k == route) for k in attention.BWD_ROUTES}
     assert out.dtype == dqkv.dtype == dtype and dbias.dtype == torch.float32
     assert (out.float() - ref_out.float()).abs().max().item() <= TOL[dtype]
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL[dtype]
@@ -302,13 +308,98 @@ def test_dbias_sum_kernel_matches_plain_sum(cuda):
     assert torch.equal(got, want)  # the same fp32 adds in the same order
 
 
-@pytest.mark.parametrize("b,t,h,d", [(4, 130, 4, 48), (8, 496, 16, 48)])
-def test_train_backward_is_deterministic(cuda, b, t, h, d):
+@pytest.mark.parametrize("b,t,h,d,route", [(4, 130, 4, 48, "bwd_mma"),
+                                           (8, 496, 16, 48, "bwd_wgmma"),
+                                           (8, 124, 16, 96, "bwd_mma")])
+def test_train_backward_is_deterministic(cuda, b, t, h, d, route):
     qkv, bias, dout = _train_inputs(b, t, h, d, torch.bfloat16, seed=11, device=cuda)
+    assert attention.bias_attention_bwd_route(b, t, d, torch.bfloat16) == route
     out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=0.2)
+    before = attention.BWD_LAUNCHES_BY_ROUTE[route]
     first = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h, sm_scale=0.2)
     second = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h, sm_scale=0.2)
+    assert attention.BWD_LAUNCHES_BY_ROUTE[route] == before + 2
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64])
+# bwd_dq_wgmma / bwd_dkv_wgmma's shapes (T % 4 == 0): one ragged tile (4),
+# one whole tile (64), the step's conditioner (124) and trunk (496), a tile
+# and four rows (132), the corpus's raw bucket (1024); B 1, 3 and 8
+@pytest.mark.parametrize("b,t", [(1, 4), (3, 64), (8, 124), (1, 132), (3, 496), (8, 496),
+                                 (8, 1024)])
+def test_bwd_wgmma_matches_plain_version(cuda, d, b, t):
+    h = 16 if t >= 496 else 4
+    qkv, bias, dout = _train_inputs(b, t, h, d, torch.bfloat16, seed=d * t + b, device=cuda)
+    assert attention.bias_attention_bwd_route(b, t, d, torch.bfloat16) == "bwd_wgmma"
+    out, lse, dqkv, dbias = _check_train(qkv, bias, dout, h, d, torch.bfloat16)
+    _, ref_dbias = attention.bias_attention_bwd_reference(
+        qkv, bias, out, lse, dout, heads=h, sm_scale=1 / math.sqrt(d))
+    assert dbias_err(dbias, ref_dbias) <= DBIAS_TOL
+    again = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h,
+                                         sm_scale=1 / math.sqrt(d))
+    assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
+
+
+@pytest.mark.parametrize("d", [16, 48, 64])
+def test_bwd_wgmma_masked_rows_and_keys(cuda, d):
+    """A fully masked query row gives exactly 0 in dq and dbias, masked keys
+    0 in dk and dv, on the wgmma route (T = 96: a whole tile and a ragged
+    one, in both dq's key walk and dk/dv's query walk)."""
+    b, t, h = 3, 96, 4
+    qkv, bias, dout = _train_inputs(b, t, h, d, torch.bfloat16, seed=d, device=cuda)
+    bias[1, 5, :] = -1e9        # a fully masked query row in the first tile
+    bias[0, 70, :] = -1e9       # and one in the ragged second tile
+    bias[2, :, t - 9:] = -1e9   # masked keys in every row of head 2
+    assert attention.bias_attention_bwd_route(b, t, d, torch.bfloat16) == "bwd_wgmma"
+    out, lse, dqkv, dbias = _check_train(qkv, bias, dout, h, d, torch.bfloat16)
+    for x in (out, lse, dqkv, dbias):
+        assert torch.isfinite(x).all()
+    g = dqkv.view(b, t, h, 3, d)
+    assert torch.count_nonzero(g[:, 5, 1, 0]).item() == 0  # dq, head 1
+    assert torch.count_nonzero(g[:, 70, 0, 0]).item() == 0  # dq, head 0
+    assert torch.count_nonzero(dbias[1, 5]).item() == 0
+    assert torch.count_nonzero(dbias[0, 70]).item() == 0
+    assert torch.count_nonzero(g[:, t - 9:, 2, 1:]).item() == 0  # dk, dv of the masked keys
+
+
+def test_bwd_route_entry_matches_the_python_mirror(cuda):
+    """The C entry that decides the backward's launches and names the route
+    counted, against ``attention.bias_attention_bwd_route`` over every
+    T % 4, head dim and dtype, at several batches."""
+    lib = attention._library(attention.BWD_SOURCE)
+    for b, t, d, dtype in itertools.product((1, 3, 8, 9, 16),
+                                            list(range(1, 33)) + [124, 495, 496, 2824],
+                                            range(16, 129, 16),
+                                            (torch.bfloat16, torch.float32)):
+        code = lib.bias_attention_bwd_route(b, t, d, attention._DTYPE_CODE[dtype])
+        assert code >= 0
+        assert attention.BWD_ROUTES[code] == attention.bias_attention_bwd_route(b, t, d, dtype)
+    assert lib.bias_attention_bwd_route(8, 496, 40, 0) == -1
+    assert lib.bias_attention_bwd_route(8, 496, 48, 2) == -1
+
+
+def test_bwd_wgmma_kernels_have_no_spills(cuda, monkeypatch, tmp_path):
+    """ptxas -v of every bwd_dq_wgmma and bwd_dkv_wgmma instantiation: no
+    spill stores or loads."""
+    monkeypatch.setattr(attention, "BUILD_DIR", tmp_path)
+    _, _, log = attention.build(attention.BWD_SOURCE)
+    entry, lines = "", []
+    for line in log.splitlines():
+        if "entry function" in line:
+            entry = line.split("'")[1]
+        elif "_wgmma" in entry and "spill" in line:
+            lines.append(line)
+    assert len(lines) == 8  # bwd_dq_wgmma and bwd_dkv_wgmma at d = 16, 32, 48, 64
+    assert all(" 0 bytes spill stores, 0 bytes spill loads" in x for x in lines)
+
+
+def test_bwd_kernels_fit_on_an_sm(cuda):
+    lib = attention._library(attention.BWD_SOURCE)
+    for which in range(4):  # dq, dk/dv of the mma.sync route; dq, dk/dv of wgmma
+        assert lib.bias_attention_bwd_blocks_per_sm(which, 48) >= 2
+    assert lib.bias_attention_bwd_blocks_per_sm(0, 96) >= 1
+    assert lib.bias_attention_bwd_blocks_per_sm(2, 96) < 0  # no wgmma kernel past d = 64
 
 
 def test_autograd_function_runs_the_kernels(cuda):
@@ -364,7 +455,8 @@ def test_each_sampler_runs_the_kernel_on_a_small_engine(cuda, sampler):
 def test_all_step_launches_each_training_kernel_and_repeats(cuda):
     """One small ``all`` GAN step launches each training kernel once for each
     AttentionBlock call (5 contextual-embedder, 4 latent-conditioner and 3
-    integrator blocks, and the trunk layers kept), the serving kernel never,
+    integrator blocks, and the trunk layers kept), each backward on a bf16
+    route, the serving kernel never,
     and repeats bit for bit from the same state and generator state."""
     import dataclasses
 
@@ -384,10 +476,13 @@ def test_all_step_launches_each_training_kernel_and_repeats(cuda):
     for _ in range(2):
         state.restore(snap)
         counts, serving = dict(attention.TRAIN_LAUNCHES), attention.LAUNCHES
+        routes = dict(attention.BWD_LAUNCHES_BY_ROUTE)
         m = step(state, batch, torch.Generator(device=cuda).manual_seed(5))
         want = 5 + 4 + 3 + sum(m["layers_kept"][0][:cfg.diffusion.num_layers])
         got = {k: attention.TRAIN_LAUNCHES[k] - counts[k] for k in counts}
         assert len(got) == 4 and all(v == want for v in got.values()), (got, want)
+        by_route = {k: v - routes[k] for k, v in attention.BWD_LAUNCHES_BY_ROUTE.items()}
+        assert sum(by_route.values()) == want and by_route["bwd_simt"] == 0, by_route
         assert attention.LAUNCHES == serving
         runs.append(m)
     for k, v in runs[0].items():
