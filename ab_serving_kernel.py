@@ -40,9 +40,11 @@ process that imports that checkout's ``detail_tts_tpu_torch`` makes
 (the card's queue takes them all), of the package's wrapper
 ``attention.bias_attention`` and of its bare C entry ``bias_attention_fwd``
 through ctypes, at each shape; each prints the median of 7 such loops in
-host microseconds a call.  With ``--host --train`` the call is the
-training backward: the wrapper ``attention.bias_attention_bwd`` and its
-three bare C entries, at the step's shapes.
+host microseconds a call.  With ``--host --train`` the calls are the
+training backward's (the wrapper ``attention.bias_attention_bwd`` and its
+three bare C entries) and the training forward's (the wrapper
+``attention.bias_attention_train_fwd`` and its bare C entry
+``bias_attention_train_fwd``), at the step's shapes.
 
 With ``--train`` and sources named ``bias_attention_bwd*.cu`` (this
 package's, or an earlier one from ``git show
@@ -64,7 +66,11 @@ dependent add (the copies, exp2 and stores stay), ``LABEL-nocopies``,
 whose tile copies into shared memory (cp.async, TMA, bulk) and dbias
 partial stores are gone (the products and exp2 stay, on whatever shared
 memory holds), and ``LABEL-nostores``, whose partial stores alone are
-gone: what holds the kernel, the arithmetic or the bytes.
+gone: what holds the kernel, the arithmetic or the bytes.  With ``--train``
+on forward sources ``--variants`` gives ``LABEL-noproducts``, ``LABEL-nobias``
+(the fp32 bias tile's copies alone gone) and ``LABEL-nocopies`` (every copy
+into shared memory gone: K, V, Q and the bias, by ``cp.async`` or TMA),
+timed in turns with the source, their errors printed and not checked.
 
 With ``--sample`` each source is a ``sample.cu`` with ``threefry.cuh``
 beside it and the package's C entries ``sample_step`` and
@@ -183,9 +189,13 @@ template <int D, int ROWS = 64>
 __device__ __forceinline__ void fake_copy_tile(attn::bf16*, const attn::bf16*, int, int, long) {}
 template <int LDB>
 __device__ __forceinline__ void fake_copy_bias_tile(float*, const float*, int, int, int, bool) {}
+template <int ROWS, int W>
+__device__ __forceinline__ void fake_copy_bias_f32(float*, const float*, int, int, int) {}
 __device__ __forceinline__ void fake_cp4(void*, const void*, bool) {}
+__device__ __forceinline__ void fake_cp16(void*, const void*, bool) {}
 __device__ __forceinline__ void fake_tma_load_3d(void*, const CUtensorMap*, uint64_t*, int, int,
                                                  int) {}
+__device__ __forceinline__ void fake_tma_load_2d(void*, const CUtensorMap*, uint64_t*, int, int) {}
 __device__ __forceinline__ void fake_bulk_load(void*, const void*, uint32_t, uint64_t*) {}
 __device__ __forceinline__ void fake_expect_tx(uint64_t* bar, uint32_t) {
   hopper::mbar_arrive(bar);
@@ -204,15 +214,29 @@ VARIANTS = (
                   ("mbar_expect_tx(", "fake_expect_tx(")] + _STORES),
     ("nostores", _STORES),
 )
+# the training forward's (bias_attention.cu): its products, its fp32 bias
+# copies alone, or every copy (K, V, Q and the bias) taken out
+FWD_VARIANTS = (
+    ("noproducts", VARIANTS[0][1]),
+    ("nobias", [("copy_bias_f32<", "fake_copy_bias_f32<"),
+                ("tma_load_3d(st, bmap", "fake_tma_load_3d(st, bmap"),
+                ("tma_load_3d(st + L::BIAS_BOX, bmap", "fake_tma_load_3d(st + L::BIAS_BOX, bmap"),
+                ("mbar_expect_tx(&full[s], L::STAGE);",
+                 "mbar_expect_tx(&full[s], L::STAGE - 2 * L::BIAS_BOX);")]),
+    ("nocopies", [("copy_tile<", "fake_copy_tile<"), ("copy_bias_f32<", "fake_copy_bias_f32<"),
+                  ("cp_async_16(st + ", "fake_cp16(st + "), ("tma_load_3d(", "fake_tma_load_3d("),
+                  ("tma_load_2d(", "fake_tma_load_2d("), ("mbar_expect_tx(", "fake_expect_tx(")]),
+)
 
 
-def variant_sources(label: str, path: Path):
-    """Step 0's variants of a backward source: [(label, path)] under
+def variant_sources(label: str, path: Path, variants=VARIANTS):
+    """Step 0's variants of a source (``VARIANTS`` of a backward one,
+    ``FWD_VARIANTS`` of a forward one): [(label, path)] under
     ``build/variants/LABEL/``, the source's headers copied beside each."""
     text = path.read_text()
     include = '#include "mma.cuh"\n'
     out = []
-    for suffix, edits in VARIANTS:
+    for suffix, edits in variants:
         body = text
         for old, new in edits:
             body = body.replace(old, new)
@@ -243,7 +267,8 @@ from detail_tts_tpu_torch.ops import attention
 
 def train_row(b, t, h, d):
     # the training backward: the package's wrapper, and its three bare C
-    # entries on buffers allocated beforehand
+    # entries on buffers allocated beforehand; the training forward's wrapper
+    # and bare C entry
     g = torch.Generator(device="cuda").manual_seed(7)
     qkv = torch.randn((b, t, 3 * h * d), device="cuda", generator=g).to(torch.bfloat16)
     bias = torch.randn((h, t, t), device="cuda", generator=g)
@@ -273,7 +298,20 @@ def train_row(b, t, h, d):
         if rc != 0:
             raise RuntimeError("a backward entry failed")
 
-    return wrapper, entry
+    fwd = attention._library(attention.SOURCE)
+    out_t, lse_t = torch.empty_like(out), torch.empty_like(lse)
+
+    def fwd_wrapper():
+        attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
+
+    def fwd_entry():
+        if fwd.bias_attention_train_fwd(qkv.data_ptr(), bias.data_ptr(), out_t.data_ptr(),
+                                        lse_t.data_ptr(), b, t, h, d, sm * attention.LOG2E,
+                                        attention.LOG2E, 0, stream) != 0:
+            raise RuntimeError("bias_attention_train_fwd failed")
+
+    return dict(wrapper_us=wrapper, entry_us=entry, fwd_wrapper_us=fwd_wrapper,
+                fwd_entry_us=fwd_entry)
 
 
 def serve_row(b, t, h, d):
@@ -293,14 +331,14 @@ def serve_row(b, t, h, d):
         if lib.bias_attention_fwd(*args) != 0:
             raise RuntimeError("bias_attention_fwd failed")
 
-    return wrapper, entry
+    return dict(wrapper_us=wrapper, entry_us=entry)
 
 
 rows = []
 for b, t, h, d in shapes:
-    wrapper, entry = (train_row if train else serve_row)(b, t, h, d)
+    fns = (train_row if train else serve_row)(b, t, h, d)
     row = dict(shape=[b, t, h, d], source=attention.__file__)
-    for name, fn in (("wrapper_us", wrapper), ("entry_us", entry)):
+    for name, fn in fns.items():
         fn()
         torch.cuda.synchronize()
         loops = []
@@ -335,11 +373,11 @@ def host_main(args, labels, roots):
     for i, (b, t, h, d) in enumerate(shapes):
         row = dict(shape=[b, t, h, d], calls_a_loop=args.runs)
         for label in labels:
-            row[label] = {k: [turn[i][k] for turn in got[label]]
-                          for k in ("wrapper_us", "entry_us")}
-            print(f"  B={b} T={t} H={h} d={d}: {label} host us a call: wrapper "
-                  + ", ".join(f"{x:.2f}" for x in row[label]["wrapper_us"]) + "; C entry "
-                  + ", ".join(f"{x:.2f}" for x in row[label]["entry_us"])
+            keys = [k for k in got[label][0][i] if k.endswith("_us")]
+            row[label] = {k: [turn[i][k] for turn in got[label]] for k in keys}
+            print(f"  B={b} T={t} H={h} d={d}: {label} host us a call: "
+                  + "; ".join(f"{k[:-3]} " + ", ".join(f"{x:.2f}" for x in row[label][k])
+                              for k in keys)
                   + f" ({got[label][0][i]['source']})", flush=True)
         results.append(row)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "host": results}))
@@ -577,16 +615,23 @@ def bwd_case(b, t, h, d):
     return run, errors, wrapper
 
 
+def add_variants(args, labels, paths, variants):
+    """With ``--variants``: each source's (or each named one's) step-0
+    copies appended to ``labels`` and ``paths``."""
+    if args.variants is None:
+        return
+    for label, path in list(zip(labels, paths)):
+        if args.variants and label not in args.variants:
+            continue
+        for vlabel, vpath in variant_sources(label, path, variants):
+            labels.append(vlabel)
+            paths.append(vpath)
+
+
 def bwd_main(args, labels, paths):
     """``--train`` with backward sources: each entry and the whole backward
     of every source (and with ``--variants`` step 0's copies) in turns."""
-    if args.variants is not None:
-        for label, path in list(zip(labels, paths)):
-            if args.variants and label not in args.variants:
-                continue
-            for vlabel, vpath in variant_sources(label, path):
-                labels.append(vlabel)
-                paths.append(vpath)
+    add_variants(args, labels, paths, VARIANTS)
     with ThreadPoolExecutor(max_workers=len(paths)) as pool:
         built = dict(zip(labels, pool.map(load_bwd, paths)))
     for label in labels:
@@ -643,8 +688,8 @@ def main():
     ap.add_argument("--host", action="store_true",
                     help="the host us a serving call of each checkout (LABEL=root)")
     ap.add_argument("--variants", nargs="*", metavar="LABEL",
-                    help="with --train on backward sources: also time step 0's variants "
-                         "(products out, copies out) of these sources (of all without LABEL)")
+                    help="with --train: also time step 0's variants (products out, copies "
+                         "out) of these sources (of all without LABEL)")
     ap.add_argument("--cold", action="store_true",
                     help="evict L2 (a 256 MB write) before every timed launch")
     ap.add_argument("--shape", nargs="+", type=int, action="append",
@@ -669,6 +714,8 @@ def main():
     if args.train and all(p.stem.startswith("bias_attention_bwd") for p in paths):
         bwd_main(args, labels, paths)
         return
+    if args.train:
+        add_variants(args, labels, paths, FWD_VARIANTS)
     with ThreadPoolExecutor(max_workers=len(paths)) as pool:
         built = dict(zip(labels, pool.map(lambda p: load(p, entry), paths)))
     for label in labels:

@@ -12,7 +12,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    each kernel's ``ptxas -v`` registers and spills, and the CTAs per SM of
    the serving forward, the training forward and the backward kernels at
    d=48 and d=96 (the backward's wgmma kernels at d=48, with their waves
-   over the SMs at the step's trunk);
+   over the SMs at the step's trunk); the training forward's route
+   (``train_fwd_wgmma`` or ``train_fwd_mma``), query rows a CTA, registers,
+   CTAs an SM, shared memory and waves at ``TRAIN_FWD_SHAPES`` (the step's
+   three shapes, the raw buckets 1024 and 2824, the conditioner at 706
+   codes; C entry ``bias_attention_train_fwd_info``);
 3. kernel: ``bias_attention`` against its plain PyTorch version at the
    serving shapes and at T on the serving kernels' tile and bias-copy edges
    (bf16, plus fp32 and a fully masked row), each call's route
@@ -92,23 +96,28 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    and the backward (delta, dq and the dbias partials; dk and dv; the
    partials' sum in batch order) against their plain versions at the
    training step's attention shapes (bf16 and fp32, ragged T, a fully
-   masked row; batch 8 and a world-2 rank's batch 4), each call's backward
-   route (``bwd_wgmma``: bf16, d <= 64, T % 4 == 0; ``bwd_mma``; ``bwd_simt``)
-   printed, the C entry's against ``attention.bias_attention_bwd_route``'s
-   and counted once, the sum pass alone against its plain version, the
-   backward twice for bit-identical dbias, and CUDA-event times of bare
-   launches on buffers allocated beforehand (the training forward also
-   through its wrapper) beside the bound, the plain versions and SDPA with
-   a bias mask that requires grad, on the wgmma route at (8, 496, 16, 48)
-   and on the mma.sync route at (8, 124, 16, 96); then the four training
-   kernels at the data loader's raw buckets T = 512, 1024 and 2824 (batch
-   8, bf16), timed again at 1024;
+   masked row, whose lse must be ``MASKED_LSE``; batch 8 and a world-2
+   rank's batch 4), each call's forward route (``train_fwd_wgmma``: bf16,
+   d <= 64, T % 4 == 0, a grid of 128-row CTAs of at least half the SMs;
+   ``train_fwd_mma``; ``train_fwd_simt``) and backward
+   route (``bwd_wgmma``: the same shapes; ``bwd_mma``; ``bwd_simt``)
+   printed, the C entries' against ``attention.bias_attention_train_fwd_route``'s
+   and ``attention.bias_attention_bwd_route``'s and each counted once, the
+   forward twice bit-identical, the sum pass alone against its plain
+   version, the backward twice for bit-identical dbias, and CUDA-event times
+   of bare launches on buffers allocated beforehand (the training forward
+   also through its wrapper) beside the bound, the plain versions and SDPA
+   with a bias mask that requires grad, on the wgmma routes at (8, 496, 16,
+   48), (8, 124, 16, 48) and (8, 1024, 16, 48) and on the mma.sync routes at
+   (8, 124, 16, 96); then the four training kernels at the data loader's raw
+   buckets T = 512, 1024 and 2824 (batch 8, bf16);
 6. training: ``Trainer`` over ``Config()`` at full width, target ``diff``,
    micro-batch 8 x 496 frames x accum 16 of seeded synthetic batches: a
    warm-up step and three timed steps, each checked for finite loss and grad
    norm and for one launch of each training kernel per AttentionBlock call,
-   each backward call on the route its shape takes (``expected_bwd_routes``;
-   phases 6b and 7 gate the same);
+   each forward and backward call on the route its shape takes
+   (``expected_train_fwd_routes``, ``expected_bwd_routes``; phases 6b and 7
+   gate the same);
    moved trainable and bit-identical frozen weights; a repeated step's
    bit-identical loss and grad norm; on one micro-batch that keeps every
    layer, a gradient for every trainable tensor and the kernel route
@@ -392,7 +401,7 @@ def phase_build():
     prng._library()  # threefry.cu's entries bound
     for d in (48, 96):
         serve = fwd.bias_attention_fwd_blocks_per_sm(d)
-        train = fwd.bias_attention_train_fwd_blocks_per_sm(d)
+        train = train_fwd_info(8, 496, 16, d)["blocks"]  # its kernel at the trunk's T
         # the backward's mma.sync kernels, and at d <= 64 its wgmma ones
         occ = [lib.bias_attention_bwd_blocks_per_sm(k, d)
                for k in ((0, 1, 2, 3) if d <= 64 else (0, 1))]
@@ -405,6 +414,15 @@ def phase_build():
               flush=True)
     # the wgmma backward's grid at the step's trunk: CTAs, and waves over the SMs
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # the training forward at the step's shapes and the raw buckets: its
+    # route, tiling, registers, CTAs an SM, shared memory and waves
+    for b, t, h, d in TRAIN_FWD_SHAPES:
+        info = train_fwd_info(b, t, h, d)
+        ctas = b * -(-t // info["rows"]) * h
+        print(f"  training forward at ({b}, {t}, {h}, {d}): {info['route']}, "
+              f"{info['rows']}-row CTAs, {info['registers']} registers, {info['blocks']} "
+              f"CTAs an SM, {info['smem']} B shared a CTA; {ctas} CTAs, "
+              f"{ctas / (info['blocks'] * sms):.2f} waves over {sms} SMs", flush=True)
     ctas = 8 * -(-496 // 64) * 16
     for which, name in ((2, "bwd_dq_wgmma"), (3, "bwd_dkv_wgmma")):
         per_sm = lib.bias_attention_bwd_blocks_per_sm(which, 48)
@@ -413,6 +431,32 @@ def phase_build():
 
 
 ROUTE_CODES = {0: "serve_fwd_wgmma", 1: "serve_fwd_mma", 2: "bias_attention_simt"}
+# the training forward's shapes in phase 2: the step's trunk, latent
+# conditioner and contextual embedder, the raw buckets 1024 and 2824 and the
+# conditioner at 706 codes
+TRAIN_FWD_SHAPES = [(8, 496, 16, 48), (8, 124, 16, 48), (8, 124, 16, 96), (8, 1024, 16, 48),
+                    (8, 2824, 16, 48), (8, 706, 16, 48), (4, 496, 16, 48), (4, 124, 16, 48)]
+
+
+def sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def train_fwd_info(b, t, h, d, dtype=torch.bfloat16):
+    """The training forward's kernel and launch at one call, from the C
+    entry ``bias_attention_train_fwd_info``; its route checked against
+    ``attention.bias_attention_train_fwd_route``."""
+    info = (ctypes.c_int * 5)()
+    rc = attention._library(attention.SOURCE).bias_attention_train_fwd_info(
+        b, t, h, d, attention._DTYPE_CODE[dtype], info)
+    if rc != 0 or info[2] <= 0:
+        fail(f"bias_attention_train_fwd_info at {(b, t, h, d, dtype)}: {rc}, {list(info)}")
+    route = attention.TRAIN_FWD_ROUTES[info[0]]
+    mirror = attention.bias_attention_train_fwd_route(b, t, h, d, dtype, sm_count())
+    if route != mirror:
+        fail(f"the C entry routes the training forward at {(b, t, h, d, dtype)} to {route}, "
+             f"the wrapper to {mirror}")
+    return dict(route=route, rows=info[1], blocks=info[2], smem=info[3], registers=info[4])
 
 
 def route_info(route, d):
@@ -1167,8 +1211,10 @@ LSE_TOL = DBIAS_TOL = 1e-4
 RAW_BUCKETS_CHECKED = (512, 1024, 2824)
 TRAIN_KERNELS = ("bias_attention_train_fwd", "bias_attention_bwd_dq_dbias",
                  "bias_attention_bwd_dkv", "bias_attention_bwd_dbias_sum")
-# the bf16 backward's kernels by route (the entries above launch them)
-BWD_KERNELS = ("bwd_dq_wgmma", "bwd_dkv_wgmma", "bwd_dq_mma", "bwd_dkv_mma")
+# the bf16 forward's and backward's kernels by route (the entries above
+# launch them)
+ROUTE_KERNELS = ("train_fwd_wgmma", "train_fwd_mma", "bwd_dq_wgmma", "bwd_dkv_wgmma",
+                 "bwd_dq_mma", "bwd_dkv_mma")
 
 
 def scaled_err(x, ref, floor=1.0):
@@ -1236,7 +1282,9 @@ def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
         bias[h - 1, t // 3, :] = -1e9
     sm = 1.0 / math.sqrt(d)
     route = check_bwd_route(b, t, d, dtype)
+    fwd_route = train_fwd_info(b, t, h, d, dtype)["route"]
     before = attention.BWD_LAUNCHES_BY_ROUTE[route]
+    fwd_before = attention.TRAIN_FWD_LAUNCHES_BY_ROUTE[fwd_route]
     out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
     ref_out, ref_lse = attention.bias_attention_train_reference(qkv, bias, heads=h,
                                                                 sm_scale=sm)
@@ -1264,10 +1312,13 @@ def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
         qkv[-1:], bias, out[-1:], lse[-1:], dout[-1:], heads=h, sm_scale=sm)
     wrong = (last.abs().max() / ref_dbias.abs().max()).item()
     print(f"  B={b} T={t} H={h} d={d} {str(dtype)[6:]}{' masked row' if mask_row else ''} "
-          f"({route}): " + " ".join(f"{k} {e[0]:.2e}/{e[1]:.2e}" for k, e in errs.items())
+          f"({fwd_route}, {route}): "
+          + " ".join(f"{k} {e[0]:.2e}/{e[1]:.2e}" for k, e in errs.items())
           + f" {'ok' if ok else 'MISMATCH'}; dbias with a row lost {wrong:.2e}", flush=True)
     if attention.BWD_LAUNCHES_BY_ROUTE[route] != before + 1:
         fail(f"the backward at {(b, t, h, d, dtype)} was not counted once on {route}")
+    if attention.TRAIN_FWD_LAUNCHES_BY_ROUTE[fwd_route] != fwd_before + 1:
+        fail(f"the forward at {(b, t, h, d, dtype)} was not counted once on {fwd_route}")
     if not ok:
         fail(f"training kernels disagree with the plain versions at {(b, t, h, d, dtype)}")
     if not wrong > DBIAS_TOL:
@@ -1278,8 +1329,13 @@ def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
         if any(torch.count_nonzero(z).item() for z in zero) or not all(
                 torch.isfinite(x).all() for x in (out, lse, dqkv, dbias)):
             fail("a fully masked row is not exactly 0 in out, dq and dbias")
+        if not bool((lse[:, hh, r] == attention.MASKED_LSE).all()):
+            fail("a fully masked row's lse is not MASKED_LSE")
+    again = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        fail(f"the forward at {(b, t, h, d, dtype)} is not bit-identical from run to run")
     dq_kernel, dkv_kernel = attention.BWD_ROUTE_KERNELS[route]
-    return {"bias_attention_train_fwd": errs["out"],
+    return {"bias_attention_train_fwd": errs["out"], fwd_route: errs["out"],
             "bias_attention_bwd_dq_dbias": max(errs["dq"], errs["dbias"]),
             "bias_attention_bwd_dkv": errs["dkv"],
             "bias_attention_bwd_dbias_sum": check_dbias_sum(b, t, h, seed),
@@ -1324,6 +1380,7 @@ def time_train_kernels(b, t, h, d, sfu_per_s):
     qkv, bias, dout = train_inputs(b, t, h, d, torch.bfloat16, seed=7)
     sm = 1.0 / math.sqrt(d)
     route = check_bwd_route(b, t, d, torch.bfloat16)
+    fwd_route = train_fwd_info(b, t, h, d)["route"]
     out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
     out_t, lse_t = torch.empty_like(out), torch.empty_like(lse)
     tp = attention.padded_len(t)
@@ -1393,6 +1450,9 @@ def time_train_kernels(b, t, h, d, sfu_per_s):
             kernel = attention.BWD_ROUTE_KERNELS[route][name.endswith("dkv")]
             rows[kernel] = dict(rows[name], bwd_route=route)
             name_shown = f"{name} ({kernel})"
+        elif name == "bias_attention_train_fwd":
+            rows[fwd_route] = rows[name]
+            name_shown = f"{name} ({fwd_route})"
         else:
             name_shown = name
         print(f"  time B={b} T={t} H={h} d={d} bf16 {name_shown}: ms {ms[name]} "
@@ -1417,7 +1477,7 @@ def time_train_kernels(b, t, h, d, sfu_per_s):
 def phase_train_kernels(sfu_per_s):
     """Training kernels vs plain versions; returns (worst errors, time rows)."""
     print("== train kernels vs plain", flush=True)
-    worst = {name: (0.0, 0.0) for name in TRAIN_KERNELS + BWD_KERNELS}
+    worst = {name: (0.0, 0.0) for name in TRAIN_KERNELS + ROUTE_KERNELS}
     # B = 4: a rank's micro-batch of 8 over a world of 2 (phase 8)
     cases = [(8, 496, 16, 48, torch.bfloat16), (8, 124, 16, 48, torch.bfloat16),
              (8, 124, 16, 96, torch.bfloat16), (4, 496, 16, 48, torch.bfloat16),
@@ -1449,14 +1509,17 @@ def phase_train_kernels(sfu_per_s):
           f"dbias bit-identical {same[1]}", flush=True)
     if not all(same):
         fail("the backward is not bit-identical from run to run")
-    # the wgmma route at the step's trunk and the raw bucket 1024; the
-    # mma.sync route at the contextual embedder's shape (d = 96)
+    # the wgmma routes at the step's trunk, its latent conditioner and the
+    # raw bucket 1024; the mma.sync routes at the contextual embedder's shape
+    # (d = 96)
     rows, backend = time_train_kernels(8, 496, 16, 48, sfu_per_s)
+    rows_124, _ = time_train_kernels(8, 124, 16, 48, sfu_per_s)
     rows_1024, _ = time_train_kernels(8, 1024, 16, 48, sfu_per_s)
     rows_96, _ = time_train_kernels(8, 124, 16, 96, sfu_per_s)
-    for name in TRAIN_KERNELS + ("bwd_dq_wgmma", "bwd_dkv_wgmma"):
+    for name in TRAIN_KERNELS + ("train_fwd_wgmma", "bwd_dq_wgmma", "bwd_dkv_wgmma"):
+        rows[name]["at_124"] = rows_124[name]
         rows[name]["at_raw_bucket_1024"] = rows_1024[name]
-    rows.update({name: rows_96[name] for name in ("bwd_dq_mma", "bwd_dkv_mma")})
+    rows.update({name: rows_96[name] for name in ("train_fwd_mma", "bwd_dq_mma", "bwd_dkv_mma")})
     torch.cuda.empty_cache()
     return worst, rows, backend
 
@@ -1882,52 +1945,80 @@ def train_attention_shapes(cfg, batch, raw_frames, prompt_frames):
             (5, (batch, ctx, c.num_heads, 2 * d))]
 
 
-def expected_bwd_routes(cfg, layers_kept, batch, raw_frames, prompt_frames):
-    """Backward calls of each route (``attention.BWD_ROUTES``) in one step of
-    bf16 micro-batches, as ``attention.bias_attention_bwd_route`` routes
-    each AttentionBlock's shape."""
+def expected_routes(cfg, layers_kept, batch, raw_frames, prompt_frames, route_of, routes):
+    """Calls of each of ``routes`` in one step of bf16 micro-batches, as
+    ``route_of(b, t, h, d)`` routes each AttentionBlock's shape."""
     n = cfg.diffusion.num_layers
-    out = {route: 0 for route in attention.BWD_ROUTES}
+    out = {route: 0 for route in routes}
     for keep in layers_kept:
-        for calls, (b, t, _, d) in train_attention_shapes(cfg, batch, raw_frames,
+        for calls, (b, t, h, d) in train_attention_shapes(cfg, batch, raw_frames,
                                                           prompt_frames):
-            route = attention.bias_attention_bwd_route(b, t, d, torch.bfloat16)
-            out[route] += 3 + sum(keep[:n]) if calls is None else calls
+            out[route_of(b, t, h, d)] += 3 + sum(keep[:n]) if calls is None else calls
     return out
 
 
-# the backward calls of each route in phases 6, 6b and 7, each phase's
-# counts set to 0 before it and added here after it (kernels line)
-BWD_ROUTE_LAUNCHES = {route: 0 for route in attention.BWD_ROUTES}
+def expected_train_fwd_routes(cfg, layers_kept, batch, raw_frames, prompt_frames, sms):
+    """Forward calls of each route (``attention.TRAIN_FWD_ROUTES``) in one
+    step on a card of ``sms`` SMs, as
+    ``attention.bias_attention_train_fwd_route`` routes them."""
+    return expected_routes(
+        cfg, layers_kept, batch, raw_frames, prompt_frames,
+        lambda b, t, h, d: attention.bias_attention_train_fwd_route(b, t, h, d, torch.bfloat16,
+                                                                    sms),
+        attention.TRAIN_FWD_ROUTES)
+
+
+def expected_bwd_routes(cfg, layers_kept, batch, raw_frames, prompt_frames):
+    """Backward calls of each route (``attention.BWD_ROUTES``) in one step,
+    as ``attention.bias_attention_bwd_route`` routes them."""
+    return expected_routes(
+        cfg, layers_kept, batch, raw_frames, prompt_frames,
+        lambda b, t, h, d: attention.bias_attention_bwd_route(b, t, d, torch.bfloat16),
+        attention.BWD_ROUTES)
+
+
+# the forward and backward calls of each route in phases 6, 6b and 7, each
+# phase's counts set to 0 before it and added here after it (kernels line)
+ROUTE_LAUNCHES = {route: 0 for route in attention.TRAIN_FWD_ROUTES + attention.BWD_ROUTES}
+
+
+def route_counts_now():
+    """The training forward's launches and the backward's calls by route."""
+    return {**attention.TRAIN_FWD_LAUNCHES_BY_ROUTE, **attention.BWD_LAUNCHES_BY_ROUTE}
 
 
 def zero_train_counts():
-    """Every training kernel's count and the backward's by route to 0."""
+    """Every training kernel's count and the forward's and backward's by
+    route to 0."""
     for name in TRAIN_KERNELS:
         attention.TRAIN_LAUNCHES[name] = 0
-    for route in attention.BWD_ROUTES:
-        attention.BWD_LAUNCHES_BY_ROUTE[route] = 0
+    for counts in (attention.TRAIN_FWD_LAUNCHES_BY_ROUTE, attention.BWD_LAUNCHES_BY_ROUTE):
+        for route in counts:
+            counts[route] = 0
 
 
 def train_counts():
-    """The training kernels' launch counts and the backward's by route."""
-    return {**attention.TRAIN_LAUNCHES, **attention.BWD_LAUNCHES_BY_ROUTE}
+    """The training kernels' launch counts and the routes'."""
+    return {**attention.TRAIN_LAUNCHES, **route_counts_now()}
 
 
-def add_bwd_routes():
-    """This phase's backward calls by route into ``BWD_ROUTE_LAUNCHES``."""
-    for route, n in attention.BWD_LAUNCHES_BY_ROUTE.items():
-        BWD_ROUTE_LAUNCHES[route] += n
+def add_train_routes():
+    """This phase's forward and backward calls by route into
+    ``ROUTE_LAUNCHES``."""
+    for route, n in route_counts_now().items():
+        ROUTE_LAUNCHES[route] += n
 
 
 def check_step_routes(cfg, layers_kept, before, shape, what):
-    """One bf16 step's backward calls by route against
-    ``expected_bwd_routes`` at ``shape`` = (micro-batch, raw frames, prompt
-    frames); returns them."""
-    want = expected_bwd_routes(cfg, layers_kept, *shape)
-    got = {r: attention.BWD_LAUNCHES_BY_ROUTE[r] - before[r] for r in attention.BWD_ROUTES}
+    """One bf16 step's forward and backward calls by route against
+    ``expected_train_fwd_routes`` and ``expected_bwd_routes`` at ``shape`` =
+    (micro-batch, raw frames, prompt frames); returns them."""
+    want = {**expected_train_fwd_routes(cfg, layers_kept, *shape, sm_count()),
+            **expected_bwd_routes(cfg, layers_kept, *shape)}
+    now = route_counts_now()
+    got = {r: now[r] - before[r] for r in want}
     if got != want:
-        fail(f"{what}: backward calls by route {got}, expected {want}")
+        fail(f"{what}: forward and backward calls by route {got}, expected {want}")
     return got
 
 
@@ -2020,14 +2111,14 @@ def phase_training(cfg_full, logs):
         frames_s = accum * micro * frames / walls[-1]
         print(f"  step {state.step}: loss {logged['loss']:.6f} grad_norm "
               f"{logged['grad_norm']:.6f} wall {walls[-1]:.3f} s, {frames_s:.1f} mel "
-              f"frames/s; launches {got} (expected {want} each); backward calls by route "
-              f"{routes}", flush=True)
+              f"frames/s; launches {got} (expected {want} each); forward and backward calls "
+              f"by route {routes}", flush=True)
         if not (math.isfinite(logged["loss"]) and math.isfinite(logged["grad_norm"])):
             fail("the loss or grad norm is not finite")
         if any(v != want for v in got.values()):
             fail(f"training kernel launches {got}, expected {want} each")
     launches = dict(attention.TRAIN_LAUNCHES)
-    add_bwd_routes()
+    add_train_routes()
     if attention.LAUNCHES != 0:
         fail(f"the training step launched the serving kernel {attention.LAUNCHES} times")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2191,8 +2282,8 @@ def train_target(cfg_full, target, logs):
         print(f"  {target} step {state.step}: wall {walls[-1]:.3f} s, "
               f"{accum * micro * frames / walls[-1]:.1f} mel frames/s; "
               + ", ".join(f"{k} {v:.6g}" for k, v in scalars.items())
-              + f"; training-kernel launches {got} (expected {want} each), backward calls "
-              f"by route {routes}", flush=True)
+              + f"; training-kernel launches {got} (expected {want} each), forward and "
+              f"backward calls by route {routes}", flush=True)
         if not all(math.isfinite(v) for v in scalars.values()):
             fail(f"{target}: a loss or grad norm is not finite: {scalars}")
         if any(v != want for v in got.values()):
@@ -2200,7 +2291,7 @@ def train_target(cfg_full, target, logs):
     if attention.LAUNCHES != 0:
         fail(f"{target}: the step launched the serving kernel {attention.LAUNCHES} times")
     launches = dict(attention.TRAIN_LAUNCHES)
-    add_bwd_routes()
+    add_train_routes()
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_s = statistics.median(walls)
     print(f"  {target}: median step {step_s:.3f} s, {accum * micro * frames / step_s:.1f} "
@@ -2457,17 +2548,17 @@ def moments_equal(a, b):
 
 
 def diff_step_launched(cfg, metrics, counts, what, batch):
-    """One ``diff`` step's launches of each training kernel, and its backward
-    calls by route at ``batch``'s shapes, against the expected; returns the
-    former."""
+    """One ``diff`` step's launches of each training kernel, and its forward
+    and backward calls by route at ``batch``'s shapes, against the expected;
+    returns the former."""
     want = expected_train_launches(cfg, metrics["layers_kept"])
     got = {k: attention.TRAIN_LAUNCHES[k] - counts[k] for k in TRAIN_KERNELS}
     if any(v != want for v in got.values()):
         fail(f"{what}: training kernel launches {got}, expected {want} each")
     shape = (batch["raw_mel"].shape[1], batch["raw_mel"].shape[2], batch["mel"].shape[2])
     routes = check_step_routes(cfg, metrics["layers_kept"], counts, shape, what)
-    print(f"  {what}: backward calls by route {routes} at (micro-batch, raw, prompt frames) "
-          f"{shape}", flush=True)
+    print(f"  {what}: forward and backward calls by route {routes} at (micro-batch, raw, "
+          f"prompt frames) {shape}", flush=True)
     return want
 
 
@@ -2681,7 +2772,7 @@ def phase_corpus(cfg_full, root):
     zero_train_counts()
     resume_in_process(cfg, cfg_path, jsonl, root)
     train_launches = dict(attention.TRAIN_LAUNCHES)
-    add_bwd_routes()
+    add_train_routes()
     if attention.LAUNCHES != 0:
         fail(f"training from the corpus launched the serving kernel {attention.LAUNCHES} times")
     check_extract_vq(cfg, cfg_path, jsonl, cli / "ckpt")
@@ -4045,30 +4136,43 @@ def main():
                                  "bound_share", "wide_ctas", "wide_groups", "wide_cache")}
               for t in sample_times if t["shape"][1] > 65536],
         library="none", **sample_row))
-    sources = {"bias_attention_train_fwd": ("bias_attention.cu", 259),
-               "bias_attention_bwd_dbias_sum": ("bias_attention_bwd.cu", 286)}
-    for name in ("bias_attention_train_fwd", "bias_attention_bwd_dbias_sum"):
-        src, line = sources[name]
+    name = "bias_attention_bwd_dbias_sum"
+    kernels.append(dict(
+        name=name, route="cuda", source="detail_tts_tpu_torch/csrc/bias_attention_bwd.cu",
+        replaces="detail_tts_tpu/ops/pallas/attention.py:286",
+        launches=(train_launches[name] + target_launches[name] + corpus_launches[name]
+                  + parallel_launches[name] + mesh_launches[name]),
+        launches_over="3 diff steps (phase 6), 2 all steps (phase 6b), 6 diff steps "
+                      "from the corpus in this process (phase 7: trainer A's 5, R's 1), "
+                      "in phase 8 the world-1 NCCL Trainer's 2 diff and 2 all steps "
+                      "and both world-2 ranks' 2 diff steps, and both (1 x 2) ranks' "
+                      "diff step (phase 9)",
+        max_abs_err=train_worst[name][0], max_scaled_err=train_worst[name][1],
+        library="torch.sum over the batch", **train_times[name]))
+    # kernel 4's two bf16 kernels, by the route each launch took
+    for route, what in (("train_fwd_wgmma", "bf16 at d <= 64 and T % 4 == 0 on grids of at "
+                                            "least half the SMs: at micro-batch 8 the trunk, "
+                                            "the integrator and the latent conditioner"),
+                        ("train_fwd_mma", "the other bf16 calls: the contextual embedder "
+                                          "(d = 96), the latent conditioner at T % 4 != 0 "
+                                          "(706 codes), smaller grids")):
+        if ROUTE_LAUNCHES[route] == 0:
+            fail(f"the training forward's route {route} was launched no time on the main path")
         kernels.append(dict(
-            name=name, route="cuda", source=f"detail_tts_tpu_torch/csrc/{src}",
-            replaces=f"detail_tts_tpu/ops/pallas/attention.py:{line}",
-            launches=(train_launches[name] + target_launches[name] + corpus_launches[name]
-                      + parallel_launches[name] + mesh_launches[name]),
+            name=route, route="cuda", source="detail_tts_tpu_torch/csrc/bias_attention.cu",
+            replaces="detail_tts_tpu/ops/pallas/attention.py:259",
+            entry="bias_attention_train_fwd", takes=what, launches=ROUTE_LAUNCHES[route],
             launches_over="3 diff steps (phase 6), 2 all steps (phase 6b), 6 diff steps "
-                          "from the corpus in this process (phase 7: trainer A's 5, R's 1), "
-                          "in phase 8 the world-1 NCCL Trainer's 2 diff and 2 all steps "
-                          "and both world-2 ranks' 2 diff steps, and both (1 x 2) ranks' "
-                          "diff step (phase 9)",
-            max_abs_err=train_worst[name][0], max_scaled_err=train_worst[name][1],
-            library=("torch.sum over the batch" if name.endswith("sum") else
-                     "scaled_dot_product_attention (" + backend + ")"),
-            **train_times[name]))
+                          "from the corpus in this process (phase 7)",
+            max_abs_err=train_worst[route][0], max_scaled_err=train_worst[route][1],
+            library="scaled_dot_product_attention (" + backend + ")",
+            **train_times[route]))
     # the backward's two kernels of each bf16 route, launched once each a call
     for route, what in (("bwd_wgmma", "bf16 at d <= 64 and T % 4 == 0: the trunk, the "
                                       "integrator and the latent conditioner"),
                         ("bwd_mma", "the other bf16 calls: the contextual embedder (d = 96), "
                                     "the latent conditioner at T % 4 != 0 (706 codes)")):
-        if BWD_ROUTE_LAUNCHES[route] == 0:
+        if ROUTE_LAUNCHES[route] == 0:
             fail(f"the backward's route {route} was launched no time on the main path")
         for kernel, line in zip(attention.BWD_ROUTE_KERNELS[route], (286, 308)):
             kernels.append(dict(
@@ -4076,7 +4180,7 @@ def main():
                 source="detail_tts_tpu_torch/csrc/bias_attention_bwd.cu",
                 replaces=f"detail_tts_tpu/ops/pallas/attention.py:{line}",
                 entry="bias_attention_bwd_dq" if line == 286 else "bias_attention_bwd_dkv",
-                takes=what, launches=BWD_ROUTE_LAUNCHES[route],
+                takes=what, launches=ROUTE_LAUNCHES[route],
                 launches_over="3 diff steps (phase 6), 2 all steps (phase 6b), 6 diff steps "
                               "from the corpus in this process (phase 7)",
                 max_abs_err=train_worst[kernel][0], max_scaled_err=train_worst[kernel][1],

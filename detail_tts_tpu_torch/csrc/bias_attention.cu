@@ -86,7 +86,16 @@
 // 72-float rows would make two stages and Q 117 KB, past two CTAs an SM),
 // its 16-byte chunks XOR-swizzled by row so that the float2 pairs each
 // thread reads at the point of use hit distinct banks.  One barrier a key
-// tile.
+// tile.  It takes the bf16 calls that train_fwd_wgmma does not: d = 96
+// (the contextual embedder), T % 4 != 0 and grids of 128-row CTAs under
+// half the SMs (a data-parallel rank's small micro-batch).
+// ``train_fwd_wgmma`` below (bf16, d <= 64, T % 4 == 0: at a step's
+// micro-batch of 8 the trunk, the integrator, the latent conditioner at
+// code lengths that are multiples of 4) is serve_fwd_wgmma's design with the fp32 bias: one producer warp
+// copies Q once and each key tile's K, V and fp32 bias tile by TMA through
+// an mbarrier ring (no thread spends an instruction on a copy, and no
+// __syncthreads a tile), both products on wgmma from two consumer
+// warpgroups of 64 rows, 128 rows a CTA.
 //
 // Both bf16 kernels follow FlashAttention-2 on mma.sync (m16n8k16, fp32
 // accumulate): S, P and the output accumulator stay in registers, P goes
@@ -105,7 +114,6 @@
 // MASKED_LSE, so the backward's exp2(z - lse) gives it exactly zero
 // gradients.  Ragged T is masked in the kernel: keys past T get -inf and
 // zero K/V rows, query rows past T are computed on zeros and not written.
-// The training kernels stay on mma.sync and cp.async.
 #include <stdio.h>
 
 #include "hopper.cuh"
@@ -993,6 +1001,297 @@ train_fwd_mma(const bf16* __restrict__ qkv, const float* __restrict__ bias,
   }
 }
 
+// ------------------------------------------------- bf16 training: wgmma
+
+// train_fwd_wgmma takes bf16 at d <= 64 and T % 4 == 0 (an fp32 bias row of
+// T * 4 bytes is then a legal TMA stride) where its grid fills at least half
+// the SMs (train_route); train_fwd_mma takes the other bf16 calls.  A CTA
+// holds 128 query rows of one (b, h) in two consumer
+// warpgroups of 64 rows and one producer warp that keeps TMA copies in
+// flight through an mbarrier ring: serve_fwd_wgmma's 288 threads, two
+// CTAs an SM up to d = 48.  Shared memory, from a 1024-byte aligned base:
+// STAGES stages of [bias tile | K | V], then Q, then the barriers.  K, V and Q are the serving kernel's boxes of 16 channels by 64
+// rows (32-byte rows, 32-byte swizzle), one box a k-step of Q K^T and one
+// 16-channel atom of V in P V.  The fp32 bias tile [128 queries x 64 keys]
+// is two boxes of 32 keys (128-byte rows, 128-byte swizzle) from the
+// backward's (T keys, T queries, H) map, read as float2 pairs in the
+// accumulator layout (hopper::swz128): 256 bytes a warp in two wavefronts.
+// The producer initialises the barriers and issues Q and the first stages
+// before the CTA's one __syncthreads, so that a short key loop (two tiles
+// at T = 124) starts on copies already in flight.  Keys past T read 0 and
+// are set to -inf in the logits; query rows past T read 0 (their logits are
+// their zero bias) and are written neither in out nor in lse.
+// In turns with train_fwd_mma it is 19% faster at (8, 496, 16, 48) and 28%
+// at T = 1024, and ties at T = 124 (PERF.md §6).  Measured
+// on the H100 and dropped, each slower in turns: CTAs of one warpgroup (64
+// rows, three an SM; 8-32% slower at every step shape, even at T = 124,
+// where 128-row CTAs leave 4 of 132 SMs idle), and clusters of two batch
+// rows that multicast each bias box to both CTAs (half the bias bytes from
+// L2, 45-56% slower: a stage is refilled only when both CTAs are done with
+// it).
+//
+// Dynamic shared memory of a CTA with ``stages`` stages of ``stage`` bytes
+// and ``q`` bytes of Q: the tiles from a 1024-byte aligned base, then the
+// barriers.
+constexpr size_t ring_bytes(int stage, int q, int stages) {
+  return 1024 + (size_t)stages * stage + q + (2 * stages + 1) * sizeof(uint64_t);
+}
+// Whether ``blocks`` CTAs of ``bytes`` fit on an SM (228 KB, 1 KB reserved
+// a CTA, at most 227 KB a CTA).
+constexpr bool fits_sm(size_t bytes, int blocks) {
+  return bytes <= 227 * 1024 && blocks * (bytes + 1024) <= 228 * 1024;
+}
+
+template <int D>
+struct TrainWg {
+  static constexpr int BQ = 128;                      // query rows a CTA
+  static constexpr int KS = D / 16;                   // 16-channel boxes of a row
+  static constexpr int BOX = BK * 32;                 // a bf16 box: 64 rows of 32 bytes
+  static constexpr int KV = KS * BOX;                 // a K or V tile
+  static constexpr int BIAS_BOX = BQ * 128;           // an fp32 box: 128 rows of 32 keys
+  static constexpr int STAGE = 2 * BIAS_BOX + 2 * KV;  // bias, K, V of a key tile
+  static constexpr int QB = 2 * KV;                   // Q: two boxes a channel group
+  // two CTAs an SM where two stages fit (d <= 48), else one
+  static constexpr int kBlocks = fits_sm(ring_bytes(STAGE, QB, 2), 2) ? 2 : 1;
+  // then as many stages as those CTAs leave room for, up to four
+  static constexpr int STAGES = fits_sm(ring_bytes(STAGE, QB, 4), kBlocks)   ? 4
+                                : fits_sm(ring_bytes(STAGE, QB, 3), kBlocks) ? 3
+                                                                             : 2;
+  static constexpr size_t bytes = ring_bytes(STAGE, QB, STAGES);
+  static_assert(STAGE % 1024 == 0 && QB % 1024 == 0, "1024-byte aligned tiles");
+};
+
+// out = softmax2(q k^T scale + bias bias_scale) v and lse = m + log2(l), as
+// train_fwd_mma, for 128 query rows of one (b, h).
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, TrainWg<D>::kBlocks)
+train_fwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
+                const __grid_constant__ CUtensorMap bias_map, bf16* __restrict__ out,
+                float* __restrict__ lse, int t_len, int heads, float scale, float bias_scale) {
+  using namespace hopper;
+  using L = TrainWg<D>;
+  constexpr int STAGES = L::STAGES;
+  constexpr int kConsumerWarps = kWgConsumerWarps;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* q_smem = smem + STAGES * L::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(q_smem + L::QB);  // a stage's bytes landed
+  uint64_t* empty = full + STAGES;                                // every consumer is done with it
+  uint64_t* q_full = empty + STAGES;
+
+  const int b = blockIdx.x;  // batch fastest: the CTAs sharing a bias tile run together
+  const int q0 = blockIdx.y * L::BQ;
+  const int h = blockIdx.z;
+  const int n_tiles = (t_len + BK - 1) / BK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int col = h * 3 * D;  // channel of this head's q in a qkv row
+
+  const CUtensorMap* qmap = &qkv_map;
+  const CUtensorMap* bmap = &bias_map;
+  // the bias boxes, K and V of key tile j into its stage
+  auto load_stage = [&](int j) {
+    const int s = j % STAGES;
+    unsigned char* st = smem + s * L::STAGE;
+    mbar_expect_tx(&full[s], L::STAGE);
+    tma_load_3d(st, bmap, &full[s], j * BK, q0, h);
+    tma_load_3d(st + L::BIAS_BOX, bmap, &full[s], j * BK + 32, q0, h);
+#pragma unroll
+    for (int c = 0; c < L::KS; ++c) {
+      tma_load_3d(st + 2 * L::BIAS_BOX + c * L::BOX, qmap, &full[s], col + D + 16 * c, j * BK,
+                  b);
+      tma_load_3d(st + 2 * L::BIAS_BOX + L::KV + c * L::BOX, qmap, &full[s],
+                  col + 2 * D + 16 * c, j * BK, b);
+    }
+  };
+
+  const bool producer = warp == kConsumerWarps;
+  if (producer && lane == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_init(q_full, 1);
+    fence_barrier_init();
+    tma_prefetch(qmap);
+    tma_prefetch(bmap);
+    mbar_expect_tx(q_full, L::QB);
+#pragma unroll
+    for (int c = 0; c < L::KS; ++c) {
+      tma_load_3d(q_smem + 2 * c * L::BOX, qmap, q_full, col + 16 * c, q0, b);
+      tma_load_3d(q_smem + (2 * c + 1) * L::BOX, qmap, q_full, col + 16 * c, q0 + 64, b);
+    }
+    for (int j = 0; j < STAGES && j < n_tiles; ++j) load_stage(j);
+  }
+  __syncthreads();  // the barriers are initialised
+
+  if (producer) {
+    if (lane == 0) {
+      for (int j = STAGES; j < n_tiles; ++j) {
+        mbar_wait(&empty[j % STAGES], (j / STAGES - 1) & 1);
+        load_stage(j);
+      }
+    }
+    return;
+  }
+
+  // ----------------------------------------------------------- consumers
+  const int wg = warp / 4;  // rows 64 wg .. 64 wg + 63 of the CTA's block
+  const int g = lane / 4;   // this thread's rows: g and g + 8 of its warp's 16
+  const int t4 = lane % 4;  // and keys 2 t4, 2 t4 + 1 of each 8-key block
+  const int row0 = wg * 64 + (warp % 4) * 16;
+  // this thread's bias pair of key block n, row row0 + g, is at
+  // swz128(row0 + g, 8 (n % 4) + 2 t4) in box n / 4; row0 is a multiple of
+  // 8, so the swizzle is g and the pair of row g + 8 lies 8 rows further
+  const int bias_row = (row0 + g) * 32 + 2 * (t4 & 1);
+  const int bias_chunk = t4 >> 1;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = FLOOR, m1 = FLOOR;  // running max of rows g, g + 8
+  float l0 = 0.f, l1 = 0.f;      // and this thread's share of their sums
+  float s[32];                   // S of a 64 x 64 tile: key block n in s[4n .. 4n + 3]
+  uint32_t p[BK / 16][4];        // P as bf16 A fragments, one a 16-key k-step
+  uint64_t qd[L::KS];            // Q's descriptors: this warpgroup's rows, k-step c
+#pragma unroll
+  for (int c = 0; c < L::KS; ++c) {
+    qd[c] = desc_sw32(smem_addr(q_smem) + (2 * c + wg) * L::BOX, 16, 256);
+  }
+
+  // log2-domain logits of key tile j, the bias scaled at use; the online
+  // softmax in fp32 (O rescaled), and P rounded to bf16
+  auto softmax = [&](const unsigned char* st, int j) {
+    const float* bt = reinterpret_cast<const float*>(st) + bias_row;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      const float* bp =
+          bt + (n / 4) * (L::BIAS_BOX / 4) + ((((n % 4) * 2 + bias_chunk) ^ g) << 2);
+      const float2 b0 = *reinterpret_cast<const float2*>(bp);
+      const float2 b1 = *reinterpret_cast<const float2*>(bp + 8 * 32);
+      float* x = s + 4 * n;
+      x[0] = fmaf(x[0], scale, b0.x * bias_scale);
+      x[1] = fmaf(x[1], scale, b0.y * bias_scale);
+      x[2] = fmaf(x[2], scale, b1.x * bias_scale);
+      x[3] = fmaf(x[3], scale, b1.y * bias_scale);
+    }
+    if (j == n_tiles - 1 && t_len % BK != 0) {  // keys past T: TMA read 0, make them -inf
+      const int keys = t_len - j * BK;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (n * 8 + 2 * t4 + e >= keys) s[4 * n + e] = s[4 * n + 2 + e] = -INFINITY;
+        }
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {  // the 4 threads of a row
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = exp2_ftz(m0 - mn0), a1 = exp2_ftz(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      s[4 * n] = exp2_ftz(s[4 * n] - mn0);
+      s[4 * n + 1] = exp2_ftz(s[4 * n + 1] - mn0);
+      s[4 * n + 2] = exp2_ftz(s[4 * n + 2] - mn1);
+      s[4 * n + 3] = exp2_ftz(s[4 * n + 3] - mn1);
+      r0 += s[4 * n] + s[4 * n + 1];
+      r1 += s[4 * n + 2] + s[4 * n + 3];
+    }
+    l0 = l0 * a0 + r0;
+    l1 = l1 * a1 + r1;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= (i % 4 < 2 ? a0 : a1);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {  // key blocks 2 kk, 2 kk + 1: k-step kk
+      p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int sj = j % STAGES;
+    const unsigned char* st = smem + sj * L::STAGE;
+    const unsigned char* kt = st + 2 * L::BIAS_BOX;
+    // K's and V's descriptors in this stage, made before the products so
+    // that no other instruction writes a wgmma's input between them
+    uint64_t kd[L::KS], vd[BK / 16];
+#pragma unroll
+    for (int c = 0; c < L::KS; ++c) kd[c] = desc_sw32(smem_addr(kt) + c * L::BOX, 16, 256);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      vd[kk] = desc_sw32(smem_addr(kt + L::KV) + kk * 16 * 32, L::BOX, 256);
+    }
+    fence_regs(kd);
+    fence_regs(vd);
+    mbar_wait(&full[sj], (j / STAGES) & 1);
+    __syncwarp();
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < L::KS; ++c) wgmma_m64n64k16_ss(s, qd[c], kd[c], c);  // S = Q K^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(o);
+    softmax(st, j);
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(p[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D>(o, p[kk], vd[kk]);  // O += P V
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncwarp();  // every read of the stage is done
+    if (lane == 0) mbar_arrive(&empty[sj]);
+  }
+
+  // out = O / l, or 0 where the row sum is 0 (a fully masked row), and lse
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  const int qr0 = q0 + row0 + g, qr1 = qr0 + 8;
+  const int C = heads * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int oc = h * D + n * 8 + 2 * t4;
+    if (qr0 < t_len) {
+      *reinterpret_cast<uint32_t*>(out + ((long)b * t_len + qr0) * C + oc) =
+          pack_bf16(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+    }
+    if (qr1 < t_len) {
+      *reinterpret_cast<uint32_t*>(out + ((long)b * t_len + qr1) * C + oc) =
+          pack_bf16(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+    }
+  }
+  if (t4 == 0) {
+    float* lrow = lse + ((long)b * heads + h) * t_len;
+    if (qr0 < t_len) lrow[qr0] = l0 > 0.f ? m0 + log2f(l0) : MASKED_LSE;
+    if (qr1 < t_len) lrow[qr1] = l1 > 0.f ? m1 + log2f(l1) : MASKED_LSE;
+  }
+}
+
 // ------------------------------------------------------ float32: plain FMA
 
 // Shared-memory layout (row strides padded against bank conflicts).
@@ -1180,68 +1479,51 @@ cudaError_t prepare(Kernel kernel, size_t bytes) {
 char g_error[256] = "";
 constexpr int kOwnError = 20000;  // the error code that points at g_error
 
-// cuTensorMapEncodeTiled of the driver, found through the runtime so that
-// the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// The two tensor maps of a launch: qkv as (3 H D channels, T, B) in boxes of
-// 16 channels x 64 rows x 1 with the 32-byte swizzle (rows past T read 0,
-// never the next batch row's), the bias as (T keys, H T rows) in boxes of 64
-// keys x ``bias_rows`` rows with the 128-byte swizzle (keys past T read 0).
-int encode_maps(const Args& a, int head_dim, int bias_rows, CUtensorMap* qkv_map,
-                CUtensorMap* bias_map) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) {
+// The error code of an encode's result ``r`` (0 on success).
+int map_error(CUresult r, const Args& a, int head_dim, const char* what) {
+  if (r == CUDA_ERROR_NOT_FOUND) {
     snprintf(g_error, sizeof g_error, "cuTensorMapEncodeTiled not found in the driver");
     return kOwnError;
   }
-  const cuuint64_t c3 = 3ull * a.heads * head_dim;
-  const cuuint64_t qkv_dims[3] = {c3, (cuuint64_t)a.t_len, (cuuint64_t)a.batch};
-  const cuuint64_t qkv_strides[2] = {c3 * sizeof(bf16), c3 * sizeof(bf16) * a.t_len};
-  const cuuint32_t qkv_box[3] = {16, BK, 1};
-  const cuuint32_t ones[3] = {1, 1, 1};
-  CUresult r = encode(qkv_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(a.qkv),
-                      qkv_dims, qkv_strides, qkv_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r == CUDA_SUCCESS) {
-    const cuuint64_t bias_dims[2] = {(cuuint64_t)a.t_len, (cuuint64_t)a.heads * a.t_len};
-    const cuuint64_t bias_strides[1] = {(cuuint64_t)a.t_len * sizeof(bf16)};
-    const cuuint32_t bias_box[2] = {BK, (cuuint32_t)bias_rows};
-    r = encode(bias_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(a.bias),
-               bias_dims, bias_strides, bias_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  }
   if (r != CUDA_SUCCESS) {
     snprintf(g_error, sizeof g_error,
-             "cuTensorMapEncodeTiled refused a map (CUresult %d) at B=%d T=%d H=%d d=%d",
-             (int)r, a.batch, a.t_len, a.heads, head_dim);
+             "cuTensorMapEncodeTiled refused the %s map (CUresult %d) at B=%d T=%d H=%d d=%d",
+             what, (int)r, a.batch, a.t_len, a.heads, head_dim);
     return kOwnError;
   }
   return 0;
+}
+
+// qkv as (3 H D channels, T, B) in boxes of 16 channels x 64 rows x 1 with
+// the 32-byte swizzle (rows past T read 0, never the next batch row's).
+int encode_qkv_map(const Args& a, int head_dim, CUtensorMap* qkv_map) {
+  const cuuint64_t c3 = 3ull * a.heads * head_dim;
+  return map_error(hopper::encode_map_3d(qkv_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                         const_cast<void*>(a.qkv),
+                                         {c3, (cuuint64_t)a.t_len, (cuuint64_t)a.batch},
+                                         {c3 * sizeof(bf16), c3 * sizeof(bf16) * a.t_len},
+                                         {16, BK, 1}, CU_TENSOR_MAP_SWIZZLE_32B),
+                   a, head_dim, "qkv");
+}
+
+// The two tensor maps of a serving launch: qkv (encode_qkv_map), the bf16
+// bias as (T keys, H T rows) in boxes of 64 keys x ``bias_rows`` rows with
+// the 128-byte swizzle (keys past T read 0).
+int encode_maps(const Args& a, int head_dim, int bias_rows, CUtensorMap* qkv_map,
+                CUtensorMap* bias_map) {
+  int err = encode_qkv_map(a, head_dim, qkv_map);
+  if (err != 0) return err;
+  const hopper::EncodeTiled encode = hopper::tensor_map_encoder();
+  if (encode == nullptr) return map_error(CUDA_ERROR_NOT_FOUND, a, head_dim, "bias");
+  const cuuint64_t bias_dims[2] = {(cuuint64_t)a.t_len, (cuuint64_t)a.heads * a.t_len};
+  const cuuint64_t bias_strides[1] = {(cuuint64_t)a.t_len * sizeof(bf16)};
+  const cuuint32_t bias_box[2] = {BK, (cuuint32_t)bias_rows};
+  const cuuint32_t ones[2] = {1, 1};
+  return map_error(encode(bias_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(a.bias),
+                          bias_dims, bias_strides, bias_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE),
+                   a, head_dim, "bias");
 }
 
 // bf16 serving on serve_fwd_wgmma<D>: grid (B, T / 128, H).  The shared
@@ -1316,21 +1598,64 @@ int sm_count() {
   return sms;
 }
 
-// Training: dtype 0 bf16 qkv/out with an fp32 bias on train_fwd_mma, dtype
-// 1 fp32 on the scalar kernel; both write lse.  Up to d = 64, 128-row CTAs
-// (MT = 2) wherever their grid fills every SM at least once (the step's
-// T = 496 calls), else 64-row ones (the step's T = 124 calls would give the
-// 128-row tiling 128 CTAs for 132 SMs); above d = 64, where two m16 tiles'
-// registers do not fit, 64-row ones.
+// bf16 training on train_fwd_wgmma<D>: grid (B, T / 128, H).
 template <int D>
-cudaError_t launch_train(int dtype, const Args& a) {
-  if (dtype != 0) return launch_simt<D, true>(a);
+int launch_train_wgmma(const Args& a) {
+  using L = TrainWg<D>;
+  int err = (int)prepare(train_fwd_wgmma<D>, L::bytes);
+  if (err != 0) return err;
+  CUtensorMap qkv_map, bias_map;
+  if ((err = encode_qkv_map(a, D, &qkv_map)) != 0) return err;
+  err = map_error(hopper::encode_bias_f32_map(&bias_map, static_cast<const float*>(a.bias),
+                                              a.t_len, a.heads, L::BQ),
+                  a, D, "bias");
+  if (err != 0) return err;
+  const dim3 grid(a.batch, (a.t_len + L::BQ - 1) / L::BQ, a.heads);
+  train_fwd_wgmma<D><<<grid, kWgThreads, L::bytes, a.stream>>>(
+      qkv_map, bias_map, static_cast<bf16*>(a.out), a.lse, a.t_len, a.heads, a.scale,
+      a.bias_scale);
+  return (int)cudaGetLastError();
+}
+
+// The kernel each training forward call takes
+// (bias_attention_train_fwd_route): bf16 at d <= 64 and T % 4 == 0 on
+// train_fwd_wgmma where its 128-row grid fills at least half the SMs, the
+// other bf16 calls on train_fwd_mma, fp32 on the scalar kernel.  On a
+// smaller grid train_fwd_mma's 64-row CTAs, twice as many, won in turns:
+// 10-52% faster at (1, 496), (2, 256), (2, 124) and (4, 124) x 16 heads of
+// 48 (64 CTAs or fewer); at 128 CTAs the two tie at (8, 124) and (8, 128)
+// and train_fwd_wgmma wins at (2, 496) and (4, 256) (13-21% warm, 0-6%
+// cold; PERF.md §6).
+enum TrainRoute { kTrainWgmma = 0, kTrainMma = 1, kTrainSimt = 2 };
+
+int train_route(int batch, int t_len, int heads, int head_dim, int dtype) {
+  if (dtype != 0) return kTrainSimt;
+  if (head_dim > 64 || t_len % 4 != 0) return kTrainMma;
+  const long ctas = (long)batch * ((t_len + 127) / 128) * heads;
+  return 2 * ctas >= sm_count() ? kTrainWgmma : kTrainMma;
+}
+
+// Query rows a CTA of the route's kernel takes at this call: 128 on
+// train_fwd_wgmma; on train_fwd_mma 128 up to d = 64 wherever that grid
+// fills every SM, else 64 (above d = 64 two m16 tiles' registers do not fit
+// its warps).
+int train_rows(const Args& a, int head_dim, int route) {
+  if (route == kTrainSimt) return BQ;
+  if (route == kTrainWgmma) return TrainWg<16>::BQ;
+  const long ctas = (long)a.batch * ((a.t_len + 127) / 128) * a.heads;
+  return head_dim <= 64 && ctas >= sm_count() ? 128 : 64;
+}
+
+// Training: write out and lse on the route train_route names.
+template <int D>
+int launch_train(int dtype, const Args& a) {
+  const int route = train_route(a.batch, a.t_len, a.heads, D, dtype);
+  if (route == kTrainSimt) return (int)launch_simt<D, true>(a);
   if constexpr (D <= 64) {
-    constexpr int BQ = TrainFwd<D, 2>::BQ;
-    const long ctas = (long)a.batch * ((a.t_len + BQ - 1) / BQ) * a.heads;
-    if (ctas >= sm_count()) return launch_train_tile<D, 2>(a);
+    if (route == kTrainWgmma) return launch_train_wgmma<D>(a);
+    if (train_rows(a, D, route) == 128) return (int)launch_train_tile<D, 2>(a);
   }
-  return launch_train_tile<D, 1>(a);
+  return (int)launch_train_tile<D, 1>(a);
 }
 
 // CTAs of a kernel with ``bytes`` of dynamic shared memory that fit on one SM.
@@ -1377,18 +1702,38 @@ cudaError_t route_info(int route, int* regs, int* smem) {
   return err;
 }
 
-// The tiling of a grid that fills the card: 128 rows up to d = 64.
+// A training forward call's kernel and launch: info[0] the route, [1] query
+// rows a CTA, [2] CTAs that fit on one SM, [3] dynamic shared memory a CTA,
+// [4] registers a thread.
 template <int D>
-cudaError_t train_blocks_per_sm(int* blocks) {
-  constexpr int MT = D <= 64 ? 2 : 1;
-  return blocks_per_sm(train_fwd_mma<D, MT>, TrainFwd<D, MT>::bytes, blocks);
+cudaError_t train_info(int dtype, const Args& a, int* info) {
+  const int route = train_route(a.batch, a.t_len, a.heads, D, dtype);
+  info[0] = route;
+  info[1] = train_rows(a, D, route);
+  auto query = [&](auto kernel, size_t bytes, int threads) {
+    info[3] = (int)bytes;
+    cudaFuncAttributes fa;
+    cudaError_t err = prepare(kernel, bytes);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel, threads, bytes);
+    }
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+    if (err == cudaSuccess) info[4] = fa.numRegs;
+    return err;
+  };
+  if (route == kTrainSimt) return query(bias_attention_simt<D, true>, SimtLayout<D>::bytes, NTHREADS);
+  if constexpr (D <= 64) {
+    if (route == kTrainWgmma) return query(train_fwd_wgmma<D>, TrainWg<D>::bytes, kWgThreads);
+    if (info[1] == 128) return query(train_fwd_mma<D, 2>, TrainFwd<D, 2>::bytes, NTHREADS);
+  }
+  return query(train_fwd_mma<D, 1>, TrainFwd<D, 1>::bytes, NTHREADS);
 }
 
-enum class Op { kServe, kTrain, kServeOccupancy, kTrainOccupancy };
+enum class Op { kServe, kTrain, kServeOccupancy, kTrainInfo };
 
 template <Op kOp>
 int dispatch(int head_dim, int dtype, const Args& a, int* blocks = nullptr) {
-  constexpr bool kLaunch = kOp == Op::kServe || kOp == Op::kTrain;
+  constexpr bool kLaunch = kOp == Op::kServe || kOp == Op::kTrain || kOp == Op::kTrainInfo;
   if (kLaunch && (a.batch <= 0 || a.t_len <= 0 || a.heads <= 0 || (dtype != 0 && dtype != 1))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1397,7 +1742,7 @@ int dispatch(int head_dim, int dtype, const Args& a, int* blocks = nullptr) {
     return (int)(kOp == Op::kServe            ? launch_serve<DIM>(dtype, a)     \
                  : kOp == Op::kTrain          ? launch_train<DIM>(dtype, a)     \
                  : kOp == Op::kServeOccupancy ? serve_blocks_per_sm<DIM>(blocks) \
-                                              : train_blocks_per_sm<DIM>(blocks));
+                                              : train_info<DIM>(dtype, a, blocks));
   switch (head_dim) {
     DTTS_CASE(16) DTTS_CASE(32) DTTS_CASE(48) DTTS_CASE(64)
     DTTS_CASE(80) DTTS_CASE(96) DTTS_CASE(112) DTTS_CASE(128)
@@ -1442,13 +1787,29 @@ extern "C" int bias_attention_fwd_blocks_per_sm(int head_dim) {
   return err != 0 ? -err : blocks;
 }
 
-// CTAs of the bf16 training forward (train_fwd_mma) at ``head_dim`` that fit
-// on one SM of the current device, or minus the CUDA error code.
-extern "C" int bias_attention_train_fwd_blocks_per_sm(int head_dim) {
-  int blocks = 0;
-  const Args a{};
-  const int err = dispatch<Op::kTrainOccupancy>(head_dim, 0, a, &blocks);
-  return err != 0 ? -err : blocks;
+// The kernel a training forward call of this B, T, H, head_dim and dtype (0
+// bf16, 1 fp32) takes on the current device: 0 train_fwd_wgmma (bf16,
+// d <= 64, T % 4 == 0, B ceil(T / 128) H >= SMs / 2), 1 train_fwd_mma (the
+// other bf16 calls), 2 the scalar kernel; -1 for a shape or dtype the entry
+// refuses.
+extern "C" int bias_attention_train_fwd_route(int batch, int t_len, int heads, int head_dim,
+                                              int dtype) {
+  if (batch <= 0 || t_len <= 0 || heads <= 0 || head_dim % 16 != 0 || head_dim < 16 ||
+      head_dim > 128 || (dtype != 0 && dtype != 1)) {
+    return -1;
+  }
+  return train_route(batch, t_len, heads, head_dim, dtype);
+}
+
+// The kernel and launch of a training forward call at (batch, t_len, heads,
+// head_dim, dtype) on the current device, into info[5]: the route (as
+// bias_attention_train_fwd_route), query rows a CTA, CTAs that fit on one
+// SM, dynamic shared memory a CTA and registers a thread.  Returns the CUDA
+// error code (0 on success).
+extern "C" int bias_attention_train_fwd_info(int batch, int t_len, int heads, int head_dim,
+                                             int dtype, int* info) {
+  const Args a{nullptr, nullptr, nullptr, nullptr, batch, t_len, heads, 1.f, 1.f, nullptr};
+  return dispatch<Op::kTrainInfo>(head_dim, dtype, a, info);
 }
 
 // The kernel a serving call of this T, head_dim and dtype (0 bf16, 1 fp32)

@@ -548,12 +548,6 @@ struct BwdWg {
                                       (2 * kDkvStages + 1) * sizeof(uint64_t);
 };
 
-// Float offset of (row, key) in a [64 rows x 32 keys] fp32 box written by
-// TMA with the 128-byte swizzle: 16-byte chunk c of row r lives at c ^ (r & 7).
-__device__ __forceinline__ int swz128(int row, int key) {
-  return row * 32 + (((key >> 2) ^ (row & 7)) << 2) + (key & 3);
-}
-
 // a * b summed over the 8 bf16 pairs of two 16-byte words, in channel order
 __device__ __forceinline__ float dot8(const uint4& a, const uint4& b, float acc) {
   const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
@@ -1258,23 +1252,12 @@ int bwd_route(int t_len, int head_dim, int dtype) {
 char g_error[256] = "";
 constexpr int kOwnError = 20000;  // the error code that points at g_error
 
-// One tensor map of a launch: ``dims`` (innermost first) with byte strides
-// ``strides`` of the outer two, boxes ``box``.  Elements out of the tensor
-// read 0 and are not written.
-int encode(CUtensorMap* map, CUtensorMapDataType type, void* base, const cuuint64_t (&dims)[3],
-           const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3],
-           CUtensorMapSwizzle swizzle, const Args& a, const char* what) {
-  const hopper::EncodeTiled fn = hopper::tensor_map_encoder();
-  if (fn == nullptr) {
+// The error code of an encode's result ``r`` (0 on success).
+int map_error(CUresult r, const Args& a, const char* what) {
+  if (r == CUDA_ERROR_NOT_FOUND) {
     snprintf(g_error, sizeof g_error, "cuTensorMapEncodeTiled not found in the driver");
     return kOwnError;
   }
-  const cuuint32_t ones[3] = {1, 1, 1};
-  const CUresult r = fn(map, type, 3, base, dims, strides, box, ones,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        swizzle == CU_TENSOR_MAP_SWIZZLE_128B ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
-                                                              : CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) {
     snprintf(g_error, sizeof g_error,
              "cuTensorMapEncodeTiled refused the %s map (CUresult %d) at B=%d T=%d H=%d", what,
@@ -1282,6 +1265,13 @@ int encode(CUtensorMap* map, CUtensorMapDataType type, void* base, const cuuint6
     return kOwnError;
   }
   return 0;
+}
+
+// One bf16 or fp32 map of a launch (hopper::encode_map_3d).
+int encode(CUtensorMap* map, CUtensorMapDataType type, void* base, const cuuint64_t (&dims)[3],
+           const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3],
+           CUtensorMapSwizzle swizzle, const Args& a, const char* what) {
+  return map_error(hopper::encode_map_3d(map, type, base, dims, strides, box, swizzle), a, what);
 }
 
 // The maps of the wgmma kernels: qkv (3 H D channels, T, B) and dout (H D
@@ -1302,9 +1292,8 @@ int encode_maps(const Args& a, int head_dim, CUtensorMap* qkv_map, CUtensorMap* 
                  CU_TENSOR_MAP_SWIZZLE_32B, a, "dout");
   }
   if (err == 0) {
-    err = encode(bias_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, const_cast<float*>(a.bias),
-                 {t, t, (cuuint64_t)a.heads}, {t * 4, t * t * 4}, bias_box,
-                 CU_TENSOR_MAP_SWIZZLE_128B, a, "bias");
+    err = map_error(hopper::encode_bias_f32_map(bias_map, a.bias, a.t_len, a.heads, TILE), a,
+                    "bias");
   }
   if (err == 0 && part_map != nullptr) {
     err = encode(part_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.dbias_part,

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the wgmma kernels (the serving kernel
-// and the training backward): mbarriers, TMA tile loads and stores, 1-D bulk
-// copies, ldmatrix at a shared address, the wgmma products, and the host's
-// lookup of the driver's tensor-map encoder.
+// Hopper (sm_90a) building blocks of the wgmma kernels (the serving kernel,
+// the training forward and the training backward): mbarriers, TMA tile loads
+// and stores, 1-D bulk copies, ldmatrix at a shared address, the fp32 bias
+// box's swizzle, the wgmma products, and the host's tensor maps through the
+// driver's encoder.
 //
 // Shared-memory operand layout of every wgmma here: tiles of 32-byte rows
 // (16 bf16) written by TMA with the 32-byte swizzle (CU_TENSOR_MAP_SWIZZLE_32B),
@@ -129,6 +130,13 @@ __device__ __forceinline__ void ldmatrix_x4_at(uint32_t (&r)[4], uint32_t addr) 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// Float offset of (row, key) in an fp32 box of 32 keys (128-byte rows)
+// written by TMA with the 128-byte swizzle: 16-byte chunk c of row r lives
+// at c ^ (r & 7).  The fp32 bias tiles of the training forward and backward.
+__device__ __forceinline__ int swz128(int row, int key) {
+  return row * 32 + (((key >> 2) ^ (row & 7)) << 2) + (key & 3);
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -285,6 +293,32 @@ inline EncodeTiled tensor_map_encoder() {
     }
   }
   return fn;
+}
+
+// One 3-D tensor map: ``dims`` innermost first, the byte strides of the
+// outer two, boxes ``box``.  Elements out of the tensor read 0 and are not
+// written.  CUDA_ERROR_NOT_FOUND where the driver has no encoder.
+inline CUresult encode_map_3d(CUtensorMap* map, CUtensorMapDataType type, void* base,
+                              const cuuint64_t (&dims)[3], const cuuint64_t (&strides)[2],
+                              const cuuint32_t (&box)[3], CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = tensor_map_encoder();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return fn(map, type, 3, base, dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            swizzle == CU_TENSOR_MAP_SWIZZLE_128B ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
+                                                  : CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The fp32 (H, T, T) bias as (T keys, T queries, H) in boxes of 32 keys x
+// ``rows`` queries with the 128-byte swizzle (read through swz128).  T % 4
+// == 0: a row's stride is then a multiple of 16 bytes.
+inline CUresult encode_bias_f32_map(CUtensorMap* map, const float* bias, int t_len, int heads,
+                                    int rows) {
+  const cuuint64_t t = t_len;
+  return encode_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, const_cast<float*>(bias),
+                       {t, t, (cuuint64_t)heads}, {t * 4, t * t * 4},
+                       {32, (cuuint32_t)rows, 1}, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper

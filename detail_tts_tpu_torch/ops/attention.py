@@ -23,11 +23,19 @@ bias is <= -1e9 gives 0, and zero gradients.
   ``bias_attention_fwd_blocks_per_sm`` reports its CTAs per SM.
 * :func:`bias_attention_train` - the trainable version, a
   :class:`BiasAttentionFunction` over an fp32 natural-domain bias.  Its
-  forward is kernel ``bias_attention_train_fwd`` (the same source, on the
-  serving kernel's skeleton with the fp32 bias tile in the ``cp.async``
-  ring, 128 query rows a CTA where that grid fills the card, also writing
-  the row statistic lse = m + log2(l); the C entry
-  ``bias_attention_train_fwd_blocks_per_sm`` reports its CTAs per SM); its
+  forward is kernel ``bias_attention_train_fwd`` (the same source, also
+  writing the row statistic lse = m + log2(l)): in bf16 at d <= 64 and
+  T % 4 == 0, where its grid fills at least half the SMs,
+  ``train_fwd_wgmma`` (the fp32 bias, K and V by TMA from one
+  producer warp through an mbarrier ring, wgmma products, 128 query rows a
+  CTA), the other bf16 calls ``train_fwd_mma`` (the serving kernel's
+  ``mma.sync`` skeleton with the fp32 bias tile in the ``cp.async`` ring),
+  fp32 a scalar kernel.
+  :data:`TRAIN_FWD_LAUNCHES_BY_ROUTE` counts its launches by the route the C
+  entry ``bias_attention_train_fwd_route`` names, which
+  :func:`bias_attention_train_fwd_route` mirrors; the C entry
+  ``bias_attention_train_fwd_info`` reports a call's tiling, CTAs per SM,
+  shared memory and registers.  Its
   backward the kernels ``bias_attention_bwd_dq_dbias`` (delta, dq
   and one dbias partial per batch row), ``bias_attention_bwd_dkv`` and
   ``bias_attention_bwd_dbias_sum`` (the partials added in batch order)
@@ -91,6 +99,12 @@ TRAIN_LAUNCHES: Dict[str, int] = {"bias_attention_train_fwd": 0,
                                   "bias_attention_bwd_dq_dbias": 0,
                                   "bias_attention_bwd_dkv": 0,
                                   "bias_attention_bwd_dbias_sum": 0}
+# the training forward's kernels, in the C entry's route codes
+# (bias_attention_train_fwd_route)
+TRAIN_FWD_ROUTES = ("train_fwd_wgmma", "train_fwd_mma", "train_fwd_simt")
+# the launches of TRAIN_LAUNCHES["bias_attention_train_fwd"] by the kernel
+# that ran them
+TRAIN_FWD_LAUNCHES_BY_ROUTE: Dict[str, int] = {name: 0 for name in TRAIN_FWD_ROUTES}
 # the backward's routes, in the C entry's codes (bias_attention_bwd_route):
 # each launches its dq and its dk/dv kernel once a call
 BWD_ROUTES = ("bwd_wgmma", "bwd_mma", "bwd_simt")
@@ -292,8 +306,9 @@ _SIGNATURES = {
              "bias_attention_fwd_route_info": [_I, _I, _P, _P],
              "bias_attention_train_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F,
                                           _F, _I, _P],
+             "bias_attention_train_fwd_route": [_I, _I, _I, _I, _I],
+             "bias_attention_train_fwd_info": [_I, _I, _I, _I, _I, _P],
              "bias_attention_fwd_blocks_per_sm": [_I],
-             "bias_attention_train_fwd_blocks_per_sm": [_I],
              "bias_attention_error_string": [_I]},
     BWD_SOURCE: {"bias_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                            _I, _I, _I, _F, _F, _F, _I, _P],
@@ -369,6 +384,29 @@ def bias_attention_fwd_route(t: int, d: int, dtype: torch.dtype) -> str:
     return "serve_fwd_wgmma" if d <= 64 and t % 8 == 0 else "serve_fwd_mma"
 
 
+def bias_attention_train_fwd_route(b: int, t: int, h: int, d: int, dtype: torch.dtype,
+                                   sms: int) -> str:
+    """The kernel a training forward call of batch ``b``, length ``t``,
+    ``h`` heads of dim ``d`` and ``dtype`` takes on a card of ``sms`` SMs:
+    ``train_fwd_wgmma`` (bf16, d <= 64, T % 4 == 0: an fp32 bias row is then
+    a legal TMA stride; and its grid of 128-row CTAs, b * ceil(t / 128) * h,
+    at least half the SMs), ``train_fwd_mma`` (the other bf16 calls) or
+    ``train_fwd_simt`` (fp32).  It mirrors the C entry of the same name,
+    which decides the launch and names the route
+    :data:`TRAIN_FWD_LAUNCHES_BY_ROUTE` counts; the CPU tests and the
+    expected counts read this copy, and the card tests hold the two
+    equal."""
+    if b < 1 or t < 1 or h < 1:
+        raise ValueError(f"batch {b}, length {t} and heads {h} must be positive")
+    if dtype == torch.float32:
+        return "train_fwd_simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the training forward takes bfloat16 or float32, not {dtype}")
+    if d > 64 or t % 4:
+        return "train_fwd_mma"
+    return "train_fwd_wgmma" if 2 * b * -(-t // 128) * h >= sms else "train_fwd_mma"
+
+
 def bias_attention_bwd_route(b: int, t: int, d: int, dtype: torch.dtype) -> str:
     """The kernels a backward call of batch ``b``, length ``t``, head dim
     ``d`` and ``dtype`` takes on the card: ``bwd_wgmma`` (bf16, d <= 64,
@@ -436,20 +474,30 @@ def bias_attention_train_fwd(qkv: torch.Tensor, bias: torch.Tensor, *,
                              heads: int, sm_scale: float
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward: (B, T, 3C) qkv + fp32 natural (H, T, T) bias ->
-    (out (B, T, C), lse (B, H, T) fp32).  Kernel on CUDA, plain on the CPU."""
+    (out (B, T, C), lse (B, H, T) fp32).  On CUDA the kernel that
+    :func:`bias_attention_train_fwd_route` names; plain on the CPU."""
     _device_ok(qkv, "bias_attention_train_fwd")
     d = _check(qkv, bias, heads, bias_dtype=torch.float32)
     if qkv.device.type == "cpu":
         return bias_attention_train_reference(qkv, bias, heads=heads,
                                               sm_scale=sm_scale)
     b, t, _ = qkv.shape
+    code = _DTYPE_CODE[qkv.dtype]
     out = torch.empty((b, t, heads * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, heads, t), dtype=torch.float32, device=qkv.device)
     _launch(SOURCE, "bias_attention_train_fwd", qkv.data_ptr(), bias.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, t, heads, d, sm_scale * LOG2E,
-            LOG2E, _DTYPE_CODE[qkv.dtype], _stream(qkv))
+            LOG2E, code, _stream(qkv))
     TRAIN_LAUNCHES["bias_attention_train_fwd"] += 1
+    TRAIN_FWD_LAUNCHES_BY_ROUTE[_launched_train_fwd_route(b, t, heads, d, code)] += 1
     return out, lse
+
+
+@functools.lru_cache(maxsize=None)
+def _launched_train_fwd_route(b: int, t: int, h: int, d: int, code: int) -> str:
+    """The route the C entry ``bias_attention_train_fwd_route`` names for a
+    training forward call (asked once a shape)."""
+    return TRAIN_FWD_ROUTES[_library(SOURCE).bias_attention_train_fwd_route(b, t, h, d, code)]
 
 
 def bias_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, out: torch.Tensor,

@@ -140,11 +140,15 @@ def profile_train(target: str):
     trainer.train(max_steps=1)  # warm-up: builds the kernels
     wall = {}
     trainer.step_fn(trainer.state, trainer.next_batch(), trainer.generator, timings=wall)
-    before = dict(attention.TRAIN_LAUNCHES)
+
+    def counts():  # the training kernels' launches, the forward's by route
+        return {**attention.TRAIN_LAUNCHES, **attention.TRAIN_FWD_LAUNCHES_BY_ROUTE}
+
+    before = counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         metrics = trainer.step_fn(trainer.state, trainer.next_batch(), trainer.generator,
                                   timings={})
-    kernels = {k: v - before[k] for k, v in attention.TRAIN_LAUNCHES.items()}
+    kernels = {k: v - before[k] for k, v in counts().items()}
     stages = tuple(s for s in TRAIN_STAGES if s in wall)
     rows, device = split_by_stage(prof, stages, wall)
     loss = float(metrics["loss" if "loss" in metrics else "loss_gen_all"])

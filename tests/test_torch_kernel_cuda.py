@@ -161,9 +161,15 @@ def test_serving_kernel_fits_on_an_sm(cuda):
 
 
 def test_train_forward_fits_on_an_sm(cuda):
+    """CTAs an SM of the training forward's kernel at the trunk's shape
+    (``bias_attention_train_fwd_info``): train_fwd_wgmma at d = 48,
+    train_fwd_mma at d = 128."""
+    import ctypes
     lib = attention._library(attention.SOURCE)
-    assert lib.bias_attention_train_fwd_blocks_per_sm(48) >= 2
-    assert lib.bias_attention_train_fwd_blocks_per_sm(128) >= 1
+    for d, blocks in ((48, 2), (128, 1)):
+        info = (ctypes.c_int * 5)()
+        assert lib.bias_attention_train_fwd_info(8, 496, 16, d, 0, info) == 0
+        assert info[2] >= blocks
 
 
 def test_natural_domain_bias_is_scaled_to_log2(cuda):
@@ -208,11 +214,15 @@ def dbias_err(x, ref):
 
 def _check_train(qkv, bias, dout, h, d, dtype):
     """The training kernels against their plain versions at one shape: one
-    launch of each, the backward on the route the mirror names."""
+    launch of each, the forward and the backward on the routes the mirrors
+    name."""
     sm = 1 / math.sqrt(d)
     before = dict(attention.TRAIN_LAUNCHES)
     routes = dict(attention.BWD_LAUNCHES_BY_ROUTE)
+    fwd_routes = dict(attention.TRAIN_FWD_LAUNCHES_BY_ROUTE)
     route = attention.bias_attention_bwd_route(qkv.shape[0], qkv.shape[1], d, dtype)
+    fwd_route = attention.bias_attention_train_fwd_route(qkv.shape[0], qkv.shape[1], h, d, dtype,
+                                                         _sms())
     out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
     ref_out, ref_lse = attention.bias_attention_train_reference(qkv, bias, heads=h,
                                                                 sm_scale=sm)
@@ -226,12 +236,18 @@ def _check_train(qkv, bias, dout, h, d, dtype):
         "bias_attention_bwd_dkv": 1, "bias_attention_bwd_dbias_sum": 1}
     assert {k: v - routes[k] for k, v in attention.BWD_LAUNCHES_BY_ROUTE.items()} == {
         k: int(k == route) for k in attention.BWD_ROUTES}
+    assert {k: v - fwd_routes[k] for k, v in attention.TRAIN_FWD_LAUNCHES_BY_ROUTE.items()} == {
+        k: int(k == fwd_route) for k in attention.TRAIN_FWD_ROUTES}
     assert out.dtype == dqkv.dtype == dtype and dbias.dtype == torch.float32
     assert (out.float() - ref_out.float()).abs().max().item() <= TOL[dtype]
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL[dtype]
     assert scaled_err(dqkv, ref_dqkv) <= TOL[dtype]
     assert scaled_err(dbias, ref_dbias) <= TOL[dtype]
     return out, lse, dqkv, dbias
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def _heads_to_fill(b, t):
@@ -320,6 +336,117 @@ def test_train_backward_is_deterministic(cuda, b, t, h, d, route):
     second = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h, sm_scale=0.2)
     assert attention.BWD_LAUNCHES_BY_ROUTE[route] == before + 2
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+# train_fwd_wgmma against the plain version: out relative to max(1, max
+# |plain|), lse absolute (fp32 from logits summed in another order)
+FWD_LSE_TOL = 1e-4
+
+
+def _heads_for_wgmma(b, t):
+    """Heads enough for train_fwd_wgmma's grid of 128-row CTAs to fill half
+    the SMs, so that the route takes it at (b, t)."""
+    return -(-_sms() // (2 * b * -(-t // 128)))
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64])
+# train_fwd_wgmma's shapes (T % 4 == 0): one ragged tile (4), one whole tile
+# (64), the step's conditioner (124) and trunk (496), a 128-row block and
+# four rows (132), the raw bucket 1024
+@pytest.mark.parametrize("b,t", [(1, 4), (3, 64), (8, 124), (1, 132), (3, 496), (8, 496),
+                                 (8, 1024)])
+def test_train_fwd_wgmma_matches_plain_version(cuda, d, b, t):
+    h = max(16, _heads_for_wgmma(b, t))
+    qkv, bias, _ = _train_inputs(b, t, h, d, torch.bfloat16, seed=d * t + b, device=cuda)
+    assert attention.bias_attention_train_fwd_route(b, t, h, d, torch.bfloat16,
+                                                    _sms()) == "train_fwd_wgmma"
+    before = attention.TRAIN_FWD_LAUNCHES_BY_ROUTE["train_fwd_wgmma"]
+    out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
+    again = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
+    ref_out, ref_lse = attention.bias_attention_train_reference(qkv, bias, heads=h,
+                                                                sm_scale=1 / math.sqrt(d))
+    torch.cuda.synchronize()
+    assert attention.TRAIN_FWD_LAUNCHES_BY_ROUTE["train_fwd_wgmma"] == before + 2
+    assert out.shape == (b, t, h * d) and lse.shape == (b, h, t)
+    assert scaled_err(out, ref_out) <= TOL[torch.bfloat16]
+    assert (lse - ref_lse).abs().max().item() <= FWD_LSE_TOL
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])  # bit-identical repeat
+
+
+@pytest.mark.parametrize("d", [16, 48, 64])
+@pytest.mark.parametrize("b,t", [(3, 96), (8, 496)])
+def test_train_fwd_wgmma_masked_rows_and_keys(cuda, d, b, t):
+    """Fully masked query rows (in the first 128-row block and the ragged
+    last one) give out exactly 0 and lse = MASKED_LSE; masked keys, and the
+    keys and queries past T of a ragged last tile, take no weight."""
+    h = max(4, _heads_for_wgmma(b, t))
+    qkv, bias, _ = _train_inputs(b, t, h, d, torch.bfloat16, seed=d + t, device=cuda)
+    bias[1, 5, :] = -1e9           # a fully masked query row in the first block
+    bias[0, t - 26, :] = -1e9      # and one in the last
+    bias[2, :, t - 9:] = -1e9      # masked keys in every row of head 2
+    assert attention.bias_attention_train_fwd_route(b, t, h, d, torch.bfloat16,
+                                                    _sms()) == "train_fwd_wgmma"
+    out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
+    ref_out, ref_lse = attention.bias_attention_train_reference(qkv, bias, heads=h,
+                                                                sm_scale=1 / math.sqrt(d))
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    assert torch.count_nonzero(out[:, 5, d:2 * d]).item() == 0
+    assert torch.count_nonzero(out[:, t - 26, :d]).item() == 0
+    assert bool((lse[:, 1, 5] == attention.MASKED_LSE).all())
+    assert bool((lse[:, 0, t - 26] == attention.MASKED_LSE).all())
+    assert scaled_err(out, ref_out) <= TOL[torch.bfloat16]
+    assert (lse - ref_lse).abs().max().item() <= FWD_LSE_TOL
+
+
+def test_train_fwd_route_entry_matches_the_python_mirror(cuda):
+    """The C entry that decides the training forward's launch and names the
+    route counted, against ``attention.bias_attention_train_fwd_route`` over
+    every T % 4, head dim and dtype, at several batches and head counts (on
+    both sides of half the card's SMs)."""
+    lib = attention._library(attention.SOURCE)
+    for b, t, h, d, dtype in itertools.product((1, 2, 3, 4, 8, 9, 16),
+                                               list(range(1, 33)) + [124, 128, 132, 256, 495,
+                                                                     496, 706, 2824],
+                                               (4, 16, 65, 66), range(16, 129, 16),
+                                               (torch.bfloat16, torch.float32)):
+        code = lib.bias_attention_train_fwd_route(b, t, h, d, attention._DTYPE_CODE[dtype])
+        assert code >= 0
+        assert attention.TRAIN_FWD_ROUTES[code] == attention.bias_attention_train_fwd_route(
+            b, t, h, d, dtype, _sms())
+    assert lib.bias_attention_train_fwd_route(8, 496, 16, 40, 0) == -1
+    assert lib.bias_attention_train_fwd_route(8, 496, 16, 48, 2) == -1
+    assert lib.bias_attention_train_fwd_route(0, 496, 16, 48, 0) == -1
+    assert lib.bias_attention_train_fwd_route(8, 496, 0, 48, 0) == -1
+
+
+def test_train_fwd_wgmma_has_no_spills(cuda, monkeypatch, tmp_path):
+    """ptxas -v of every train_fwd_wgmma instantiation (d = 16-64): no
+    spill stores or loads."""
+    monkeypatch.setattr(attention, "BUILD_DIR", tmp_path)
+    _, _, log = attention.build(attention.SOURCE)
+    entry, lines = "", []
+    for line in log.splitlines():
+        if "entry function" in line:
+            entry = line.split("'")[1]
+        elif "train_fwd_wgmma" in entry and "spill" in line:
+            lines.append(line)
+    assert len(lines) == 4
+    assert all(" 0 bytes spill stores, 0 bytes spill loads" in x for x in lines)
+
+
+@pytest.mark.parametrize("b,t,d,route,rows,blocks", [
+    (8, 496, 48, "train_fwd_wgmma", 128, 2), (8, 124, 48, "train_fwd_wgmma", 128, 2),
+    (8, 1024, 48, "train_fwd_wgmma", 128, 2), (8, 124, 96, "train_fwd_mma", 64, 1),
+    (8, 706, 48, "train_fwd_mma", 128, 2), (4, 124, 48, "train_fwd_mma", 64, 2)])
+def test_train_fwd_info_at_the_step_shapes(cuda, b, t, d, route, rows, blocks):
+    """The C entry ``bias_attention_train_fwd_info``: the route, the tiling
+    and at least ``blocks`` CTAs an SM at the step's shapes (16 heads)."""
+    import ctypes
+    info = (ctypes.c_int * 5)()
+    lib = attention._library(attention.SOURCE)
+    assert lib.bias_attention_train_fwd_info(b, t, 16, d, 0, info) == 0
+    assert attention.TRAIN_FWD_ROUTES[info[0]] == route
+    assert info[1] == rows and info[2] >= blocks and info[3] > 0 and 0 < info[4] <= 255
 
 
 @pytest.mark.parametrize("d", [16, 32, 48, 64])
