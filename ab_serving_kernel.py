@@ -182,6 +182,10 @@ __device__ __forceinline__ void fake_ss(float (&d)[32], uint64_t a, uint64_t b, 
   d[0] += __uint_as_float((uint32_t)(a ^ b) & 0x3f800000u);
 }
 template <int N>
+__device__ __forceinline__ void fake_ss_n(float (&d)[N / 2], uint64_t a, uint64_t b, int) {
+  d[0] += __uint_as_float((uint32_t)(a ^ b) & 0x3f800000u);
+}
+template <int N>
 __device__ __forceinline__ void fake_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
   d[0] += __uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3] ^ (uint32_t)b) & 0x3f800000u);
 }
@@ -207,7 +211,7 @@ _STORES = [("*reinterpret_cast<float2*>(prow0 + col) = make_float2(s[n][0], s[n]
            ("tma_store_3d(&part_map, st + kBiasBox * 4, j * BK + 32, q0, b * heads + h);", "")]
 VARIANTS = (
     ("noproducts", [("mma_bf16(", "fake_mma_bf16("), ("wgmma_m64n64k16_ss(", "fake_ss("),
-                    ("wgmma_rs<D>(", "fake_rs<D>(")]),
+                    ("wgmma_ss<QH>(", "fake_ss_n<QH>("), ("wgmma_rs<D>(", "fake_rs<D>(")]),
     ("nocopies", [("copy_tile<", "fake_copy_tile<"), ("copy_bias_tile<", "fake_copy_bias_tile<"),
                   ("cp_async_4(Ls", "fake_cp4(Ls"), ("cp_async_4(Dl", "fake_cp4(Dl"),
                   ("tma_load_3d(", "fake_tma_load_3d("), ("bulk_load(", "fake_bulk_load("),

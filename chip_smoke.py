@@ -11,8 +11,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    one process each, at once; prints
    each kernel's ``ptxas -v`` registers and spills, and the CTAs per SM of
    the serving forward, the training forward and the backward kernels at
-   d=48 and d=96 (the backward's wgmma kernels at d=48, with their waves
-   over the SMs at the step's trunk); the training forward's route
+   d=48 and d=96 (the backward's wgmma kernels with their waves over the
+   SMs and their ptxas lines at the step's trunk, d=48, and its contextual
+   embedder, d=96); the training forward's route
    (``train_fwd_wgmma`` or ``train_fwd_mma``), query rows a CTA, registers,
    CTAs an SM, shared memory and waves at ``TRAIN_FWD_SHAPES`` (the step's
    three shapes, the raw buckets 1024 and 2824, the conditioner at 706
@@ -100,24 +101,31 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    rank's batch 4), each call's forward route (``train_fwd_wgmma``: bf16,
    d <= 64, T % 4 == 0, a grid of 128-row CTAs of at least half the SMs;
    ``train_fwd_mma``; ``train_fwd_simt``) and backward
-   route (``bwd_wgmma``: the same shapes; ``bwd_mma``; ``bwd_simt``)
-   printed, the C entries' against ``attention.bias_attention_train_fwd_route``'s
-   and ``attention.bias_attention_bwd_route``'s and each counted once, the
+   route (``bwd_wgmma``: bf16, d <= 64 or d = 96, T % 4 == 0; ``bwd_mma``;
+   ``bwd_simt``) printed, the C entries' against
+   ``attention.bias_attention_train_fwd_route``'s and
+   ``attention.bias_attention_bwd_route``'s and each counted once (the
+   backward also by head dim), the contextual embedder's d = 96 on both
+   backward routes (T = 124 and 125), the
    forward twice bit-identical, the sum pass alone against its plain
-   version, the backward twice for bit-identical dbias, and CUDA-event times
+   version, a fully masked row and masked keys exactly 0 (d = 48 and 96),
+   the backward twice for bit-identical dbias (d = 48 and 96), and
+   CUDA-event times
    of bare launches on buffers allocated beforehand (the training forward
    also through its wrapper) beside the bound, the plain versions and SDPA
    with a bias mask that requires grad, on the wgmma routes at (8, 496, 16,
-   48), (8, 124, 16, 48) and (8, 1024, 16, 48) and on the mma.sync routes at
-   (8, 124, 16, 96); then the four training kernels at the data loader's raw
-   buckets T = 512, 1024 and 2824 (batch 8, bf16);
+   48), (8, 124, 16, 48), (8, 1024, 16, 48) and (8, 124, 16, 96) and on the
+   mma.sync routes at (8, 125, 16, 96); then the four training kernels at
+   the data loader's raw buckets T = 512, 1024 and 2824 (batch 8, bf16);
 6. training: ``Trainer`` over ``Config()`` at full width, target ``diff``,
    micro-batch 8 x 496 frames x accum 16 of seeded synthetic batches: a
-   warm-up step and three timed steps, each checked for finite loss and grad
+   warm-up step and three timed steps, then one step of 8 x 500 frames
+   (the loader's other crop: T = 125, where the backward takes its
+   mma.sync kernels), each checked for finite loss and grad
    norm and for one launch of each training kernel per AttentionBlock call,
    each forward and backward call on the route its shape takes
-   (``expected_train_fwd_routes``, ``expected_bwd_routes``; phases 6b and 7
-   gate the same);
+   (``expected_train_fwd_routes``, ``expected_bwd_routes``,
+   ``expected_bwd_dims``; phases 6b and 7 gate the same);
    moved trainable and bit-identical frozen weights; a repeated step's
    bit-identical loss and grad norm; on one micro-batch that keeps every
    layer, a gradient for every trainable tensor and the kernel route
@@ -387,6 +395,7 @@ def phase_environment():
 def phase_build():
     print("== build", flush=True)
     t0 = time.perf_counter()
+    ptxas = {}  # entry name: its ptxas -v registers line
     for path, seconds, log in attention.build_all():
         print(f"built {path.name} in {seconds:.1f} s", flush=True)
         entry = None
@@ -395,6 +404,8 @@ def phase_build():
                 entry = line.split("'")[1]
             elif "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
                 print(f"  {entry[:90]}: {line.split(':', 1)[-1].strip()}", flush=True)
+                if "registers" in line:
+                    ptxas[entry] = line.split(":", 1)[-1].strip()
     print(f"build wall {time.perf_counter() - t0:.1f} s (parallel)", flush=True)
     fwd = attention._library(attention.SOURCE)
     lib = attention._library(attention.BWD_SOURCE)
@@ -402,17 +413,14 @@ def phase_build():
     for d in (48, 96):
         serve = fwd.bias_attention_fwd_blocks_per_sm(d)
         train = train_fwd_info(8, 496, 16, d)["blocks"]  # its kernel at the trunk's T
-        # the backward's mma.sync kernels, and at d <= 64 its wgmma ones
-        occ = [lib.bias_attention_bwd_blocks_per_sm(k, d)
-               for k in ((0, 1, 2, 3) if d <= 64 else (0, 1))]
+        # the backward's mma.sync kernels and its wgmma ones
+        occ = [lib.bias_attention_bwd_blocks_per_sm(k, d) for k in (0, 1, 2, 3)]
         if min(occ + [serve, train]) <= 0:
             fail(f"kernels at d={d} fit no CTA on an SM (serving {serve}, training "
                  f"forward {train}, backward {occ})")
         print(f"  CTAs per SM at d={d}: serving forward {serve}, training forward {train}, "
-              f"backward bwd_dq_mma {occ[0]}, bwd_dkv_mma {occ[1]}"
-              + (f", bwd_dq_wgmma {occ[2]}, bwd_dkv_wgmma {occ[3]}" if d <= 64 else ""),
-              flush=True)
-    # the wgmma backward's grid at the step's trunk: CTAs, and waves over the SMs
+              f"backward bwd_dq_mma {occ[0]}, bwd_dkv_mma {occ[1]}, bwd_dq_wgmma {occ[2]}, "
+              f"bwd_dkv_wgmma {occ[3]}", flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # the training forward at the step's shapes and the raw buckets: its
     # route, tiling, registers, CTAs an SM, shared memory and waves
@@ -423,11 +431,16 @@ def phase_build():
               f"{info['rows']}-row CTAs, {info['registers']} registers, {info['blocks']} "
               f"CTAs an SM, {info['smem']} B shared a CTA; {ctas} CTAs, "
               f"{ctas / (info['blocks'] * sms):.2f} waves over {sms} SMs", flush=True)
-    ctas = 8 * -(-496 // 64) * 16
-    for which, name in ((2, "bwd_dq_wgmma"), (3, "bwd_dkv_wgmma")):
-        per_sm = lib.bias_attention_bwd_blocks_per_sm(which, 48)
-        print(f"  {name}<48> at (8, 496, 16, 48): {ctas} CTAs, {per_sm} an SM, "
-              f"{ctas / (per_sm * sms):.2f} waves over {sms} SMs", flush=True)
+    # the wgmma backward's grid at the step's trunk and contextual embedder:
+    # CTAs, and waves over the SMs, beside each kernel's ptxas line
+    for b, t, h, d in ((8, 496, 16, 48), (8, 124, 16, 96)):
+        ctas = b * -(-t // 64) * h
+        for which, name in ((2, "bwd_dq_wgmma"), (3, "bwd_dkv_wgmma")):
+            per_sm = lib.bias_attention_bwd_blocks_per_sm(which, d)
+            line = next((v for k, v in ptxas.items() if f"{name}ILi{d}E" in k), "not printed")
+            print(f"  {name}<{d}> at ({b}, {t}, {h}, {d}): {ctas} CTAs, {per_sm} an SM, "
+                  f"{ctas / (per_sm * sms):.2f} waves over {sms} SMs; ptxas: {line}",
+                  flush=True)
 
 
 ROUTE_CODES = {0: "serve_fwd_wgmma", 1: "serve_fwd_mma", 2: "bias_attention_simt"}
@@ -1211,10 +1224,13 @@ LSE_TOL = DBIAS_TOL = 1e-4
 RAW_BUCKETS_CHECKED = (512, 1024, 2824)
 TRAIN_KERNELS = ("bias_attention_train_fwd", "bias_attention_bwd_dq_dbias",
                  "bias_attention_bwd_dkv", "bias_attention_bwd_dbias_sum")
+# the backward's wgmma kernels at the contextual embedder's d = 96, listed
+# apart from their d = 48 instantiations
+BWD_WGMMA_96 = ("bwd_dq_wgmma<96>", "bwd_dkv_wgmma<96>")
 # the bf16 forward's and backward's kernels by route (the entries above
 # launch them)
 ROUTE_KERNELS = ("train_fwd_wgmma", "train_fwd_mma", "bwd_dq_wgmma", "bwd_dkv_wgmma",
-                 "bwd_dq_mma", "bwd_dkv_mma")
+                 "bwd_dq_mma", "bwd_dkv_mma") + BWD_WGMMA_96
 
 
 def scaled_err(x, ref, floor=1.0):
@@ -1276,14 +1292,19 @@ def check_bwd_route(b, t, d, dtype):
 def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
     """Each training kernel against its plain version at one shape, and the
     dbias gate against a known-wrong dbias; returns {kernel: (max abs err,
-    scaled err)}: the backward's under its route's kernels' names too."""
+    scaled err)}: the backward's under its route's kernels' names too (at
+    d = 96 on the wgmma route, ``BWD_WGMMA_96``).  ``mask_row``: a fully
+    masked query row and the last 9 keys of head 0 masked in every row,
+    which must give exact zeros."""
     qkv, bias, dout = train_inputs(b, t, h, d, dtype, seed)
     if mask_row:
         bias[h - 1, t // 3, :] = -1e9
+        bias[0, :, t - 9:] = -1e9
     sm = 1.0 / math.sqrt(d)
     route = check_bwd_route(b, t, d, dtype)
     fwd_route = train_fwd_info(b, t, h, d, dtype)["route"]
     before = attention.BWD_LAUNCHES_BY_ROUTE[route]
+    before_dim = attention.BWD_LAUNCHES_BY_DIM.get((route, d), 0)
     fwd_before = attention.TRAIN_FWD_LAUNCHES_BY_ROUTE[fwd_route]
     out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
     ref_out, ref_lse = attention.bias_attention_train_reference(qkv, bias, heads=h,
@@ -1315,8 +1336,10 @@ def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
           f"({fwd_route}, {route}): "
           + " ".join(f"{k} {e[0]:.2e}/{e[1]:.2e}" for k, e in errs.items())
           + f" {'ok' if ok else 'MISMATCH'}; dbias with a row lost {wrong:.2e}", flush=True)
-    if attention.BWD_LAUNCHES_BY_ROUTE[route] != before + 1:
-        fail(f"the backward at {(b, t, h, d, dtype)} was not counted once on {route}")
+    if (attention.BWD_LAUNCHES_BY_ROUTE[route] != before + 1
+            or attention.BWD_LAUNCHES_BY_DIM[route, d] != before_dim + 1):
+        fail(f"the backward at {(b, t, h, d, dtype)} was not counted once on {route} "
+             f"at d = {d}")
     if attention.TRAIN_FWD_LAUNCHES_BY_ROUTE[fwd_route] != fwd_before + 1:
         fail(f"the forward at {(b, t, h, d, dtype)} was not counted once on {fwd_route}")
     if not ok:
@@ -1329,12 +1352,15 @@ def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
         if any(torch.count_nonzero(z).item() for z in zero) or not all(
                 torch.isfinite(x).all() for x in (out, lse, dqkv, dbias)):
             fail("a fully masked row is not exactly 0 in out, dq and dbias")
+        if torch.count_nonzero(g[:, t - 9:, 0, 1:]).item():
+            fail("masked keys do not get exactly 0 in dk and dv")
         if not bool((lse[:, hh, r] == attention.MASKED_LSE).all()):
             fail("a fully masked row's lse is not MASKED_LSE")
     again = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
     if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
         fail(f"the forward at {(b, t, h, d, dtype)} is not bit-identical from run to run")
-    dq_kernel, dkv_kernel = attention.BWD_ROUTE_KERNELS[route]
+    dq_kernel, dkv_kernel = (BWD_WGMMA_96 if (route, d) == ("bwd_wgmma", 96)
+                             else attention.BWD_ROUTE_KERNELS[route])
     return {"bias_attention_train_fwd": errs["out"], fwd_route: errs["out"],
             "bias_attention_bwd_dq_dbias": max(errs["dq"], errs["dbias"]),
             "bias_attention_bwd_dkv": errs["dkv"],
@@ -1447,7 +1473,8 @@ def time_train_kernels(b, t, h, d, sfu_per_s):
         share = ("" if dev[name] is None
                  else f" ({bounds[name][0] / dev[name]:.1%} of its device time)")
         if name in ("bias_attention_bwd_dq_dbias", "bias_attention_bwd_dkv"):
-            kernel = attention.BWD_ROUTE_KERNELS[route][name.endswith("dkv")]
+            kernel = (BWD_WGMMA_96 if (route, d) == ("bwd_wgmma", 96)
+                      else attention.BWD_ROUTE_KERNELS[route])[name.endswith("dkv")]
             rows[kernel] = dict(rows[name], bwd_route=route)
             name_shown = f"{name} ({kernel})"
         elif name == "bias_attention_train_fwd":
@@ -1479,9 +1506,13 @@ def phase_train_kernels(sfu_per_s):
     print("== train kernels vs plain", flush=True)
     worst = {name: (0.0, 0.0) for name in TRAIN_KERNELS + ROUTE_KERNELS}
     # B = 4: a rank's micro-batch of 8 over a world of 2 (phase 8)
+    # (B, T, 16, 96): the contextual embedder at a 496-frame prompt (T = 124,
+    # the wgmma route) and at the 500-frame crop (T = 125, mma.sync), and at
+    # the examples' batch 2
     cases = [(8, 496, 16, 48, torch.bfloat16), (8, 124, 16, 48, torch.bfloat16),
              (8, 124, 16, 96, torch.bfloat16), (4, 496, 16, 48, torch.bfloat16),
              (4, 124, 16, 48, torch.bfloat16), (4, 124, 16, 96, torch.bfloat16),
+             (8, 125, 16, 96, torch.bfloat16), (2, 124, 16, 96, torch.bfloat16),
              (8, 495, 16, 48, torch.bfloat16),
              (4, 495, 16, 48, torch.float32), (8, 124, 16, 48, torch.float32),
              (8, 124, 16, 96, torch.float32)]
@@ -1489,8 +1520,10 @@ def phase_train_kernels(sfu_per_s):
         errs = check_train_kernels(b, t, h, d, dtype, seed=100 + i)
         if dtype == torch.bfloat16:
             worst = {k: max(worst[k], errs.get(k, (0.0, 0.0))) for k in worst}
-    for dtype, t in ((torch.bfloat16, 495), (torch.bfloat16, 496), (torch.float32, 495)):
-        errs = check_train_kernels(3, t, 16, 48, dtype, seed=99, mask_row=True)
+    for dtype, t, d in ((torch.bfloat16, 495, 48), (torch.bfloat16, 496, 48),
+                        (torch.float32, 495, 48), (torch.bfloat16, 124, 96),
+                        (torch.bfloat16, 125, 96)):
+        errs = check_train_kernels(3, t, 16, d, dtype, seed=99, mask_row=True)
         if dtype == torch.bfloat16:
             worst = {k: max(worst[k], errs.get(k, (0.0, 0.0))) for k in worst}
     # the data loader's raw buckets, where the diffusion trunk runs on a
@@ -1500,26 +1533,31 @@ def phase_train_kernels(sfu_per_s):
         worst = {k: max(worst[k], errs.get(k, (0.0, 0.0))) for k in worst}
         torch.cuda.empty_cache()
 
-    qkv, bias, dout = train_inputs(8, 496, 16, 48, torch.bfloat16, seed=5)
-    out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=16, sm_scale=0.1)
-    first = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=16, sm_scale=0.1)
-    second = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=16, sm_scale=0.1)
-    same = [torch.equal(x, y) for x, y in zip(first, second)]
-    print(f"  backward twice at B=8 T=496: dqkv bit-identical {same[0]}, "
-          f"dbias bit-identical {same[1]}", flush=True)
-    if not all(same):
-        fail("the backward is not bit-identical from run to run")
+    for b, t, h, d in ((8, 496, 16, 48), (8, 124, 16, 96)):
+        qkv, bias, dout = train_inputs(b, t, h, d, torch.bfloat16, seed=5)
+        out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=0.1)
+        first = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h, sm_scale=0.1)
+        second = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h, sm_scale=0.1)
+        same = [torch.equal(x, y) for x, y in zip(first, second)]
+        print(f"  backward twice at B={b} T={t} H={h} d={d} "
+              f"({attention.bias_attention_bwd_route(b, t, d, torch.bfloat16)}): dqkv "
+              f"bit-identical {same[0]}, dbias bit-identical {same[1]}", flush=True)
+        if not all(same):
+            fail(f"the backward at {(b, t, h, d)} is not bit-identical from run to run")
     # the wgmma routes at the step's trunk, its latent conditioner and the
-    # raw bucket 1024; the mma.sync routes at the contextual embedder's shape
-    # (d = 96)
+    # raw bucket 1024, and at the contextual embedder's d = 96 (T = 124,
+    # where SDPA's backward is the yardstick); the mma.sync routes at the
+    # contextual embedder's shape at the 500-frame crop (T = 125)
     rows, backend = time_train_kernels(8, 496, 16, 48, sfu_per_s)
     rows_124, _ = time_train_kernels(8, 124, 16, 48, sfu_per_s)
     rows_1024, _ = time_train_kernels(8, 1024, 16, 48, sfu_per_s)
     rows_96, _ = time_train_kernels(8, 124, 16, 96, sfu_per_s)
+    rows_125, _ = time_train_kernels(8, 125, 16, 96, sfu_per_s)
     for name in TRAIN_KERNELS + ("train_fwd_wgmma", "bwd_dq_wgmma", "bwd_dkv_wgmma"):
         rows[name]["at_124"] = rows_124[name]
         rows[name]["at_raw_bucket_1024"] = rows_1024[name]
-    rows.update({name: rows_96[name] for name in ("train_fwd_mma", "bwd_dq_mma", "bwd_dkv_mma")})
+    rows.update({name: rows_96[name] for name in ("train_fwd_mma",) + BWD_WGMMA_96})
+    rows.update({name: rows_125[name] for name in ("bwd_dq_mma", "bwd_dkv_mma")})
     torch.cuda.empty_cache()
     return worst, rows, backend
 
@@ -1977,24 +2015,42 @@ def expected_bwd_routes(cfg, layers_kept, batch, raw_frames, prompt_frames):
         attention.BWD_ROUTES)
 
 
-# the forward and backward calls of each route in phases 6, 6b and 7, each
-# phase's counts set to 0 before it and added here after it (kernels line)
+def expected_bwd_dims(cfg, layers_kept, batch, raw_frames, prompt_frames):
+    """Backward calls of each (route, head dim) in one step, as
+    ``attention.BWD_LAUNCHES_BY_DIM`` counts them: the trunk's d and the
+    contextual embedder's 2 d on each route."""
+    d = cfg.diffusion.model_channels // cfg.diffusion.num_heads
+    return expected_routes(
+        cfg, layers_kept, batch, raw_frames, prompt_frames,
+        lambda b, t, h, hd: (attention.bias_attention_bwd_route(b, t, hd, torch.bfloat16), hd),
+        [(route, x) for route in attention.BWD_ROUTES for x in (d, 2 * d)])
+
+
+# the forward and backward calls of each route in phases 6, 6b and 7, and the
+# backward's by (route, head dim), each phase's counts set to 0 before it and
+# added here after it (kernels line)
 ROUTE_LAUNCHES = {route: 0 for route in attention.TRAIN_FWD_ROUTES + attention.BWD_ROUTES}
+PHASE6_STEPS = "4 diff steps (phase 6: 3 of 8 x 496 frames x accum 16, 1 of 8 x 500 frames)"
+TRAIN_LAUNCHES_OVER = (f"{PHASE6_STEPS}, 2 all steps (phase 6b), 6 diff steps from the corpus "
+                       "in this process (phase 7)")
 
 
 def route_counts_now():
-    """The training forward's launches and the backward's calls by route."""
-    return {**attention.TRAIN_FWD_LAUNCHES_BY_ROUTE, **attention.BWD_LAUNCHES_BY_ROUTE}
+    """The training forward's launches and the backward's calls by route,
+    and the backward's by (route, head dim)."""
+    return {**attention.TRAIN_FWD_LAUNCHES_BY_ROUTE, **attention.BWD_LAUNCHES_BY_ROUTE,
+            **attention.BWD_LAUNCHES_BY_DIM}
 
 
 def zero_train_counts():
     """Every training kernel's count and the forward's and backward's by
-    route to 0."""
+    route (and head dim) to 0."""
     for name in TRAIN_KERNELS:
         attention.TRAIN_LAUNCHES[name] = 0
     for counts in (attention.TRAIN_FWD_LAUNCHES_BY_ROUTE, attention.BWD_LAUNCHES_BY_ROUTE):
         for route in counts:
             counts[route] = 0
+    attention.BWD_LAUNCHES_BY_DIM.clear()
 
 
 def train_counts():
@@ -2006,17 +2062,19 @@ def add_train_routes():
     """This phase's forward and backward calls by route into
     ``ROUTE_LAUNCHES``."""
     for route, n in route_counts_now().items():
-        ROUTE_LAUNCHES[route] += n
+        ROUTE_LAUNCHES[route] = ROUTE_LAUNCHES.get(route, 0) + n
 
 
 def check_step_routes(cfg, layers_kept, before, shape, what):
-    """One bf16 step's forward and backward calls by route against
-    ``expected_train_fwd_routes`` and ``expected_bwd_routes`` at ``shape`` =
+    """One bf16 step's forward and backward calls by route (and the
+    backward's by head dim) against ``expected_train_fwd_routes``,
+    ``expected_bwd_routes`` and ``expected_bwd_dims`` at ``shape`` =
     (micro-batch, raw frames, prompt frames); returns them."""
     want = {**expected_train_fwd_routes(cfg, layers_kept, *shape, sm_count()),
-            **expected_bwd_routes(cfg, layers_kept, *shape)}
+            **expected_bwd_routes(cfg, layers_kept, *shape),
+            **expected_bwd_dims(cfg, layers_kept, *shape)}
     now = route_counts_now()
-    got = {r: now[r] - before[r] for r in want}
+    got = {r: now.get(r, 0) - before.get(r, 0) for r in want}
     if got != want:
         fail(f"{what}: forward and backward calls by route {got}, expected {want}")
     return got
@@ -2117,6 +2175,30 @@ def phase_training(cfg_full, logs):
             fail("the loss or grad norm is not finite")
         if any(v != want for v in got.values()):
             fail(f"training kernel launches {got}, expected {want} each")
+    # one step at the loader's other crop, 500 frames (micro-batch 8, accum
+    # 1): the latent conditioner and the contextual embedder at T = 125
+    # (T % 4 != 0) take the backward's mma.sync kernels, as such a batch from
+    # a corpus does
+    crop = 500
+    trainer.data_iter = synthetic_batches(cfg, 1, micro, crop, text_len, generator=data_gen,
+                                          device="cuda")
+    counts = train_counts()
+    t0 = time.perf_counter()
+    logged = trainer.train(max_steps=state.step + 1, log_every=1)
+    wall = time.perf_counter() - t0
+    m = trainer.last_metrics
+    want = expected_train_launches(cfg, m["layers_kept"])
+    got = {k: attention.TRAIN_LAUNCHES[k] - counts[k] for k in TRAIN_KERNELS}
+    routes = check_step_routes(cfg, m["layers_kept"], counts, (micro, crop, crop),
+                               f"step {state.step} at {crop} frames")
+    print(f"  step {state.step} at {crop} frames, accum 1: loss {logged['loss']:.6f} grad_norm "
+          f"{logged['grad_norm']:.6f} wall {wall:.3f} s; launches {got} (expected {want} "
+          f"each); forward and backward calls by route {routes}", flush=True)
+    if not (math.isfinite(logged["loss"]) and math.isfinite(logged["grad_norm"])):
+        fail(f"the loss or grad norm at {crop} frames is not finite")
+    if any(v != want for v in got.values()):
+        fail(f"training kernel launches at {crop} frames {got}, expected {want} each")
+    trainer.data_iter = data
     launches = dict(attention.TRAIN_LAUNCHES)
     add_train_routes()
     if attention.LAUNCHES != 0:
@@ -4142,7 +4224,7 @@ def main():
         replaces="detail_tts_tpu/ops/pallas/attention.py:286",
         launches=(train_launches[name] + target_launches[name] + corpus_launches[name]
                   + parallel_launches[name] + mesh_launches[name]),
-        launches_over="3 diff steps (phase 6), 2 all steps (phase 6b), 6 diff steps "
+        launches_over=f"{PHASE6_STEPS}, 2 all steps (phase 6b), 6 diff steps "
                       "from the corpus in this process (phase 7: trainer A's 5, R's 1), "
                       "in phase 8 the world-1 NCCL Trainer's 2 diff and 2 all steps "
                       "and both world-2 ranks' 2 diff steps, and both (1 x 2) ranks' "
@@ -4155,34 +4237,48 @@ def main():
                                             "the integrator and the latent conditioner"),
                         ("train_fwd_mma", "the other bf16 calls: the contextual embedder "
                                           "(d = 96), the latent conditioner at T % 4 != 0 "
-                                          "(706 codes), smaller grids")):
+                                          "(the 500-frame crop's 125, 706 codes), smaller "
+                                          "grids")):
         if ROUTE_LAUNCHES[route] == 0:
             fail(f"the training forward's route {route} was launched no time on the main path")
         kernels.append(dict(
             name=route, route="cuda", source="detail_tts_tpu_torch/csrc/bias_attention.cu",
             replaces="detail_tts_tpu/ops/pallas/attention.py:259",
             entry="bias_attention_train_fwd", takes=what, launches=ROUTE_LAUNCHES[route],
-            launches_over="3 diff steps (phase 6), 2 all steps (phase 6b), 6 diff steps "
-                          "from the corpus in this process (phase 7)",
+            launches_over=TRAIN_LAUNCHES_OVER,
             max_abs_err=train_worst[route][0], max_scaled_err=train_worst[route][1],
             library="scaled_dot_product_attention (" + backend + ")",
             **train_times[route]))
-    # the backward's two kernels of each bf16 route, launched once each a call
-    for route, what in (("bwd_wgmma", "bf16 at d <= 64 and T % 4 == 0: the trunk, the "
-                                      "integrator and the latent conditioner"),
-                        ("bwd_mma", "the other bf16 calls: the contextual embedder (d = 96), "
-                                    "the latent conditioner at T % 4 != 0 (706 codes)")):
+    # the backward's two kernels of each bf16 route, launched once each a
+    # call; the wgmma kernels at the trunk's d = 48 and at the contextual
+    # embedder's d = 96 apart (each instantiation its own launches)
+    d = cfg.diffusion.model_channels // cfg.diffusion.num_heads
+    for route, names, dim, what in (
+            ("bwd_wgmma", attention.BWD_ROUTE_KERNELS["bwd_wgmma"], d,
+             "bf16 at d <= 64 and T % 4 == 0: the trunk, the integrator and the latent "
+             "conditioner"),
+            ("bwd_wgmma", BWD_WGMMA_96, 2 * d,
+             "bf16 at d = 96 and T % 4 == 0: the contextual embedder at a 496-frame prompt "
+             "(T = 124)"),
+            ("bwd_mma", attention.BWD_ROUTE_KERNELS["bwd_mma"], None,
+             "the other bf16 calls, T % 4 != 0: the latent conditioner and the contextual "
+             "embedder (d = 96) at the 500-frame crop (T = 125), the latent conditioner "
+             "at 706 codes")):
+        n = ROUTE_LAUNCHES[route] if dim is None else ROUTE_LAUNCHES.get((route, dim), 0)
         if ROUTE_LAUNCHES[route] == 0:
             fail(f"the backward's route {route} was launched no time on the main path")
-        for kernel, line in zip(attention.BWD_ROUTE_KERNELS[route], (286, 308)):
+        if n == 0:
+            fail(f"the backward's kernels {names} were launched no time on the main path")
+        by_dim = {str(k[1]): v for k, v in ROUTE_LAUNCHES.items()
+                  if isinstance(k, tuple) and k[0] == route and dim in (None, k[1])}
+        for kernel, line in zip(names, (286, 308)):
             kernels.append(dict(
                 name=kernel, route="cuda",
                 source="detail_tts_tpu_torch/csrc/bias_attention_bwd.cu",
                 replaces=f"detail_tts_tpu/ops/pallas/attention.py:{line}",
                 entry="bias_attention_bwd_dq" if line == 286 else "bias_attention_bwd_dkv",
-                takes=what, launches=ROUTE_LAUNCHES[route],
-                launches_over="3 diff steps (phase 6), 2 all steps (phase 6b), 6 diff steps "
-                              "from the corpus in this process (phase 7)",
+                takes=what, launches=n, launches_by_head_dim=by_dim,
+                launches_over=TRAIN_LAUNCHES_OVER,
                 max_abs_err=train_worst[kernel][0], max_scaled_err=train_worst[kernel][1],
                 library="scaled_dot_product_attention (" + backend + ") backward",
                 **train_times[kernel]))

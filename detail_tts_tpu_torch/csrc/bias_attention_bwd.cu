@@ -40,7 +40,8 @@
 // Each kernel recomputes P from (q, k, bias, lse), so the (B, H, T, T)
 // probabilities never reach memory.
 //
-// bf16 at d = 96 and T % 4 != 0, FlashAttention-2 style on mma.sync
+// bf16 at T % 4 != 0 (and at d = 80, 112, 128, for which the wgmma kernels
+// are not built), FlashAttention-2 style on mma.sync
 // (m16n8k16, fp32 accumulate), 4 warps of 16 rows per CTA, each warp
 // walking its 64-wide tile in two halves of 32 columns so that S and dP
 // take 32 registers, not 64 (bwd_dq_mma, bwd_dkv_mma):
@@ -66,9 +67,11 @@
 // outside the cp.async ring (0.267-0.268 ms); and delta in PyTorch (~0.1
 // ms, ~5 launches): 0.876 ms for the backward, against SDPA's 0.436 ms.
 //
-// bf16 at d <= 64 and T % 4 == 0 (every d = 48 call of the training step
-// and of the raw buckets but the latent conditioner at 706 codes) takes the
-// two redesigned for Hopper, bwd_dq_wgmma and bwd_dkv_wgmma (the section
+// bf16 at d <= 64 or d = 96 and T % 4 == 0 (every call of the training
+// step and of the raw buckets but those at T % 4 != 0: the latent
+// conditioner at 706 codes, and the latent conditioner and the contextual
+// embedder at the loader's 500-frame crop, T = 125) takes the two
+// redesigned for Hopper, bwd_dq_wgmma and bwd_dkv_wgmma (the section
 // below says how): the same grids and arithmetic, every product on wgmma,
 // the tiles copied by TMA from one producer warp through an mbarrier ring,
 // dX stored into its partial by TMA: at the step's trunk 17% (dq) and 44%
@@ -83,6 +86,15 @@
 // the partials and the sum pass together (0.160-0.166 against 0.144 ms at
 // the step's trunk): the barriers' lockstep and the remote reads each cost
 // about what the partials' bytes did.  It was removed.
+// At d = 96 (the contextual embedder) the same two kernels take 6'
+// a query tile in two halves of 32 (S^T and dP^T hold 16 registers each
+// beside dk and dv's 96: 164 registers, two CTAs an SM), the bf16 tiles in
+// 64-byte boxes (with 32-byte ones TMA's requests held 5': 0.0193 against
+// 0.0170 ms at (8, 124, 16, 96)), and 5' reads delta's dO from its tile in
+// shared memory, not a second time from L2 (0.0170 -> 0.0144; at d = 48 it
+// gains 9% at T = 124 and ties at the trunk).  In turns against the
+// mma.sync kernels at (8, 124, 16, 96) on an H100: 5' 0.0144 against 0.0157
+// and 6' 0.0139 against 0.0182 device ms (PERF.md).
 //
 // All round P and dX to bf16 for the products, as the forward rounds P.
 // float32 (a test route) takes plain scalar kernels on 32-row tiles.
@@ -501,19 +513,21 @@ bwd_dkv_mma(const bf16* __restrict__ qkv, const float* __restrict__ bias,
   }
 }
 
-// ----------------------------------------------- bf16: wgmma, TMA (d <= 64)
+// ---------------------------------- bf16: wgmma, TMA (d <= 64 and d = 96)
 
-// bwd_dq_wgmma and bwd_dkv_wgmma take bf16 at d <= 64 and T % 4 == 0 (an fp32
-// bias row of T * 4 bytes is then a legal TMA stride); the mma.sync kernels
-// above take the other bf16 calls.  A CTA is one consumer warpgroup of 64
-// rows (queries for dq, keys for dk/dv) and one producer warp that keeps
-// TMA copies in flight through an mbarrier ring: 160 threads.  Tiles, from
-// a 1024-byte aligned base:
+// bwd_dq_wgmma and bwd_dkv_wgmma take bf16 at d <= 64 or d = 96 and T % 4
+// == 0 (an fp32 bias row of T * 4 bytes is then a legal TMA stride); the
+// mma.sync kernels above take the other bf16 calls.  A CTA is one consumer
+// warpgroup of 64 rows (queries for dq, keys for dk/dv) and one producer
+// warp that keeps TMA copies in flight through an mbarrier ring: 160
+// threads.  Tiles, from a 1024-byte aligned base:
 // * bf16 tiles (Q, K, V, dO) are boxes of 16 channels x 64 rows (32-byte
 //   rows, 32-byte swizzle), one box a k-step of a K-major operand (S = Q K^T,
 //   dP = dO V^T, S^T = K Q^T, dP^T = V dO^T, both operands in shared memory)
 //   and one 16-channel atom of an MN-major one (dq += dX K, dk += dX^T Q, dv
-//   += P^T dO, A from registers: LBO one box, SBO 256 bytes);
+//   += P^T dO, A from registers: LBO one box, SBO 256 bytes); at d = 96
+//   boxes of 32 channels (64-byte rows, 64-byte swizzle: half the TMA
+//   requests), a k-step half a box row, an atom a box, SBO 512 bytes;
 // * the fp32 bias tile [64 queries x 64 keys] is two boxes of 32 keys (128-
 //   byte rows, 128-byte swizzle), read in the accumulator layout: dk/dv's
 //   single values down a column (its tile is S^T), which the swizzle puts
@@ -527,9 +541,15 @@ constexpr int kBiasBox = TILE * 32;  // floats of a [64 rows x 32 keys] bias box
 
 template <int D>
 struct BwdWg {
-  static constexpr int KS = D / 16;                  // 16-channel boxes of a row
-  static constexpr int BOX = TILE * 32;              // bytes of a bf16 box
-  static constexpr int TILE_BYTES = KS * BOX;        // a 64-row bf16 tile
+  static constexpr int KS = D / 16;                  // 16-channel k-steps of a row
+  // bf16 boxes: 16 channels (32-byte rows, 32-byte swizzle) up to d = 64;
+  // 32 channels (64-byte rows, 64-byte swizzle) at d = 96, where TMA's
+  // requests of 32-byte rows held 5' (PERF.md)
+  static constexpr int ROW = D == 96 ? 64 : 32;      // bytes of a box row
+  static constexpr int BOX_CH = ROW / 2;             // channels of a box
+  static constexpr int NBOX = D / BOX_CH;            // boxes of a tile
+  static constexpr int BOX = TILE * ROW;             // bytes of a bf16 box
+  static constexpr int TILE_BYTES = NBOX * BOX;      // a 64-row bf16 tile
   static constexpr int BIAS = 2 * kBiasBox * 4;      // the fp32 bias tile
   static constexpr int STAGE = BIAS + 2 * TILE_BYTES;  // bias and two bf16 tiles
   static_assert(STAGE % 1024 == 0 && BIAS % 1024 == 0, "1024-byte aligned boxes");
@@ -540,12 +560,35 @@ struct BwdWg {
   static constexpr size_t dq_bytes =
       1024 + kDqStages * STAGE + 2 * TILE_BYTES + (2 * kDqStages + 1) * sizeof(uint64_t);
   // dk/dv: STAGES x [bias | Q | dO], then K and V, each stage's lse and
-  // delta (64 floats each), then the barriers; two CTAs an SM
+  // delta (64 floats each), then the barriers; two CTAs an SM.  A query
+  // tile is taken in products of kDkvQueries queries: the whole tile up to
+  // d = 64; at d = 96, where dk and dv hold 96 registers, two halves of 32,
+  // so that S^T and dP^T hold 16 registers each, not 32
   static constexpr int kDkvBlocks = 2;
   static constexpr int kDkvStages = D <= 48 ? 3 : 2;
+  static constexpr int kDkvQueries = D <= 64 ? TILE : TILE / 2;
   static constexpr size_t dkv_bytes = 1024 + kDkvStages * STAGE + 2 * TILE_BYTES +
                                       kDkvStages * 2 * TILE * sizeof(float) +
                                       (2 * kDkvStages + 1) * sizeof(uint64_t);
+
+  // wgmma descriptors of a bf16 tile at shared address ``a``: its k-step c
+  // (16 channels) as a K-major operand (S = Q K^T, dP = dO V^T and their
+  // transposes), and its k-step kk (16 rows) as an MN-major one (dq += dX K,
+  // dk += dX^T Q, dv += P^T dO); at d = 96 a k-step is half a 64-byte row
+  __device__ __forceinline__ static uint64_t k_desc(uint32_t a, int c) {
+    if constexpr (ROW == 32) {
+      return hopper::desc_sw32(a + c * BOX, 16, 256);
+    } else {
+      return hopper::desc_sw64(a + (c / 2) * BOX + (c % 2) * 32, 16, 8 * ROW);
+    }
+  }
+  __device__ __forceinline__ static uint64_t mn_desc(uint32_t a, int kk) {
+    if constexpr (ROW == 32) {
+      return hopper::desc_sw32(a + kk * 16 * ROW, BOX, 8 * ROW);
+    } else {
+      return hopper::desc_sw64(a + kk * 16 * ROW, BOX, 8 * ROW);
+    }
+  }
 };
 
 // a * b summed over the 8 bf16 pairs of two 16-byte words, in channel order
@@ -570,8 +613,8 @@ __global__ void __launch_bounds__(kBwdThreads, BwdWg<D>::kDqBlocks)
 bwd_dq_wgmma(const __grid_constant__ CUtensorMap qkv_map,
              const __grid_constant__ CUtensorMap dout_map,
              const __grid_constant__ CUtensorMap bias_map,
-             const __grid_constant__ CUtensorMap part_map, const bf16* __restrict__ dout,
-             const bf16* __restrict__ out, const float* __restrict__ lse,
+             const __grid_constant__ CUtensorMap part_map, const bf16* __restrict__ out,
+             const float* __restrict__ lse,
              float* __restrict__ delta, bf16* __restrict__ dqkv, int t_len, int heads,
              float scale, float bias_scale, float sm_scale) {
   using namespace hopper;
@@ -612,9 +655,9 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap qkv_map,
       const int col = h * 3 * D;  // channel of this head's q in a qkv row
       mbar_expect_tx(q_full, 2 * L::TILE_BYTES);
 #pragma unroll
-      for (int c = 0; c < KS; ++c) {
-        tma_load_3d(q_smem + c * L::BOX, &qkv_map, q_full, col + 16 * c, q0, b);
-        tma_load_3d(do_smem + c * L::BOX, &dout_map, q_full, h * D + 16 * c, q0, b);
+      for (int c = 0; c < L::NBOX; ++c) {
+        tma_load_3d(q_smem + c * L::BOX, &qkv_map, q_full, col + L::BOX_CH * c, q0, b);
+        tma_load_3d(do_smem + c * L::BOX, &dout_map, q_full, h * D + L::BOX_CH * c, q0, b);
       }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES;
@@ -624,11 +667,11 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap qkv_map,
         tma_load_3d(st, &bias_map, &full[s], j * BK, q0, h);
         tma_load_3d(st + kBiasBox * 4, &bias_map, &full[s], j * BK + 32, q0, h);
 #pragma unroll
-        for (int c = 0; c < KS; ++c) {
-          tma_load_3d(st + L::BIAS + c * L::BOX, &qkv_map, &full[s], col + D + 16 * c, j * BK,
-                      b);
+        for (int c = 0; c < L::NBOX; ++c) {
+          tma_load_3d(st + L::BIAS + c * L::BOX, &qkv_map, &full[s], col + D + L::BOX_CH * c,
+                      j * BK, b);
           tma_load_3d(st + L::BIAS + L::TILE_BYTES + c * L::BOX, &qkv_map, &full[s],
-                      col + 2 * D + 16 * c, j * BK, b);
+                      col + 2 * D + L::BOX_CH * c, j * BK, b);
         }
       }
     }
@@ -644,17 +687,30 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap qkv_map,
 
   // delta of row threadIdx.x / 2 (each of two threads sums half its
   // channels, in channel order), written once; then each thread takes its
-  // two rows' from the lanes that hold them
+  // two rows' from the lanes that hold them.  out comes from global memory,
+  // dO from its tile in shared memory once it has landed (reading dO twice
+  // from L2 cost 5' 14% at d = 96 and 9% at T = 124, d = 48: PERF.md)
   float dl;
   {
     const int r = threadIdx.x / 2, half = threadIdx.x % 2;
+    const bool live = q0 + r < t_len;
     float acc = 0.f;
-    if (q0 + r < t_len) {
+    uint4 y[D / 16];
+    if (live) {
       const long off = ((long)b * t_len + q0 + r) * C + h * D + half * (D / 2);
-      const uint4* x = reinterpret_cast<const uint4*>(dout + off);
-      const uint4* y = reinterpret_cast<const uint4*>(out + off);
 #pragma unroll
-      for (int v = 0; v < D / 16; ++v) acc = dot8(x[v], y[v], acc);
+      for (int v = 0; v < D / 16; ++v) y[v] = reinterpret_cast<const uint4*>(out + off)[v];
+    }
+    mbar_wait(q_full, 0);
+    if (live) {
+#pragma unroll
+      for (int v = 0; v < D / 16; ++v) {  // 8 channels of dO: a 16-byte chunk of a box row
+        const int ch = half * (D / 2) + 8 * v, j = (ch % L::BOX_CH) / 8;
+        const int chunk = j ^ ((r * L::ROW / 128) & (L::ROW / 16 - 1));  // the swizzle
+        acc = dot8(*reinterpret_cast<const uint4*>(do_smem + (ch / L::BOX_CH) * L::BOX +
+                                                   r * L::ROW + chunk * 16),
+                   y[v], acc);
+      }
     }
     dl = acc + __shfl_xor_sync(0xffffffffu, acc, 1);
     if (half == 0 && q0 + r < t_len) delta[((long)b * heads + h) * t_len + q0 + r] = dl;
@@ -674,28 +730,25 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap qkv_map,
   uint64_t qd[KS], dod[KS];
 #pragma unroll
   for (int c = 0; c < KS; ++c) {
-    qd[c] = desc_sw32(smem_addr(q_smem) + c * L::BOX, 16, 256);
-    dod[c] = desc_sw32(smem_addr(do_smem) + c * L::BOX, 16, 256);
+    qd[c] = L::k_desc(smem_addr(q_smem), c);
+    dod[c] = L::k_desc(smem_addr(do_smem), c);
   }
   auto release = [&](int stage) {
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[stage]);
   };
 
-  mbar_wait(q_full, 0);
   for (int j = 0; j < n_tiles; ++j) {
     const int sj = j % STAGES;
     unsigned char* st = smem + sj * L::STAGE;
     uint64_t kd[KS], vd[KS], kb[BK / 16];
 #pragma unroll
     for (int c = 0; c < KS; ++c) {
-      kd[c] = desc_sw32(smem_addr(st + L::BIAS) + c * L::BOX, 16, 256);
-      vd[c] = desc_sw32(smem_addr(st + L::BIAS + L::TILE_BYTES) + c * L::BOX, 16, 256);
+      kd[c] = L::k_desc(smem_addr(st + L::BIAS), c);
+      vd[c] = L::k_desc(smem_addr(st + L::BIAS + L::TILE_BYTES), c);
     }
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      kb[kk] = desc_sw32(smem_addr(st + L::BIAS) + kk * 16 * 32, L::BOX, 256);
-    }
+    for (int kk = 0; kk < BK / 16; ++kk) kb[kk] = L::mn_desc(smem_addr(st + L::BIAS), kk);
     fence_regs(kd);
     fence_regs(vd);
     fence_regs(kb);
@@ -832,9 +885,10 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qkv_map,
       const int col = h * 3 * D;
       mbar_expect_tx(kv_full, 2 * L::TILE_BYTES);
 #pragma unroll
-      for (int c = 0; c < KS; ++c) {
-        tma_load_3d(k_smem + c * L::BOX, &qkv_map, kv_full, col + D + 16 * c, k0, b);
-        tma_load_3d(v_smem + c * L::BOX, &qkv_map, kv_full, col + 2 * D + 16 * c, k0, b);
+      for (int c = 0; c < L::NBOX; ++c) {
+        tma_load_3d(k_smem + c * L::BOX, &qkv_map, kv_full, col + D + L::BOX_CH * c, k0, b);
+        tma_load_3d(v_smem + c * L::BOX, &qkv_map, kv_full, col + 2 * D + L::BOX_CH * c, k0,
+                    b);
       }
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES;
@@ -846,10 +900,11 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qkv_map,
         tma_load_3d(st, &bias_map, &full[s], k0, q0, h);
         tma_load_3d(st + kBiasBox * 4, &bias_map, &full[s], k0 + 32, q0, h);
 #pragma unroll
-        for (int c = 0; c < KS; ++c) {
-          tma_load_3d(st + L::BIAS + c * L::BOX, &qkv_map, &full[s], col + 16 * c, q0, b);
+        for (int c = 0; c < L::NBOX; ++c) {
+          tma_load_3d(st + L::BIAS + c * L::BOX, &qkv_map, &full[s], col + L::BOX_CH * c, q0,
+                      b);
           tma_load_3d(st + L::BIAS + L::TILE_BYTES + c * L::BOX, &dout_map, &full[s],
-                      h * D + 16 * c, q0, b);
+                      h * D + L::BOX_CH * c, q0, b);
         }
         bulk_load(ls + s * TILE, lse + row * t_len + q0, row_bytes, &full[s]);
         bulk_load(ds + s * TILE, delta + row * t_len + q0, row_bytes, &full[s]);
@@ -866,16 +921,17 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qkv_map,
   const int box = (warp / 2) * kBiasBox;
   const int kin0 = r0 % 32, kin1 = kin0 + 8;
 
+  constexpr int QH = L::kDkvQueries;  // queries a product takes
   float dk[D / 2], dv[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
-  float s[32], dp[32];       // S^T and dP^T: query block n in [4n .. 4n + 3]
-  uint32_t pa[BQ / 16][4], xa[BQ / 16][4];  // P^T and dX^T, one a 16-query k-step
+  float s[QH / 2], dp[QH / 2];  // S^T and dP^T: query block n in [4n .. 4n + 3]
+  uint32_t pa[QH / 16][4], xa[QH / 16][4];  // P^T and dX^T, one a 16-query k-step
   uint64_t kd[KS], vd[KS];
 #pragma unroll
   for (int c = 0; c < KS; ++c) {
-    kd[c] = desc_sw32(smem_addr(k_smem) + c * L::BOX, 16, 256);
-    vd[c] = desc_sw32(smem_addr(v_smem) + c * L::BOX, 16, 256);
+    kd[c] = L::k_desc(smem_addr(k_smem), c);
+    vd[c] = L::k_desc(smem_addr(v_smem), c);
   }
   auto release = [&](int stage) {
     __syncwarp();
@@ -887,90 +943,100 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qkv_map,
     const int si = i % STAGES;
     const unsigned char* st = smem + si * L::STAGE;
     const uint32_t q_addr = smem_addr(st + L::BIAS), do_addr = q_addr + L::TILE_BYTES;
-    uint64_t qd[KS], dod[KS], qm[BQ / 16], dom[BQ / 16];
+    uint64_t qd[KS], dod[KS], qm[QH / 16], dom[QH / 16];
+    // the descriptors of the tile's queries [hq QH, (hq + 1) QH): QH rows
+    // on, the swizzle pattern starts anew
+    auto describe = [&](int hq) {
+      const uint32_t qa = q_addr + hq * QH * L::ROW, da = do_addr + hq * QH * L::ROW;
 #pragma unroll
-    for (int c = 0; c < KS; ++c) {
-      qd[c] = desc_sw32(q_addr + c * L::BOX, 16, 256);
-      dod[c] = desc_sw32(do_addr + c * L::BOX, 16, 256);
-    }
+      for (int c = 0; c < KS; ++c) {
+        qd[c] = L::k_desc(qa, c);
+        dod[c] = L::k_desc(da, c);
+      }
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      qm[kk] = desc_sw32(q_addr + kk * 16 * 32, L::BOX, 256);
-      dom[kk] = desc_sw32(do_addr + kk * 16 * 32, L::BOX, 256);
-    }
-    fence_regs(qd);
-    fence_regs(dod);
-    fence_regs(qm);
-    fence_regs(dom);
+      for (int kk = 0; kk < QH / 16; ++kk) {
+        qm[kk] = L::mn_desc(qa, kk);
+        dom[kk] = L::mn_desc(da, kk);
+      }
+      fence_regs(qd);
+      fence_regs(dod);
+      fence_regs(qm);
+      fence_regs(dom);
+    };
+    describe(0);
     mbar_wait(&full[si], (i / STAGES) & 1);
     __syncwarp();
-    fence_regs(s);
-    fence_regs(dp);
-    wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < KS; ++c) wgmma_m64n64k16_ss(s, kd[c], qd[c], c);  // S^T = K Q^T
-#pragma unroll
-    for (int c = 0; c < KS; ++c) wgmma_m64n64k16_ss(dp, vd[c], dod[c], c);  // dP^T = V dO^T
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
-
-    // P^T into s, dX^T into dp; queries past T (stale lse and delta in the
-    // ring) take lse = MASKED_LSE and delta 0, so P = dX = 0
     const float* bt = reinterpret_cast<const float*>(st) + box;
     const float* lt = ls + si * TILE;
     const float* dt = ds + si * TILE;
     const int queries = t_len - i * BQ;
 #pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-      const int qc = n * 8 + 2 * t4;  // this thread's queries: qc, qc + 1
-      float2 lq = *reinterpret_cast<const float2*>(lt + qc);
-      float2 dq2 = *reinterpret_cast<const float2*>(dt + qc);
-      if (qc >= queries) lq.x = MASKED_LSE, dq2.x = 0.f;
-      if (qc + 1 >= queries) lq.y = MASKED_LSE, dq2.y = 0.f;
-      float* x = s + 4 * n;
-      float* y = dp + 4 * n;
-      const float p0 = exp2f(fmaf(x[0], scale, bt[swz128(qc, kin0)] * bias_scale) - lq.x);
-      const float p1 = exp2f(fmaf(x[1], scale, bt[swz128(qc + 1, kin0)] * bias_scale) - lq.y);
-      const float p2 = exp2f(fmaf(x[2], scale, bt[swz128(qc, kin1)] * bias_scale) - lq.x);
-      const float p3 = exp2f(fmaf(x[3], scale, bt[swz128(qc + 1, kin1)] * bias_scale) - lq.y);
-      x[0] = p0;
-      x[1] = p1;
-      x[2] = p2;
-      x[3] = p3;
-      y[0] = p0 * (y[0] - dq2.x);
-      y[1] = p1 * (y[1] - dq2.y);
-      y[2] = p2 * (y[2] - dq2.x);
-      y[3] = p3 * (y[3] - dq2.y);
+    for (int hq = 0; hq < BQ / QH; ++hq) {
+      if (hq > 0) describe(hq);
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < KS; ++c) wgmma_ss<QH>(s, kd[c], qd[c], c);  // S^T = K Q^T
+#pragma unroll
+      for (int c = 0; c < KS; ++c) wgmma_ss<QH>(dp, vd[c], dod[c], c);  // dP^T = V dO^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P^T into s, dX^T into dp; queries past T (stale lse and delta in the
+      // ring) take lse = MASKED_LSE and delta 0, so P = dX = 0
+#pragma unroll
+      for (int n = 0; n < QH / 8; ++n) {
+        const int qc = hq * QH + n * 8 + 2 * t4;  // this thread's queries: qc, qc + 1
+        float2 lq = *reinterpret_cast<const float2*>(lt + qc);
+        float2 dq2 = *reinterpret_cast<const float2*>(dt + qc);
+        if (qc >= queries) lq.x = MASKED_LSE, dq2.x = 0.f;
+        if (qc + 1 >= queries) lq.y = MASKED_LSE, dq2.y = 0.f;
+        float* x = s + 4 * n;
+        float* y = dp + 4 * n;
+        const float p0 = exp2f(fmaf(x[0], scale, bt[swz128(qc, kin0)] * bias_scale) - lq.x);
+        const float p1 = exp2f(fmaf(x[1], scale, bt[swz128(qc + 1, kin0)] * bias_scale) - lq.y);
+        const float p2 = exp2f(fmaf(x[2], scale, bt[swz128(qc, kin1)] * bias_scale) - lq.x);
+        const float p3 = exp2f(fmaf(x[3], scale, bt[swz128(qc + 1, kin1)] * bias_scale) - lq.y);
+        x[0] = p0;
+        x[1] = p1;
+        x[2] = p2;
+        x[3] = p3;
+        y[0] = p0 * (y[0] - dq2.x);
+        y[1] = p1 * (y[1] - dq2.y);
+        y[2] = p2 * (y[2] - dq2.x);
+        y[3] = p3 * (y[3] - dq2.y);
+      }
+#pragma unroll
+      for (int kk = 0; kk < QH / 16; ++kk) {  // query blocks 2 kk, 2 kk + 1: k-step kk
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        xa[kk][0] = pack_bf16(dp[8 * kk], dp[8 * kk + 1]);
+        xa[kk][1] = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
+        xa[kk][2] = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
+        xa[kk][3] = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < QH / 16; ++kk) {
+        fence_regs(pa[kk]);
+        fence_regs(xa[kk]);
+      }
+      fence_regs(dk);
+      fence_regs(dv);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QH / 16; ++kk) wgmma_rs<D>(dv, pa[kk], dom[kk]);  // dv += P^T dO
+#pragma unroll
+      for (int kk = 0; kk < QH / 16; ++kk) wgmma_rs<D>(dk, xa[kk], qm[kk]);  // dk += dX^T Q
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
     }
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {  // query blocks 2 kk, 2 kk + 1: k-step kk
-      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-      xa[kk][0] = pack_bf16(dp[8 * kk], dp[8 * kk + 1]);
-      xa[kk][1] = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
-      xa[kk][2] = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
-      xa[kk][3] = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      fence_regs(pa[kk]);
-      fence_regs(xa[kk]);
-    }
-    fence_regs(dk);
-    fence_regs(dv);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(dv, pa[kk], dom[kk]);  // dv += P^T dO
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(dk, xa[kk], qm[kk]);  // dk += dX^T Q
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dk);
-    fence_regs(dv);
     release(si);
   }
 
@@ -1238,13 +1304,17 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 }
 
 // The kernels each backward call takes (bias_attention_bwd_route): bf16 at
-// d <= 64 and T % 4 == 0 on the wgmma kernels, the other bf16 calls on
-// mma.sync, fp32 on the scalar kernels.
+// a head dim the wgmma kernels are built for and T % 4 == 0 on them, the
+// other bf16 calls on mma.sync, fp32 on the scalar kernels.
 enum BwdRoute { kRouteWgmma = 0, kRouteMma = 1, kRouteSimt = 2 };
+
+// The head dims of the wgmma kernels: up to 64 (the trunk's 48), and 96
+// (the contextual embedder's).
+constexpr bool wgmma_dim(int head_dim) { return head_dim <= 64 || head_dim == 96; }
 
 int bwd_route(int t_len, int head_dim, int dtype) {
   if (dtype != 0) return kRouteSimt;
-  return head_dim <= 64 && t_len % 4 == 0 ? kRouteWgmma : kRouteMma;
+  return wgmma_dim(head_dim) && t_len % 4 == 0 ? kRouteWgmma : kRouteMma;
 }
 
 // Message of the last failure that has no CUDA error code of its own (a
@@ -1275,21 +1345,25 @@ int encode(CUtensorMap* map, CUtensorMapDataType type, void* base, const cuuint6
 }
 
 // The maps of the wgmma kernels: qkv (3 H D channels, T, B) and dout (H D
-// channels, T, B) in bf16 boxes of 16 channels x 64 rows with the 32-byte
-// swizzle; the bias (T keys, T queries, H) in fp32 boxes of 32 keys x 64
-// queries with the 128-byte swizzle; and, for dq, the partials (T keys, T
-// queries, B H) of row stride Tp in the same boxes.
-int encode_maps(const Args& a, int head_dim, CUtensorMap* qkv_map, CUtensorMap* dout_map,
+// channels, T, B) in bf16 boxes of BwdWg<D>::BOX_CH channels x 64 rows with
+// the swizzle of their row's bytes; the bias (T keys, T queries, H) in fp32
+// boxes of 32 keys x 64 queries with the 128-byte swizzle; and, for dq, the
+// partials (T keys, T queries, B H) of row stride Tp in the same boxes.
+template <int D>
+int encode_maps(const Args& a, CUtensorMap* qkv_map, CUtensorMap* dout_map,
                 CUtensorMap* bias_map, CUtensorMap* part_map) {
-  const cuuint64_t t = a.t_len, c = (cuuint64_t)a.heads * head_dim, tp = padded(a.t_len);
-  const cuuint32_t tile_box[3] = {16, TILE, 1}, bias_box[3] = {32, TILE, 1};
+  using L = BwdWg<D>;
+  const cuuint64_t t = a.t_len, c = (cuuint64_t)a.heads * D, tp = padded(a.t_len);
+  const cuuint32_t tile_box[3] = {L::BOX_CH, TILE, 1}, bias_box[3] = {32, TILE, 1};
+  const CUtensorMapSwizzle swizzle =
+      L::ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
   int err = encode(qkv_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, const_cast<void*>(a.qkv),
                    {3 * c, t, (cuuint64_t)a.batch}, {3 * c * 2, 3 * c * 2 * t}, tile_box,
-                   CU_TENSOR_MAP_SWIZZLE_32B, a, "qkv");
+                   swizzle, a, "qkv");
   if (err == 0) {
     err = encode(dout_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, const_cast<void*>(a.dout),
-                 {c, t, (cuuint64_t)a.batch}, {c * 2, c * 2 * t}, tile_box,
-                 CU_TENSOR_MAP_SWIZZLE_32B, a, "dout");
+                 {c, t, (cuuint64_t)a.batch}, {c * 2, c * 2 * t}, tile_box, swizzle, a,
+                 "dout");
   }
   if (err == 0) {
     err = map_error(hopper::encode_bias_f32_map(bias_map, a.bias, a.t_len, a.heads, TILE), a,
@@ -1309,12 +1383,11 @@ int launch_dq_wgmma(const Args& a) {
   int err = (int)prepare(bwd_dq_wgmma<D>, L::dq_bytes);
   if (err != 0) return err;
   CUtensorMap qkv_map, dout_map, bias_map, part_map;
-  if ((err = encode_maps(a, D, &qkv_map, &dout_map, &bias_map, &part_map)) != 0) return err;
+  if ((err = encode_maps<D>(a, &qkv_map, &dout_map, &bias_map, &part_map)) != 0) return err;
   const dim3 grid(a.batch, (a.t_len + BQ - 1) / BQ, a.heads);
   bwd_dq_wgmma<D><<<grid, kBwdThreads, L::dq_bytes, a.stream>>>(
-      qkv_map, dout_map, bias_map, part_map, static_cast<const bf16*>(a.dout),
-      static_cast<const bf16*>(a.out), a.lse, a.delta, static_cast<bf16*>(a.dqkv), a.t_len,
-      a.heads, a.scale, a.bias_scale, a.sm_scale);
+      qkv_map, dout_map, bias_map, part_map, static_cast<const bf16*>(a.out), a.lse, a.delta,
+      static_cast<bf16*>(a.dqkv), a.t_len, a.heads, a.scale, a.bias_scale, a.sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -1324,7 +1397,7 @@ int launch_dkv_wgmma(const Args& a) {
   int err = (int)prepare(bwd_dkv_wgmma<D>, L::dkv_bytes);
   if (err != 0) return err;
   CUtensorMap qkv_map, dout_map, bias_map;
-  if ((err = encode_maps(a, D, &qkv_map, &dout_map, &bias_map, nullptr)) != 0) return err;
+  if ((err = encode_maps<D>(a, &qkv_map, &dout_map, &bias_map, nullptr)) != 0) return err;
   const dim3 grid(a.batch, (a.t_len + BK - 1) / BK, a.heads);
   bwd_dkv_wgmma<D><<<grid, kBwdThreads, L::dkv_bytes, a.stream>>>(
       qkv_map, dout_map, bias_map, a.lse, a.delta, static_cast<bf16*>(a.dqkv), a.t_len,
@@ -1335,7 +1408,7 @@ int launch_dkv_wgmma(const Args& a) {
 template <int D>
 int launch_dq(int dtype, const Args& a) {
   const int route = bwd_route(a.t_len, D, dtype);
-  if constexpr (D <= 64) {
+  if constexpr (wgmma_dim(D)) {
     if (route == kRouteWgmma) return launch_dq_wgmma<D>(a);
   }
   cudaError_t err;
@@ -1362,7 +1435,7 @@ int launch_dq(int dtype, const Args& a) {
 template <int D>
 int launch_dkv(int dtype, const Args& a) {
   const int route = bwd_route(a.t_len, D, dtype);
-  if constexpr (D <= 64) {
+  if constexpr (wgmma_dim(D)) {
     if (route == kRouteWgmma) return launch_dkv_wgmma<D>(a);
   }
   cudaError_t err;
@@ -1387,12 +1460,12 @@ int launch_dkv(int dtype, const Args& a) {
 }
 
 // CTAs of a bf16 kernel that fit on an SM: ``which`` 0 dq, 1 dk/dv of the
-// mma.sync route, 2 dq, 3 dk/dv of the wgmma route (d <= 64).
+// mma.sync route, 2 dq, 3 dk/dv of the wgmma route (its head dims only).
 template <int D>
 cudaError_t blocks_per_sm(int which, int* blocks) {
   cudaError_t err;
   if (which >= 2) {
-    if constexpr (D <= 64) {
+    if constexpr (wgmma_dim(D)) {
       using L = BwdWg<D>;
       if (which == 2) {
         if ((err = prepare(bwd_dq_wgmma<D>, L::dq_bytes)) != cudaSuccess) return err;
@@ -1485,8 +1558,8 @@ extern "C" int bias_attention_bwd_dbias_sum(const void* dbias_part, void* dbias,
 }
 
 // The kernels a backward call of this B, T, head_dim and dtype (0 bf16, 1
-// fp32) takes: 0 bwd_dq_wgmma and bwd_dkv_wgmma (bf16, d <= 64, T % 4 ==
-// 0), 1 bwd_dq_mma and bwd_dkv_mma (the other bf16 calls), 2 the scalar
+// fp32) takes: 0 bwd_dq_wgmma and bwd_dkv_wgmma (bf16, d <= 64 or d = 96,
+// T % 4 == 0), 1 bwd_dq_mma and bwd_dkv_mma (the other bf16 calls), 2 the scalar
 // kernels, each route with the sum pass; -1 for a shape or dtype the
 // entries refuse.
 extern "C" int bias_attention_bwd_route(int batch, int t_len, int head_dim, int dtype) {
@@ -1498,7 +1571,7 @@ extern "C" int bias_attention_bwd_route(int batch, int t_len, int head_dim, int 
 }
 
 // CTAs of the bf16 kernel ``which`` (0 bwd_dq_mma, 1 bwd_dkv_mma, 2
-// bwd_dq_wgmma, 3 bwd_dkv_wgmma; 2-3 at d <= 64) at
+// bwd_dq_wgmma, 3 bwd_dkv_wgmma; 2-3 at d <= 64 and d = 96) at
 // ``head_dim`` that fit on one SM of the current device, or minus the CUDA
 // error code.
 extern "C" int bias_attention_bwd_blocks_per_sm(int which, int head_dim) {

@@ -4,12 +4,14 @@
 // box's swizzle, the wgmma products, and the host's tensor maps through the
 // driver's encoder.
 //
-// Shared-memory operand layout of every wgmma here: tiles of 32-byte rows
+// Shared-memory operand layout of the wgmma products: tiles of 32-byte rows
 // (16 bf16) written by TMA with the 32-byte swizzle (CU_TENSOR_MAP_SWIZZLE_32B),
 // which is the descriptor's layout type 3.  A K-major operand (Q or K for
 // Q K^T, k-step = one such tile) has its 8-row groups SBO = 256 bytes apart;
 // an MN-major operand (V for P V) has its 8-key groups SBO = 256 bytes apart
-// and its 16-channel atoms LBO bytes apart (one tile to the next).
+// and its 16-channel atoms LBO bytes apart (one tile to the next).  The
+// training backward at d = 96 takes tiles of 64-byte rows with the 64-byte
+// swizzle instead (desc_sw64).
 #pragma once
 
 #include <cuda.h>
@@ -148,6 +150,15 @@ __device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (3ull << 62);
 }
+// The same for 64-byte rows with the 64-byte swizzle (layout type 2;
+// CU_TENSOR_MAP_SWIZZLE_64B): a K-major operand's 16-channel k-step starts
+// 0 or 32 bytes into a row, its 8-row groups SBO = 512 bytes apart; an
+// MN-major one has 32-channel atoms LBO bytes apart.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -192,6 +203,32 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, u
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A B^T for a 64 x 32 tile: A (64 x 16) and B (32 x 16), both K-major in
+// shared memory; ``accumulate`` 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A B^T, both K-major in shared memory, for N = 32 or 64 columns.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  static_assert(N == 32 || N == 64, "wgmma_ss: N");
+  if constexpr (N == 32) {
+    wgmma_m64n32k16_ss(d, a, b, accumulate);
+  } else {
+    wgmma_m64n64k16_ss(d, a, b, accumulate);
+  }
 }
 
 // d += A B for a 64 x 16 tile: A (64 x 16 bf16) in registers, B (16 x 16)
@@ -252,18 +289,40 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// d += A B, A (64 x 16) in registers, B (16 x N) MN-major, N = 16, 32, 48 or 64.
+// d += A B for a 64 x 96 tile: A (64 x 16 bf16) in registers, B (16 x 96)
+// MN-major in shared memory (six 16-column atoms, LBO apart).
+__device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48], const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B, A (64 x 16) in registers, B (16 x N) MN-major, N = 16, 32, 48, 64
+// or 96.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
-  static_assert(N == 16 || N == 32 || N == 48 || N == 64, "wgmma_rs: N");
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 96, "wgmma_rs: N");
   if constexpr (N == 16) {
     wgmma_m64n16k16_rs(d, a, b);
   } else if constexpr (N == 32) {
     wgmma_m64n32k16_rs(d, a, b);
   } else if constexpr (N == 48) {
     wgmma_m64n48k16_rs(d, a, b);
-  } else {
+  } else if constexpr (N == 64) {
     wgmma_m64n64k16_rs(d, a, b);
+  } else {
+    wgmma_m64n96k16_rs(d, a, b);
   }
 }
 

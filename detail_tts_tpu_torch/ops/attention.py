@@ -40,16 +40,18 @@ bias is <= -1e9 gives 0, and zero gradients.
   and one dbias partial per batch row), ``bias_attention_bwd_dkv`` and
   ``bias_attention_bwd_dbias_sum`` (the partials added in batch order)
   (``csrc/bias_attention_bwd.cu``), which write one d(qkv) tensor and a
-  dbias summed over the batch.  In bf16 at d <= 64 and T % 4 == 0 the
-  first two run ``bwd_dq_wgmma`` and ``bwd_dkv_wgmma`` (TMA tiles from one
-  producer warp through an mbarrier ring, every product on wgmma, dX stored
-  into its partial by TMA); the other bf16 calls ``bwd_dq_mma`` and
-  ``bwd_dkv_mma``, fp32 scalar kernels.  :data:`BWD_LAUNCHES_BY_ROUTE`
-  counts the backward calls of each route (one launch of each of its two
-  kernels and of the sum pass a call), by the route the C entry
-  ``bias_attention_bwd_route`` names; :func:`bias_attention_bwd_route`
-  mirrors that entry on the host.  They replace the Pallas ``attention_train``
-  custom VJP (``_attn_train_fwd`` and the two kernels of ``_attn_train_bwd``).
+  dbias summed over the batch.  In bf16 at d <= 64 or d = 96 and
+  T % 4 == 0 the first two run ``bwd_dq_wgmma`` and ``bwd_dkv_wgmma`` (TMA
+  tiles from one producer warp through an mbarrier ring, every product on
+  wgmma, dX stored into its partial by TMA); the other bf16 calls
+  ``bwd_dq_mma`` and ``bwd_dkv_mma``, fp32 scalar kernels.
+  :data:`BWD_LAUNCHES_BY_ROUTE` counts the backward calls of each route
+  (one launch of each of its two kernels and of the sum pass a call), by
+  the route the C entry ``bias_attention_bwd_route`` names, and
+  :data:`BWD_LAUNCHES_BY_DIM` the same calls by (route, head dim);
+  :func:`bias_attention_bwd_route` mirrors that entry on the host.  They
+  replace the Pallas ``attention_train`` custom VJP (``_attn_train_fwd``
+  and the two kernels of ``_attn_train_bwd``).
 
 On a CUDA tensor a wrapper launches its kernel (each source is built with
 ``nvcc`` for sm_90a at first use into ``build/kernels/``, keyed by a hash of
@@ -114,6 +116,9 @@ BWD_ROUTE_KERNELS = {"bwd_wgmma": ("bwd_dq_wgmma", "bwd_dkv_wgmma"),
 # the backward calls (each one dq and one dk/dv launch) of TRAIN_LAUNCHES by
 # the route that ran them
 BWD_LAUNCHES_BY_ROUTE: Dict[str, int] = {name: 0 for name in BWD_ROUTES}
+# the same calls by (route, head dim): each route's kernels are one
+# instantiation a head dim
+BWD_LAUNCHES_BY_DIM: Dict[Tuple[str, int], int] = {}
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _libs: Dict[Path, ctypes.CDLL] = {}
@@ -409,10 +414,11 @@ def bias_attention_train_fwd_route(b: int, t: int, h: int, d: int, dtype: torch.
 
 def bias_attention_bwd_route(b: int, t: int, d: int, dtype: torch.dtype) -> str:
     """The kernels a backward call of batch ``b``, length ``t``, head dim
-    ``d`` and ``dtype`` takes on the card: ``bwd_wgmma`` (bf16, d <= 64,
-    T % 4 == 0: an fp32 bias row is then a legal TMA stride), ``bwd_mma``
-    (the other bf16 calls) or ``bwd_simt`` (fp32); every route runs the sum
-    pass after them.  It mirrors the C entry
+    ``d`` and ``dtype`` takes on the card: ``bwd_wgmma`` (bf16, d <= 64 or
+    d = 96, the head dims its kernels are built for, and T % 4 == 0: an fp32
+    bias row is then a legal TMA stride), ``bwd_mma`` (the other bf16
+    calls) or ``bwd_simt`` (fp32); every route runs the sum pass after
+    them.  It mirrors the C entry
     of the same name, which decides the launches and names the route
     :data:`BWD_LAUNCHES_BY_ROUTE` counts; the CPU tests and the expected
     counts read this copy, and the card tests hold the two equal."""
@@ -422,7 +428,7 @@ def bias_attention_bwd_route(b: int, t: int, d: int, dtype: torch.dtype) -> str:
         return "bwd_simt"
     if dtype != torch.bfloat16:
         raise TypeError(f"the backward kernels take bfloat16 or float32, not {dtype}")
-    return "bwd_wgmma" if d <= 64 and t % 4 == 0 else "bwd_mma"
+    return "bwd_wgmma" if (d <= 64 or d == 96) and t % 4 == 0 else "bwd_mma"
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -538,7 +544,9 @@ def bias_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, out: torch.Tensor,
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, t,
             heads, d, *scales)
     TRAIN_LAUNCHES["bias_attention_bwd_dkv"] += 1
-    BWD_LAUNCHES_BY_ROUTE[_launched_bwd_route(b, t, d, code)] += 1
+    route = _launched_bwd_route(b, t, d, code)
+    BWD_LAUNCHES_BY_ROUTE[route] += 1
+    BWD_LAUNCHES_BY_DIM[route, d] = BWD_LAUNCHES_BY_DIM.get((route, d), 0) + 1
     return dqkv, bias_attention_dbias_sum(part, t)
 
 

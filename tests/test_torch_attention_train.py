@@ -60,9 +60,10 @@ def _port_grads(q, k, v, bias, ct, sm_scale, fn=None):
     return _heads(out.detach().numpy(), h), (dq, dk, dv, tb.grad.numpy())
 
 
+@pytest.mark.parametrize("d", [16, 96])  # a narrow head; the contextual embedder's
 @pytest.mark.parametrize("n", [40, 37])
-def test_forward_and_grads_match_pallas_attention_train(n):
-    b, h, d = 2, 2, 16
+def test_forward_and_grads_match_pallas_attention_train(n, d):
+    b, h = 2, 2
     q, k, v, bias, ct = _inputs(b, h, n, d, seed=n)
     sm = 1.0 / math.sqrt(d)
     jq, jk, jv, jb = (jnp.asarray(x) for x in (q, k, v, bias))

@@ -219,6 +219,7 @@ def _check_train(qkv, bias, dout, h, d, dtype):
     sm = 1 / math.sqrt(d)
     before = dict(attention.TRAIN_LAUNCHES)
     routes = dict(attention.BWD_LAUNCHES_BY_ROUTE)
+    dims = dict(attention.BWD_LAUNCHES_BY_DIM)
     fwd_routes = dict(attention.TRAIN_FWD_LAUNCHES_BY_ROUTE)
     route = attention.bias_attention_bwd_route(qkv.shape[0], qkv.shape[1], d, dtype)
     fwd_route = attention.bias_attention_train_fwd_route(qkv.shape[0], qkv.shape[1], h, d, dtype,
@@ -236,6 +237,8 @@ def _check_train(qkv, bias, dout, h, d, dtype):
         "bias_attention_bwd_dkv": 1, "bias_attention_bwd_dbias_sum": 1}
     assert {k: v - routes[k] for k, v in attention.BWD_LAUNCHES_BY_ROUTE.items()} == {
         k: int(k == route) for k in attention.BWD_ROUTES}
+    assert {k: v - dims.get(k, 0) for k, v in attention.BWD_LAUNCHES_BY_DIM.items()
+            if v != dims.get(k, 0)} == {(route, d): 1}
     assert {k: v - fwd_routes[k] for k, v in attention.TRAIN_FWD_LAUNCHES_BY_ROUTE.items()} == {
         k: int(k == fwd_route) for k in attention.TRAIN_FWD_ROUTES}
     assert out.dtype == dqkv.dtype == dtype and dbias.dtype == torch.float32
@@ -326,15 +329,18 @@ def test_dbias_sum_kernel_matches_plain_sum(cuda):
 
 @pytest.mark.parametrize("b,t,h,d,route", [(4, 130, 4, 48, "bwd_mma"),
                                            (8, 496, 16, 48, "bwd_wgmma"),
-                                           (8, 124, 16, 96, "bwd_mma")])
+                                           (8, 124, 16, 96, "bwd_wgmma"),
+                                           (8, 125, 16, 96, "bwd_mma")])
 def test_train_backward_is_deterministic(cuda, b, t, h, d, route):
     qkv, bias, dout = _train_inputs(b, t, h, d, torch.bfloat16, seed=11, device=cuda)
     assert attention.bias_attention_bwd_route(b, t, d, torch.bfloat16) == route
     out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=0.2)
     before = attention.BWD_LAUNCHES_BY_ROUTE[route]
+    before_dim = attention.BWD_LAUNCHES_BY_DIM.get((route, d), 0)
     first = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h, sm_scale=0.2)
     second = attention.bias_attention_bwd(qkv, bias, out, lse, dout, heads=h, sm_scale=0.2)
     assert attention.BWD_LAUNCHES_BY_ROUTE[route] == before + 2
+    assert attention.BWD_LAUNCHES_BY_DIM[route, d] == before_dim + 2
     assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
@@ -449,7 +455,7 @@ def test_train_fwd_info_at_the_step_shapes(cuda, b, t, d, route, rows, blocks):
     assert info[1] == rows and info[2] >= blocks and info[3] > 0 and 0 < info[4] <= 255
 
 
-@pytest.mark.parametrize("d", [16, 32, 48, 64])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 96])
 # bwd_dq_wgmma / bwd_dkv_wgmma's shapes (T % 4 == 0): one ragged tile (4),
 # one whole tile (64), the step's conditioner (124) and trunk (496), a tile
 # and four rows (132), the corpus's raw bucket (1024); B 1, 3 and 8
@@ -468,7 +474,7 @@ def test_bwd_wgmma_matches_plain_version(cuda, d, b, t):
     assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
 
 
-@pytest.mark.parametrize("d", [16, 48, 64])
+@pytest.mark.parametrize("d", [16, 48, 64, 96])
 def test_bwd_wgmma_masked_rows_and_keys(cuda, d):
     """A fully masked query row gives exactly 0 in dq and dbias, masked keys
     0 in dk and dv, on the wgmma route (T = 96: a whole tile and a ragged
@@ -517,7 +523,7 @@ def test_bwd_wgmma_kernels_have_no_spills(cuda, monkeypatch, tmp_path):
             entry = line.split("'")[1]
         elif "_wgmma" in entry and "spill" in line:
             lines.append(line)
-    assert len(lines) == 8  # bwd_dq_wgmma and bwd_dkv_wgmma at d = 16, 32, 48, 64
+    assert len(lines) == 10  # bwd_dq_wgmma and bwd_dkv_wgmma at d = 16, 32, 48, 64, 96
     assert all(" 0 bytes spill stores, 0 bytes spill loads" in x for x in lines)
 
 
@@ -526,7 +532,9 @@ def test_bwd_kernels_fit_on_an_sm(cuda):
     for which in range(4):  # dq, dk/dv of the mma.sync route; dq, dk/dv of wgmma
         assert lib.bias_attention_bwd_blocks_per_sm(which, 48) >= 2
     assert lib.bias_attention_bwd_blocks_per_sm(0, 96) >= 1
-    assert lib.bias_attention_bwd_blocks_per_sm(2, 96) < 0  # no wgmma kernel past d = 64
+    for which in (2, 3):  # the wgmma kernels at the contextual embedder's d = 96
+        assert lib.bias_attention_bwd_blocks_per_sm(which, 96) >= 2
+    assert lib.bias_attention_bwd_blocks_per_sm(2, 80) < 0  # no wgmma kernel at d = 80
 
 
 def test_autograd_function_runs_the_kernels(cuda):
