@@ -223,10 +223,11 @@ VARIANTS = (
 FWD_VARIANTS = (
     ("noproducts", VARIANTS[0][1]),
     ("nobias", [("copy_bias_f32<", "fake_copy_bias_f32<"),
+                ("mbar_expect_tx(&full[s], L::STAGE);\n    tma_load_3d(st, bmap",
+                 "mbar_expect_tx(&full[s], L::STAGE - 2 * L::BIAS_BOX);\n    "
+                 "tma_load_3d(st, bmap"),
                 ("tma_load_3d(st, bmap", "fake_tma_load_3d(st, bmap"),
-                ("tma_load_3d(st + L::BIAS_BOX, bmap", "fake_tma_load_3d(st + L::BIAS_BOX, bmap"),
-                ("mbar_expect_tx(&full[s], L::STAGE);",
-                 "mbar_expect_tx(&full[s], L::STAGE - 2 * L::BIAS_BOX);")]),
+                ("tma_load_3d(st + L::BIAS_BOX, bmap", "fake_tma_load_3d(st + L::BIAS_BOX, bmap")]),
     ("nocopies", [("copy_tile<", "fake_copy_tile<"), ("copy_bias_f32<", "fake_copy_bias_f32<"),
                   ("cp_async_16(st + ", "fake_cp16(st + "), ("tma_load_3d(", "fake_tma_load_3d("),
                   ("tma_load_2d(", "fake_tma_load_2d("), ("mbar_expect_tx(", "fake_expect_tx(")]),

@@ -20,11 +20,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    codes; C entry ``bias_attention_train_fwd_info``);
 3. kernel: ``bias_attention`` against its plain PyTorch version at the
    serving shapes and at T on the serving kernels' tile and bias-copy edges
-   (bf16, plus fp32 and a fully masked row), each call's route
+   (bf16, plus fp32; d = 48 and the contextual embedder's d = 96 on both
+   routes; a fully masked row and masked keys on each), each call's route
    (``serve_fwd_wgmma`` or ``serve_fwd_mma``; the C entry against
    ``attention.bias_attention_fwd_route``) counted and a repeat launch
    bit-identical; each route's registers, shared memory and L2-bytes
-   model; CUDA-event and device times of each route's kernel, the plain version and
+   model at d = 48 and 96; CUDA-event and device times of each kernel
+   (``serve_fwd_wgmma`` at the trunk, ``serve_fwd_wgmma<96>`` at the
+   contextual embedder, ``serve_fwd_mma`` at the latent conditioner of
+   code bucket 100), the plain version and
    ``F.scaled_dot_product_attention`` (the yardstick, never used by the
    port) beside the card's bound, and the wrapper's host time a call;
 3b. threefry: ``threefry_draw`` (JAX's threefry2x32 bits, uniforms,
@@ -76,17 +80,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 4. serving: ``random_engine(Config())`` at full width, bf16, answers three
    requests through ``synthesize_batch``; checks the audio, that every
    ``AttentionBlock`` call of the path launched the kernel, on the route
-   ``b1_routes_per_request`` gives (every d = 48 trunk and integrator call
-   on ``serve_fwd_wgmma``), that every
+   and head dim ``b1_routes_per_request`` gives (at code bucket 200 every
+   call on ``serve_fwd_wgmma``: d = 48, and d = 96 for the contextual
+   embedder at the prompt bucket's T / 4), that every
    random draw of the request launched ``threefry_draw`` (steps + 1 a
    request: none in the decode) and its two key buffers ``threefry_keys``,
    and that every decode step executed launched ``sample_step`` once;
    reads row 0 of the first request alone against its batch;
 4b. serving paths, on the same weights: each other sampler (``ddim``,
    ``dpmpp_2m_karras`` and ``dpmpp_2m`` at 50 steps, ``dpmpp_2m`` at 25)
-   twice at batch 2, with its kernel launches (steps x 13 + 9 a request;
-   threefry 2 draws and one key buffer outside ``ancestral``, a sample step
-   a decode step) and bit-identical repeats; ``pcm16_output`` against the
+   twice at batch 2, with its kernel launches (steps x 13 + 9 a request,
+   each on its route and head dim; threefry 2 draws and one key buffer
+   outside ``ancestral``, a sample step a decode step) and bit-identical
+   repeats; a request at code bucket 100, whose latent conditioner (T %
+   8 != 0) takes ``serve_fwd_mma``; ``pcm16_output`` against the
    float output's conversion; the diffusion-free VQ path (no launch) and
    ``vq_roundtrip``; a ``TTSServer`` answering 4 concurrent requests and
    refusing a sub-hop prompt, ``dispatch_batch`` + ``finalize_batch``
@@ -99,13 +106,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    training step's attention shapes (bf16 and fp32, ragged T, a fully
    masked row, whose lse must be ``MASKED_LSE``; batch 8 and a world-2
    rank's batch 4), each call's forward route (``train_fwd_wgmma``: bf16,
-   d <= 64, T % 4 == 0, a grid of 128-row CTAs of at least half the SMs;
-   ``train_fwd_mma``; ``train_fwd_simt``) and backward
+   T % 4 == 0, at d = 96 and at d <= 64 on a grid of 128-row CTAs of at
+   least half the SMs; ``train_fwd_mma``; ``train_fwd_simt``) and backward
    route (``bwd_wgmma``: bf16, d <= 64 or d = 96, T % 4 == 0; ``bwd_mma``;
    ``bwd_simt``) printed, the C entries' against
    ``attention.bias_attention_train_fwd_route``'s and
-   ``attention.bias_attention_bwd_route``'s and each counted once (the
-   backward also by head dim), the contextual embedder's d = 96 on both
+   ``attention.bias_attention_bwd_route``'s and each counted once (also by
+   head dim), the contextual embedder's d = 96 on both forward and
    backward routes (T = 124 and 125), the
    forward twice bit-identical, the sum pass alone against its plain
    version, a fully masked row and masked keys exactly 0 (d = 48 and 96),
@@ -115,13 +122,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    also through its wrapper) beside the bound, the plain versions and SDPA
    with a bias mask that requires grad, on the wgmma routes at (8, 496, 16,
    48), (8, 124, 16, 48), (8, 1024, 16, 48) and (8, 124, 16, 96) and on the
-   mma.sync routes at (8, 125, 16, 96); then the four training kernels at
+   mma.sync routes at (8, 125, 16, 96) (``train_fwd_mma<96, 1>`` beside
+   ``train_fwd_wgmma<96>``); then the four training kernels at
    the data loader's raw buckets T = 512, 1024 and 2824 (batch 8, bf16);
 6. training: ``Trainer`` over ``Config()`` at full width, target ``diff``,
    micro-batch 8 x 496 frames x accum 16 of seeded synthetic batches: a
    warm-up step and three timed steps, then one step of 8 x 500 frames
-   (the loader's other crop: T = 125, where the backward takes its
-   mma.sync kernels), each checked for finite loss and grad
+   (the loader's other crop: T = 125, where the contextual embedder and the
+   latent conditioner take the mma.sync kernels), each checked for finite loss and grad
    norm and for one launch of each training kernel per AttentionBlock call,
    each forward and backward call on the route its shape takes
    (``expected_train_fwd_routes``, ``expected_bwd_routes``,
@@ -235,8 +243,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    the prompt: every exit code 0 and phase line printed, both checkpoints
    on disk, every wav finite and non-empty at 24 kHz, the ``.vq.npy``
    codes in [0, ``vq_bins``), one ``sample_step`` launch a decode step
-   executed and ``steps x 13 + 9`` B1 launches a diffusion request; each
-   script's wall.
+   executed and ``steps x 13 + 9`` B1 launches a diffusion request, each
+   on its route and head dim (the contextual embedder's by the T of each
+   prompt mel it conditions on); each script's wall.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -335,24 +344,35 @@ def device_ms(fn, runs: int = 20, warmup: int = 3, only: str = ""):
     profiler's CUDA trace, over ``runs``.  Unlike a CUDA-event pair around
     one call, it holds none of the host time that a launch of a few
     microseconds can wait for.  ``only`` may be a tuple: kernels whose name
-    holds any of its strings.  None if the trace held no such kernel in
-    three tries (the profiler's CUDA trace has come back empty)."""
+    holds any of its strings.  The profiler's CUDA trace has come back
+    empty, or short of launches or holding some of another trace's: a trace
+    whose count of such kernels is not a whole multiple of ``runs`` is
+    taken again, up to five times in all, and then None (with the counts
+    printed), never a mean over what it kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     names = (only,) if isinstance(only, str) else only
     for _ in range(warmup):
         fn()
-    for _ in range(3):
+    seen, counts = set(), []
+    for _ in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                 and any(o in e.name for o in names)]
-        if spans:
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        seen.update(e.name[:60] for e in events)
+        spans = [e.time_range.end - e.time_range.start for e in events
+                 if not e.is_user_annotation and any(o in e.name for o in names)]
+        if spans and len(spans) % runs == 0:
+            if counts:
+                print(f"  device_ms: {counts} kernels named {names} in the traces of {runs} "
+                      f"calls before this one's {len(spans)}", flush=True)
             return sum(spans) / runs / 1e3
+        counts.append(len(spans))
+    print(f"  device_ms: {counts} kernels named {names} in five traces of {runs} calls; "
+          f"their device events: {sorted(seen)[:6]}", flush=True)
     return None
 
 
@@ -488,7 +508,7 @@ def serving_l2_bytes(b, t, h, d, route):
     """The bytes a serving launch pulls from L2 into the SMs, by the kernels'
     tiling: each CTA reads its (b, h)'s whole K and V and its query rows of Q
     and of the bias for every key."""
-    rows = 128 if d <= 64 and route != "bias_attention_simt" else 64
+    rows = 128 if route == "serve_fwd_wgmma" or (route == "serve_fwd_mma" and d <= 64) else 64
     ctas = b * -(-t // rows) * h
     size = 4 if route == "bias_attention_simt" else 2
     kv_q = ctas * (2 * t * d + rows * d) * size
@@ -509,12 +529,16 @@ def check_route(t, d, dtype):
 def phase_kernel(sfu_per_s, extra_shapes=(), timed_shapes=()):
     """Kernel vs plain version; returns (max error, timing rows by route)."""
     print("== kernel vs plain", flush=True)
+    # d = 96 (the contextual embedder): every prompt bucket's T on
+    # serve_fwd_wgmma (16, 128, 400), and T % 8 != 0 on serve_fwd_mma
     shapes = [(3, 1600, 16, 48), (4, 1600, 16, 48), (9, 1600, 16, 48),
               (16, 1600, 16, 48), (3, 1597, 16, 48), (4, 1597, 16, 48),
               (9, 1597, 16, 48), (16, 1597, 16, 48), (2, 400, 16, 96),
+              (8, 400, 16, 96), (1, 16, 16, 96), (3, 130, 16, 96), (3, 397, 16, 96),
               (3, 127, 16, 48), (3, 129, 16, 48), (3, 300, 16, 48)]
     shapes += [s for s in extra_shapes if s not in shapes]
-    for route, d in (("serve_fwd_wgmma", 48), ("serve_fwd_mma", 48), ("serve_fwd_mma", 96)):
+    for route, d in (("serve_fwd_wgmma", 48), ("serve_fwd_wgmma", 96), ("serve_fwd_mma", 48),
+                     ("serve_fwd_mma", 96)):
         regs, smem = route_info(route, d)
         model = serving_l2_bytes(16, 1600, 16, d, route) / 1e9
         print(f"  route {route} d={d}: {regs} registers a thread, {smem} B of shared "
@@ -548,29 +572,41 @@ def phase_kernel(sfu_per_s, extra_shapes=(), timed_shapes=()):
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
 
-    # a fully masked query row must come out exactly 0
-    b, t, h, d = 3, 1597, 16, 48
-    qkv, bias = attention_inputs(b, t, h, d, torch.bfloat16, seed=99)
-    bias[5, 17, :] = -1e9
-    out = attention.bias_attention(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
-    ref = attention.bias_attention_reference(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
-    row = out[:, 17, 5 * d:6 * d]
-    err = (out.float() - ref.float()).abs().max().item()
-    print(f"  masked row: max |out| {row.abs().max().item():.1e}, "
-          f"max_abs_err {err:.3e}", flush=True)
-    if torch.count_nonzero(row).item() != 0 or not err <= TOL[torch.bfloat16]:
-        fail("fully masked row is not exactly 0 or the rest disagrees")
-    worst = max(worst, err)
+    # a fully masked query row must come out exactly 0, and masked keys take
+    # no weight, on each route and head dim of the main path
+    for b, t, h, d in ((3, 1597, 16, 48), (3, 1600, 16, 48), (3, 128, 16, 96),
+                       (3, 130, 16, 96)):
+        qkv, bias = attention_inputs(b, t, h, d, torch.bfloat16, seed=99)
+        bias[5, 17, :] = -1e9
+        bias[2, :, t - 9:] = -1e9
+        out = attention.bias_attention(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
+        ref = attention.bias_attention_reference(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
+        row = out[:, 17, 5 * d:6 * d]
+        err = (out.float() - ref.float()).abs().max().item()
+        print(f"  masked row and keys at B={b} T={t} H={h} d={d} "
+              f"({attention.bias_attention_fwd_route(t, d, torch.bfloat16)}): max |out| of "
+              f"the row {row.abs().max().item():.1e}, max_abs_err {err:.3e}", flush=True)
+        if torch.count_nonzero(row).item() != 0 or not err <= TOL[torch.bfloat16]:
+            fail(f"at {(b, t, h, d)} a fully masked row is not exactly 0 or the rest "
+                 "disagrees")
+        worst = max(worst, err)
 
     # times at the diffusion trunk's shape for batch 8 at code bucket 400
-    # (reported), then at the shapes of the requests below that each route
-    # takes (its first)
+    # (reported), then at ``timed_shapes``, each under its kernel's name
+    # (``kernel_name``; the first shape of each)
     rows = {"serve_fwd_wgmma": time_kernel(16, 1600, 16, 48, sfu_per_s)}
     for b, t, h, d in timed_shapes:
-        route = attention.bias_attention_fwd_route(t, d, torch.bfloat16)
-        row = time_kernel(b, t, h, d, sfu_per_s)
-        rows.setdefault(route, row)
+        name = kernel_name(attention.bias_attention_fwd_route(t, d, torch.bfloat16), d)
+        if name not in rows:
+            rows[name] = time_kernel(b, t, h, d, sfu_per_s)
     return worst, rows
+
+
+def kernel_name(route, d):
+    """The name a route's kernel at head dim ``d`` has in the kernels line:
+    the wgmma kernels at the contextual embedder's d = 96 apart from their
+    trunk's instantiation (``route<96>``), the mma.sync kernels by route."""
+    return f"{route}<96>" if d == 96 and route.endswith("wgmma") else route
 
 
 def time_kernel(b, t, h, d, sfu_per_s):
@@ -1224,13 +1260,14 @@ LSE_TOL = DBIAS_TOL = 1e-4
 RAW_BUCKETS_CHECKED = (512, 1024, 2824)
 TRAIN_KERNELS = ("bias_attention_train_fwd", "bias_attention_bwd_dq_dbias",
                  "bias_attention_bwd_dkv", "bias_attention_bwd_dbias_sum")
-# the backward's wgmma kernels at the contextual embedder's d = 96, listed
-# apart from their d = 48 instantiations
+# the forward's and the backward's wgmma kernels at the contextual embedder's
+# d = 96, listed apart from their d = 48 instantiations
+TRAIN_FWD_WGMMA_96 = "train_fwd_wgmma<96>"
 BWD_WGMMA_96 = ("bwd_dq_wgmma<96>", "bwd_dkv_wgmma<96>")
 # the bf16 forward's and backward's kernels by route (the entries above
 # launch them)
 ROUTE_KERNELS = ("train_fwd_wgmma", "train_fwd_mma", "bwd_dq_wgmma", "bwd_dkv_wgmma",
-                 "bwd_dq_mma", "bwd_dkv_mma") + BWD_WGMMA_96
+                 "bwd_dq_mma", "bwd_dkv_mma", TRAIN_FWD_WGMMA_96) + BWD_WGMMA_96
 
 
 def scaled_err(x, ref, floor=1.0):
@@ -1292,8 +1329,9 @@ def check_bwd_route(b, t, d, dtype):
 def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
     """Each training kernel against its plain version at one shape, and the
     dbias gate against a known-wrong dbias; returns {kernel: (max abs err,
-    scaled err)}: the backward's under its route's kernels' names too (at
-    d = 96 on the wgmma route, ``BWD_WGMMA_96``).  ``mask_row``: a fully
+    scaled err)}: the forward's and the backward's under their route's
+    kernels' names too (``kernel_name``: at d = 96 on the wgmma routes
+    ``TRAIN_FWD_WGMMA_96`` and ``BWD_WGMMA_96``).  ``mask_row``: a fully
     masked query row and the last 9 keys of head 0 masked in every row,
     which must give exact zeros."""
     qkv, bias, dout = train_inputs(b, t, h, d, dtype, seed)
@@ -1306,6 +1344,7 @@ def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
     before = attention.BWD_LAUNCHES_BY_ROUTE[route]
     before_dim = attention.BWD_LAUNCHES_BY_DIM.get((route, d), 0)
     fwd_before = attention.TRAIN_FWD_LAUNCHES_BY_ROUTE[fwd_route]
+    fwd_before_dim = attention.TRAIN_FWD_LAUNCHES_BY_DIM.get((fwd_route, d), 0)
     out, lse = attention.bias_attention_train_fwd(qkv, bias, heads=h, sm_scale=sm)
     ref_out, ref_lse = attention.bias_attention_train_reference(qkv, bias, heads=h,
                                                                 sm_scale=sm)
@@ -1340,8 +1379,10 @@ def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
             or attention.BWD_LAUNCHES_BY_DIM[route, d] != before_dim + 1):
         fail(f"the backward at {(b, t, h, d, dtype)} was not counted once on {route} "
              f"at d = {d}")
-    if attention.TRAIN_FWD_LAUNCHES_BY_ROUTE[fwd_route] != fwd_before + 1:
-        fail(f"the forward at {(b, t, h, d, dtype)} was not counted once on {fwd_route}")
+    if (attention.TRAIN_FWD_LAUNCHES_BY_ROUTE[fwd_route] != fwd_before + 1
+            or attention.TRAIN_FWD_LAUNCHES_BY_DIM[fwd_route, d] != fwd_before_dim + 1):
+        fail(f"the forward at {(b, t, h, d, dtype)} was not counted once on {fwd_route} "
+             f"at d = {d}")
     if not ok:
         fail(f"training kernels disagree with the plain versions at {(b, t, h, d, dtype)}")
     if not wrong > DBIAS_TOL:
@@ -1361,7 +1402,7 @@ def check_train_kernels(b, t, h, d, dtype, seed, mask_row=False):
         fail(f"the forward at {(b, t, h, d, dtype)} is not bit-identical from run to run")
     dq_kernel, dkv_kernel = (BWD_WGMMA_96 if (route, d) == ("bwd_wgmma", 96)
                              else attention.BWD_ROUTE_KERNELS[route])
-    return {"bias_attention_train_fwd": errs["out"], fwd_route: errs["out"],
+    return {"bias_attention_train_fwd": errs["out"], kernel_name(fwd_route, d): errs["out"],
             "bias_attention_bwd_dq_dbias": max(errs["dq"], errs["dbias"]),
             "bias_attention_bwd_dkv": errs["dkv"],
             "bias_attention_bwd_dbias_sum": check_dbias_sum(b, t, h, seed),
@@ -1478,8 +1519,8 @@ def time_train_kernels(b, t, h, d, sfu_per_s):
             rows[kernel] = dict(rows[name], bwd_route=route)
             name_shown = f"{name} ({kernel})"
         elif name == "bias_attention_train_fwd":
-            rows[fwd_route] = rows[name]
-            name_shown = f"{name} ({fwd_route})"
+            rows[kernel_name(fwd_route, d)] = rows[name]
+            name_shown = f"{name} ({kernel_name(fwd_route, d)})"
         else:
             name_shown = name
         print(f"  time B={b} T={t} H={h} d={d} bf16 {name_shown}: ms {ms[name]} "
@@ -1507,7 +1548,7 @@ def phase_train_kernels(sfu_per_s):
     worst = {name: (0.0, 0.0) for name in TRAIN_KERNELS + ROUTE_KERNELS}
     # B = 4: a rank's micro-batch of 8 over a world of 2 (phase 8)
     # (B, T, 16, 96): the contextual embedder at a 496-frame prompt (T = 124,
-    # the wgmma route) and at the 500-frame crop (T = 125, mma.sync), and at
+    # the wgmma routes) and at the 500-frame crop (T = 125, mma.sync), and at
     # the examples' batch 2
     cases = [(8, 496, 16, 48, torch.bfloat16), (8, 124, 16, 48, torch.bfloat16),
              (8, 124, 16, 96, torch.bfloat16), (4, 496, 16, 48, torch.bfloat16),
@@ -1547,7 +1588,8 @@ def phase_train_kernels(sfu_per_s):
     # the wgmma routes at the step's trunk, its latent conditioner and the
     # raw bucket 1024, and at the contextual embedder's d = 96 (T = 124,
     # where SDPA's backward is the yardstick); the mma.sync routes at the
-    # contextual embedder's shape at the 500-frame crop (T = 125)
+    # contextual embedder's shape at the 500-frame crop (T = 125:
+    # train_fwd_mma<96, 1> beside train_fwd_wgmma<96> at T = 124)
     rows, backend = time_train_kernels(8, 496, 16, 48, sfu_per_s)
     rows_124, _ = time_train_kernels(8, 124, 16, 48, sfu_per_s)
     rows_1024, _ = time_train_kernels(8, 1024, 16, 48, sfu_per_s)
@@ -1556,8 +1598,9 @@ def phase_train_kernels(sfu_per_s):
     for name in TRAIN_KERNELS + ("train_fwd_wgmma", "bwd_dq_wgmma", "bwd_dkv_wgmma"):
         rows[name]["at_124"] = rows_124[name]
         rows[name]["at_raw_bucket_1024"] = rows_1024[name]
-    rows.update({name: rows_96[name] for name in ("train_fwd_mma",) + BWD_WGMMA_96})
-    rows.update({name: rows_125[name] for name in ("bwd_dq_mma", "bwd_dkv_mma")})
+    rows.update({name: rows_96[name] for name in (TRAIN_FWD_WGMMA_96,) + BWD_WGMMA_96})
+    rows.update({name: rows_125[name] for name in ("train_fwd_mma", "bwd_dq_mma",
+                                                   "bwd_dkv_mma")})
     torch.cuda.empty_cache()
     return worst, rows, backend
 
@@ -1591,34 +1634,73 @@ def b1_per_request(engine) -> int:
             + len(diff.contextual_embedder) - 2 + len(diff.latent_conditioner) - 1)
 
 
-def b1_routes_per_request(engine, code_bucket):
-    """``b1_per_request`` by the serving kernel each launch takes
-    (``attention.bias_attention_fwd_route``): the integrator blocks and trunk
-    layers each step at 4 x the code bucket and the latent conditioner at the
-    code bucket (d = 48: serve_fwd_wgmma where T % 8 == 0), the contextual
-    embedder at d = 96 (serve_fwd_mma at every T)."""
+def embedder_call(diffusion, prompt_frames):
+    """(T, head dim, launches) of the contextual embedder of ``diffusion``
+    on a prompt mel of ``prompt_frames``: its attention blocks at twice the
+    trunk's width after two stride-2 convolutions."""
+    c = diffusion.cfg
+    return (-(-(-(-prompt_frames // 2)) // 2), 2 * c.model_channels // c.num_heads,
+            len(diffusion.contextual_embedder) - 2)
+
+
+def b1_routes(calls, dtype):
+    """[(T, head dim, launches)] by the serving kernel each launch takes
+    (``attention.bias_attention_fwd_route``), keyed as ``route_counts`` keys
+    them: by route, and by route and head dim."""
+    routes = dict.fromkeys(attention.SERVE_ROUTES, 0)
+    for t, dim, n in calls:
+        route = attention.bias_attention_fwd_route(t, dim, dtype)
+        routes[route] += n
+        routes[f"{route}<{dim}>"] = routes.get(f"{route}<{dim}>", 0) + n
+    return routes
+
+
+def b1_routes_per_request(engine, code_bucket, prompt_bucket=None):
+    """``b1_per_request`` by route (``b1_routes``): the integrator blocks and
+    trunk layers each step at 4 x the code bucket and the latent conditioner
+    at the code bucket (d = 48: serve_fwd_wgmma where T % 8 == 0), and with
+    ``prompt_bucket`` the contextual embedder at d = 96 and a quarter of it
+    (serve_fwd_wgmma where T % 8 == 0, which every prompt bucket gives)."""
     d = engine.cfg.diffusion
     hd = d.model_channels // d.num_heads
     diff = engine.model.diffusion
-    route = lambda t, dim: attention.bias_attention_fwd_route(t, dim, engine.cdt)  # noqa: E731
-    routes = dict.fromkeys(attention.SERVE_ROUTES, 0)
-    routes[route(4 * code_bucket, hd)] += engine.schedule.num_timesteps * (
-        len(diff.conditioning_timestep_integrator) + d.num_layers)
-    routes[route(code_bucket, hd)] += len(diff.latent_conditioner) - 1
-    if 2 * hd <= 64:  # the contextual embedder's route would follow the prompt's length
-        fail(f"b1_routes_per_request takes a contextual embedder of d > 64, not {2 * hd}")
-    routes[route(8, 2 * hd)] += len(diff.contextual_embedder) - 2  # the same at every T
-    if sum(routes.values()) != b1_per_request(engine):
+    calls = [(4 * code_bucket, hd, engine.schedule.num_timesteps * (
+        len(diff.conditioning_timestep_integrator) + d.num_layers)),
+             (code_bucket, hd, len(diff.latent_conditioner) - 1)]
+    if prompt_bucket is not None:
+        calls.append(embedder_call(diff, prompt_bucket))
+    routes = b1_routes(calls, engine.cdt)
+    if prompt_bucket is not None and sum(
+            routes[r] for r in attention.SERVE_ROUTES) != b1_per_request(engine):
         fail(f"B1 routes {routes} do not add up to {b1_per_request(engine)} a request")
     return routes
 
 
 def route_counts():
-    return dict(attention.LAUNCHES_BY_ROUTE)
+    """B1's launches by route, and by route and head dim as ``route<d>``."""
+    return {**attention.LAUNCHES_BY_ROUTE,
+            **{f"{r}<{d}>": n for (r, d), n in attention.LAUNCHES_BY_DIM.items()}}
 
 
 def routes_since(before):
-    return {k: v - before[k] for k, v in attention.LAUNCHES_BY_ROUTE.items()}
+    """``route_counts`` since ``before``, without the head dims that took none."""
+    return {k: v - before.get(k, 0) for k, v in route_counts().items()
+            if k in attention.SERVE_ROUTES or v != before.get(k, 0)}
+
+
+def zero_routes():
+    """B1's launch counts, by route and by head dim, to 0."""
+    attention.LAUNCHES = 0
+    for name in attention.LAUNCHES_BY_ROUTE:
+        attention.LAUNCHES_BY_ROUTE[name] = 0
+    attention.LAUNCHES_BY_DIM.clear()
+
+
+def request_buckets(engine, wavs):
+    """(code bucket, prompt bucket) of a force_full request on ``engine``."""
+    code_bucket = next(b for b in engine.ecfg.code_buckets
+                       if b >= engine.ecfg.max_generate_length - 1)
+    return code_bucket, engine.prepare_prompt(wavs)[0].shape[1]
 
 
 def phase_serving(engine, requests):
@@ -1632,15 +1714,11 @@ def phase_serving(engine, requests):
     prng_want = prng_per_request(engine, engine.ecfg.max_generate_length)
     sr = engine.cfg.data.sampling_rate
     hop_per_code = engine.cfg.gpt.mel_length_compression
-    code_bucket = next(b for b in engine.ecfg.code_buckets
-                       if b >= engine.ecfg.max_generate_length - 1)
-    routes_want = b1_routes_per_request(engine, code_bucket)
     outputs, counts, records = [], [], []
-    attention.LAUNCHES = 0
-    for name in attention.LAUNCHES_BY_ROUTE:  # read at the end of the run
-        attention.LAUNCHES_BY_ROUTE[name] = 0
+    zero_routes()  # read at the end of the run
     zero_prng()
     for texts, wavs, seed in requests:
+        routes_want = b1_routes_per_request(engine, *request_buckets(engine, wavs))
         before, prng_before, routes_before = attention.LAUNCHES, prng_counts(), route_counts()
         timings = {}
         t0 = time.perf_counter()
@@ -1704,10 +1782,15 @@ def check_audio(engine, outs, what, dtype=np.float32):
 
 def serve_request(engine, label, texts, wavs, seed, vq=False):
     """One force_full request, its B1, threefry and sample step launches
-    counted from 0 (a sample step for each decode step it executed); prints
-    the wall time, audio seconds per wall second and the stage timings."""
+    counted from 0 (a sample step for each decode step it executed), B1's
+    on the routes ``b1_routes_per_request`` gives (none on the VQ path);
+    prints the wall time, audio seconds per wall second and the stage
+    timings."""
     attention.LAUNCHES = 0
     zero_prng()
+    routes_want = (dict.fromkeys(attention.SERVE_ROUTES, 0) if vq else
+                   b1_routes_per_request(engine, *request_buckets(engine, wavs)))
+    routes_before = route_counts()
     timings = {}
     t0 = time.perf_counter()
     with DecodeSteps() as executed:
@@ -1717,14 +1800,17 @@ def serve_request(engine, label, texts, wavs, seed, vq=False):
             outs = engine.synthesize_batch(texts, wavs, seed=seed, force_full=True,
                                            timings=timings)
     wall = time.perf_counter() - t0
+    routes_got = routes_since(routes_before)
     audio_s = sum(len(o) for o in outs) / engine.cfg.data.sampling_rate
     print(f"  {label} batch={len(texts)} seed={seed}: {audio_s:.2f} s of audio in "
           f"{wall:.3f} s wall ({audio_s / wall:.2f}x real time); kernel launches "
-          f"{attention.LAUNCHES}; threefry draws, key buffers, sample steps {prng_counts()} "
-          f"(decode steps executed {executed.steps}); timings "
+          f"{attention.LAUNCHES} by route {routes_got}; threefry draws, key buffers, sample "
+          f"steps {prng_counts()} (decode steps executed {executed.steps}); timings "
           + json.dumps({k: round(v, 4) for k, v in timings.items()}), flush=True)
     if executed.steps != engine.ecfg.max_generate_length:
         fail(f"{label}: the decode executed {executed.steps} steps under force_full")
+    if routes_got != routes_want:
+        fail(f"{label}: B1 launches by route {routes_got}, expected {routes_want}")
     return outs, attention.LAUNCHES, wall, timings
 
 
@@ -1785,6 +1871,16 @@ def phase_serving_paths(engine, texts, prompts, ancestral_records):
         walls[(sampler, steps)] = wall
         if (sampler, steps) == FAST_MODE:
             fast, fast_outs = eng, runs[0]
+    # (a') the latent conditioner at code bucket 100, whose T % 8 != 0 keeps
+    # serve_fwd_mma on the main path (phase 4's bucket 200 runs every call on
+    # serve_fwd_wgmma)
+    short = variant(max_generate_length=101, diffusion_sampler=FAST_MODE[0],
+                    diffusion_steps=FAST_MODE[1])
+    outs, launches, _, _ = serve_request(short, "code bucket 100, %s %d steps" % FAST_MODE,
+                                         pair, prompts2, seed=0)
+    total += launches
+    prng_total += np.array(prng_counts())
+    check_audio(short, outs, "code bucket 100")
     anc_wall, anc_timings = ancestral_records[-1]  # phase 4's third request
     print("  diffuse of the warm b2 request (ms): "
           + ", ".join(f"{s} {n}: {ms:.1f}" for (s, n), ms in diffuse_ms.items())
@@ -2015,6 +2111,18 @@ def expected_bwd_routes(cfg, layers_kept, batch, raw_frames, prompt_frames):
         attention.BWD_ROUTES)
 
 
+def expected_train_fwd_dims(cfg, layers_kept, batch, raw_frames, prompt_frames, sms):
+    """Forward calls of each (route, head dim) in one step, as
+    ``attention.TRAIN_FWD_LAUNCHES_BY_DIM`` counts them: the trunk's d and the
+    contextual embedder's 2 d on each route."""
+    d = cfg.diffusion.model_channels // cfg.diffusion.num_heads
+    return expected_routes(
+        cfg, layers_kept, batch, raw_frames, prompt_frames,
+        lambda b, t, h, hd: (attention.bias_attention_train_fwd_route(
+            b, t, h, hd, torch.bfloat16, sms), hd),
+        [(route, x) for route in attention.TRAIN_FWD_ROUTES for x in (d, 2 * d)])
+
+
 def expected_bwd_dims(cfg, layers_kept, batch, raw_frames, prompt_frames):
     """Backward calls of each (route, head dim) in one step, as
     ``attention.BWD_LAUNCHES_BY_DIM`` counts them: the trunk's d and the
@@ -2026,9 +2134,9 @@ def expected_bwd_dims(cfg, layers_kept, batch, raw_frames, prompt_frames):
         [(route, x) for route in attention.BWD_ROUTES for x in (d, 2 * d)])
 
 
-# the forward and backward calls of each route in phases 6, 6b and 7, and the
-# backward's by (route, head dim), each phase's counts set to 0 before it and
-# added here after it (kernels line)
+# the forward and backward calls of each route in phases 6, 6b and 7, and
+# both by (route, head dim), each phase's counts set to 0 before it and added
+# here after it (kernels line)
 ROUTE_LAUNCHES = {route: 0 for route in attention.TRAIN_FWD_ROUTES + attention.BWD_ROUTES}
 PHASE6_STEPS = "4 diff steps (phase 6: 3 of 8 x 496 frames x accum 16, 1 of 8 x 500 frames)"
 TRAIN_LAUNCHES_OVER = (f"{PHASE6_STEPS}, 2 all steps (phase 6b), 6 diff steps from the corpus "
@@ -2037,9 +2145,9 @@ TRAIN_LAUNCHES_OVER = (f"{PHASE6_STEPS}, 2 all steps (phase 6b), 6 diff steps fr
 
 def route_counts_now():
     """The training forward's launches and the backward's calls by route,
-    and the backward's by (route, head dim)."""
+    and both by (route, head dim)."""
     return {**attention.TRAIN_FWD_LAUNCHES_BY_ROUTE, **attention.BWD_LAUNCHES_BY_ROUTE,
-            **attention.BWD_LAUNCHES_BY_DIM}
+            **attention.TRAIN_FWD_LAUNCHES_BY_DIM, **attention.BWD_LAUNCHES_BY_DIM}
 
 
 def zero_train_counts():
@@ -2050,6 +2158,7 @@ def zero_train_counts():
     for counts in (attention.TRAIN_FWD_LAUNCHES_BY_ROUTE, attention.BWD_LAUNCHES_BY_ROUTE):
         for route in counts:
             counts[route] = 0
+    attention.TRAIN_FWD_LAUNCHES_BY_DIM.clear()
     attention.BWD_LAUNCHES_BY_DIM.clear()
 
 
@@ -2066,12 +2175,13 @@ def add_train_routes():
 
 
 def check_step_routes(cfg, layers_kept, before, shape, what):
-    """One bf16 step's forward and backward calls by route (and the
-    backward's by head dim) against ``expected_train_fwd_routes``,
-    ``expected_bwd_routes`` and ``expected_bwd_dims`` at ``shape`` =
+    """One bf16 step's forward and backward calls by route (and by head
+    dim) against ``expected_train_fwd_routes``, ``expected_bwd_routes``,
+    ``expected_train_fwd_dims`` and ``expected_bwd_dims`` at ``shape`` =
     (micro-batch, raw frames, prompt frames); returns them."""
     want = {**expected_train_fwd_routes(cfg, layers_kept, *shape, sm_count()),
             **expected_bwd_routes(cfg, layers_kept, *shape),
+            **expected_train_fwd_dims(cfg, layers_kept, *shape, sm_count()),
             **expected_bwd_dims(cfg, layers_kept, *shape)}
     now = route_counts_now()
     got = {r: now.get(r, 0) - before.get(r, 0) for r in want}
@@ -3924,27 +4034,41 @@ class DiffusionRequests:
     """While entered, counts the diffusion requests of every ``TTSEngine``
     (one ``diffuse`` call each) and the B1 launches they make
     (``b1_per_request`` of the engine's sampler, and by route
-    ``b1_routes_per_request`` at the request's code bucket)."""
+    ``b1_routes_per_request`` at the request's code bucket, the contextual
+    embedder's at each prompt mel it conditions on)."""
+
+    def _add(self, routes):
+        for k, v in routes.items():
+            self.routes[k] = self.routes.get(k, 0) + v
 
     def __enter__(self):
+        from detail_tts_tpu_torch.models.synthesizer import SynthesizerTrn
         from detail_tts_tpu_torch.serving.pipeline import TTSEngine
         self.requests, self.b1 = 0, 0
         self.routes = dict.fromkeys(attention.SERVE_ROUTES, 0)
         self._orig = orig = TTSEngine.diffuse
+        self._orig_cond = orig_cond = SynthesizerTrn.diffusion_conditioning
 
         def counted(engine, latents, *args, **kwargs):
             self.requests += 1
             self.b1 += b1_per_request(engine)
-            for k, v in b1_routes_per_request(engine, latents.shape[1]).items():
-                self.routes[k] += v
+            self._add(b1_routes_per_request(engine, latents.shape[1]))
             return orig(engine, latents, *args, **kwargs)
 
+        def conditioned(model, refer_mel):
+            self._add(b1_routes([embedder_call(model.diffusion, refer_mel.shape[1])],
+                                refer_mel.dtype))
+            return orig_cond(model, refer_mel)
+
         TTSEngine.diffuse = counted
+        SynthesizerTrn.diffusion_conditioning = conditioned
         return self
 
     def __exit__(self, *exc):
+        from detail_tts_tpu_torch.models.synthesizer import SynthesizerTrn
         from detail_tts_tpu_torch.serving.pipeline import TTSEngine
         TTSEngine.diffuse = self._orig
+        SynthesizerTrn.diffusion_conditioning = self._orig_cond
 
 
 def run_example_counted(script, args):
@@ -3955,9 +4079,7 @@ def run_example_counted(script, args):
     import runpy
     sys.path.insert(0, os.path.dirname(os.path.abspath(script)))
     sys.argv = [script, *args]
-    attention.LAUNCHES = 0
-    for name in attention.LAUNCHES_BY_ROUTE:
-        attention.LAUNCHES_BY_ROUTE[name] = 0
+    zero_routes()
     zero_prng()
     with DecodeSteps() as steps, DiffusionRequests() as diffusion:
         runpy.run_path(script, run_name="__main__")
@@ -4083,7 +4205,8 @@ def phase_examples(cfg, root):
     # the full path's, and long form's a batch of its chunks (the VQ path runs none)
     check_example_serving("demo_torch.py", counts, 2)
     b1, samples = b1 + counts["b1"], samples + counts["sample_step"]
-    routes = {k: v + counts["b1_routes"][k] for k, v in routes.items()}
+    routes = {k: routes.get(k, 0) + counts["b1_routes"].get(k, 0)
+              for k in {**routes, **counts["b1_routes"]}}
     secs = {n: check_wav(demo / n, sr)
             for n in ("demo_full.wav", "demo_vq.wav", "demo_long.wav")}
     print(f"  demo: {secs} (s); prompt {prompt.name}", flush=True)
@@ -4116,7 +4239,12 @@ def main():
 
     served = serving_attention_shapes(
         cfg, ecfg, batches=(2, 1), prompt_frames=3 * sr // cfg.data.hop_length)
-    worst, times = phase_kernel(sfu_per_s, served, timed_shapes=[served[1], served[3]])
+    # timed: the trunk at b2 (serve_fwd_wgmma), the contextual embedder
+    # (serve_fwd_wgmma<96>), the latent conditioner at code bucket 100
+    # (serve_fwd_mma)
+    conditioner_100 = (2, 100, cfg.diffusion.num_heads, served[2][3])
+    worst, times = phase_kernel(sfu_per_s, served + [conditioner_100],
+                                timed_shapes=[served[1], served[3], conditioner_100])
     stamp()
     prng_abs, prng_ulp, prng_times, keys_times = phase_prng()
     stamp()
@@ -4163,26 +4291,36 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # B1's two kernels on the main path, by the route each launch took: this
-    # process's serving launches from phase 4 on and the examples' (phase 11)
-    by_route = {k: v + examples_routes[k] for k, v in attention.LAUNCHES_BY_ROUTE.items()}
+    # B1's kernels on the main path, by the route (and head dim) each launch
+    # took: this process's serving launches from phase 4 on and the
+    # examples' (phase 11); serve_fwd_wgmma at the trunk's d = 48 and at the
+    # contextual embedder's d = 96 apart (each instantiation its own launches)
+    here = route_counts()
+    by_route = {k: here.get(k, 0) + examples_routes.get(k, 0)
+                for k in {**here, **examples_routes}}
+    d = cfg.diffusion.model_channels // cfg.diffusion.num_heads
     kernels = []
-    for name, what in (("serve_fwd_wgmma", "bf16 at d <= 64 and T % 8 == 0: the trunk, "
-                                           "the integrator and the latent conditioner "
-                                           "at a code bucket that is a multiple of 8"),
-                       ("serve_fwd_mma", "the other bf16 calls: the contextual embedder "
-                                         "(d = 96) and the latent conditioner at code "
-                                         "buckets of 100, 300, 500")):
-        if by_route[name] == 0:
+    for name, key, what in (
+            ("serve_fwd_wgmma", f"serve_fwd_wgmma<{d}>",
+             "bf16 at d <= 64 and T % 8 == 0: the trunk, the integrator and the latent "
+             "conditioner at a code bucket that is a multiple of 8"),
+            ("serve_fwd_wgmma<96>", f"serve_fwd_wgmma<{2 * d}>",
+             "bf16 at d = 96 and T % 8 == 0: the contextual embedder at every prompt "
+             "bucket (T = bucket / 4)"),
+            ("serve_fwd_mma", "serve_fwd_mma",
+             "the other bf16 calls, T % 8 != 0: the latent conditioner at code buckets of "
+             "100, 300, 500")):
+        if by_route.get(key, 0) == 0:
             fail(f"B1's kernel {name} was launched no time on the main path")
         kernels.append(dict(
             name=name, route="cuda", source="detail_tts_tpu_torch/csrc/bias_attention.cu",
             replaces="detail_tts_tpu/ops/pallas/attention.py:404",
-            entry="bias_attention_fwd", takes=what, launches=by_route[name],
+            entry="bias_attention_fwd", takes=what, launches=by_route[key],
+            launches_by_route_and_head_dim={k: v for k, v in by_route.items() if "<" in k},
             launches_over="every serving launch of this process from phase 4 on (phases "
                           "4, 4b, 7 and the one-card references of phases 9 and 10) and "
                           "the examples' requests (phase 11)",
-            launches_per_request=routes_per_request[name],
+            launches_per_request=routes_per_request.get(key, 0),
             b1_launches_per_request=per_request,
             b1_launches_all_phases=launches + corpus_b1 + mesh_b1 + frontends_b1
             + examples_b1,
@@ -4231,28 +4369,36 @@ def main():
                       "diff step (phase 9)",
         max_abs_err=train_worst[name][0], max_scaled_err=train_worst[name][1],
         library="torch.sum over the batch", **train_times[name]))
-    # kernel 4's two bf16 kernels, by the route each launch took
-    for route, what in (("train_fwd_wgmma", "bf16 at d <= 64 and T % 4 == 0 on grids of at "
-                                            "least half the SMs: at micro-batch 8 the trunk, "
-                                            "the integrator and the latent conditioner"),
-                        ("train_fwd_mma", "the other bf16 calls: the contextual embedder "
-                                          "(d = 96), the latent conditioner at T % 4 != 0 "
-                                          "(the 500-frame crop's 125, 706 codes), smaller "
-                                          "grids")):
-        if ROUTE_LAUNCHES[route] == 0:
-            fail(f"the training forward's route {route} was launched no time on the main path")
+    # kernel 4's bf16 kernels, by the route each launch took; the wgmma kernel
+    # at the trunk's d = 48 and at the contextual embedder's d = 96 apart
+    for name, route, dim, what in (
+            ("train_fwd_wgmma", "train_fwd_wgmma", d,
+             "bf16 at d <= 64 and T % 4 == 0 on grids of at least half the SMs: at "
+             "micro-batch 8 the trunk, the integrator and the latent conditioner"),
+            (TRAIN_FWD_WGMMA_96, "train_fwd_wgmma", 2 * d,
+             "bf16 at d = 96 and T % 4 == 0: the contextual embedder at a 496-frame prompt "
+             "(T = 124)"),
+            ("train_fwd_mma", "train_fwd_mma", None,
+             "the other bf16 calls: T % 4 != 0 (the latent conditioner and the contextual "
+             "embedder at the 500-frame crop's T = 125, the latent conditioner at 706 "
+             "codes), smaller grids at d <= 64")):
+        n = ROUTE_LAUNCHES[route] if dim is None else ROUTE_LAUNCHES.get((route, dim), 0)
+        if n == 0:
+            fail(f"the training forward's kernel {name} was launched no time on the main path")
         kernels.append(dict(
-            name=route, route="cuda", source="detail_tts_tpu_torch/csrc/bias_attention.cu",
+            name=name, route="cuda", source="detail_tts_tpu_torch/csrc/bias_attention.cu",
             replaces="detail_tts_tpu/ops/pallas/attention.py:259",
-            entry="bias_attention_train_fwd", takes=what, launches=ROUTE_LAUNCHES[route],
+            entry="bias_attention_train_fwd", takes=what, launches=n,
+            launches_by_head_dim={str(k[1]): v for k, v in ROUTE_LAUNCHES.items()
+                                  if isinstance(k, tuple) and k[0] == route
+                                  and dim in (None, k[1])},
             launches_over=TRAIN_LAUNCHES_OVER,
-            max_abs_err=train_worst[route][0], max_scaled_err=train_worst[route][1],
+            max_abs_err=train_worst[name][0], max_scaled_err=train_worst[name][1],
             library="scaled_dot_product_attention (" + backend + ")",
-            **train_times[route]))
+            **train_times[name]))
     # the backward's two kernels of each bf16 route, launched once each a
     # call; the wgmma kernels at the trunk's d = 48 and at the contextual
     # embedder's d = 96 apart (each instantiation its own launches)
-    d = cfg.diffusion.model_channels // cfg.diffusion.num_heads
     for route, names, dim, what in (
             ("bwd_wgmma", attention.BWD_ROUTE_KERNELS["bwd_wgmma"], d,
              "bf16 at d <= 64 and T % 4 == 0: the trunk, the integrator and the latent "

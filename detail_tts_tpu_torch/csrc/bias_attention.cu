@@ -52,14 +52,16 @@
 //   ring and its fragments are read for each key tile.  Above d = 64 the
 //   registers of a 32-row warp do not fit (at d = 128 the output accumulator
 //   alone takes 128), so a warp takes 16 rows and a CTA 64.  It takes the
-//   bf16 calls that serve_fwd_wgmma does not: d = 96 (the contextual
-//   embedder) and T % 8 != 0.
-// * ``serve_fwd_wgmma`` below (bf16, d <= 64, T % 8 == 0: the trunk, the
-//   integrator, the latent conditioner at code buckets that are multiples of
-//   8): the same 128 query rows a CTA, K, V, Q and the bias tile copied by
-//   TMA from one producer warp through an mbarrier ring, both products on
-//   wgmma from two consumer warpgroups, no spills, two CTAs an SM; 31%
-//   faster than serve_fwd_mma at the trunk's shape in turns
+//   bf16 calls that serve_fwd_wgmma does not: T % 8 != 0 (the latent
+//   conditioner at code buckets 100, 300 and 500) and d = 80, 112, 128.
+// * ``serve_fwd_wgmma`` below (bf16, d <= 64 or d = 96, T % 8 == 0: the
+//   trunk, the integrator, the latent conditioner at code buckets that are
+//   multiples of 8, and the contextual embedder at every prompt bucket,
+//   d = 96): the same 128 query rows a CTA, K, V, Q and the bias tile copied
+//   by TMA from one producer warp through an mbarrier ring, both products on
+//   wgmma from two consumer warpgroups (one, 64 rows a CTA, at d = 96), no
+//   spills, two CTAs an SM; 31% faster than serve_fwd_mma at the trunk's
+//   shape in turns
 //   (ab_serving_kernel.py, PERF.md).  Clusters of 2 or 4 batch rows that
 //   multicast each bias tile (1/2 and 1/4 of the bias bytes from L2) ran
 //   slower and were removed: the kernel is bound by latency (each
@@ -86,16 +88,18 @@
 // 72-float rows would make two stages and Q 117 KB, past two CTAs an SM),
 // its 16-byte chunks XOR-swizzled by row so that the float2 pairs each
 // thread reads at the point of use hit distinct banks.  One barrier a key
-// tile.  It takes the bf16 calls that train_fwd_wgmma does not: d = 96
-// (the contextual embedder), T % 4 != 0 and grids of 128-row CTAs under
-// half the SMs (a data-parallel rank's small micro-batch).
-// ``train_fwd_wgmma`` below (bf16, d <= 64, T % 4 == 0: at a step's
-// micro-batch of 8 the trunk, the integrator, the latent conditioner at
-// code lengths that are multiples of 4) is serve_fwd_wgmma's design with the fp32 bias: one producer warp
-// copies Q once and each key tile's K, V and fp32 bias tile by TMA through
-// an mbarrier ring (no thread spends an instruction on a copy, and no
-// __syncthreads a tile), both products on wgmma from two consumer
-// warpgroups of 64 rows, 128 rows a CTA.
+// tile.  It takes the bf16 calls that train_fwd_wgmma does not: T % 4 != 0
+// (the 500-frame crop's 125, 706 codes), d = 80, 112, 128, and at d <= 64
+// grids of 128-row CTAs under half the SMs (a data-parallel rank's small
+// micro-batch).
+// ``train_fwd_wgmma`` below (bf16, d <= 64 or d = 96, T % 4 == 0: at a
+// step's micro-batch of 8 the trunk, the integrator, the latent conditioner
+// at code lengths that are multiples of 4, the contextual embedder at a
+// 496-frame prompt) is serve_fwd_wgmma's design with the fp32 bias: one
+// producer warp copies Q once and each key tile's K, V and fp32 bias tile
+// by TMA through an mbarrier ring (no thread spends an instruction on a
+// copy, and no __syncthreads a tile), both products on wgmma from
+// consumer warpgroups of 64 rows.
 //
 // Both bf16 kernels follow FlashAttention-2 on mma.sync (m16n8k16, fp32
 // accumulate): S, P and the output accumulator stay in registers, P goes
@@ -428,15 +432,25 @@ serve_fwd_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
 
 // ------------------------------------------------- bf16 serving: wgmma
 
-// serve_fwd_wgmma takes bf16 at d <= 64 and T % 8 == 0 (a bias row of
-// T * 2 bytes is then a legal TMA stride); serve_fwd_mma takes the other
-// bf16 calls.  A CTA holds 128 query rows of one (b, h) in two consumer
-// warpgroups of 64 rows and one producer warp: 288 threads, two CTAs an SM,
-// which caps a thread at 96 registers (95 used, no spills at d = 48).
+// serve_fwd_wgmma takes bf16 at d <= 64 or d = 96 and T % 8 == 0 (a bias
+// row of T * 2 bytes is then a legal TMA stride); serve_fwd_mma takes the
+// other bf16 calls.  Up to d = 64 a CTA holds 128 query rows of one (b, h)
+// in two consumer warpgroups of 64 rows and one producer warp: 288
+// threads, two CTAs an SM, which caps a thread at 96 registers (95 used, no
+// spills at d = 48).  At d = 96 (the contextual embedder) a CTA is one
+// consumer warpgroup of 64 rows and the producer warp, two CTAs an SM: its
+// grids are small (64 CTAs at (2, 128, 16, 96)), and with two warpgroups a
+// CTA (one CTA an SM, as O's 48 registers, S's 32 and P's 16 leave too
+// little of two CTAs' 112) half as many CTAs shared SMs while others idled:
+// in turns on the H100 that tiling ran 1-43% slower at every shape
+// measured, most at 1 and 2 rows of T = 128 (PERF.md §6).
 // Shared memory, from a 1024-byte aligned base: STAGES stages of [bias tile
-// | K | V], then Q, then the barriers.  K, V and Q are TMA boxes of 16
-// channels by 64 rows (32-byte rows, 32-byte swizzle): a box is one k-step
-// of Q K^T and one 16-channel atom of V in P V.  The bias tile is [128
+// | K | V], then Q, then the barriers.  K, V and Q are tiles of 64-row TMA
+// boxes (hopper::Boxes<D>: 16 channels in 32-byte rows with the 32-byte
+// swizzle up to d = 64, 32 channels in 64-byte rows with the 64-byte swizzle
+// at d = 96, half the TMA requests): a K-major k-step of Q K^T is a box, or
+// half a 64-byte box row; a 16-row k-step of V in P V spans the boxes, one
+// atom each.  Q is one such tile a warpgroup.  The bias tile is [128
 // queries x 64 keys] in 128-byte rows with the 128-byte swizzle, so the x4
 // ldmatrix that hands a thread its accumulator-layout pairs hits distinct
 // banks.  Keys past T read 0 from TMA and are set to -inf in the logits;
@@ -447,8 +461,8 @@ serve_fwd_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
 // another's registers are live (with tile j - 1's P V still running under
 // tile j's Q K^T, ptxas serialised every wgmma for want of registers, and
 // the kernel was slower); the softmax of one warpgroup overlaps the
-// products of the three others on its SM.  Designs tried on the H100 and
-// dropped, each slower than this one in turns: the softmax of tile j
+// products of the others on its SM.  Designs tried on the H100 at d = 48
+// and dropped, each slower than this one in turns: the softmax of tile j
 // overlapping P V within a warpgroup (a second S or P in registers, which
 // at 96 spills or serialises the wgmmas); a
 // whole producer warpgroup, so that setmaxnreg can move registers to the
@@ -458,32 +472,47 @@ serve_fwd_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
 // to hide each other's latency); clusters of 2 or 4 consecutive batch rows,
 // each CTA multicasting its share of the common bias tile (the pairs'
 // lockstep cost more than the L2 bytes saved).
-constexpr int kWgConsumerWarps = 8;                    // two warpgroups
-constexpr int kWgThreads = 32 * kWgConsumerWarps + 32;  // and the producer warp
+// Dynamic shared memory of a CTA with ``stages`` stages of ``stage`` bytes
+// and ``q`` bytes of Q: the tiles from a 1024-byte aligned base, then the
+// barriers.
+constexpr size_t ring_bytes(int stage, int q, int stages) {
+  return 1024 + (size_t)stages * stage + q + (2 * stages + 1) * sizeof(uint64_t);
+}
+// Whether ``blocks`` CTAs of ``bytes`` fit on an SM (228 KB, 1 KB reserved
+// a CTA, at most 227 KB a CTA).
+constexpr bool fits_sm(size_t bytes, int blocks) {
+  return bytes <= 227 * 1024 && blocks * (bytes + 1024) <= 228 * 1024;
+}
 
 template <int D>
 struct Wg {
-  static constexpr int BQ = 128;                      // query rows a CTA
-  static constexpr int KS = D / 16;                   // 16-channel boxes of a row
-  static constexpr int BOX = BK * 32;                 // a box: 64 rows of 32 bytes
-  static constexpr int KV = KS * BOX;                 // a K or V tile
+  using Box = hopper::Boxes<D>;
+  // consumer warpgroups of 64 query rows: one at d = 96 (see above)
+  static constexpr int WG = D == 96 ? 1 : 2;
+  static constexpr int kConsumerWarps = 4 * WG;
+  static constexpr int kThreads = 32 * kConsumerWarps + 32;  // and the producer warp
+  static constexpr int BQ = 64 * WG;                  // query rows a CTA
+  static constexpr int KS = D / 16;                   // 16-channel k-steps of a row
+  static constexpr int KV = Box::TILE_BYTES;          // a K or V tile
   static constexpr int BIAS = BQ * BK * 2;            // the bias tile
-  static constexpr int STAGE = BIAS + 2 * KV;
-  static constexpr int STAGES = D <= 48 ? 3 : 2;      // as two CTAs an SM allow
-  static constexpr int QB = 2 * KV;                   // Q: two boxes a channel group
-  static constexpr uint32_t STAGE_TX = 2 * KV + BIAS;  // bytes that fill a stage
-  static constexpr size_t bytes =
-      1024 + STAGES * STAGE + QB + (2 * STAGES + 1) * sizeof(uint64_t);
+  static constexpr int STAGE = BIAS + 2 * KV;         // bytes that fill a stage
+  static constexpr int QB = WG * KV;                  // Q: a tile a warpgroup
+  static constexpr int kBlocks = 2;                   // CTAs an SM
+  // stages: three where two CTAs of them fit on an SM, else two
+  static constexpr int STAGES = fits_sm(ring_bytes(STAGE, QB, 3), kBlocks) ? 3 : 2;
+  static constexpr size_t bytes = ring_bytes(STAGE, QB, STAGES);
   static_assert(STAGE % 1024 == 0 && QB % 1024 == 0, "1024-byte aligned tiles");
+  static_assert(fits_sm(bytes, kBlocks), "the CTAs an SM fit its shared memory");
 };
 
 template <int D>
-__global__ void __launch_bounds__(kWgThreads, 2)
+__global__ void __launch_bounds__(Wg<D>::kThreads, Wg<D>::kBlocks)
 serve_fwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
                 const __grid_constant__ CUtensorMap bias_map, bf16* __restrict__ out,
                 int t_len, int heads, float scale) {
   using namespace hopper;
   using L = Wg<D>;
+  using Box = typename L::Box;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* q_smem = smem + L::STAGES * L::STAGE;
@@ -501,14 +530,14 @@ serve_fwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
   if (threadIdx.x == 0) {
     for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kWgConsumerWarps);
+      mbar_init(&empty[s], L::kConsumerWarps);
     }
     mbar_init(q_full, 1);
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == kWgConsumerWarps) {
+  if (warp == L::kConsumerWarps) {
     // ---------------------------------------------------------- producer
     if (lane == 0) {
       tma_prefetch(&qkv_map);
@@ -516,23 +545,25 @@ serve_fwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
       const int col = h * 3 * D;  // channel of this head's q in a qkv row
       mbar_expect_tx(q_full, L::QB);
 #pragma unroll
-      for (int c = 0; c < L::KS; ++c) {
-        tma_load_3d(q_smem + c * 2 * L::BOX, &qkv_map, q_full, col + 16 * c, q0, b);
-        tma_load_3d(q_smem + c * 2 * L::BOX + L::BOX, &qkv_map, q_full, col + 16 * c,
-                    q0 + BK, b);
+      for (int w = 0; w < L::WG; ++w) {
+#pragma unroll
+        for (int c = 0; c < Box::NBOX; ++c) {
+          tma_load_3d(q_smem + w * L::KV + c * Box::BOX, &qkv_map, q_full,
+                      col + Box::BOX_CH * c, q0 + 64 * w, b);
+        }
       }
       const int bias_row = h * t_len + q0;
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % L::STAGES;
         if (j >= L::STAGES) mbar_wait(&empty[s], (j / L::STAGES - 1) & 1);
         unsigned char* st = smem + s * L::STAGE;
-        mbar_expect_tx(&full[s], L::STAGE_TX);
+        mbar_expect_tx(&full[s], L::STAGE);
 #pragma unroll
-        for (int c = 0; c < L::KS; ++c) {
-          tma_load_3d(st + L::BIAS + c * L::BOX, &qkv_map, &full[s], col + D + 16 * c,
-                      j * BK, b);
-          tma_load_3d(st + L::BIAS + L::KV + c * L::BOX, &qkv_map, &full[s],
-                      col + 2 * D + 16 * c, j * BK, b);
+        for (int c = 0; c < Box::NBOX; ++c) {
+          tma_load_3d(st + L::BIAS + c * Box::BOX, &qkv_map, &full[s],
+                      col + D + Box::BOX_CH * c, j * BK, b);
+          tma_load_3d(st + L::BIAS + L::KV + c * Box::BOX, &qkv_map, &full[s],
+                      col + 2 * D + Box::BOX_CH * c, j * BK, b);
         }
         tma_load_2d(st, &bias_map, &full[s], j * BK, bias_row);
       }
@@ -561,9 +592,7 @@ serve_fwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
   uint32_t p[BK / 16][4];        // P as bf16 A fragments, one a 16-key k-step
   uint64_t qd[L::KS];            // Q's descriptors: this warpgroup's rows, k-step c
 #pragma unroll
-  for (int c = 0; c < L::KS; ++c) {
-    qd[c] = desc_sw32(smem_addr(q_smem) + c * 2 * L::BOX + wg * L::BOX, 16, 256);
-  }
+  for (int c = 0; c < L::KS; ++c) qd[c] = Box::k_desc(smem_addr(q_smem + wg * L::KV), c);
 
   // log2-domain logits of key tile j, the online softmax in fp32 (O
   // rescaled), and P rounded to bf16
@@ -644,13 +673,9 @@ serve_fwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
     // that no other instruction writes a wgmma's input between them
     uint64_t kd[L::KS], vd[BK / 16];
 #pragma unroll
-    for (int c = 0; c < L::KS; ++c) {
-      kd[c] = desc_sw32(smem_addr(st + L::BIAS) + c * L::BOX, 16, 256);
-    }
+    for (int c = 0; c < L::KS; ++c) kd[c] = Box::k_desc(smem_addr(st + L::BIAS), c);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      vd[kk] = desc_sw32(smem_addr(st + L::BIAS + L::KV) + kk * 16 * 32, L::BOX, 256);
-    }
+    for (int kk = 0; kk < BK / 16; ++kk) vd[kk] = Box::mn_desc(smem_addr(st + L::BIAS + L::KV), kk);
     fence_regs(kd);
     fence_regs(vd);
     mbar_wait(&full[sj], (j / L::STAGES) & 1);
@@ -1003,19 +1028,20 @@ train_fwd_mma(const bf16* __restrict__ qkv, const float* __restrict__ bias,
 
 // ------------------------------------------------- bf16 training: wgmma
 
-// train_fwd_wgmma takes bf16 at d <= 64 and T % 4 == 0 (an fp32 bias row of
-// T * 4 bytes is then a legal TMA stride) where its grid fills at least half
-// the SMs (train_route); train_fwd_mma takes the other bf16 calls.  A CTA
-// holds 128 query rows of one (b, h) in two consumer
-// warpgroups of 64 rows and one producer warp that keeps TMA copies in
-// flight through an mbarrier ring: serve_fwd_wgmma's 288 threads, two
-// CTAs an SM up to d = 48.  Shared memory, from a 1024-byte aligned base:
-// STAGES stages of [bias tile | K | V], then Q, then the barriers.  K, V and Q are the serving kernel's boxes of 16 channels by 64
-// rows (32-byte rows, 32-byte swizzle), one box a k-step of Q K^T and one
-// 16-channel atom of V in P V.  The fp32 bias tile [128 queries x 64 keys]
-// is two boxes of 32 keys (128-byte rows, 128-byte swizzle) from the
-// backward's (T keys, T queries, H) map, read as float2 pairs in the
-// accumulator layout (hopper::swz128): 256 bytes a warp in two wavefronts.
+// train_fwd_wgmma takes bf16 at d <= 64 or d = 96 and T % 4 == 0 (an fp32
+// bias row of T * 4 bytes is then a legal TMA stride), at d <= 64 where its
+// grid fills at least half the SMs (train_route); train_fwd_mma takes the
+// other bf16 calls.  A CTA holds WG x 64 query rows of one (b, h) in WG
+// consumer warpgroups and one producer warp that keeps TMA copies in flight
+// through an mbarrier ring: up to d = 64 serve_fwd_wgmma's 288 threads (two
+// warpgroups), two CTAs an SM up to d = 48.  Shared memory, from a 1024-byte
+// aligned base: STAGES stages of [bias tile | K | V], then Q, then the
+// barriers.  K, V and Q are serve_fwd_wgmma's tiles of 64-row boxes
+// (hopper::Boxes<D>; at d = 96 32 channels in 64-byte rows).  The fp32 bias
+// tile [BQ queries x 64 keys] is two boxes of 32 keys (128-byte rows,
+// 128-byte swizzle) from the backward's (T keys, T queries, H) map, read as
+// float2 pairs in the accumulator layout (hopper::swz128): 256 bytes a warp
+// in two wavefronts.
 // The producer initialises the barriers and issues Q and the first stages
 // before the CTA's one __syncthreads, so that a short key loop (two tiles
 // at T = 124) starts on copies already in flight.  Keys past T read 0 and
@@ -1023,35 +1049,30 @@ train_fwd_mma(const bf16* __restrict__ qkv, const float* __restrict__ bias,
 // their zero bias) and are written neither in out nor in lse.
 // In turns with train_fwd_mma it is 19% faster at (8, 496, 16, 48) and 28%
 // at T = 1024, and ties at T = 124 (PERF.md §6).  Measured
-// on the H100 and dropped, each slower in turns: CTAs of one warpgroup (64
-// rows, three an SM; 8-32% slower at every step shape, even at T = 124,
-// where 128-row CTAs leave 4 of 132 SMs idle), and clusters of two batch
-// rows that multicast each bias box to both CTAs (half the bias bytes from
-// L2, 45-56% slower: a stage is refilled only when both CTAs are done with
-// it).
-//
-// Dynamic shared memory of a CTA with ``stages`` stages of ``stage`` bytes
-// and ``q`` bytes of Q: the tiles from a 1024-byte aligned base, then the
-// barriers.
-constexpr size_t ring_bytes(int stage, int q, int stages) {
-  return 1024 + (size_t)stages * stage + q + (2 * stages + 1) * sizeof(uint64_t);
-}
-// Whether ``blocks`` CTAs of ``bytes`` fit on an SM (228 KB, 1 KB reserved
-// a CTA, at most 227 KB a CTA).
-constexpr bool fits_sm(size_t bytes, int blocks) {
-  return bytes <= 227 * 1024 && blocks * (bytes + 1024) <= 228 * 1024;
-}
-
+// on the H100 at d = 48 and dropped, each slower in turns: CTAs of one
+// warpgroup (64 rows, three an SM; 8-32% slower at every step shape, even
+// at T = 124, where 128-row CTAs leave 4 of 132 SMs idle), and clusters of
+// two batch rows that multicast each bias box to both CTAs (half the bias
+// bytes from L2, 45-56% slower: a stage is refilled only when both CTAs are
+// done with it).  At d = 96 (the contextual embedder) two warpgroups' 197
+// KB of shared memory fit one CTA an SM, and CTAs of one warpgroup (two an
+// SM, two stages) won in turns: a tie at (8, 124, 16, 96), 5% faster at
+// (8, 256) and 26-35% at a data-parallel rank's (4, 124) and (2, 124), where
+// they also beat train_fwd_mma's 64-row CTAs, so d = 96 takes this kernel
+// at every grid (PERF.md §6).
 template <int D>
 struct TrainWg {
-  static constexpr int BQ = 128;                      // query rows a CTA
-  static constexpr int KS = D / 16;                   // 16-channel boxes of a row
-  static constexpr int BOX = BK * 32;                 // a bf16 box: 64 rows of 32 bytes
-  static constexpr int KV = KS * BOX;                 // a K or V tile
-  static constexpr int BIAS_BOX = BQ * 128;           // an fp32 box: 128 rows of 32 keys
+  using Box = hopper::Boxes<D>;
+  static constexpr int WG = D == 96 ? 1 : 2;          // consumer warpgroups (see above)
+  static constexpr int kConsumerWarps = 4 * WG;
+  static constexpr int kThreads = 32 * kConsumerWarps + 32;  // and the producer warp
+  static constexpr int BQ = 64 * WG;                  // query rows a CTA
+  static constexpr int KS = D / 16;                   // 16-channel k-steps of a row
+  static constexpr int KV = Box::TILE_BYTES;          // a K or V tile
+  static constexpr int BIAS_BOX = BQ * 128;           // an fp32 box: BQ rows of 32 keys
   static constexpr int STAGE = 2 * BIAS_BOX + 2 * KV;  // bias, K, V of a key tile
-  static constexpr int QB = 2 * KV;                   // Q: two boxes a channel group
-  // two CTAs an SM where two stages fit (d <= 48), else one
+  static constexpr int QB = WG * KV;                  // Q: a tile a warpgroup
+  // two CTAs an SM where two stages fit, else one
   static constexpr int kBlocks = fits_sm(ring_bytes(STAGE, QB, 2), 2) ? 2 : 1;
   // then as many stages as those CTAs leave room for, up to four
   static constexpr int STAGES = fits_sm(ring_bytes(STAGE, QB, 4), kBlocks)   ? 4
@@ -1064,14 +1085,15 @@ struct TrainWg {
 // out = softmax2(q k^T scale + bias bias_scale) v and lse = m + log2(l), as
 // train_fwd_mma, for 128 query rows of one (b, h).
 template <int D>
-__global__ void __launch_bounds__(kWgThreads, TrainWg<D>::kBlocks)
+__global__ void __launch_bounds__(TrainWg<D>::kThreads, TrainWg<D>::kBlocks)
 train_fwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
                 const __grid_constant__ CUtensorMap bias_map, bf16* __restrict__ out,
                 float* __restrict__ lse, int t_len, int heads, float scale, float bias_scale) {
   using namespace hopper;
   using L = TrainWg<D>;
+  using Box = typename L::Box;
   constexpr int STAGES = L::STAGES;
-  constexpr int kConsumerWarps = kWgConsumerWarps;
+  constexpr int kConsumerWarps = L::kConsumerWarps;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* q_smem = smem + STAGES * L::STAGE;
@@ -1097,11 +1119,11 @@ train_fwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
     tma_load_3d(st, bmap, &full[s], j * BK, q0, h);
     tma_load_3d(st + L::BIAS_BOX, bmap, &full[s], j * BK + 32, q0, h);
 #pragma unroll
-    for (int c = 0; c < L::KS; ++c) {
-      tma_load_3d(st + 2 * L::BIAS_BOX + c * L::BOX, qmap, &full[s], col + D + 16 * c, j * BK,
-                  b);
-      tma_load_3d(st + 2 * L::BIAS_BOX + L::KV + c * L::BOX, qmap, &full[s],
-                  col + 2 * D + 16 * c, j * BK, b);
+    for (int c = 0; c < Box::NBOX; ++c) {
+      tma_load_3d(st + 2 * L::BIAS_BOX + c * Box::BOX, qmap, &full[s],
+                  col + D + Box::BOX_CH * c, j * BK, b);
+      tma_load_3d(st + 2 * L::BIAS_BOX + L::KV + c * Box::BOX, qmap, &full[s],
+                  col + 2 * D + Box::BOX_CH * c, j * BK, b);
     }
   };
 
@@ -1117,9 +1139,12 @@ train_fwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
     tma_prefetch(bmap);
     mbar_expect_tx(q_full, L::QB);
 #pragma unroll
-    for (int c = 0; c < L::KS; ++c) {
-      tma_load_3d(q_smem + 2 * c * L::BOX, qmap, q_full, col + 16 * c, q0, b);
-      tma_load_3d(q_smem + (2 * c + 1) * L::BOX, qmap, q_full, col + 16 * c, q0 + 64, b);
+    for (int w = 0; w < L::WG; ++w) {
+#pragma unroll
+      for (int c = 0; c < Box::NBOX; ++c) {
+        tma_load_3d(q_smem + w * L::KV + c * Box::BOX, qmap, q_full, col + Box::BOX_CH * c,
+                    q0 + 64 * w, b);
+      }
     }
     for (int j = 0; j < STAGES && j < n_tiles; ++j) load_stage(j);
   }
@@ -1155,9 +1180,7 @@ train_fwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
   uint32_t p[BK / 16][4];        // P as bf16 A fragments, one a 16-key k-step
   uint64_t qd[L::KS];            // Q's descriptors: this warpgroup's rows, k-step c
 #pragma unroll
-  for (int c = 0; c < L::KS; ++c) {
-    qd[c] = desc_sw32(smem_addr(q_smem) + (2 * c + wg) * L::BOX, 16, 256);
-  }
+  for (int c = 0; c < L::KS; ++c) qd[c] = Box::k_desc(smem_addr(q_smem + wg * L::KV), c);
 
   // log2-domain logits of key tile j, the bias scaled at use; the online
   // softmax in fp32 (O rescaled), and P rounded to bf16
@@ -1232,11 +1255,9 @@ train_fwd_wgmma(const __grid_constant__ CUtensorMap qkv_map,
     // that no other instruction writes a wgmma's input between them
     uint64_t kd[L::KS], vd[BK / 16];
 #pragma unroll
-    for (int c = 0; c < L::KS; ++c) kd[c] = desc_sw32(smem_addr(kt) + c * L::BOX, 16, 256);
+    for (int c = 0; c < L::KS; ++c) kd[c] = Box::k_desc(smem_addr(kt), c);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      vd[kk] = desc_sw32(smem_addr(kt + L::KV) + kk * 16 * 32, L::BOX, 256);
-    }
+    for (int kk = 0; kk < BK / 16; ++kk) vd[kk] = Box::mn_desc(smem_addr(kt + L::KV), kk);
     fence_regs(kd);
     fence_regs(vd);
     mbar_wait(&full[sj], (j / STAGES) & 1);
@@ -1494,27 +1515,29 @@ int map_error(CUresult r, const Args& a, int head_dim, const char* what) {
   return 0;
 }
 
-// qkv as (3 H D channels, T, B) in boxes of 16 channels x 64 rows x 1 with
-// the 32-byte swizzle (rows past T read 0, never the next batch row's).
-int encode_qkv_map(const Args& a, int head_dim, CUtensorMap* qkv_map) {
-  const cuuint64_t c3 = 3ull * a.heads * head_dim;
+// qkv as (3 H D channels, T, B) in boxes of hopper::Boxes<D>'s channels x 64
+// rows x 1 with its swizzle (rows past T read 0, never the next batch row's).
+template <int D>
+int encode_qkv_map(const Args& a, CUtensorMap* qkv_map) {
+  using Box = hopper::Boxes<D>;
+  const cuuint64_t c3 = 3ull * a.heads * D;
   return map_error(hopper::encode_map_3d(qkv_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                                          const_cast<void*>(a.qkv),
                                          {c3, (cuuint64_t)a.t_len, (cuuint64_t)a.batch},
                                          {c3 * sizeof(bf16), c3 * sizeof(bf16) * a.t_len},
-                                         {16, BK, 1}, CU_TENSOR_MAP_SWIZZLE_32B),
-                   a, head_dim, "qkv");
+                                         {Box::BOX_CH, BK, 1}, Box::SWIZZLE),
+                   a, D, "qkv");
 }
 
 // The two tensor maps of a serving launch: qkv (encode_qkv_map), the bf16
 // bias as (T keys, H T rows) in boxes of 64 keys x ``bias_rows`` rows with
 // the 128-byte swizzle (keys past T read 0).
-int encode_maps(const Args& a, int head_dim, int bias_rows, CUtensorMap* qkv_map,
-                CUtensorMap* bias_map) {
-  int err = encode_qkv_map(a, head_dim, qkv_map);
+template <int D>
+int encode_maps(const Args& a, int bias_rows, CUtensorMap* qkv_map, CUtensorMap* bias_map) {
+  int err = encode_qkv_map<D>(a, qkv_map);
   if (err != 0) return err;
   const hopper::EncodeTiled encode = hopper::tensor_map_encoder();
-  if (encode == nullptr) return map_error(CUDA_ERROR_NOT_FOUND, a, head_dim, "bias");
+  if (encode == nullptr) return map_error(CUDA_ERROR_NOT_FOUND, a, D, "bias");
   const cuuint64_t bias_dims[2] = {(cuuint64_t)a.t_len, (cuuint64_t)a.heads * a.t_len};
   const cuuint64_t bias_strides[1] = {(cuuint64_t)a.t_len * sizeof(bf16)};
   const cuuint32_t bias_box[2] = {BK, (cuuint32_t)bias_rows};
@@ -1523,7 +1546,7 @@ int encode_maps(const Args& a, int head_dim, int bias_rows, CUtensorMap* qkv_map
                           bias_dims, bias_strides, bias_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE),
-                   a, head_dim, "bias");
+                   a, D, "bias");
 }
 
 // bf16 serving on serve_fwd_wgmma<D>: grid (B, T / 128, H).  The shared
@@ -1535,10 +1558,10 @@ int launch_wgmma(const Args& a) {
   int err = (int)prepare(serve_fwd_wgmma<D>, L::bytes);
   if (err != 0) return err;
   CUtensorMap qkv_map, bias_map;
-  err = encode_maps(a, D, L::BQ, &qkv_map, &bias_map);
+  err = encode_maps<D>(a, L::BQ, &qkv_map, &bias_map);
   if (err != 0) return err;
   const dim3 grid(a.batch, (a.t_len + L::BQ - 1) / L::BQ, a.heads);
-  serve_fwd_wgmma<D><<<grid, kWgThreads, L::bytes, a.stream>>>(
+  serve_fwd_wgmma<D><<<grid, L::kThreads, L::bytes, a.stream>>>(
       qkv_map, bias_map, static_cast<bf16*>(a.out), a.t_len, a.heads, a.scale);
   return (int)cudaGetLastError();
 }
@@ -1548,16 +1571,16 @@ enum ServeRoute { kRouteWgmma = 0, kRouteMma = 1, kRouteSimt = 2 };
 
 int serve_route(int t_len, int head_dim, int dtype) {
   if (dtype != 0) return kRouteSimt;
-  return head_dim <= 64 && t_len % 8 == 0 ? kRouteWgmma : kRouteMma;
+  return hopper::wgmma_dim(head_dim) && t_len % 8 == 0 ? kRouteWgmma : kRouteMma;
 }
 
-// Serving: dtype 0 bf16 on serve_fwd_wgmma (d <= 64, T % 8 == 0) or
-// serve_fwd_mma, dtype 1 fp32 on the scalar kernel.
+// Serving: dtype 0 bf16 on serve_fwd_wgmma (d <= 64 or d = 96, T % 8 == 0)
+// or serve_fwd_mma, dtype 1 fp32 on the scalar kernel.
 template <int D>
 int launch_serve(int dtype, const Args& a) {
   const int route = serve_route(a.t_len, D, dtype);
   if (route == kRouteSimt) return (int)launch_simt<D, false>(a);
-  if constexpr (D <= 64) {
+  if constexpr (hopper::wgmma_dim(D)) {
     if (route == kRouteWgmma) return launch_wgmma<D>(a);
   }
   using L = Serve<D>;
@@ -1598,52 +1621,54 @@ int sm_count() {
   return sms;
 }
 
-// bf16 training on train_fwd_wgmma<D>: grid (B, T / 128, H).
+// bf16 training on train_fwd_wgmma<D>: grid (B, T / BQ, H).
 template <int D>
 int launch_train_wgmma(const Args& a) {
   using L = TrainWg<D>;
   int err = (int)prepare(train_fwd_wgmma<D>, L::bytes);
   if (err != 0) return err;
   CUtensorMap qkv_map, bias_map;
-  if ((err = encode_qkv_map(a, D, &qkv_map)) != 0) return err;
+  if ((err = encode_qkv_map<D>(a, &qkv_map)) != 0) return err;
   err = map_error(hopper::encode_bias_f32_map(&bias_map, static_cast<const float*>(a.bias),
                                               a.t_len, a.heads, L::BQ),
                   a, D, "bias");
   if (err != 0) return err;
   const dim3 grid(a.batch, (a.t_len + L::BQ - 1) / L::BQ, a.heads);
-  train_fwd_wgmma<D><<<grid, kWgThreads, L::bytes, a.stream>>>(
+  train_fwd_wgmma<D><<<grid, L::kThreads, L::bytes, a.stream>>>(
       qkv_map, bias_map, static_cast<bf16*>(a.out), a.lse, a.t_len, a.heads, a.scale,
       a.bias_scale);
   return (int)cudaGetLastError();
 }
 
 // The kernel each training forward call takes
-// (bias_attention_train_fwd_route): bf16 at d <= 64 and T % 4 == 0 on
-// train_fwd_wgmma where its 128-row grid fills at least half the SMs, the
-// other bf16 calls on train_fwd_mma, fp32 on the scalar kernel.  On a
-// smaller grid train_fwd_mma's 64-row CTAs, twice as many, won in turns:
-// 10-52% faster at (1, 496), (2, 256), (2, 124) and (4, 124) x 16 heads of
-// 48 (64 CTAs or fewer); at 128 CTAs the two tie at (8, 124) and (8, 128)
-// and train_fwd_wgmma wins at (2, 496) and (4, 256) (13-21% warm, 0-6%
-// cold; PERF.md §6).
+// (bias_attention_train_fwd_route): bf16 at T % 4 == 0 on train_fwd_wgmma
+// at d = 96, and at d <= 64 where its 128-row grid fills at least half the
+// SMs; the other bf16 calls on train_fwd_mma, fp32 on the scalar kernel.
+// At d <= 64 on a smaller grid train_fwd_mma's 64-row CTAs, twice as many,
+// won in turns: 10-52% faster at (1, 496), (2, 256), (2, 124) and (4, 124)
+// x 16 heads of 48 (64 CTAs or fewer); at 128 CTAs the two tie at (8, 124)
+// and (8, 128) and train_fwd_wgmma wins at (2, 496) and (4, 256) (13-21%
+// warm, 0-6% cold; PERF.md §6).
 enum TrainRoute { kTrainWgmma = 0, kTrainMma = 1, kTrainSimt = 2 };
 
 int train_route(int batch, int t_len, int heads, int head_dim, int dtype) {
   if (dtype != 0) return kTrainSimt;
-  if (head_dim > 64 || t_len % 4 != 0) return kTrainMma;
+  if (!hopper::wgmma_dim(head_dim) || t_len % 4 != 0) return kTrainMma;
+  if (head_dim == 96) return kTrainWgmma;
   const long ctas = (long)batch * ((t_len + 127) / 128) * heads;
   return 2 * ctas >= sm_count() ? kTrainWgmma : kTrainMma;
 }
 
-// Query rows a CTA of the route's kernel takes at this call: 128 on
-// train_fwd_wgmma; on train_fwd_mma 128 up to d = 64 wherever that grid
+// Query rows a CTA of the route's kernel takes at this call: TrainWg<D>::BQ
+// on train_fwd_wgmma; on train_fwd_mma 128 up to d = 64 wherever that grid
 // fills every SM, else 64 (above d = 64 two m16 tiles' registers do not fit
 // its warps).
-int train_rows(const Args& a, int head_dim, int route) {
+template <int D>
+int train_rows(const Args& a, int route) {
   if (route == kTrainSimt) return BQ;
-  if (route == kTrainWgmma) return TrainWg<16>::BQ;
+  if (route == kTrainWgmma) return TrainWg<D>::BQ;
   const long ctas = (long)a.batch * ((a.t_len + 127) / 128) * a.heads;
-  return head_dim <= 64 && ctas >= sm_count() ? 128 : 64;
+  return D <= 64 && ctas >= sm_count() ? 128 : 64;
 }
 
 // Training: write out and lse on the route train_route names.
@@ -1651,9 +1676,11 @@ template <int D>
 int launch_train(int dtype, const Args& a) {
   const int route = train_route(a.batch, a.t_len, a.heads, D, dtype);
   if (route == kTrainSimt) return (int)launch_simt<D, true>(a);
-  if constexpr (D <= 64) {
+  if constexpr (hopper::wgmma_dim(D)) {
     if (route == kTrainWgmma) return launch_train_wgmma<D>(a);
-    if (train_rows(a, D, route) == 128) return (int)launch_train_tile<D, 2>(a);
+  }
+  if constexpr (D <= 64) {
+    if (train_rows<D>(a, route) == 128) return (int)launch_train_tile<D, 2>(a);
   }
   return (int)launch_train_tile<D, 1>(a);
 }
@@ -1669,12 +1696,12 @@ cudaError_t blocks_per_sm(Kernel kernel, size_t bytes, int* blocks) {
 // The serving kernel a T % 8 == 0 call takes at d = D.
 template <int D>
 cudaError_t serve_blocks_per_sm(int* blocks) {
-  if constexpr (D <= 64) {
+  if constexpr (hopper::wgmma_dim(D)) {
     using L = Wg<D>;
     const auto kernel = serve_fwd_wgmma<D>;
     const cudaError_t err = prepare(kernel, L::bytes);
     if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kWgThreads, L::bytes);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, L::kThreads, L::bytes);
   } else {
     return blocks_per_sm(serve_fwd_mma<D>, Serve<D>::bytes, blocks);
   }
@@ -1687,7 +1714,7 @@ cudaError_t route_info(int route, int* regs, int* smem) {
   cudaFuncAttributes fa;
   cudaError_t err = cudaErrorInvalidValue;
   if (route == kRouteWgmma) {
-    if constexpr (D <= 64) {
+    if constexpr (hopper::wgmma_dim(D)) {
       err = cudaFuncGetAttributes(&fa, serve_fwd_wgmma<D>);
       *smem = (int)Wg<D>::bytes;
     }
@@ -1709,7 +1736,7 @@ template <int D>
 cudaError_t train_info(int dtype, const Args& a, int* info) {
   const int route = train_route(a.batch, a.t_len, a.heads, D, dtype);
   info[0] = route;
-  info[1] = train_rows(a, D, route);
+  info[1] = train_rows<D>(a, route);
   auto query = [&](auto kernel, size_t bytes, int threads) {
     info[3] = (int)bytes;
     cudaFuncAttributes fa;
@@ -1722,8 +1749,12 @@ cudaError_t train_info(int dtype, const Args& a, int* info) {
     return err;
   };
   if (route == kTrainSimt) return query(bias_attention_simt<D, true>, SimtLayout<D>::bytes, NTHREADS);
+  if constexpr (hopper::wgmma_dim(D)) {
+    if (route == kTrainWgmma) {
+      return query(train_fwd_wgmma<D>, TrainWg<D>::bytes, TrainWg<D>::kThreads);
+    }
+  }
   if constexpr (D <= 64) {
-    if (route == kTrainWgmma) return query(train_fwd_wgmma<D>, TrainWg<D>::bytes, kWgThreads);
     if (info[1] == 128) return query(train_fwd_mma<D, 2>, TrainFwd<D, 2>::bytes, NTHREADS);
   }
   return query(train_fwd_mma<D, 1>, TrainFwd<D, 1>::bytes, NTHREADS);
@@ -1778,8 +1809,8 @@ extern "C" int bias_attention_train_fwd(const void* qkv, const void* bias, void*
 }
 
 // CTAs of the bf16 serving kernel that a call at ``head_dim`` with T % 8 ==
-// 0 takes (serve_fwd_wgmma up to d = 64) that fit on one SM of the current
-// device, or minus the CUDA error code.
+// 0 takes (serve_fwd_wgmma at d <= 64 and d = 96) that fit on one SM of the
+// current device, or minus the CUDA error code.
 extern "C" int bias_attention_fwd_blocks_per_sm(int head_dim) {
   int blocks = 0;
   const Args a{};
@@ -1789,9 +1820,9 @@ extern "C" int bias_attention_fwd_blocks_per_sm(int head_dim) {
 
 // The kernel a training forward call of this B, T, H, head_dim and dtype (0
 // bf16, 1 fp32) takes on the current device: 0 train_fwd_wgmma (bf16,
-// d <= 64, T % 4 == 0, B ceil(T / 128) H >= SMs / 2), 1 train_fwd_mma (the
-// other bf16 calls), 2 the scalar kernel; -1 for a shape or dtype the entry
-// refuses.
+// T % 4 == 0, at d = 96 or at d <= 64 where B ceil(T / 128) H >= SMs / 2),
+// 1 train_fwd_mma (the other bf16 calls), 2 the scalar kernel; -1 for a
+// shape or dtype the entry refuses.
 extern "C" int bias_attention_train_fwd_route(int batch, int t_len, int heads, int head_dim,
                                               int dtype) {
   if (batch <= 0 || t_len <= 0 || heads <= 0 || head_dim % 16 != 0 || head_dim < 16 ||

@@ -540,25 +540,20 @@ constexpr int kBwdThreads = 32 * kBwdConsumerWarps + 32;
 constexpr int kBiasBox = TILE * 32;  // floats of a [64 rows x 32 keys] bias box
 
 template <int D>
-struct BwdWg {
+struct BwdWg : hopper::Boxes<D> {
+  // bf16 tiles in hopper::Boxes<D>: 16-channel boxes up to d = 64, 32-channel
+  // ones at d = 96, where TMA's requests of 32-byte rows held 5' (PERF.md)
+  using Box = hopper::Boxes<D>;
   static constexpr int KS = D / 16;                  // 16-channel k-steps of a row
-  // bf16 boxes: 16 channels (32-byte rows, 32-byte swizzle) up to d = 64;
-  // 32 channels (64-byte rows, 64-byte swizzle) at d = 96, where TMA's
-  // requests of 32-byte rows held 5' (PERF.md)
-  static constexpr int ROW = D == 96 ? 64 : 32;      // bytes of a box row
-  static constexpr int BOX_CH = ROW / 2;             // channels of a box
-  static constexpr int NBOX = D / BOX_CH;            // boxes of a tile
-  static constexpr int BOX = TILE * ROW;             // bytes of a bf16 box
-  static constexpr int TILE_BYTES = NBOX * BOX;      // a 64-row bf16 tile
   static constexpr int BIAS = 2 * kBiasBox * 4;      // the fp32 bias tile
-  static constexpr int STAGE = BIAS + 2 * TILE_BYTES;  // bias and two bf16 tiles
+  static constexpr int STAGE = BIAS + 2 * Box::TILE_BYTES;  // bias and two bf16 tiles
   static_assert(STAGE % 1024 == 0 && BIAS % 1024 == 0, "1024-byte aligned boxes");
   // dq: STAGES x [bias | K | V], then Q and dO, then the barriers; three
   // CTAs an SM up to d = 48 (their registers then cap a thread at 136)
   static constexpr int kDqBlocks = D <= 48 ? 3 : 2;
   static constexpr int kDqStages = 2;
   static constexpr size_t dq_bytes =
-      1024 + kDqStages * STAGE + 2 * TILE_BYTES + (2 * kDqStages + 1) * sizeof(uint64_t);
+      1024 + kDqStages * STAGE + 2 * Box::TILE_BYTES + (2 * kDqStages + 1) * sizeof(uint64_t);
   // dk/dv: STAGES x [bias | Q | dO], then K and V, each stage's lse and
   // delta (64 floats each), then the barriers; two CTAs an SM.  A query
   // tile is taken in products of kDkvQueries queries: the whole tile up to
@@ -567,28 +562,9 @@ struct BwdWg {
   static constexpr int kDkvBlocks = 2;
   static constexpr int kDkvStages = D <= 48 ? 3 : 2;
   static constexpr int kDkvQueries = D <= 64 ? TILE : TILE / 2;
-  static constexpr size_t dkv_bytes = 1024 + kDkvStages * STAGE + 2 * TILE_BYTES +
+  static constexpr size_t dkv_bytes = 1024 + kDkvStages * STAGE + 2 * Box::TILE_BYTES +
                                       kDkvStages * 2 * TILE * sizeof(float) +
                                       (2 * kDkvStages + 1) * sizeof(uint64_t);
-
-  // wgmma descriptors of a bf16 tile at shared address ``a``: its k-step c
-  // (16 channels) as a K-major operand (S = Q K^T, dP = dO V^T and their
-  // transposes), and its k-step kk (16 rows) as an MN-major one (dq += dX K,
-  // dk += dX^T Q, dv += P^T dO); at d = 96 a k-step is half a 64-byte row
-  __device__ __forceinline__ static uint64_t k_desc(uint32_t a, int c) {
-    if constexpr (ROW == 32) {
-      return hopper::desc_sw32(a + c * BOX, 16, 256);
-    } else {
-      return hopper::desc_sw64(a + (c / 2) * BOX + (c % 2) * 32, 16, 8 * ROW);
-    }
-  }
-  __device__ __forceinline__ static uint64_t mn_desc(uint32_t a, int kk) {
-    if constexpr (ROW == 32) {
-      return hopper::desc_sw32(a + kk * 16 * ROW, BOX, 8 * ROW);
-    } else {
-      return hopper::desc_sw64(a + kk * 16 * ROW, BOX, 8 * ROW);
-    }
-  }
 };
 
 // a * b summed over the 8 bf16 pairs of two 16-byte words, in channel order
@@ -1308,9 +1284,7 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 // other bf16 calls on mma.sync, fp32 on the scalar kernels.
 enum BwdRoute { kRouteWgmma = 0, kRouteMma = 1, kRouteSimt = 2 };
 
-// The head dims of the wgmma kernels: up to 64 (the trunk's 48), and 96
-// (the contextual embedder's).
-constexpr bool wgmma_dim(int head_dim) { return head_dim <= 64 || head_dim == 96; }
+using hopper::wgmma_dim;
 
 int bwd_route(int t_len, int head_dim, int dtype) {
   if (dtype != 0) return kRouteSimt;
@@ -1355,8 +1329,7 @@ int encode_maps(const Args& a, CUtensorMap* qkv_map, CUtensorMap* dout_map,
   using L = BwdWg<D>;
   const cuuint64_t t = a.t_len, c = (cuuint64_t)a.heads * D, tp = padded(a.t_len);
   const cuuint32_t tile_box[3] = {L::BOX_CH, TILE, 1}, bias_box[3] = {32, TILE, 1};
-  const CUtensorMapSwizzle swizzle =
-      L::ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swizzle = L::SWIZZLE;
   int err = encode(qkv_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, const_cast<void*>(a.qkv),
                    {3 * c, t, (cuuint64_t)a.batch}, {3 * c * 2, 3 * c * 2 * t}, tile_box,
                    swizzle, a, "qkv");

@@ -10,8 +10,8 @@
 // Q K^T, k-step = one such tile) has its 8-row groups SBO = 256 bytes apart;
 // an MN-major operand (V for P V) has its 8-key groups SBO = 256 bytes apart
 // and its 16-channel atoms LBO bytes apart (one tile to the next).  The
-// training backward at d = 96 takes tiles of 64-byte rows with the 64-byte
-// swizzle instead (desc_sw64).
+// wgmma kernels at d = 96 take tiles of 64-byte rows with the 64-byte
+// swizzle instead (desc_sw64); Boxes<D> gives each head dim's layout.
 #pragma once
 
 #include <cuda.h>
@@ -159,6 +159,42 @@ __device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
 }
+
+// The head dims the wgmma kernels are built for: up to 64 (the trunk's 48)
+// and 96 (the contextual embedder's).
+constexpr bool wgmma_dim(int head_dim) { return head_dim <= 64 || head_dim == 96; }
+
+// A bf16 tile of 64 rows of one head's D channels as TMA writes it: boxes
+// of 16 channels (32-byte rows, 32-byte swizzle) up to d = 64, of 32
+// channels (64-byte rows, 64-byte swizzle) at d = 96, where 32-byte rows
+// made six TMA requests a row.  k_desc is k-step c (16 channels) as a
+// K-major wgmma operand (Q or K of S = Q K^T), mn_desc k-step kk (16 rows)
+// as an MN-major one (V of O += P V): an atom is one box, LBO a box.
+template <int D>
+struct Boxes {
+  static constexpr int ROW = D == 96 ? 64 : 32;  // bytes of a box row
+  static constexpr int BOX_CH = ROW / 2;         // channels of a box
+  static constexpr int NBOX = D / BOX_CH;        // boxes of a tile
+  static constexpr int BOX = 64 * ROW;           // bytes of a box
+  static constexpr int TILE_BYTES = NBOX * BOX;  // a 64-row tile
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+
+  __device__ __forceinline__ static uint64_t k_desc(uint32_t a, int c) {
+    if constexpr (ROW == 32) {
+      return desc_sw32(a + c * BOX, 16, 256);
+    } else {
+      return desc_sw64(a + (c / 2) * BOX + (c % 2) * 32, 16, 8 * ROW);
+    }
+  }
+  __device__ __forceinline__ static uint64_t mn_desc(uint32_t a, int kk) {
+    if constexpr (ROW == 32) {
+      return desc_sw32(a + kk * 16 * ROW, BOX, 8 * ROW);
+    } else {
+      return desc_sw64(a + kk * 16 * ROW, BOX, 8 * ROW);
+    }
+  }
+};
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

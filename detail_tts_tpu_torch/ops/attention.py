@@ -11,28 +11,30 @@ bias is <= -1e9 gives 0, and zero gradients.
 * :func:`bias_attention` - serving forward (no gradient): kernel
   ``bias_attention_fwd`` (``csrc/bias_attention.cu``), replacing the Pallas
   serving kernels ``attention_packed_pairs``, ``attention_packed`` and
-  ``row_block_attention`` of the JAX package.  In bf16 at d <= 64 and
-  T % 8 == 0 it runs ``serve_fwd_wgmma`` (TMA tiles from one producer warp
-  through an mbarrier ring, wgmma products in two consumer warpgroups);
-  the other bf16 calls run ``serve_fwd_mma`` (128 query rows a CTA with the
-  bias tile in the ``cp.async`` ring), fp32 a scalar kernel.
+  ``row_block_attention`` of the JAX package.  In bf16 at d <= 64 or
+  d = 96 and T % 8 == 0 it runs ``serve_fwd_wgmma`` (TMA tiles from one
+  producer warp through an mbarrier ring, wgmma products in two consumer
+  warpgroups); the other bf16 calls run ``serve_fwd_mma`` (128 query rows a
+  CTA with the bias tile in the ``cp.async`` ring), fp32 a scalar kernel.
   :data:`LAUNCHES_BY_ROUTE` counts the launches of each, by the route that
-  the C entry ``bias_attention_fwd_route`` names for the call;
+  the C entry ``bias_attention_fwd_route`` names for the call, and
+  :data:`LAUNCHES_BY_DIM` the same by (route, head dim);
   :func:`bias_attention_fwd_route` mirrors that entry on the host.  It
   raises when grad mode is on and an input requires grad.  The C entry
   ``bias_attention_fwd_blocks_per_sm`` reports its CTAs per SM.
 * :func:`bias_attention_train` - the trainable version, a
   :class:`BiasAttentionFunction` over an fp32 natural-domain bias.  Its
   forward is kernel ``bias_attention_train_fwd`` (the same source, also
-  writing the row statistic lse = m + log2(l)): in bf16 at d <= 64 and
-  T % 4 == 0, where its grid fills at least half the SMs,
+  writing the row statistic lse = m + log2(l)): in bf16 at T % 4 == 0, at
+  d = 96 and at d <= 64 where its grid fills at least half the SMs,
   ``train_fwd_wgmma`` (the fp32 bias, K and V by TMA from one
-  producer warp through an mbarrier ring, wgmma products, 128 query rows a
-  CTA), the other bf16 calls ``train_fwd_mma`` (the serving kernel's
+  producer warp through an mbarrier ring, wgmma products), the other bf16
+  calls ``train_fwd_mma`` (the serving kernel's
   ``mma.sync`` skeleton with the fp32 bias tile in the ``cp.async`` ring),
   fp32 a scalar kernel.
   :data:`TRAIN_FWD_LAUNCHES_BY_ROUTE` counts its launches by the route the C
-  entry ``bias_attention_train_fwd_route`` names, which
+  entry ``bias_attention_train_fwd_route`` names (and
+  :data:`TRAIN_FWD_LAUNCHES_BY_DIM` by route and head dim), which
   :func:`bias_attention_train_fwd_route` mirrors; the C entry
   ``bias_attention_train_fwd_info`` reports a call's tiling, CTAs per SM,
   shared memory and registers.  Its
@@ -94,8 +96,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = 0  # kernel launches through bias_attention (never the plain path)
 # the serving kernels, in the C entry's route codes (bias_attention_fwd_route)
 SERVE_ROUTES = ("serve_fwd_wgmma", "serve_fwd_mma", "bias_attention_simt")
-# the launches of LAUNCHES by the kernel that ran them
+# the launches of LAUNCHES by the kernel that ran them, and by (kernel, head
+# dim): each route's kernel is one instantiation a head dim
 LAUNCHES_BY_ROUTE: Dict[str, int] = {name: 0 for name in SERVE_ROUTES}
+LAUNCHES_BY_DIM: Dict[Tuple[str, int], int] = {}
 # kernel launches of the trainable function, by kernel (never the plain path)
 TRAIN_LAUNCHES: Dict[str, int] = {"bias_attention_train_fwd": 0,
                                   "bias_attention_bwd_dq_dbias": 0,
@@ -107,6 +111,7 @@ TRAIN_FWD_ROUTES = ("train_fwd_wgmma", "train_fwd_mma", "train_fwd_simt")
 # the launches of TRAIN_LAUNCHES["bias_attention_train_fwd"] by the kernel
 # that ran them
 TRAIN_FWD_LAUNCHES_BY_ROUTE: Dict[str, int] = {name: 0 for name in TRAIN_FWD_ROUTES}
+TRAIN_FWD_LAUNCHES_BY_DIM: Dict[Tuple[str, int], int] = {}
 # the backward's routes, in the C entry's codes (bias_attention_bwd_route):
 # each launches its dq and its dk/dv kernel once a call
 BWD_ROUTES = ("bwd_wgmma", "bwd_mma", "bwd_simt")
@@ -373,10 +378,17 @@ def _check(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     return d
 
 
+def _wgmma_dim(d: int) -> bool:
+    """The head dims the wgmma kernels are built for (``hopper::wgmma_dim``):
+    up to 64 (the trunk's 48) and 96 (the contextual embedder's)."""
+    return d <= 64 or d == 96
+
+
 def bias_attention_fwd_route(t: int, d: int, dtype: torch.dtype) -> str:
     """The kernel a serving call at sequence length ``t``, head dim ``d``
-    and ``dtype`` takes on the card: ``serve_fwd_wgmma`` (bf16, d <= 64,
-    T % 8 == 0: a bias row is then a legal TMA stride), ``serve_fwd_mma``
+    and ``dtype`` takes on the card: ``serve_fwd_wgmma`` (bf16, d <= 64 or
+    d = 96, the head dims its kernel is built for, and T % 8 == 0: a bias
+    row is then a legal TMA stride), ``serve_fwd_mma``
     (the other bf16 calls) or ``bias_attention_simt`` (fp32).  It mirrors
     the C entry of the same name, which decides the launch and names the
     route :data:`LAUNCHES_BY_ROUTE` counts; the CPU tests and the expected
@@ -386,16 +398,17 @@ def bias_attention_fwd_route(t: int, d: int, dtype: torch.dtype) -> str:
         return "bias_attention_simt"
     if dtype != torch.bfloat16:
         raise TypeError(f"the serving kernels take bfloat16 or float32, not {dtype}")
-    return "serve_fwd_wgmma" if d <= 64 and t % 8 == 0 else "serve_fwd_mma"
+    return "serve_fwd_wgmma" if _wgmma_dim(d) and t % 8 == 0 else "serve_fwd_mma"
 
 
 def bias_attention_train_fwd_route(b: int, t: int, h: int, d: int, dtype: torch.dtype,
                                    sms: int) -> str:
     """The kernel a training forward call of batch ``b``, length ``t``,
     ``h`` heads of dim ``d`` and ``dtype`` takes on a card of ``sms`` SMs:
-    ``train_fwd_wgmma`` (bf16, d <= 64, T % 4 == 0: an fp32 bias row is then
-    a legal TMA stride; and its grid of 128-row CTAs, b * ceil(t / 128) * h,
-    at least half the SMs), ``train_fwd_mma`` (the other bf16 calls) or
+    ``train_fwd_wgmma`` (bf16, T % 4 == 0: an fp32 bias row is then a legal
+    TMA stride; at d = 96, and at d <= 64 where its grid of 128-row CTAs,
+    b * ceil(t / 128) * h, is at least half the SMs), ``train_fwd_mma``
+    (the other bf16 calls) or
     ``train_fwd_simt`` (fp32).  It mirrors the C entry of the same name,
     which decides the launch and names the route
     :data:`TRAIN_FWD_LAUNCHES_BY_ROUTE` counts; the CPU tests and the
@@ -407,8 +420,10 @@ def bias_attention_train_fwd_route(b: int, t: int, h: int, d: int, dtype: torch.
         return "train_fwd_simt"
     if dtype != torch.bfloat16:
         raise TypeError(f"the training forward takes bfloat16 or float32, not {dtype}")
-    if d > 64 or t % 4:
+    if not _wgmma_dim(d) or t % 4:
         return "train_fwd_mma"
+    if d == 96:
+        return "train_fwd_wgmma"
     return "train_fwd_wgmma" if 2 * b * -(-t // 128) * h >= sms else "train_fwd_mma"
 
 
@@ -428,7 +443,7 @@ def bias_attention_bwd_route(b: int, t: int, d: int, dtype: torch.dtype) -> str:
         return "bwd_simt"
     if dtype != torch.bfloat16:
         raise TypeError(f"the backward kernels take bfloat16 or float32, not {dtype}")
-    return "bwd_wgmma" if (d <= 64 or d == 96) and t % 4 == 0 else "bwd_mma"
+    return "bwd_wgmma" if _wgmma_dim(d) and t % 4 == 0 else "bwd_mma"
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -465,7 +480,9 @@ def bias_attention(qkv: torch.Tensor, bias: torch.Tensor, *, heads: int,
     _launch(SOURCE, "bias_attention_fwd", qkv.data_ptr(), bias.data_ptr(),
             out.data_ptr(), b, t, heads, d, sm_scale * LOG2E, code, _stream(qkv))
     LAUNCHES += 1
-    LAUNCHES_BY_ROUTE[_launched_route(t, d, code)] += 1
+    route = _launched_route(t, d, code)
+    LAUNCHES_BY_ROUTE[route] += 1
+    LAUNCHES_BY_DIM[route, d] = LAUNCHES_BY_DIM.get((route, d), 0) + 1
     return out
 
 
@@ -495,7 +512,9 @@ def bias_attention_train_fwd(qkv: torch.Tensor, bias: torch.Tensor, *,
             out.data_ptr(), lse.data_ptr(), b, t, heads, d, sm_scale * LOG2E,
             LOG2E, code, _stream(qkv))
     TRAIN_LAUNCHES["bias_attention_train_fwd"] += 1
-    TRAIN_FWD_LAUNCHES_BY_ROUTE[_launched_train_fwd_route(b, t, heads, d, code)] += 1
+    route = _launched_train_fwd_route(b, t, heads, d, code)
+    TRAIN_FWD_LAUNCHES_BY_ROUTE[route] += 1
+    TRAIN_FWD_LAUNCHES_BY_DIM[route, d] = TRAIN_FWD_LAUNCHES_BY_DIM.get((route, d), 0) + 1
     return out, lse
 
 

@@ -42,16 +42,21 @@ def test_attention_block_matches_pallas(monkeypatch, path, block, T):
     close(pblk(t(x)), ours, atol=1e-5)  # bias computed in the block
 
 
-def test_plain_version_matches_row_block_attention_with_masked_row():
+@pytest.mark.parametrize("d", [64, 96])  # the trunk's kernels' widest, the embedder's
+def test_plain_version_matches_row_block_attention_with_masked_row(d):
     rng = np.random.default_rng(0)
-    b, h, n, d = 2, 3, 128, 64
+    b, h, n = 2, 3, 128
     q, k, v = (rng.normal(size=(b, h, n, d)).astype(np.float32) for _ in range(3))
     bias = rng.normal(size=(h, n, n)).astype(np.float32)
     bias[1, 5, :] = -1e9  # a fully masked query row
     bias[2, :, 100:] = -1e9  # masked key columns
-    ref = row_block_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                              jnp.asarray(bias), sm_scale=1 / math.sqrt(d),
-                              block_q=128, interpret=True, bias_log2=True)
+    # the kernel takes d of 64 or 128: zero channels, as JAX's ``attention``
+    # pads them, add nothing to q k^T and are sliced off
+    d_pad = 64 if d <= 64 else 128
+    pad = lambda x: jnp.pad(jnp.asarray(x), ((0, 0), (0, 0), (0, 0), (0, d_pad - d)))  # noqa: E731
+    ref = row_block_attention(pad(q), pad(k), pad(v), jnp.asarray(bias),
+                              sm_scale=1 / math.sqrt(d), block_q=128, interpret=True,
+                              bias_log2=True)[..., :d]
     qkv = np.stack([q, k, v], axis=3).transpose(0, 2, 1, 3, 4).reshape(b, n, 3 * h * d)
     ours = port_attn.bias_attention(t(qkv), t(bias), heads=h,
                                     sm_scale=1 / math.sqrt(d), bias_log2=True)

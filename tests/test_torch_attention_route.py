@@ -34,8 +34,8 @@ def test_every_served_shape_takes_its_route(code_bucket, prompt_bucket):
     assert d == 48
     for b, t, h, hd in shapes:
         got = attention.bias_attention_fwd_route(t, hd, torch.bfloat16)
-        if hd == 2 * d:  # the contextual embedder
-            assert (t, got) == (prompt_bucket // 4, "serve_fwd_mma")
+        if hd == 2 * d:  # the contextual embedder: every prompt bucket's T % 8 == 0
+            assert (t, got) == (prompt_bucket // 4, "serve_fwd_wgmma")
         elif t == 4 * code_bucket:  # the integrator (B + 1 rows) and the trunk (2B)
             assert b in (2, 3, 4, 9, 16) and got == "serve_fwd_wgmma"
         else:  # the latent conditioner at the code bucket: TMA needs T % 8 == 0
@@ -45,14 +45,14 @@ def test_every_served_shape_takes_its_route(code_bucket, prompt_bucket):
 
 
 @pytest.mark.parametrize("t,d", [(100, 48), (300, 48), (500, 48), (1597, 48), (1, 48),
-                                 (63, 16), (127, 32), (129, 64), (130, 48), (16, 96),
-                                 (400, 96), (1600, 80), (1600, 96), (1600, 112), (1600, 128)])
+                                 (63, 16), (127, 32), (129, 64), (130, 48), (130, 96),
+                                 (1597, 96), (1600, 80), (1600, 112), (1600, 128)])
 def test_shapes_that_stay_on_serve_fwd_mma(t, d):
     assert attention.bias_attention_fwd_route(t, d, torch.bfloat16) == "serve_fwd_mma"
 
 
 @pytest.mark.parametrize("t,d", [(8, 16), (64, 32), (96, 48), (1600, 48), (2400, 48),
-                                 (200, 64)])
+                                 (200, 64), (16, 96), (400, 96), (1600, 96)])
 def test_shapes_on_serve_fwd_wgmma(t, d):
     assert attention.bias_attention_fwd_route(t, d, torch.bfloat16) == "serve_fwd_wgmma"
 

@@ -41,8 +41,9 @@ def test_every_trained_shape_takes_its_route(batch, raw_frames, prompt_frames):
         got = route(b, t, h, hd)
         # train_fwd_wgmma's 128-row CTAs fill at least half the SMs
         half_card = 2 * b * -(-t // 128) * h >= SMS
-        if hd == 2 * d:  # the contextual embedder: d = 96 stays on mma.sync
-            assert t == -(-prompt_frames // 4) and got == "train_fwd_mma"
+        if hd == 2 * d:  # the contextual embedder: d = 96 on wgmma at every grid
+            assert t == -(-prompt_frames // 4)
+            assert got == ("train_fwd_wgmma" if t % 4 == 0 else "train_fwd_mma")
         elif t == raw_frames:  # the trunk and the integrator
             assert got == ("train_fwd_wgmma" if half_card else "train_fwd_mma")
             assert got == "train_fwd_wgmma" or b < 3  # (1, 496), (2, 256) and such
@@ -54,31 +55,32 @@ def test_every_trained_shape_takes_its_route(batch, raw_frames, prompt_frames):
 
 def test_the_step_routes_its_calls():
     """One synthetic ``diff`` micro-batch (8 x 496 frames) with every trunk
-    layer kept: the integrator, trunk and latent conditioner on
-    ``train_fwd_wgmma``, the contextual embedder on ``train_fwd_mma``; at the
-    largest raw bucket the latent conditioner (706 codes) joins it; a
-    world-2 rank's micro-batch of 4 keeps the trunk and moves the latent
-    conditioner (64 CTAs) to ``train_fwd_mma``, as does batch 1 the trunk."""
+    layer kept: every call on ``train_fwd_wgmma``, the contextual embedder's
+    d = 96 too; at the largest raw bucket with the 500-frame crop the latent
+    conditioner (706 codes) and the contextual embedder (T = 125) take
+    ``train_fwd_mma``; a world-2 rank's micro-batch of 4 keeps the trunk and
+    the contextual embedder and moves the latent conditioner (64 CTAs) to
+    ``train_fwd_mma``, as does batch 1 the trunk."""
     cfg = Config()
     kept = [[True] * cfg.diffusion.num_layers]
     n = 3 + cfg.diffusion.num_layers
     assert expected_train_fwd_routes(cfg, kept, 8, 496, 496, SMS) == {
-        "train_fwd_wgmma": n + 4, "train_fwd_mma": 5, "train_fwd_simt": 0}
+        "train_fwd_wgmma": n + 4 + 5, "train_fwd_mma": 0, "train_fwd_simt": 0}
     assert expected_train_fwd_routes(cfg, kept * 2, 8, 2824, 500, SMS) == {
         "train_fwd_wgmma": 2 * n, "train_fwd_mma": 2 * (4 + 5), "train_fwd_simt": 0}
     assert expected_train_fwd_routes(cfg, kept, 16, 496, 496, SMS) == \
         expected_train_fwd_routes(cfg, kept, 8, 496, 496, SMS)
     assert expected_train_fwd_routes(cfg, kept, 4, 496, 496, SMS) == {
-        "train_fwd_wgmma": n, "train_fwd_mma": 4 + 5, "train_fwd_simt": 0}
+        "train_fwd_wgmma": n + 5, "train_fwd_mma": 4, "train_fwd_simt": 0}
     assert expected_train_fwd_routes(cfg, kept, 1, 496, 496, SMS) == {
-        "train_fwd_wgmma": 0, "train_fwd_mma": n + 4 + 5, "train_fwd_simt": 0}
+        "train_fwd_wgmma": 5, "train_fwd_mma": n + 4, "train_fwd_simt": 0}
     dropped = [[i % 2 == 0 for i in range(cfg.diffusion.num_layers)]]
     got = expected_train_fwd_routes(cfg, dropped, 8, 496, 496, SMS)
-    assert got["train_fwd_wgmma"] == 3 + sum(dropped[0]) + 4
+    assert got["train_fwd_wgmma"] == 3 + sum(dropped[0]) + 4 + 5
 
 
 @pytest.mark.parametrize("t,d", [(495, 48), (706, 48), (125, 48), (1, 16), (2, 32), (3, 64),
-                                 (97, 48), (124, 96), (496, 96), (1024, 80), (2824, 112),
+                                 (97, 48), (125, 96), (495, 96), (1024, 80), (2824, 112),
                                  (512, 128)])
 def test_shapes_that_stay_on_train_fwd_mma(t, d):
     for b in (1, 8, 9):
@@ -94,11 +96,21 @@ def test_grids_under_half_the_card_stay_on_train_fwd_mma(b, t, h):
 
 
 @pytest.mark.parametrize("t,d", [(4, 16), (64, 32), (96, 48), (124, 48), (132, 64),
-                                 (496, 48), (512, 48), (1024, 48), (2824, 48)])
+                                 (496, 48), (512, 48), (1024, 48), (2824, 48), (124, 96),
+                                 (496, 96)])
 def test_shapes_on_train_fwd_wgmma(t, d):
     for b in (8, 9, 16, 64):
         assert route(b, t, 16, d) == "train_fwd_wgmma"
     assert route(1, t, 66, d) == "train_fwd_wgmma"  # 66 CTAs or more, half of 132
+
+
+@pytest.mark.parametrize("b,t,h", [(1, 124, 16), (2, 124, 16), (4, 124, 16), (8, 124, 16),
+                                   (1, 4, 1)])
+def test_d96_takes_train_fwd_wgmma_at_every_grid(b, t, h):
+    """The contextual embedder's d = 96 on train_fwd_wgmma's 64-row CTAs at
+    every grid: in turns they beat train_fwd_mma<96, 1> at a data-parallel
+    rank's (4, 124) and (2, 124) too (PERF.md §6)."""
+    assert route(b, t, h, 96) == "train_fwd_wgmma"
 
 
 @pytest.mark.parametrize("t,d", [(1, 16), (124, 48), (495, 96), (496, 128)])

@@ -79,10 +79,11 @@ def test_fully_masked_rows_are_zero(cuda, dtype, t):
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
-@pytest.mark.parametrize("d", [16, 32, 48, 64])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 96])
 # serve_fwd_wgmma's shapes: T % 8 == 0, from one ragged key tile (8) to the
 # largest code bucket's trunk (2400); odd B (the integrator's B + 1 rows),
-# T off the 64-key and 128-row tiles (200, 96)
+# T off the 64-key and 128-row tiles (200, 96); at d = 96 (the contextual
+# embedder, 64-row CTAs) its prompt buckets' T = 16-400 among them
 @pytest.mark.parametrize("b,t", [(1, 8), (3, 64), (9, 1600), (16, 1600), (2, 2400),
                                  (5, 96), (3, 200), (1, 136)])
 def test_wgmma_kernel_matches_plain_version(cuda, d, b, t):
@@ -90,22 +91,28 @@ def test_wgmma_kernel_matches_plain_version(cuda, d, b, t):
     qkv, bias = _inputs(b, t, h, d, torch.bfloat16, seed=d * t + b, device=cuda)
     assert attention.bias_attention_fwd_route(t, d, torch.bfloat16) == "serve_fwd_wgmma"
     before = attention.LAUNCHES_BY_ROUTE["serve_fwd_wgmma"]
+    before_dim = attention.LAUNCHES_BY_DIM.get(("serve_fwd_wgmma", d), 0)
     out = attention.bias_attention(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
     again = attention.bias_attention(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
     ref = attention.bias_attention_reference(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
     torch.cuda.synchronize()
     assert attention.LAUNCHES_BY_ROUTE["serve_fwd_wgmma"] == before + 2
+    assert attention.LAUNCHES_BY_DIM["serve_fwd_wgmma", d] == before_dim + 2
     assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
     assert torch.equal(out, again)  # a repeat launch is bit-identical
 
 
-@pytest.mark.parametrize("d", [16, 48, 64])
+@pytest.mark.parametrize("d", [16, 48, 64, 96])
 def test_wgmma_kernel_fully_masked_rows_are_zero(cuda, d):
+    """Fully masked rows give exactly 0 (in the first and the second 64 rows:
+    the second warpgroup, or at d = 96 the second CTA), and masked keys take
+    no weight (the plain version agrees)."""
     b, t, h = 3, 96, 4
     qkv, bias = _inputs(b, t, h, d, torch.bfloat16, seed=d, device=cuda)
     bias[1, 5, :] = -1e9
     bias[3, t - 1, :] = -1e9
-    bias[0, 70:, :] = -1e9  # rows of the second 64-row warpgroup
+    bias[0, 70:, :] = -1e9  # rows of the second 64-row warpgroup or CTA
+    bias[2, :, t - 9:] = -1e9  # masked keys in every row of head 2
     assert attention.bias_attention_fwd_route(t, d, torch.bfloat16) == "serve_fwd_wgmma"
     out = attention.bias_attention(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
     ref = attention.bias_attention_reference(qkv, bias, heads=h, sm_scale=1 / math.sqrt(d))
@@ -157,16 +164,17 @@ def test_wgmma_kernel_has_no_spills(cuda, monkeypatch, tmp_path):
 def test_serving_kernel_fits_on_an_sm(cuda):
     lib = attention._library(attention.SOURCE)
     assert lib.bias_attention_fwd_blocks_per_sm(48) >= 2
+    assert lib.bias_attention_fwd_blocks_per_sm(96) >= 2  # serve_fwd_wgmma<96>'s 64-row CTAs
     assert lib.bias_attention_fwd_blocks_per_sm(128) >= 1
 
 
 def test_train_forward_fits_on_an_sm(cuda):
     """CTAs an SM of the training forward's kernel at the trunk's shape
-    (``bias_attention_train_fwd_info``): train_fwd_wgmma at d = 48,
+    (``bias_attention_train_fwd_info``): train_fwd_wgmma at d = 48 and 96,
     train_fwd_mma at d = 128."""
     import ctypes
     lib = attention._library(attention.SOURCE)
-    for d, blocks in ((48, 2), (128, 1)):
+    for d, blocks in ((48, 2), (96, 2), (128, 1)):
         info = (ctypes.c_int * 5)()
         assert lib.bias_attention_train_fwd_info(8, 496, 16, d, 0, info) == 0
         assert info[2] >= blocks
@@ -221,6 +229,7 @@ def _check_train(qkv, bias, dout, h, d, dtype):
     routes = dict(attention.BWD_LAUNCHES_BY_ROUTE)
     dims = dict(attention.BWD_LAUNCHES_BY_DIM)
     fwd_routes = dict(attention.TRAIN_FWD_LAUNCHES_BY_ROUTE)
+    fwd_dims = dict(attention.TRAIN_FWD_LAUNCHES_BY_DIM)
     route = attention.bias_attention_bwd_route(qkv.shape[0], qkv.shape[1], d, dtype)
     fwd_route = attention.bias_attention_train_fwd_route(qkv.shape[0], qkv.shape[1], h, d, dtype,
                                                          _sms())
@@ -241,6 +250,8 @@ def _check_train(qkv, bias, dout, h, d, dtype):
             if v != dims.get(k, 0)} == {(route, d): 1}
     assert {k: v - fwd_routes[k] for k, v in attention.TRAIN_FWD_LAUNCHES_BY_ROUTE.items()} == {
         k: int(k == fwd_route) for k in attention.TRAIN_FWD_ROUTES}
+    assert {k: v - fwd_dims.get(k, 0) for k, v in attention.TRAIN_FWD_LAUNCHES_BY_DIM.items()
+            if v != fwd_dims.get(k, 0)} == {(fwd_route, d): 1}
     assert out.dtype == dqkv.dtype == dtype and dbias.dtype == torch.float32
     assert (out.float() - ref_out.float()).abs().max().item() <= TOL[dtype]
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL[dtype]
@@ -355,10 +366,10 @@ def _heads_for_wgmma(b, t):
     return -(-_sms() // (2 * b * -(-t // 128)))
 
 
-@pytest.mark.parametrize("d", [16, 32, 48, 64])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 96])
 # train_fwd_wgmma's shapes (T % 4 == 0): one ragged tile (4), one whole tile
-# (64), the step's conditioner (124) and trunk (496), a 128-row block and
-# four rows (132), the raw bucket 1024
+# (64), the step's conditioner and contextual embedder (124) and trunk
+# (496), a 128-row block and four rows (132), the raw bucket 1024
 @pytest.mark.parametrize("b,t", [(1, 4), (3, 64), (8, 124), (1, 132), (3, 496), (8, 496),
                                  (8, 1024)])
 def test_train_fwd_wgmma_matches_plain_version(cuda, d, b, t):
@@ -379,7 +390,7 @@ def test_train_fwd_wgmma_matches_plain_version(cuda, d, b, t):
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])  # bit-identical repeat
 
 
-@pytest.mark.parametrize("d", [16, 48, 64])
+@pytest.mark.parametrize("d", [16, 48, 64, 96])
 @pytest.mark.parametrize("b,t", [(3, 96), (8, 496)])
 def test_train_fwd_wgmma_masked_rows_and_keys(cuda, d, b, t):
     """Fully masked query rows (in the first 128-row block and the ragged
@@ -426,8 +437,8 @@ def test_train_fwd_route_entry_matches_the_python_mirror(cuda):
 
 
 def test_train_fwd_wgmma_has_no_spills(cuda, monkeypatch, tmp_path):
-    """ptxas -v of every train_fwd_wgmma instantiation (d = 16-64): no
-    spill stores or loads."""
+    """ptxas -v of every train_fwd_wgmma instantiation (d = 16-64 and 96):
+    no spill stores or loads."""
     monkeypatch.setattr(attention, "BUILD_DIR", tmp_path)
     _, _, log = attention.build(attention.SOURCE)
     entry, lines = "", []
@@ -436,13 +447,14 @@ def test_train_fwd_wgmma_has_no_spills(cuda, monkeypatch, tmp_path):
             entry = line.split("'")[1]
         elif "train_fwd_wgmma" in entry and "spill" in line:
             lines.append(line)
-    assert len(lines) == 4
+    assert len(lines) == 5
     assert all(" 0 bytes spill stores, 0 bytes spill loads" in x for x in lines)
 
 
 @pytest.mark.parametrize("b,t,d,route,rows,blocks", [
     (8, 496, 48, "train_fwd_wgmma", 128, 2), (8, 124, 48, "train_fwd_wgmma", 128, 2),
-    (8, 1024, 48, "train_fwd_wgmma", 128, 2), (8, 124, 96, "train_fwd_mma", 64, 1),
+    (8, 1024, 48, "train_fwd_wgmma", 128, 2), (8, 124, 96, "train_fwd_wgmma", 64, 2),
+    (4, 124, 96, "train_fwd_wgmma", 64, 2), (8, 125, 96, "train_fwd_mma", 64, 1),
     (8, 706, 48, "train_fwd_mma", 128, 2), (4, 124, 48, "train_fwd_mma", 64, 2)])
 def test_train_fwd_info_at_the_step_shapes(cuda, b, t, d, route, rows, blocks):
     """The C entry ``bias_attention_train_fwd_info``: the route, the tiling
