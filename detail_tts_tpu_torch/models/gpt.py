@@ -61,6 +61,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from detail_tts_tpu_torch import tracing
 from detail_tts_tpu_torch.config import GPTConfig
 from detail_tts_tpu_torch.nn.common import (Dense, SeededDropout, TorchLayerNorm,
                                             sequence_mask)
@@ -408,7 +409,9 @@ def generate_speech_tokens(model: UnifiedVoice, cond_mel, cond_lengths, text,
     there.  On a data rank of a sharded engine the batch is this rank's
     ``rows`` of the request, whose elements of each step's draw it takes
     (from their offset), and the early stop waits for every row of
-    ``group`` (the data group), so the decode ends as on one card.
+    ``group`` (the data group), so the decode ends as on one card.  Each
+    step is a ``decode_step`` span (children ``sample`` and ``gpt``) and
+    counts under ``decode.steps``.
     """
     c = model.cfg
     b = text.shape[0]
@@ -430,20 +433,26 @@ def generate_speech_tokens(model: UnifiedVoice, cond_mel, cond_lengths, text,
     for step in range(n):
         if not sampling.force_full_length and step and _all_finished(finished, group):
             break
-        tok = sample_step(logits, seen, codes, lengths, finished, step, keys[step],
-                          temperature=sampling.temperature, top_p=sampling.top_p,
-                          repetition_penalty=sampling.repetition_penalty,
-                          typical_mass=sampling.typical_mass, stop_token=c.stop_mel_token,
-                          force_full=sampling.force_full_length, offset=offset)
-        if step + 1 < n:
-            logits = model.decode_step(tok, torch.full_like(tok, step + 1), cache)
+        with tracing.span("decode_step"):
+            with tracing.span("sample"):
+                tok = sample_step(logits, seen, codes, lengths, finished, step, keys[step],
+                                  temperature=sampling.temperature, top_p=sampling.top_p,
+                                  repetition_penalty=sampling.repetition_penalty,
+                                  typical_mass=sampling.typical_mass,
+                                  stop_token=c.stop_mel_token,
+                                  force_full=sampling.force_full_length, offset=offset)
+            if step + 1 < n:
+                with tracing.span("gpt"):
+                    logits = model.decode_step(tok, torch.full_like(tok, step + 1), cache)
+        tracing.count("decode.steps")
     return codes, lengths
 
 
 def _all_finished(finished: torch.Tensor, group=None) -> bool:
     """Every row has stopped: this rank's (a host synchronisation), and with
     a group every rank's (one small all-reduce)."""
-    done = bool(finished.all())
+    with tracing.wait("finished"):
+        done = bool(finished.all())
     if group is None:
         return done
     return not all_reduce_max_host([int(not done)], group)[0]

@@ -29,6 +29,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from detail_tts_tpu_torch import tracing
 from detail_tts_tpu_torch.audio.mel import FRAMES_PER_CODE, normalize_mel
 from detail_tts_tpu_torch.config import Config
 from detail_tts_tpu_torch.models.diffusion import (DiffusionSchedule,
@@ -84,8 +85,9 @@ def draw_diff(cfg: Config, schedule: DiffusionSchedule, shape, generator,
     n_layers = d.num_layers + 3
     keep = [True] * n_layers
     if train and d.layer_drop > 0:
-        draws = (torch.rand(n_layers, generator=generator, device=device)
-                 < 1.0 - d.layer_drop).tolist()
+        draws = torch.rand(n_layers, generator=generator, device=device) < 1.0 - d.layer_drop
+        with tracing.wait("layer_drop"):
+            draws = draws.tolist()
         keep = [True] + draws[1:-1] + [True]
     return DiffDraws(t, noise, uncond, tuple(keep))
 

@@ -50,15 +50,14 @@ cut to length.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from detail_tts_tpu_torch import tracing
 from detail_tts_tpu_torch.audio.mel import (FRAMES_PER_CODE, MelFrontend,
                                             denormalize_mel)
 from detail_tts_tpu_torch.config import Config
@@ -127,9 +126,8 @@ class InflightBatch:
     wav: torch.Tensor
     eff: np.ndarray
     n: int
-    timings: Optional[Dict[str, float]] = None
-    _t0: float = 0.0
     rows: Optional[Rows] = None  # this data rank's rows of the request
+    trace: Optional[tracing.Span] = None  # the batch's root span
 
 
 @dataclasses.dataclass
@@ -154,8 +152,8 @@ class PendingDecode:
     max_len: int
     force_full: bool
     timings: Optional[Dict[str, float]] = None
-    _t0: float = 0.0
     rows: Optional[Rows] = None  # this data rank's rows of the request
+    trace: Optional[tracing.Span] = None  # the batch's root span
 
 
 def _bucket_up(n: int, buckets: Sequence[int]) -> int:
@@ -224,6 +222,7 @@ class TTSEngine:
         self.schedule = make_infer_schedule(sched_cfg, device=self.device)
         self.tokenizer = tokenizer or make_tokenizer(d.tokenizer_vocab)
         self._bias_cache: "OrderedDict[int, List[torch.Tensor]]" = OrderedDict()
+        self._batches = 0  # batches dispatched, for their root spans
 
     # ------------------------------------------------------------ the mesh
 
@@ -285,7 +284,8 @@ class TTSEngine:
         out = np.zeros((len(texts), width), np.int64)
         for i, e in enumerate(encoded):
             out[i, :len(e)] = e
-        return torch.as_tensor(out, device=self.device), lengths
+        with tracing.wait("text"):
+            return torch.as_tensor(out, device=self.device), lengths
 
     def prepare_prompt(self, wavs: Sequence[np.ndarray]
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -304,8 +304,9 @@ class TTSEngine:
         mels: List[Optional[torch.Tensor]] = [None] * len(wavs)
         for plen in sorted({p.shape[-1] for p, _ in padded}):
             idx = [i for i, (p, _) in enumerate(padded) if p.shape[-1] == plen]
-            stack = torch.as_tensor(np.stack([padded[i][0] for i in idx]),
-                                    device=self.device)
+            with tracing.wait("prompt"):
+                stack = torch.as_tensor(np.stack([padded[i][0] for i in idx]),
+                                        device=self.device)
             batch = self.frontend.mel_spectrogram(stack)
             for j, i in enumerate(idx):
                 mels[i] = batch[j, :padded[i][1]]
@@ -315,7 +316,8 @@ class TTSEngine:
                           dtype=torch.float32, device=self.device)
         for i, m in enumerate(mels):
             out[i, :m.shape[0]] = m
-        return out, torch.as_tensor(lengths, device=self.device)
+        with tracing.wait("prompt_lengths"):
+            return out, torch.as_tensor(lengths, device=self.device)
 
     # ---------------------------------------------------------------- stages
 
@@ -332,7 +334,9 @@ class TTSEngine:
         out: List[Optional[torch.Tensor]] = [None] * len(buckets)
         for lb in sorted(set(buckets)):
             idx = [i for i, b in enumerate(buckets) if b == lb]
-            group = refer_mel[idx, :lb].to(self.cdt)
+            with tracing.wait("cond_rows"):  # the row indices go to the device
+                group = refer_mel[idx, :lb]
+            group = group.to(self.cdt)
             cond = self.model.diffusion_conditioning(group)
             for j, i in enumerate(idx):
                 out[i] = cond[j:j + 1]
@@ -359,7 +363,9 @@ class TTSEngine:
         and nothing waits for the device."""
         if force_full:
             return np.full((n,), max(max_len - 1, 1), np.int64)
-        return np.maximum(lengths.cpu().numpy() - 1, 1).astype(np.int64)
+        with tracing.wait("lengths"):
+            lengths = lengths.cpu().numpy()
+        return np.maximum(lengths - 1, 1).astype(np.int64)
 
     def _decode(self, refer_mel, refer_len, text, key: prng.Key, max_len: int,
                 force_full: bool, rows: Optional[Rows] = None):
@@ -393,7 +399,8 @@ class TTSEngine:
         the data group on a sharded engine."""
         bucket, = self._agree(min(_bucket_up(int(eff.max()), self.ecfg.code_buckets),
                                   codes.shape[1]))
-        eff_t = torch.as_tensor(eff, device=codes.device)
+        with tracing.wait("code_lengths"):
+            eff_t = torch.as_tensor(eff, device=codes.device)
         pos = torch.arange(bucket, device=codes.device)[None, :]
         codes_b = torch.where(pos < eff_t[:, None], codes[:, :bucket],
                               self.cfg.gpt.stop_mel_token)
@@ -439,7 +446,8 @@ class TTSEngine:
                 rows: Optional[Rows] = None) -> torch.Tensor:
         """mel -> wav (B, T, 1), fp32 or (with ``pcm16_output``) int16; the
         prior sample under ``key``."""
-        mel_len = torch.as_tensor(eff * FRAMES_PER_CODE, device=self.device)
+        with tracing.wait("mel_lengths"):
+            mel_len = torch.as_tensor(eff * FRAMES_PER_CODE, device=self.device)
         wav = self.model.infer_flowvae(mel.to(self.cdt), mel_len,
                                        self.ecfg.noise_scale, key=key, rows=rows)
         return to_pcm16(wav) if self.ecfg.pcm16_output else wav.float()
@@ -451,28 +459,19 @@ class TTSEngine:
 
     def _trim(self, wav: torch.Tensor, eff: np.ndarray) -> List[np.ndarray]:
         """Device wav (B, T, 1) -> one host array per item, ``eff`` codes long."""
-        wav = wav[..., 0].cpu().numpy()
+        with tracing.wait("fetch"):
+            wav = wav[..., 0].cpu().numpy()
         hop_per_code = self.cfg.gpt.mel_length_compression
         return [wav[i, :int(eff[i]) * hop_per_code] for i in range(len(eff))]
 
     # --------------------------------------------------------------- requests
 
-    @contextlib.contextmanager
-    def _stage(self, name: str, timings: Optional[Dict[str, float]], wait=True):
-        """A ``torch.profiler`` range named ``name``.  With ``timings``, its
-        wall time is added under ``name``, after waiting for the device:
-        for all its work (``wait=True``), for the work before an event, or
-        not at all (``wait=False``)."""
-        with torch.profiler.record_function(name):
-            t0 = time.perf_counter()
-            yield
-            if timings is not None:
-                if self.device.type == "cuda" and wait is not False:
-                    if wait is True:
-                        torch.cuda.synchronize(self.device)
-                    else:
-                        wait.synchronize()
-                timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+    def _stage(self, name: str, batch: Optional[tracing.Span],
+               timings: Optional[Dict[str, float]], wait=True):
+        """Stage ``name`` of ``batch``: its span, timed on the device too
+        (``tracing.stage``), and with ``timings`` its wall time, after
+        waiting for the device as ``wait`` says."""
+        return tracing.stage(name, timings, self.device, wait, parent=batch, events=True)
 
     @torch.inference_mode()
     def dispatch_decode(self, texts: Sequence[str],
@@ -487,53 +486,53 @@ class TTSEngine:
         request."""
         rows, texts, prompt_wavs = self._split(texts, prompt_wavs)
         g_key, d_key, v_key = prng.split(prng.as_key(seed), 3)
-        with self._stage("prepare", timings):
+        batch = tracing.open_root("batch", batch=self._batches, profiled=tracing.profiling(),
+                                  synced=timings is not None)
+        self._batches += 1
+        with self._stage("prepare", batch, timings):
             text, _ = self.prepare_text(texts)
             refer_mel, refer_len = self.prepare_prompt(prompt_wavs)
-            prompt_lengths = refer_len.tolist()
+            with tracing.wait("refer_len"):
+                prompt_lengths = refer_len.tolist()
         max_len = self.ecfg.max_generate_length
         # the decode is enqueued first; the conditioning's host work follows
-        with self._stage("generate", timings, wait=False):
+        with self._stage("generate", batch, timings, wait=False):
             codes, lengths = self._decode(refer_mel, refer_len, text, g_key,
                                           max_len, force_full, rows)
             done = torch.cuda.Event() if self.device.type == "cuda" else None
             if done is not None:
                 done.record()
-        with self._stage("diff_cond", timings, wait=False):
+        with self._stage("diff_cond", batch, timings, wait=False):
             diff_cond = self.diffusion_cond(refer_mel, prompt_lengths)
         return PendingDecode(codes=codes, lengths=None if force_full else lengths,
                              codes_done=done, diff_cond=diff_cond,
                              refer_mel=refer_mel, refer_len=refer_len, text=text,
                              d_key=d_key, v_key=v_key, n=len(texts), max_len=max_len,
-                             force_full=force_full, timings=timings,
-                             _t0=time.perf_counter(), rows=rows)
+                             force_full=force_full, timings=timings, rows=rows,
+                             trace=batch)
 
     @torch.inference_mode()
     def dispatch_tail(self, pending: PendingDecode) -> InflightBatch:
         """Phase 2: the decode-length synchronisation (none under
         ``force_full``), bucket and stop-fill, then latents, diffusion and
-        the vocoder, enqueued.  With timings, host time a caller spent
-        between the two phases goes under ``gap``."""
-        timings = pending.timings
-        if timings is not None:
-            timings["gap"] = timings.get("gap", 0.0) + time.perf_counter() - pending._t0
-        with self._stage("generate", timings, wait=pending.codes_done or True):
+        the vocoder, enqueued."""
+        timings, batch = pending.timings, pending.trace
+        with self._stage("generate", batch, timings, wait=pending.codes_done or True):
             eff = self._effective_lengths(pending.codes.shape[0], pending.lengths,
                                           pending.max_len, pending.force_full)
-        with self._stage("diff_cond", timings):
+        with self._stage("diff_cond", batch, timings):
             pass  # waits for the conditioning, enqueued after the decode
-        with self._stage("latents", timings):
+        with self._stage("latents", batch, timings):
             codes_b, wav_len, bucket = self._pad_codes(pending.codes, eff)
             latents = self.model.gpt(pending.refer_mel.to(self.cdt), pending.refer_len,
                                      pending.text, codes_b, wav_len)
-        with self._stage("diffuse", timings):
+        with self._stage("diffuse", batch, timings):
             mel = self.diffuse(latents, pending.diff_cond,
                                self.attention_biases(bucket * FRAMES_PER_CODE),
                                pending.d_key, pending.rows)
-        with self._stage("vocode", timings):
+        with self._stage("vocode", batch, timings):
             wav = self._vocode(mel, eff, pending.v_key, pending.rows)
-        return InflightBatch(wav=wav, eff=eff, n=pending.n, timings=timings,
-                             _t0=time.perf_counter(), rows=pending.rows)
+        return InflightBatch(wav=wav, eff=eff, n=pending.n, rows=pending.rows, trace=batch)
 
     def dispatch_batch(self, texts: Sequence[str],
                        prompt_wavs: Sequence[np.ndarray], seed: prng.Seed = 0,
@@ -548,12 +547,11 @@ class TTSEngine:
     @torch.inference_mode()
     def finalize_batch(self, inflight: InflightBatch) -> List[np.ndarray]:
         """Fetch and trim a dispatched batch (waits for the device); on a
-        sharded engine every row of the request, gathered first."""
-        with torch.profiler.record_function("host"):
+        sharded engine every row of the request, gathered first.  Ends the
+        batch's root span."""
+        with self._stage("host", inflight.trace, None):
             outs = self._trim(*self._gather(inflight.wav, inflight.eff, inflight.rows))
-        if inflight.timings is not None:
-            inflight.timings["host"] = (inflight.timings.get("host", 0.0)
-                                        + time.perf_counter() - inflight._t0)
+        tracing.close(inflight.trace)
         return outs
 
     def synthesize_batch(self, texts: Sequence[str],

@@ -31,7 +31,8 @@ function of its state and its generator's state.
 ``TrainConfig.weight_norm`` trains the reference's weight-normed convs in
 their (g, v) parametrization.
 
-Each stage of a step is a ``torch.profiler`` range: ``latents`` (VQ codes
+Each stage of a step is a span (``tracing.stage``; a ``torch.profiler``
+range of its name while a profiler runs): ``latents`` (VQ codes
 and GPT latents), ``forward``, ``backward`` and ``optimizer``, and in the
 GAN step ``discriminator`` (its forward, backward and update) and
 ``gen_loss`` (the generator's loss against the updated discriminator);
@@ -62,15 +63,14 @@ one-card step's masks.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
-import time
 from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
+from detail_tts_tpu_torch import tracing
 from detail_tts_tpu_torch.audio.mel import MelFrontend
 from detail_tts_tpu_torch.config import Config
 from detail_tts_tpu_torch.io.weights import random_weights_
@@ -269,19 +269,10 @@ def _deterministic(step: Callable) -> Callable:
 
 
 def _stages(timings: Optional[Dict[str, float]], dev: torch.device):
-    """A context factory: ``stage(name)`` is a profiler range; with
-    ``timings`` it ends in a device synchronisation and adds its wall time
-    under its name."""
-    @contextlib.contextmanager
-    def stage(name):
-        with torch.profiler.record_function(name):
-            t0 = time.perf_counter()
-            yield
-            if timings is not None:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
-    return stage
+    """A context factory: ``stage(name)`` is the step's stage span (under
+    the training step's root, where one is open); with ``timings`` it ends
+    in a device synchronisation and adds its wall time under its name."""
+    return lambda name: tracing.stage(name, timings, dev)
 
 
 def _dropout_generator(group, generator, dropout_generator):

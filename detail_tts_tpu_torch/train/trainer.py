@@ -16,8 +16,9 @@ micro_batch, ...), the GAN step of ``flowvae`` and ``all`` over (batch,
 * eval dumps every ``val_freq`` steps: ``sample-<milestone>.wav`` and
   ``gt-<milestone>.wav`` (train.py:229-258), and mel images and audio in
   TensorBoard;
-* ``train(profile_dir=...)``: a ``torch.profiler`` Chrome trace of a
-  window of steps.
+* spans (``tracing``): each iteration of ``train`` is a ``train_step``
+  root over its batch, step, metric read-back, eval and save, with the
+  step's stages and its host waits on the device as children.
 
 Parallelism (``group``, every rank, one process a card, ``torchrun``; see
 ``parallel/mesh.py`` and the step): the ranks form the (``data_parallel``
@@ -27,7 +28,7 @@ from its own rows of the corpus, and its model peers take the same batch
 (an iterator passed in must yield this data rank's rows).  The initial
 state is rank 0's, broadcast, then the GPT is sharded over the model group
 and AdamW made on the shards.  Each data rank draws its dropout masks from
-its own generator.  Metrics, TensorBoard and profiles are rank 0's (JAX's
+its own generator.  Metrics and TensorBoard are rank 0's (JAX's
 ``_is_host0``), and so are eval dumps, which data rank 0's model group
 computes where they run the split GPT; rank 0 writes the checkpoints, with
 full tensors and every data rank's generator state, and every rank
@@ -39,11 +40,12 @@ import json
 import os
 import time
 import traceback
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
+from detail_tts_tpu_torch import tracing
 from detail_tts_tpu_torch.audio.mel import MelFrontend
 from detail_tts_tpu_torch.config import Config
 from detail_tts_tpu_torch.data.dataset import (BucketSpec, DataIterator, JsonlTtsDataset,
@@ -230,7 +232,9 @@ class Trainer:
         """The next batch on the trainer's device in the step's layout: numpy
         leaves become tensors (integer leaves int64), and a GAN target's
         leading accumulation axis (which must be 1) is dropped."""
-        batch = {k: _to_device(v, self.device) for k, v in next(self.data_iter).items()}
+        leaves = next(self.data_iter)
+        with tracing.wait("batch"):
+            batch = {k: _to_device(v, self.device) for k, v in leaves.items()}
         if self.target in GAN_TARGETS and batch["mel"].dim() == 4:
             if batch["mel"].shape[0] != 1:
                 raise ValueError("GAN targets take accum 1, not "
@@ -322,42 +326,31 @@ class Trainer:
 
     # ---------------------------------------------------------------- train
 
-    def train(self, max_steps: Optional[int] = None, log_every: int = 10,
-              profile_dir: Optional[str] = None,
-              profile_steps: Tuple[int, int] = (3, 6)) -> Dict[str, float]:
+    def train(self, max_steps: Optional[int] = None, log_every: int = 10) -> Dict[str, float]:
         """Step until ``state.step`` reaches ``max_steps``; every
         ``log_every`` steps and at ``max_steps`` the scalar metrics (and
         steps per second) are read back and logged, every ``val_freq`` steps an eval dump is
-        written and every ``save_freq`` steps a checkpoint.  ``profile_dir``:
-        a ``torch.profiler`` Chrome trace (``trace.json``) of this call's
-        steps [profile_steps[0], profile_steps[1]) (rank 0's).  Returns the
-        last logged scalars."""
+        written and every ``save_freq`` steps a checkpoint.  Each iteration
+        is a ``train_step`` root span (``step``: the step it completes).
+        Returns the last logged scalars."""
         if self.data_iter is None:
             raise ValueError("no data: call default_data() or pass data_iter")
         cfg = self.cfg.train
         max_steps = max_steps or cfg.train_steps
         logged: Dict[str, float] = {}
         t_last, step_last = time.perf_counter(), self.state.step
-        prof, steps_seen = None, 0
-        if self.rank != 0:
-            profile_dir = None
-        try:
-            while self.state.step < max_steps:
-                if profile_dir is not None:
-                    if steps_seen == profile_steps[0] and prof is None:
-                        prof = _start_profile(self.device)
-                    elif steps_seen == profile_steps[1] and prof is not None:
-                        _stop_profile(prof, profile_dir, self.device)
-                        prof = None
-                steps_seen += 1
+        while self.state.step < max_steps:
+            with tracing.root("train_step", step=self.state.step + 1,
+                              profiled=tracing.profiling()):
                 batch = self.next_batch()
                 metrics = self.step_fn(self.state, batch, self.generator,
                                        dropout_generator=self.dropout_generator)
                 self.last_metrics = metrics
                 step = self.state.step
                 if step % log_every == 0 or step == max_steps:
-                    logged = {k: float(v) for k, v in metrics.items()
-                              if torch.is_tensor(v) and v.dim() == 0}
+                    with tracing.wait("log"):
+                        logged = {k: float(v) for k, v in metrics.items()
+                                  if torch.is_tensor(v) and v.dim() == 0}
                     now = time.perf_counter()
                     logged["steps_per_sec"] = (step - step_last) / (now - t_last)
                     t_last, step_last = now, step
@@ -367,9 +360,6 @@ class Trainer:
                     self._eval_dump(batch)
                 if step % cfg.save_freq == 0:
                     self.save()
-        finally:
-            if prof is not None:  # max_steps inside the profile window
-                _stop_profile(prof, profile_dir, self.device)
         return logged
 
 
@@ -378,22 +368,3 @@ def _to_device(v, device: torch.device) -> torch.Tensor:
     if not t.is_floating_point():
         t = t.long()
     return t.to(device)
-
-
-def _start_profile(device: torch.device):
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
-    prof.__enter__()
-    return prof
-
-
-def _stop_profile(prof, profile_dir: str, device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    prof.__exit__(None, None, None)
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))

@@ -186,7 +186,7 @@ def test_engine_sampler_request_repeats_and_pcm16_follows_it(sampler):
     assert [o.shape for o in outs] == [(11 * 1024,)] * 2
     assert all(o.dtype == np.float32 and np.isfinite(o).all() for o in outs)
     assert set(timings) == {"prepare", "generate", "diff_cond", "latents", "diffuse",
-                            "vocode", "gap", "host"}
+                            "vocode"}
     again = eng.synthesize_batch(texts, _prompts(), seed=3, force_full=True)
     assert all(np.array_equal(a, b) for a, b in zip(outs, again))
     pcm = _engine(diffusion_sampler=sampler, pcm16_output=True).synthesize_batch(

@@ -1,6 +1,6 @@
 """The port's trainer, training CLI and data-prep library and CLI against the
 JAX package's: ``mel_to_image``, TensorBoard media, a two-step ``vqvae``
-run from a jsonl corpus (metrics, checkpoint, eval dumps, profiler trace),
+run from a jsonl corpus (metrics, checkpoint, eval dumps, step spans),
 the eval dump's fault tolerance and synthesis, ``train/__main__`` with
 ``--resume``, the VAD / ASR / transcript phases and the four
 ``prepare_cli`` subcommands.  Everything on the CPU at the small config.
@@ -17,6 +17,7 @@ from scipy.io import wavfile
 
 from detail_tts_tpu.data import prepare as jprep
 from detail_tts_tpu.train.trainer import mel_to_image as jax_mel_to_image
+from detail_tts_tpu_torch import tracing
 from detail_tts_tpu_torch.config import small_test_config
 from detail_tts_tpu_torch.data import prepare as prep
 from detail_tts_tpu_torch.data import prepare_cli
@@ -106,8 +107,8 @@ def test_vqvae_trainer_from_a_corpus_writes_everything(tmp_path):
         batch = tr.next_batch()
         assert batch["mel"].shape[:2] == (1, 2) and batch["text"].dtype == torch.long
         assert batch["raw_mel"].dtype == torch.float32 and batch["raw_mel"].shape[2] == 128
-        logged = tr.train(max_steps=2, log_every=1, profile_dir=str(tmp_path / "prof"),
-                          profile_steps=(0, 1))
+        first = max((s["id"] for s in tracing.snapshot()["spans"]), default=0)
+        logged = tr.train(max_steps=2, log_every=1)
     finally:
         tr.close()
     assert not any(t.is_alive() for t in tr.data_iter._threads)
@@ -116,8 +117,12 @@ def test_vqvae_trainer_from_a_corpus_writes_everything(tmp_path):
     assert all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"]) for x in lines)
     assert ckpt.latest_step(logs / "ckpt") == 2
     assert _finite_wav(logs / "sample-1.wav") and _finite_wav(logs / "gt-1.wav")
-    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
-    assert any(e.get("name") == "forward" for e in trace["traceEvents"])
+    spans = [s for s in tracing.snapshot()["spans"] if s["root"] > first]
+    steps = [s for s in spans if s["parent"] is None]
+    assert [(s["name"], s["attrs"]["step"]) for s in steps] == [("train_step", 1),
+                                                                ("train_step", 2)]
+    for root in steps:
+        assert any(s["name"] == "forward" and s["parent"] == root["id"] for s in spans)
 
 
 def test_eval_dump_failure_does_not_stop_training(tmp_path, monkeypatch, capsys):
