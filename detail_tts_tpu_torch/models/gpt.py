@@ -5,12 +5,18 @@ gelu_new, learned per-modality positions, no global positions) over
 [cond(1), text(T_text + 2), mel] embeddings, with
 
 * ``decode_prefill``/``decode_step`` over a preallocated per-layer KV cache
-  that is written in place;
+  that is written in place, in JAX's cached formulation: the keys and
+  values land at the cache's length, a device tensor, and the queries
+  attend over the whole cache under the causal mask ``k_pos <= q_pos``, so
+  every step of a decode has the same shapes and reads its position from
+  the device;
 * ``generate_speech_tokens``: a Python loop of cached steps that stops when
   every row has emitted the stop token (or after ``max_generate_length``),
   step s sampling with the Gumbel noise of JAX's key chain ``rng, key =
   split(rng)`` (``ops/prng.py``), each step's sampling and bookkeeping one
-  ``ops/sampling.py`` ``sample_step`` (one kernel launch on CUDA);
+  ``ops/sampling.py`` ``sample_step`` (one kernel launch on CUDA), each
+  step's GPT call one replay of a CUDA graph of the static step where the
+  model is whole on a card (``DecodeSteps``), else the same step eagerly;
 * ``forward``: the ``return_latent=True`` pass (latents of the mel positions,
   ``mel_latents[:, :-2]``) and the training pass, the text and mel heads'
   unmasked mean cross-entropies in fp32.
@@ -51,10 +57,13 @@ HF GPT-2's ``Conv1D`` keeps its (in, out) weight layout.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import itertools
 import math
-from typing import List, Optional, Tuple
+import threading
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -94,11 +103,12 @@ class Conv1D(nn.Module):
 
 @dataclasses.dataclass
 class KVCache:
-    """Per-layer (B, max_len, H, ch) keys and values; ``length`` valid rows."""
+    """Per-layer (B, max_len, H, ch) keys and values; ``length`` valid rows,
+    a 0-dim int64 tensor on the cache's device."""
 
     k: List[torch.Tensor]
     v: List[torch.Tensor]
-    length: int = 0
+    length: torch.Tensor
 
 
 def _row_parallel(proj: Conv1D, x: torch.Tensor, tp: Optional[Shard]) -> torch.Tensor:
@@ -123,23 +133,25 @@ class GPT2Attention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                start: int = 0,
+                start: Union[int, torch.Tensor] = 0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Causal self-attention; with a cache, x's keys land at
-        [start, start + T) and the queries attend over [0, start + T)."""
+        """Causal self-attention.  With a cache, ``start`` is its length, a
+        0-dim device tensor: x's keys land at [start, start + T) by
+        ``index_copy_`` and the queries attend over the whole cache, masked
+        past their own positions, as JAX's cached attention does, so no
+        shape depends on ``start``."""
         b, t, _ = x.shape
         tp = self.tp
         ch = self.dim // self.heads
         h = self.heads if tp is None else self.heads // tp.size  # this rank's heads
         q, k, v = self.c_attn(copy_to_model(x, tp)).reshape(b, t, 3, h, ch).unbind(2)
+        q_pos = start + torch.arange(t, device=x.device)
         if cache_kv is not None:
             k_cache, v_cache = cache_kv
-            k_cache[:, start:start + t] = k.to(k_cache.dtype)
-            v_cache[:, start:start + t] = v.to(v_cache.dtype)
-            k = k_cache[:, :start + t].to(x.dtype)
-            v = v_cache[:, :start + t].to(x.dtype)
+            k_cache.index_copy_(1, q_pos, k.to(k_cache.dtype))
+            v_cache.index_copy_(1, q_pos, v.to(v_cache.dtype))
+            k, v = k_cache.to(x.dtype), v_cache.to(x.dtype)
         logits = torch.einsum("bthd,bshd->bhts", q, k).float() / math.sqrt(ch)
-        q_pos = start + torch.arange(t, device=x.device)
         k_pos = torch.arange(k.shape[1], device=x.device)
         causal = k_pos[None, :] <= q_pos[:, None]
         logits = logits.masked_fill(~causal, -1e9)
@@ -172,7 +184,7 @@ class GPT2Block(nn.Module):
         self.ln_2 = TorchLayerNorm(dim, eps=eps)
         self.mlp = GPT2MLP(dim, dropout)
 
-    def forward(self, x, cache_kv=None, start: int = 0, generator=None):
+    def forward(self, x, cache_kv=None, start: Union[int, torch.Tensor] = 0, generator=None):
         x = x + self.attn(self.ln_1(x), cache_kv, start, generator)
         return x + self.mlp(self.ln_2(x), generator)
 
@@ -259,6 +271,7 @@ class UnifiedVoice(nn.Module):
         self.final_norm = TorchLayerNorm(c.model_dim, eps=c.layer_norm_eps)
         self.mel_head = Dense(c.model_dim, c.number_mel_codes)
         self.text_head = Dense(c.model_dim, c.number_text_tokens + 1)
+        self.decode_steps = DecodeSteps()
 
     def _condition(self, cond_mel, cond_lengths, generator=None) -> torch.Tensor:
         mask = sequence_mask(cond_lengths, cond_mel.shape[1])
@@ -348,26 +361,172 @@ class UnifiedVoice(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, dtype, device) -> KVCache:
         """Per-layer (B, max_len, H, ch) keys and values, H this rank's
-        heads."""
+        heads, at length 0."""
         c = self.cfg
         heads = c.heads if self.tp is None else c.heads // self.tp.size
         shape = (batch, max_len, heads, c.model_dim // c.heads)
         return KVCache([torch.zeros(shape, dtype=dtype, device=device)
                         for _ in range(c.layers)],
                        [torch.zeros(shape, dtype=dtype, device=device)
-                        for _ in range(c.layers)])
+                        for _ in range(c.layers)],
+                       torch.zeros((), dtype=torch.long, device=device))
 
     def decode_prefill(self, emb: torch.Tensor, cache: KVCache) -> torch.Tensor:
-        """Fill the cache with the prefix; mel logits at its last position."""
-        hidden = self.gpt(emb, cache)
+        """Fill the cache with the prefix from position 0, zeroed first: a
+        kept cache holds an earlier decode's keys and values past the
+        prefix, and the mask gives them exact zero weight only if they are
+        finite.  Mel logits at the prefix's last position.
+
+        The prefix attends over the cache's first T rows, a view of it: over
+        the whole cache its bf16 logits on an H100 rounded otherwise at 2
+        rows than at 4 (a data rank's rows against one card's batch), over
+        its own rows they do not."""
+        cache.length.zero_()
+        for x in cache.k + cache.v:
+            x.zero_()
+        t = emb.shape[1]
+        prefix = KVCache([x[:, :t] for x in cache.k], [x[:, :t] for x in cache.v],
+                         cache.length)
+        hidden = self.gpt(emb, prefix)
         return self._logits(self.final_norm(hidden[:, -1]))
 
     def decode_step(self, token: torch.Tensor, position: torch.Tensor,
                     cache: KVCache) -> torch.Tensor:
-        """One cached step: token (B,), mel position (B,) -> logits (B, V)."""
+        """One static cached step: token (B,), mel position (B,) -> logits
+        (B, V).  The keys land at the cache's device length, the query
+        attends over the whole cache masked past it, and the length moves on
+        by one: no shape and no host value depends on the position."""
         emb = self._mel_embeddings(token[:, None], position[:, None])
         hidden = self.gpt(emb, cache)
         return self._logits(self.final_norm(hidden[:, -1]))
+
+
+# static steps (each with its KV cache and, on a card, its graph) kept a
+# model, the least recently used dropped first.  Each (batch size, text
+# bucket) a server meets makes one; a kept step costs its cache, B x L x 30
+# KiB at Config() (329 MiB at 8 rows of the largest text bucket), and a new
+# one a capture, ~50 ms of host on an H100 (scripts/mixed_shape_serving.py:
+# 9 shapes in 16 batches recaptured 11 times with 4 kept, 2-3% of the
+# pass's wall against keeping all)
+KEPT_STEPS = 16
+# eager steps on a side stream before a capture, as CUDA graphs need
+WARMUP_STEPS = 3
+
+
+def _replays(model: UnifiedVoice, device: torch.device) -> bool:
+    """A decode of ``model`` on ``device`` replays a CUDA graph: on a card,
+    with the model whole there (no model group, whose step holds
+    collectives)."""
+    return device.type == "cuda" and model.tp is None
+
+
+class _Step:
+    """The static decode step at one shape: its token and mel-position
+    inputs, its KV cache with the cache's device length, its logits, and on
+    a card the CUDA graph that replays it."""
+
+    def __init__(self, model: UnifiedVoice, batch: int, max_len: int, cache_dtype,
+                 device: torch.device):
+        self.token = torch.zeros(batch, dtype=torch.long, device=device)
+        self.position = torch.zeros(batch, dtype=torch.long, device=device)
+        self.cache = model.init_cache(batch, max_len, cache_dtype, device)
+        self.logits: Optional[torch.Tensor] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def run(self, model: UnifiedVoice) -> None:
+        """The step eagerly: ``logits`` of ``token`` at ``position``; the
+        cache's length and the position move on by one."""
+        self.logits = model.decode_step(self.token, self.position, self.cache)
+        self.position += 1
+
+    def capture(self, model: UnifiedVoice, pool) -> None:
+        """Capture ``run`` as a graph in ``pool`` on a side stream, after
+        ``WARMUP_STEPS`` eager steps there; they write the cache from
+        position 0, which the next prefill zeroes.  The capture is begun
+        and ended by hand: ``torch.cuda.graph`` would first synchronise the
+        device, waiting for the batch in flight, and empty the allocator's
+        cache, which the next batch would then allocate anew."""
+        device = self.token.device
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    self.run(model)
+                self.graph = torch.cuda.CUDAGraph()
+                self.graph.capture_begin(pool, capture_error_mode="thread_local")
+                try:
+                    self.run(model)
+                finally:
+                    self.graph.capture_end()
+            torch.cuda.current_stream(device).wait_stream(side)
+        tracing.count("decode.graph_captures")
+
+    def prefill(self, model: UnifiedVoice, emb: torch.Tensor) -> torch.Tensor:
+        """The prefix into the cache (eagerly, from position 0) and the mel
+        position to 1; the logits at the prefix's last position."""
+        self.position.fill_(1)
+        return model.decode_prefill(emb, self.cache)
+
+    def step(self, model: UnifiedVoice, token: torch.Tensor) -> torch.Tensor:
+        """``token`` into the static input (one device copy), then the step:
+        a replay of the graph, else eagerly.  The logits are overwritten by
+        the next step, and by a replay of another of the model's graphs,
+        whose memory pool they share."""
+        self.token.copy_(token)
+        if self.graph is None:
+            self.run(model)
+        else:
+            self.graph.replay()
+            tracing.count("decode.graph_replays")
+        return self.logits
+
+
+class DecodeSteps:
+    """A model's static decode steps, one a (batch, cache length, cache
+    dtype, compute dtype, device), the ``KEPT_STEPS`` used last kept with
+    their KV caches, which each prefill zeroes.  Where ``_replays``, each
+    step is captured once as a CUDA graph, all of a model's graphs in one
+    memory pool; a graph reads the weights where they lay at its capture, so
+    the steps are dropped when a parameter or buffer of the model moves.
+
+    The state is the model's: one decode at a time holds ``lock`` (the
+    engine decodes from the thread that calls it; ``TTSServer`` from its one
+    dispatch thread); a copy of the model starts with none."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self._steps: "collections.OrderedDict[tuple, _Step]" = collections.OrderedDict()
+        self._weights: Optional[Tuple[int, ...]] = None
+        self._pool = None
+
+    def __reduce__(self):
+        """A copy of the model (``deepcopy``, pickling) starts with none."""
+        return DecodeSteps, ()
+
+    def get(self, model: UnifiedVoice, batch: int, max_len: int, cache_dtype,
+            device: torch.device) -> _Step:
+        """The step at this shape, made (and on a card captured) at its
+        first use, before its first prefill."""
+        weights = tuple(t.data_ptr() for t in itertools.chain(model.parameters(),
+                                                              model.buffers()))
+        if weights != self._weights:
+            self._steps.clear()
+            self._weights = weights
+        key = (batch, max_len, cache_dtype, model.mel_embedding.weight.dtype, device)
+        step = self._steps.get(key)
+        if step is not None:
+            self._steps.move_to_end(key)
+            return step
+        while len(self._steps) >= KEPT_STEPS:
+            self._steps.popitem(last=False)
+        step = _Step(model, batch, max_len, cache_dtype, device)
+        if _replays(model, device):
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            step.capture(model, self._pool)
+        self._steps[key] = step
+        return step
 
 
 def _mean_ce(logits: torch.Tensor, tp: Optional[Shard],
@@ -392,7 +551,7 @@ class SamplingConfig:
     force_full_length: bool = False
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def generate_speech_tokens(model: UnifiedVoice, cond_mel, cond_lengths, text,
                            sampling: SamplingConfig = SamplingConfig(),
                            key: prng.Seed = 0,
@@ -406,45 +565,53 @@ def generate_speech_tokens(model: UnifiedVoice, cond_mel, cond_lengths, text,
     of JAX's chain from ``key``, the argmax and ``body_fn``'s bookkeeping,
     in place): the chain ``rng, key = split(rng)`` a step is written to a
     device buffer in one launch before the loop, and a step reads its row
-    there.  On a data rank of a sharded engine the batch is this rank's
-    ``rows`` of the request, whose elements of each step's draw it takes
-    (from their offset), and the early stop waits for every row of
-    ``group`` (the data group), so the decode ends as on one card.  Each
-    step is a ``decode_step`` span (children ``sample`` and ``gpt``) and
-    counts under ``decode.steps``.
+    there.  Its token goes into the model's static step at this shape
+    (``model.decode_steps``), whose GPT call is one replay of a CUDA graph
+    where ``_replays`` (counter ``decode.graph_replays``; a capture, at the
+    first decode at a shape, counts under ``decode.graph_captures``) and
+    the same step eagerly elsewhere.  On a data rank of a sharded engine the
+    batch is this rank's ``rows`` of the request, whose elements of each
+    step's draw it takes (from their offset), and the early stop waits for
+    every row of ``group`` (the data group), so the decode ends as on one
+    card; the early stop runs between steps, outside the graph.  Each step
+    is a ``decode_step`` span (children ``sample`` and ``gpt``; under a
+    replay ``gpt`` is the host's enqueue of one graph launch) and counts
+    under ``decode.steps``.
     """
     c = model.cfg
     b = text.shape[0]
     n = sampling.max_generate_length
     dev = text.device
     prefill = model.prefill_embeddings(cond_mel, cond_lengths, text)
-    cache = model.init_cache(b, prefill.shape[1] + n, cache_dtype, dev)
-    logits = model.decode_prefill(prefill, cache)
+    with model.decode_steps.lock:
+        steps = model.decode_steps.get(model, b, prefill.shape[1] + n, cache_dtype, dev)
+        logits = steps.prefill(model, prefill)
 
-    # the repetition penalty covers the fake prefix: filler id 1 + start
-    seen = torch.zeros((b, c.number_mel_codes), dtype=torch.bool, device=dev)
-    seen[:, 1] = True
-    seen[:, c.start_mel_token] = True
-    codes = torch.full((b, n), c.stop_mel_token, dtype=torch.long, device=dev)
-    finished = torch.zeros(b, dtype=torch.bool, device=dev)
-    lengths = torch.zeros(b, dtype=torch.long, device=dev)
-    keys = prng.decode_keys(key, n, dev)
-    offset = prng.row_offset(rows, (b, c.number_mel_codes))
-    for step in range(n):
-        if not sampling.force_full_length and step and _all_finished(finished, group):
-            break
-        with tracing.span("decode_step"):
-            with tracing.span("sample"):
-                tok = sample_step(logits, seen, codes, lengths, finished, step, keys[step],
-                                  temperature=sampling.temperature, top_p=sampling.top_p,
-                                  repetition_penalty=sampling.repetition_penalty,
-                                  typical_mass=sampling.typical_mass,
-                                  stop_token=c.stop_mel_token,
-                                  force_full=sampling.force_full_length, offset=offset)
-            if step + 1 < n:
-                with tracing.span("gpt"):
-                    logits = model.decode_step(tok, torch.full_like(tok, step + 1), cache)
-        tracing.count("decode.steps")
+        # the repetition penalty covers the fake prefix: filler id 1 + start
+        seen = torch.zeros((b, c.number_mel_codes), dtype=torch.bool, device=dev)
+        seen[:, 1] = True
+        seen[:, c.start_mel_token] = True
+        codes = torch.full((b, n), c.stop_mel_token, dtype=torch.long, device=dev)
+        finished = torch.zeros(b, dtype=torch.bool, device=dev)
+        lengths = torch.zeros(b, dtype=torch.long, device=dev)
+        keys = prng.decode_keys(key, n, dev)
+        offset = prng.row_offset(rows, (b, c.number_mel_codes))
+        for step in range(n):
+            if not sampling.force_full_length and step and _all_finished(finished, group):
+                break
+            with tracing.span("decode_step"):
+                with tracing.span("sample"):
+                    tok = sample_step(logits, seen, codes, lengths, finished, step,
+                                      keys[step], temperature=sampling.temperature,
+                                      top_p=sampling.top_p,
+                                      repetition_penalty=sampling.repetition_penalty,
+                                      typical_mass=sampling.typical_mass,
+                                      stop_token=c.stop_mel_token,
+                                      force_full=sampling.force_full_length, offset=offset)
+                if step + 1 < n:
+                    with tracing.span("gpt"):
+                        logits = steps.step(model, tok)
+            tracing.count("decode.steps")
     return codes, lengths
 
 

@@ -15,7 +15,11 @@ last ``RING_ROOTS`` roots with their children, and the process's counters.
   CUDA events, read once the device has passed them (``device_ms``), so
   that no read waits.
 * A **decode_step** span (children ``sample`` and ``gpt``) is one step of
-  the autoregressive decode, host time; counter ``decode.steps``.
+  the autoregressive decode, host time; counter ``decode.steps``.  Where
+  the GPT's step is a CUDA graph (``models/gpt.py`` ``DecodeSteps``),
+  ``gpt`` is the host's enqueue of one graph launch, counted under
+  ``decode.graph_replays``; each capture of a graph counts under
+  ``decode.graph_captures``.
 * A **wait** span (attribute ``site``) is a place where the host blocks
   until the device has finished the work queued before it; a kept one
   adds its count and seconds to the counter ``wait.<site>``.

@@ -5,8 +5,9 @@ statistic) and the three backward kernels (delta, dq and the dbias partials;
 dk and dv; the partials' sum) behind ``BiasAttentionFunction``; the threefry
 draws and key buffers (``ops/prng.py``); the decode step's sampler
 (``ops/sampling.py`` ``sample_step``); and the paths that run them: the
-samplers, the training steps, and a (1 x 2) sharded engine of two gloo ranks
-on the one card.
+samplers, the training steps, the GPT's decode replayed as a CUDA graph
+against the same static step run eagerly, and a (1 x 2) sharded engine of
+two gloo ranks on the one card.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip elsewhere.
 They import nothing of JAX, so on a machine without it run them with the
@@ -1134,3 +1135,72 @@ def test_decode_launches_one_sample_step_a_step(cuda, force_full):
     finally:
         gpt_module.sample_step = orig
     assert torch.equal(codes, plain) and torch.equal(lengths, plain_lengths)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_graphed_decode_matches_the_eager_static_step(cuda, dtype, monkeypatch):
+    """``generate_speech_tokens`` at b4 x 60 steps replaying the captured
+    static step against the same step run eagerly (``_replays`` false):
+    codes and lengths equal, unless the first step that differs is a row
+    whose boundary mass lies within ``SAMPLE_NEAR``.  One capture for two
+    decodes at one shape and one more at a new shape; one replay a GPT
+    step, none eagerly."""
+    import numpy as np
+
+    from detail_tts_tpu_torch import tracing
+    from detail_tts_tpu_torch.config import small_test_config
+    from detail_tts_tpu_torch.models import gpt as gpt_module
+    from detail_tts_tpu_torch.models.gpt import SamplingConfig, generate_speech_tokens
+    from detail_tts_tpu_torch.serving.pipeline import random_engine
+
+    def count(name):
+        return tracing.snapshot()["counters"].get(name, {"count": 0})["count"]
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, n = 4, 60
+    gpt = random_engine(small_test_config(), device=cuda).model.gpt.to(dtype)
+    rng = np.random.default_rng(2)
+    cond = torch.as_tensor(rng.normal(size=(b, 24, 128)), dtype=dtype, device=cuda)
+    clen = torch.tensor([24, 17, 20, 9], device=cuda)
+    text = torch.as_tensor(rng.integers(3, 200, size=(b, 9)), device=cuda)
+    cfg = SamplingConfig(max_generate_length=n, force_full_length=True)
+    steps = []
+
+    def recorded(logits, seen, *args, **kw):
+        steps.append((logits.clone(), seen.clone(), kw))
+        return sampling.sample_step(logits, seen, *args, **kw)
+
+    monkeypatch.setattr(gpt_module, "sample_step", recorded)
+
+    def decode(rows=b):
+        steps.clear()
+        before = count("decode.graph_captures"), count("decode.graph_replays")
+        codes, lengths = generate_speech_tokens(gpt, cond[:rows], clen[:rows], text[:rows],
+                                                cfg, key=3, cache_dtype=dtype)
+        torch.cuda.synchronize()
+        moved = (count("decode.graph_captures") - before[0],
+                 count("decode.graph_replays") - before[1])
+        return codes.cpu(), lengths.cpu(), list(steps), moved
+
+    codes, lengths, graphed, moved = decode()
+    assert moved == (1, n - 1)
+    again, again_lengths, _, moved = decode()
+    assert moved == (0, n - 1)
+    assert torch.equal(again, codes) and torch.equal(again_lengths, lengths)
+    assert decode(rows=2)[3] == (1, n - 1)
+    assert all(s.graph is not None for s in gpt.decode_steps._steps.values())
+
+    monkeypatch.setattr(gpt_module, "_replays", lambda model, device: False)
+    gpt.decode_steps = gpt_module.DecodeSteps()
+    plain, plain_lengths, eager, moved = decode()
+    assert moved == (0, 0)
+    differ = (codes != plain).nonzero().tolist()
+    print(f"graphed against eager, {dtype}: {len(differ)} of {codes.numel()} codes differ")
+    if differ or not torch.equal(lengths, plain_lengths):
+        assert differ, "lengths differ with every code equal"
+        first = min(s for _, s in differ)
+        rows = sorted({r for r, s in differ if s == first})
+        logits, seen, kw = eager[first]
+        margin = _boundary_margin(logits, seen, kw["temperature"], kw["top_p"],
+                                  kw["repetition_penalty"], kw["typical_mass"])
+        assert (margin[rows] < SAMPLE_NEAR).all(), (dtype, first, rows, margin[rows])

@@ -243,3 +243,37 @@ def test_trainer_steps_are_roots_with_stages_and_a_log_wait(tmp_path):
     assert tracing.snapshot()["counters"]["wait.layer_drop"]["count"] - drops == 6
     # the metrics are read back at step 2 (log_every) and at the last step
     assert [("log" in [s["attrs"].get("site") for s in r]) for r in roots] == [False, True, True]
+
+
+def _graph_share_reader():
+    from pathlib import Path
+
+    from port_bench import bench
+    root = Path(__file__).resolve().parent.parent
+    return bench.load_reader(root / "port_bench" / "metrics" / "decode_graph_share.serve.py")
+
+
+@pytest.mark.parametrize("counters,share", [
+    ({"decode.steps": 401, "decode.graph_replays": 400, "decode.graph_captures": 1}, 400 / 401),
+    ({"decode.steps": 401}, None),  # no replay counted: a program without graphs
+    ({"decode.graph_replays": 3}, None),
+    ({}, None),
+])
+def test_graph_share_reads_replays_over_steps(monkeypatch, counters, share):
+    snap = {"spans": [], "counters": {k: {"count": n, "seconds": 0.0}
+                                      for k, n in counters.items()}}
+    monkeypatch.setattr(tracing, "snapshot", lambda: snap)
+    value = _graph_share_reader()({})
+    assert value == (None if share is None else pytest.approx(share))
+
+
+def test_a_cpu_decode_counts_steps_and_no_replay(engine):
+    def count(name):
+        return tracing.snapshot()["counters"].get(name, {"count": 0})["count"]
+
+    before = [count(k) for k in ("decode.steps", "decode.graph_replays",
+                                 "decode.graph_captures")]
+    _batch(engine, force_full=True)
+    after = [count(k) for k in ("decode.steps", "decode.graph_replays",
+                                "decode.graph_captures")]
+    assert [a - b for a, b in zip(after, before)] == [MAX_LEN, 0, 0]
